@@ -1,0 +1,103 @@
+"""The PyTorch port imports without JAX, nvcc or triton, and dispatches by device."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "knaster_tpu_torch"
+PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
+
+
+def test_import_leaves_jax_and_toolchain_out():
+    """In a fresh interpreter (this test process already holds jax, which
+    conftest imports), importing every module of the port pulls in neither
+    jax, triton nor the JAX package, and needs no nvcc: PATH holds only the
+    interpreter's directory and CUDA_HOME points nowhere."""
+    mods = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
+            for p in PORT_FILES]
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in mods)
+        + "bad = [m for m in sys.modules if m.split('.')[0] in "
+          "('jax', 'jaxlib', 'triton', 'knaster_tpu')]\n"
+          "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),
+               CUDA_HOME=str(ROOT / "no-such-cuda"))
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_module_names_no_jax(path):
+    """No module of the port imports jax or the JAX package, even lazily
+    inside a function."""
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "knaster_tpu"), (
+                f"{path}:{node.lineno} imports {name}")
+
+
+def test_sine_bank_dispatch_by_device():
+    """CPU tensors take the plain version; a device that is neither CPU nor
+    CUDA raises instead of falling back."""
+    from knaster_tpu_torch import AudioCtx, FusedSineVoiceBank
+    from knaster_tpu_torch.kernels import sine_bank as sb
+
+    ctx = AudioCtx(48000, 32, torch.float32)
+    bank = FusedSineVoiceBank(40)
+    ops, _ = bank.kernel_operands(ctx, bank.init(ctx, device="cpu"))
+    before = sb.LAUNCHES
+    mix, *_ = sb.sine_bank(**ops)
+    assert mix.shape == (2, 32) and sb.LAUNCHES == before
+    meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
+            for k, v in ops.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        sb.sine_bank(**meta)
+
+
+def test_sine_bank_rejects_bad_operands():
+    """The wrapper checks dtype, shape, contiguity and the eventful trio."""
+    from knaster_tpu_torch import AudioCtx, FusedSineVoiceBank
+    from knaster_tpu_torch.kernels import sine_bank as sb
+
+    ctx = AudioCtx(48000, 64, torch.float32)
+    bank = FusedSineVoiceBank(256)
+    ops, _ = bank.kernel_operands(ctx, bank.init(ctx, device="cpu"))
+    bad = [
+        dict(phase=ops["phase"].float()),
+        dict(stage=ops["stage"][:-1]),
+        dict(ramps=ops["ramps"].transpose(0, 1).contiguous().transpose(0, 1)),
+        dict(act=torch.ones(256)),
+        dict(block_size=2048),
+    ]
+    for change in bad:
+        with pytest.raises(ValueError):
+            sb.sine_bank(**{**ops, **change})
+
+
+def test_bank_rejects_f64_and_large_blocks():
+    from knaster_tpu_torch import AudioCtx, FusedSineVoiceBank
+
+    bank = FusedSineVoiceBank(128)
+    with pytest.raises(ValueError, match="float32"):
+        bank.init(AudioCtx(48000, 64, torch.float64), device="cpu")
+    with pytest.raises(ValueError, match="block_size"):
+        bank.init(AudioCtx(48000, 2048, torch.float32), device="cpu")
+    assert np.isclose(AudioCtx(48000).nyquist, 24000.0)
