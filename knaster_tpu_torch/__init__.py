@@ -2,8 +2,10 @@
 
 The JAX package ``knaster_tpu`` is the reference; this package reproduces it
 slice by slice on PyTorch, with every Pallas TPU kernel rewritten by hand for
-NVIDIA Hopper. It imports no JAX. The slice ported so far is the headline
-sine voice bank (``bench.py``'s workload)::
+NVIDIA Hopper. It imports no JAX. The slices ported so far are the fused
+voice banks: the headline sine bank (``bench.py``'s workload), the FM,
+subtractive and wavetable banks, and the generic ``FusedVoiceBank`` for
+any voice with a kernel body::
 
     import torch
     from knaster_tpu_torch import AudioCtx, FusedSineVoiceBank
@@ -16,13 +18,22 @@ sine voice bank (``bench.py``'s workload)::
     state, out = bank.process(ctx, state, events=ev)    # eventful block
     state, out = bank.process(ctx, state)               # event-free block
 
-Kernels run on CUDA tensors (built with nvcc at first use); CPU tensors take
-each kernel's plain torch version.
+The other banks are used alike (``FusedFMVoiceBank``,
+``FusedSubtractiveVoiceBank``, ``FusedWavetableVoiceBank(V, table=...)``,
+``FusedVoiceBank(FMVoice(), V)``). Kernels run on CUDA tensors (built with
+nvcc at first use); CPU tensors take each kernel's plain torch version.
 """
 
 from .core.ugen import AudioCtx, UGen
-from .models.voices import SineVoice
-from .parallel.fused_bank import FusedSineVoiceBank
+from .models.voices import AdditiveVoice, FMVoice, SineVoice, SubtractiveVoice
+from .parallel.fused_bank import (
+    FusedBank,
+    FusedFMVoiceBank,
+    FusedSineVoiceBank,
+    FusedSubtractiveVoiceBank,
+    FusedWavetableVoiceBank,
+)
+from .parallel.generic_bank import FusedVoiceBank, KernelVoiceSpec
 from .parallel.voicebank import VoiceBank
 from .primitives import (
     NYQUIST,
@@ -39,12 +50,24 @@ from .primitives import (
     ptrigger,
     set_default_dtype,
 )
+from .ugens.wavetable import NonAaWavetable, harmonics_from_table
 
 __all__ = [
     "AudioCtx",
     "UGen",
     "SineVoice",
+    "FMVoice",
+    "SubtractiveVoice",
+    "AdditiveVoice",
+    "FusedBank",
     "FusedSineVoiceBank",
+    "FusedFMVoiceBank",
+    "FusedSubtractiveVoiceBank",
+    "FusedWavetableVoiceBank",
+    "FusedVoiceBank",
+    "KernelVoiceSpec",
+    "NonAaWavetable",
+    "harmonics_from_table",
     "VoiceBank",
     "NYQUIST",
     "FloatHint",

@@ -23,92 +23,14 @@
 // state (phase, stage, t, rscale) is bit-equal to the plain version's, and
 // cosf/sinf are the accurate library versions.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "bank_common.cuh"
 
 namespace {
 
+using namespace ktt;
+
 constexpr int kThreads = 256;
-constexpr int kGroup = 5;  // floats per ramp group / breakpoint group
 constexpr int kFreq = 0, kAmp = 1, kPan = 2;
-
-constexpr uint32_t kTableSize = 16384u;
-constexpr uint32_t kTableHighMask = kTableSize - 1u;
-
-// np.float32 values of the JAX package's constants, written exactly
-constexpr float kIdxScale = 0x1.921fb6p-12f;  // 2*pi / 16384
-constexpr float kHalfPi = 0x1.921fb6p+0f;     // pi / 2
-constexpr float kToIncMax = 0x1.fffffep+30f;  // 2^31 - 128
-constexpr float kC0 = 1.0f;
-constexpr float kC1 = -0x1.555542p-3f;   // -0.16666652
-constexpr float kC2 = 0x1.110df8p-7f;    // 0.008332964
-constexpr float kC3 = -0x1.9f55f4p-13f;  // -0.00019804752
-constexpr float kC4 = 0x1.5cb622p-19f;   // 2.5981028e-06
-
-__device__ __forceinline__ float sin_poly(float u) {
-  const float u2 = u * u;
-  float p = kC4 * u2 + kC3;
-  p = p * u2 + kC2;
-  p = p * u2 + kC1;
-  return (p * u2 + kC0) * u;
-}
-
-__device__ __forceinline__ float sin_quant(uint32_t phase) {
-  const uint32_t idx = (phase >> 16) & kTableHighMask;
-  const uint32_t half = idx & (kTableSize / 2u - 1u);
-  const bool neg = idx >= kTableSize / 2u;
-  const uint32_t m = half > kTableSize / 4u ? kTableSize / 2u - half : half;
-  const float p = sin_poly(static_cast<float>(static_cast<int32_t>(m)) * kIdxScale);
-  return neg ? -p : p;
-}
-
-__device__ __forceinline__ uint32_t to_inc(float x) {
-  // jnp.clip(x, 0, 2^31 - 128) then int32 truncation, reinterpreted as u32
-  x = fminf(fmaxf(x, 0.0f), kToIncMax);
-  return static_cast<uint32_t>(static_cast<int32_t>(x));
-}
-
-struct Ramp {
-  float v0, step, el, dur, tgt;
-};
-
-__device__ __forceinline__ Ramp load_ramp(const float* __restrict__ ramps,
-                                          int p, int V, int v) {
-  const float* g = ramps + static_cast<size_t>(p) * kGroup * V + v;
-  return Ramp{g[0], g[static_cast<size_t>(V)], g[2 * static_cast<size_t>(V)],
-              g[3 * static_cast<size_t>(V)], g[4 * static_cast<size_t>(V)]};
-}
-
-__device__ __forceinline__ float mat_base(float i_f, const Ramp& g) {
-  const float prog = i_f + g.el;
-  return prog >= g.dur ? g.tgt : g.v0 + g.step * prog;
-}
-
-// breakpoint rounds [3][5][D][V]: piece r wins from its frame on
-__device__ __forceinline__ float mat_rounds(float i_f, float acc,
-                                            const float* __restrict__ rounds,
-                                            int p, int D, int V, int v) {
-  const size_t plane = static_cast<size_t>(D) * V;
-  const float* g = rounds + static_cast<size_t>(p) * kGroup * plane + v;
-  for (int r = 0; r < D; ++r) {
-    const float* gr = g + static_cast<size_t>(r) * V;
-    const float rv0 = __ldg(gr);
-    const float rstep = __ldg(gr + plane);
-    const float rdur = __ldg(gr + 2 * plane);
-    const float rtgt = __ldg(gr + 3 * plane);
-    const float rframe = __ldg(gr + 4 * plane);
-    const float ln = i_f - rframe;
-    const float val = ln >= rdur ? rtgt : rv0 + rstep * ln;
-    acc = i_f >= rframe ? val : acc;
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <bool EVENTFUL>
 __global__ void __launch_bounds__(kThreads)
@@ -144,38 +66,16 @@ sine_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ roun
 
   for (int i = 0; i < B; ++i) {
     const float i_f = static_cast<float>(i);
-    float env;
-    float t_next;
+    bool restart = false, release = false;
     if (EVENTFUL) {
       if ((i & 31) == 0) {
-        rw = words[static_cast<size_t>(i >> 5) * V + vv];
-        qw = words[static_cast<size_t>(W + (i >> 5)) * V + vv];
+        rw = load_word(words, 0, W, i >> 5, V, vv);
+        qw = load_word(words, 1, W, i >> 5, V, vv);
       }
-      const bool restart = (rw >> (i & 31)) & 1u;
-      const bool release = (qw >> (i & 31)) & 1u;
-      if (restart) stage = 1.0f;
-      const bool rel_from_atk = release && stage == 1.0f;
-      const bool rel_from_sus = release && stage == 2.0f;
-      rscale = rel_from_atk ? t : (rel_from_sus ? 1.0f : rscale);
-      if (rel_from_atk || rel_from_sus) {
-        t = 1.0f;
-        stage = 3.0f;
-      }
+      restart = trig_bit(rw, i);
+      release = trig_bit(qw, i);
     }
-    env = stage == 1.0f ? t
-        : stage == 2.0f ? 1.0f
-        : stage == 3.0f ? t * t * t * rscale
-        : 0.0f;
-    t_next = stage == 1.0f ? t + atk : (stage == 3.0f ? t - rel : t);
-    const bool to_sus = stage == 1.0f && t_next >= 1.0f;
-    if (to_sus) t_next = 1.0f;  // pin sustain t
-    const bool done = stage == 3.0f && t_next <= 0.0f;
-    if (to_sus) stage = 2.0f;
-    if (done) {
-      stage = 0.0f;
-      t_next = 0.0f;
-    }
-    t = t_next;
+    const float env = env_asr(stage, t, rscale, restart, release, atk, rel);
 
     float amp = mat_base(i_f, amp_g);
     float freq = mat_base(i_f, freq_g);
@@ -241,10 +141,6 @@ int ktt_sine_bank(const float* ramps, const float* rounds, const float* act,
         phase_out, stage_out, t_out, rscale_out, V, B, D, atk, rel, f2pi);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* ktt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -1,0 +1,289 @@
+"""Pieces every fused voice-bank kernel shares: operand checks and plain torch helpers.
+
+The plain helpers are the torch counterparts of the in-kernel helpers of
+``knaster_tpu/parallel/pallas_bank.py`` (and of ``csrc/bank_common.cuh`` on
+the card), op for op, over ``[V]`` tensors: ``_mat`` (anchored ramp plus
+breakpoint rounds), ``_trig_bit`` (packed trigger words), ``_to_inc``
+(saturating u32 phase increment), ``_sin_poly``/``_sin_quant`` (the
+table-quantized sine), ``_theta_full`` (the full-resolution phase angle),
+``_env_asr`` and ``_env_ar`` (the envelope state machines; a ``None``
+trigger is the event-free variant), ``_pan_gains`` and ``_svf_low_coeffs``.
+
+u32 phases are carried by the plain versions as int64 in [0, 2^32) (torch
+has no uint32 arithmetic) and stored in bank state as their int32 bit
+pattern (``u32_of`` / ``i32_of`` convert).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..ugens.wavetable import FRACTIONAL_PART, TABLE_HIGH_MASK, TABLE_SIZE
+
+N_GROUP = 5  # floats per ramp group / breakpoint group
+# largest block the banks take (the JAX package's cap, kept for parity)
+MAX_BLOCK = 1024
+
+U32 = 2**32
+_U32_MASK = U32 - 1
+_CYCLE = int(TABLE_SIZE) * int(FRACTIONAL_PART)  # 2**30 phase units / cycle
+_U2RAD = np.float32(2.0 * np.pi / _CYCLE)
+_IDX_SCALE = np.float32(2.0 * np.pi / TABLE_SIZE)
+_HALF_PI = np.float32(np.pi / 2.0)
+# degree-9 odd polynomial for sin(u) on [0, pi/2]: max error 1.2e-7
+_SIN_C = (np.float32(1.0), np.float32(-0.16666652), np.float32(0.008332964),
+          np.float32(-0.00019804752), np.float32(2.5981028e-06))
+_TO_INC_MAX = 2.0**31 - 128  # largest f32 below 2^31: the int32 cast is exact
+
+
+# --------------------------------------------------------------------------
+# operand checks and the launch plumbing
+# --------------------------------------------------------------------------
+
+def check(kernel, name, x, dtype, shape, device):
+    """Raise ValueError unless ``x`` is a contiguous tensor of ``dtype`` and
+    ``shape`` on ``device`` (TypeError if it is no tensor)."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{kernel}: {name} must be a tensor")
+    if x.device != device:
+        raise ValueError(f"{kernel}: {name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(
+            f"{kernel}: {name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def validate_block(kernel, n_float, n_trig, state, ramps, rounds, act, words,
+                   block_size, act_always=False):
+    """Check a bank kernel's operands against the layout it reads.
+
+    ``state`` is ``[(name, tensor, dtype)]`` of ``[V]`` tensors, V taken
+    from the first. ``ramps`` is f32 ``[n_float, 5, V]``; an eventful block
+    adds ``rounds`` f32 ``[n_float, 5, D, V]`` and ``words`` int32
+    ``[n_trig, ceil(B/32), V]``. ``act`` f32 ``[V]`` comes with them, or in
+    every block when ``act_always``. Returns (V, B, D), D = 0 event-free."""
+    first = state[0][1]
+    V = first.shape[0] if isinstance(first, torch.Tensor) and first.dim() == 1 else -1
+    B = int(block_size)
+    if V < 1:
+        raise ValueError(f"{kernel}: {state[0][0]} must be a non-empty [V] tensor")
+    if not 1 <= B <= MAX_BLOCK:
+        raise ValueError(
+            f"{kernel}: block_size must be in [1, {MAX_BLOCK}], got {B}")
+    dev = first.device
+    for name, x, dtype in state:
+        check(kernel, name, x, dtype, (V,), dev)
+    check(kernel, "ramps", ramps, torch.float32, (n_float, N_GROUP, V), dev)
+    eventful = rounds is not None
+    if eventful != (words is not None) or (
+            not act_always and eventful != (act is not None)):
+        raise ValueError(
+            f"{kernel}: rounds, words{'' if act_always else ' and act'} are "
+            "given together (eventful block) or not at all (event-free block)")
+    if act_always or eventful:
+        check(kernel, "act", act, torch.float32, (V,), dev)
+    if not eventful:
+        return V, B, 0
+    D = rounds.shape[2] if rounds.dim() == 4 else 0
+    if D < 1:
+        raise ValueError(
+            f"{kernel}: rounds must be [{n_float}, 5, D, V] with D >= 1")
+    check(kernel, "rounds", rounds, torch.float32, (n_float, N_GROUP, D, V), dev)
+    check(kernel, "words", words, torch.int32, (n_trig, (B + 31) // 32, V), dev)
+    return V, B, D
+
+
+def require_cuda(kernel, device):
+    if device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {device}")
+
+
+def ptr(x):
+    """A tensor's device pointer for ctypes (NULL for None)."""
+    return ctypes.c_void_p(x.data_ptr() if x is not None else 0)
+
+
+def raise_on_error(kernel, lib, err):
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel}: kernel launch failed with CUDA error {err} "
+            f"({lib.ktt_error_string(err).decode()})")
+
+
+def empty_partial(V, n_out, B, device):
+    """The warp-partial mix buffer a kernel writes: [ceil(V/32), n_out, B]."""
+    return torch.empty(((V + 31) // 32, n_out, int(B)), dtype=torch.float32,
+                       device=device)
+
+
+def scalar(x, device):
+    """A host float rounded to f32, as a 0-d tensor on ``device``."""
+    return torch.tensor(np.float32(x), device=device)
+
+
+def u32_of(x):
+    """int32 bit pattern -> int64 in [0, 2^32)."""
+    return x.long() & _U32_MASK
+
+
+def i32_of(x):
+    """int64 in [0, 2^32) -> its int32 bit pattern."""
+    return torch.where(x >= 2**31, x - U32, x).to(torch.int32)
+
+
+def u32_add(a, b):
+    return (a + b) & _U32_MASK
+
+
+# --------------------------------------------------------------------------
+# plain torch helpers: the same arithmetic, op for op, over [V] per sample
+# --------------------------------------------------------------------------
+
+def _mat(i_f, g, rg=None):
+    """The float param at sample ``i_f`` from its ramp group ``g`` [5, V]
+    (v0, step, el, dur, tgt) and, when eventful, its breakpoints ``rg``
+    [5, D, V] (v0, step, dur, tgt, frame): each round's piece wins from its
+    frame on (untouched rounds carry ``frame = B``)."""
+    prog = i_f + g[2]
+    acc = torch.where(prog >= g[3], g[4], g[0] + g[1] * prog)
+    if rg is not None:
+        for r in range(rg.shape[1]):
+            ln = i_f - rg[4, r]
+            v = torch.where(ln >= rg[2, r], rg[3, r], rg[0, r] + rg[1, r] * ln)
+            acc = torch.where(i_f >= rg[4, r], v, acc)
+    return acc
+
+
+def _trig_bit(i, words):
+    """Sample i's trigger bit from [W, V] int32 words (word w holds frames
+    [32w, 32w+32)); the shift runs on the int64 value of the u32 word."""
+    word = words[i >> 5].long() & _U32_MASK
+    return ((word >> (i & 31)) & 1) == 1
+
+
+def _to_inc(x):
+    """freq*f2pi -> u32 phase increment with Rust ``as u32`` saturation:
+    clamp to [0, 2^31 - 128], truncate to int32 (non-negative, so the u32
+    bits equal the value)."""
+    return x.clamp(0.0, _TO_INC_MAX).to(torch.int32).long()
+
+
+def _sin_poly(u):
+    u2 = u * u
+    p = _SIN_C[4] * u2 + _SIN_C[3]
+    p = p * u2 + _SIN_C[2]
+    p = p * u2 + _SIN_C[1]
+    return (p * u2 + _SIN_C[0]) * u
+
+
+def _sin_quant(phase):
+    """SinWt's table-quantized sine of an int64 phase in [0, 2^32): the
+    16384-grid index folded to the first quadrant by integer identities
+    and evaluated with the degree-9 odd polynomial."""
+    idx = (phase >> 16) & TABLE_HIGH_MASK
+    half = idx & (TABLE_SIZE // 2 - 1)
+    neg = idx >= TABLE_SIZE // 2
+    m = torch.where(half > TABLE_SIZE // 4, TABLE_SIZE // 2 - half, half)
+    p = _sin_poly(m.to(torch.float32) * _IDX_SCALE)
+    return torch.where(neg, -p, p)
+
+
+def _theta_full(phase):
+    """AdditiveVoice's full-resolution phase angle (mod one cycle) of an
+    int64 phase in [0, 2^32)."""
+    return (phase & (_CYCLE - 1)).to(torch.float32) * _U2RAD
+
+
+def _env_asr(stage, t, rscale, restart, release, atk, rel):
+    """EnvAsr state machine (stages: 0 stop, 1 atk, 2 sus, 3 rel).
+    ``restart``/``release`` None is the event-free variant. Returns
+    (env, stage', t', rscale')."""
+    one = torch.ones((), dtype=t.dtype, device=t.device)
+    zero = torch.zeros((), dtype=t.dtype, device=t.device)
+    if restart is not None:
+        stage = torch.where(restart, one, stage)
+        rel_from_atk = release & (stage == 1.0)
+        rel_from_sus = release & (stage == 2.0)
+        rscale = torch.where(rel_from_atk, t,
+                             torch.where(rel_from_sus, one, rscale))
+        t = torch.where(rel_from_atk | rel_from_sus, one, t)
+        stage = torch.where(rel_from_atk | rel_from_sus, 3.0 * one, stage)
+    env = torch.where(
+        stage == 1.0, t,
+        torch.where(stage == 2.0, one,
+                    torch.where(stage == 3.0, t * t * t * rscale, zero)),
+    )
+    t_next = torch.where(stage == 1.0, t + atk,
+                         torch.where(stage == 3.0, t - rel, t))
+    to_sus = (stage == 1.0) & (t_next >= 1.0)
+    t_next = torch.where(to_sus, one, t_next)  # pin sustain t
+    done = (stage == 3.0) & (t_next <= 0.0)
+    stage = torch.where(to_sus, 2.0 * one, stage)
+    stage = torch.where(done, zero, stage)
+    t_next = torch.where(done, zero, t_next)
+    return env, stage, t_next, rscale
+
+
+def _env_ar(stage, t, restart, atk, rel):
+    """EnvAr state machine (stages: 0 stopped, 1 attack, 2 release); no
+    sustain, so a voice falls silent ``release`` after its attack ends.
+    ``restart`` None is the event-free variant. Returns (env, stage', t')."""
+    one = torch.ones((), dtype=t.dtype, device=t.device)
+    zero = torch.zeros((), dtype=t.dtype, device=t.device)
+    if restart is not None:
+        stage = torch.where(restart, one, stage)
+    env = torch.where(stage == 1.0, t,
+                      torch.where(stage == 2.0, t * t * t, zero))
+    t_next = torch.where(stage == 1.0, t + atk,
+                         torch.where(stage == 2.0, t - rel, t))
+    to_rel = (stage == 1.0) & (t_next >= 1.0)
+    stage = torch.where(to_rel, 2.0 * one, stage)
+    t_next = torch.where(to_rel, one, t_next)
+    done = (stage == 2.0) & ~to_rel & (t_next <= 0.0)
+    stage = torch.where(done, zero, stage)
+    t_next = torch.where(done, zero, t_next)
+    return env, stage, t_next
+
+
+def _pan_gains(i_f, g, rg=None):
+    """Per-sample equal-power pan gains. Eventful (``rg`` given): cos/sin
+    of the materialized pan's angle, like Pan2. Event-free: ``g`` is the
+    linear-angle pack (a0, da, lt, rt, rem); polynomial cos/sin of the
+    angle until the ramp ends, the exact target gains after."""
+    if rg is not None:
+        angle = (_mat(i_f, g, rg) * np.float32(0.5) + np.float32(0.5)) * _HALF_PI
+        return torch.cos(angle), torch.sin(angle)
+    angle = g[0] + g[1] * i_f
+    ended = i_f >= g[4]
+    panl = torch.where(ended, g[2], _sin_poly(_HALF_PI - angle))
+    panr = torch.where(ended, g[3], _sin_poly(angle))
+    return panl, panr
+
+
+def _svf_low_coeffs(x, q):
+    """SVF lowpass coefficients (svf.rs set_coeffs, Low type) in the
+    one-divide form: with s = sin(x), c = cos(x) (x = pi*cutoff/sr in
+    [0, pi/2)), a1 = q*c^2/(q+s*c), a2 = q*s*c/(q+s*c), a3 = q*s^2/(q+s*c),
+    algebraically the tan form 1/(1+g(g+1/q))."""
+    s = _sin_poly(x)
+    c = _sin_poly(_HALF_PI - x)
+    sc = s * c
+    d = q / (q + sc)
+    return d * (c * c), d * sc, d * (s * s)
+
+
+def _blep(t, dt):
+    """polyBLEP residual of the saw (polyblep.rs), ``dt`` clamped away from
+    zero for the two divides."""
+    one = np.float32(1.0)
+    safe_dt = torch.clamp(dt, min=np.float32(1e-9))
+    a = t / safe_dt - one
+    b = (t - one) / safe_dt + one
+    return torch.where(t < dt, -(a * a),
+                       torch.where(t > one - dt, b * b, torch.zeros_like(t)))

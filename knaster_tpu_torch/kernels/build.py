@@ -1,17 +1,22 @@
-"""Build and load the port's CUDA kernels: nvcc into a shared library, ctypes to call it.
+"""Build and load the port's CUDA kernels: nvcc into shared libraries, ctypes to call them.
 
-``load_library()`` compiles ``csrc/sine_bank.cu`` for sm_90a at first use
-into ``build/knaster_tpu_torch/`` at the repository root (git-ignored), named
-by a hash of the source and flags so that an edited source rebuilds, then
-loads it with ``ctypes``. The library has a plain C interface, so the build
+Every ``csrc/<name>.cu`` is one kernel library with a plain C interface
+(entry point ``ktt_<name>``, plus ``ktt_error_string``). ``build_all()``
+compiles them for sm_90a at first use into ``build/knaster_tpu_torch/`` at
+the repository root (git-ignored), one ``nvcc`` process per source, all
+started together. Each library is named by a hash of every source and
+header in ``csrc/`` and the flags, so that any edit rebuilds. The build
 needs neither torch's headers nor ninja and takes seconds. A failed build
-raises with the compiler's output.
+raises with the compiler's output. ``load_library(name)`` builds what is
+missing and loads the library with ``ctypes``, its entry point declared from
+the kernel module's ``ARGTYPES``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -19,16 +24,17 @@ import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-_SRC = _PKG_DIR / "csrc" / "sine_bank.cu"
+CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "knaster_tpu_torch"
+KERNELS = ("sine_bank", "fm_bank", "sub_bank", "wt_bank", "generic_bank")
 
-# no fast math: the kernel's state must round like the plain torch version
+# no fast math: the kernels' state must round like the plain torch versions
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib = None
+_libs = {}
 _lock = threading.Lock()
 
 
@@ -44,42 +50,67 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"sine_bank_{digest.hexdigest()[:16]}.so"
+def source_digest() -> str:
+    """A hash of every source and header in ``csrc/`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernel library unless the current source's build exists;
-    returns its path. The compiler's log (with ptxas register counts) is
-    kept beside it as ``<name>.log``."""
-    so = library_path()
-    if so.exists():
-        return so
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}_{source_digest()}.so"
+
+
+def build_all(names=KERNELS) -> dict:
+    """Compile every named kernel library whose current build is missing,
+    one nvcc per source, all at once; returns {name: path}. The compiler's
+    log (with ptxas register counts) is kept beside each as
+    ``<name>_<hash>.log``."""
+    if unknown := [n for n in names if n not in KERNELS]:
+        raise ValueError(f"unknown kernels {unknown}; known: {KERNELS}")
+    paths = {name: library_path(name) for name in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    so.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {_SRC.name}:\n{log}")
-    os.replace(tmp, so)
-    return so
+    nvcc = nvcc_path()
+    running = []
+    for name in todo:
+        so = paths[name]
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, so, tmp, cmd, proc))
+    failed = []
+    for name, so, tmp, cmd, proc in running:
+        out, _ = proc.communicate()
+        log = f"$ {' '.join(cmd)}\n{out}"
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once, declare the C entry points."""
-    global _lib
+def load_library(name: str) -> ctypes.CDLL:
+    """Build if needed, load ``csrc/<name>.cu``'s library once, declare its
+    entry point ``ktt_<name>`` from ``kernels/<name>.py``'s ARGTYPES."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ktt_sine_bank.restype = i32
-        lib.ktt_sine_bank.argtypes = [vp] * 13 + [i32] * 4 + [f32] * 3 + [vp]
+        if name in _libs:
+            return _libs[name]
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        module = importlib.import_module(f"{__package__}.{name}")
+        fn = getattr(lib, f"ktt_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = module.ARGTYPES
         lib.ktt_error_string.restype = ctypes.c_char_p
-        lib.ktt_error_string.argtypes = [i32]
-        _lib = lib
+        lib.ktt_error_string.argtypes = [ctypes.c_int]
+        _libs[name] = lib
         return lib

@@ -1,9 +1,13 @@
-"""Port of knaster_tpu/parallel/pallas_bank.py: the fused sine voice bank.
+"""Port of knaster_tpu/parallel/pallas_bank.py: the fused voice banks.
 
-``FusedSineVoiceBank`` renders a bank of SineVoices (table-quantized sine on
-a u32 fixed-point phase, EnvAsr envelope, equal-power pan, stereo mix) in
-one hand-written kernel per block (``kernels/sine_bank.py``); this module is
-the host side around it: event staging, kernel operands and the state carry.
+Each bank renders ``n_voices`` copies of one voice in one hand-written
+kernel per block; this module is the host side around the kernels: event
+staging, kernel operands and the state carry.
+
+* ``FusedSineVoiceBank`` — SineVoice, ``kernels/sine_bank.py``;
+* ``FusedFMVoiceBank`` — FMVoice, ``kernels/fm_bank.py``;
+* ``FusedSubtractiveVoiceBank`` — SubtractiveVoice, ``kernels/sub_bank.py``;
+* ``FusedWavetableVoiceBank`` — AdditiveVoice, ``kernels/wt_bank.py``.
 
 **Sample-accurate control.** Each float param reaches the kernel as its
 ANCHORED linear-ramp group (anchor value, step, elapsed, duration, target
@@ -16,13 +20,13 @@ round fold (``VoiceBank._apply_events_breakpoints``). Triggers arrive as
 
 **Layout.** Per-voice tensors are flat ``[V]`` (the JAX package's
 ``[V/128, 128]`` tiles flattened row-major); V needs no particular multiple.
-Phase is carried as the int32 bit pattern of the u32 phase. Ramp groups are
-stacked ``[n_float, 5, V]`` in ``_float_names`` order (freq, amp, pan), and
-breakpoints ``[n_float, 5, D, V]``.
+u32 phases are carried as their int32 bit pattern. Ramp groups are stacked
+``[n_float, 5, V]`` in ``_float_names`` order, breakpoints
+``[n_float, 5, D, V]`` and trigger words ``[n_trig, W, V]``.
 
 **Dispatch.** Everything here is plain torch on the state's device; the
-kernel wrapper launches the CUDA kernel for CUDA tensors and runs the plain
-torch version for CPU tensors (the tests).
+kernel wrappers launch the CUDA kernels for CUDA tensors and run their
+plain torch versions for CPU tensors (the tests).
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ import numpy as np
 import torch
 
 from ..core.ugen import AudioCtx
-from ..kernels.sine_bank import _HALF_PI, MAX_BLOCK, sine_bank
-from ..models.voices import SineVoice
+from ..kernels import fm_bank, sine_bank, sub_bank, wt_bank
+from ..kernels.bank_common import _HALF_PI, MAX_BLOCK
+from ..models.voices import AdditiveVoice, FMVoice, SineVoice, SubtractiveVoice
 from ..ugens.wavetable import FRACTIONAL_PART, TABLE_SIZE
 from .voicebank import VoiceBank
 
@@ -98,64 +103,45 @@ def _pan_fast_operands(bank, fstate, dtype):
                         (fdur[i] - fel[i]).to(dtype)])
 
 
-class FusedSineVoiceBank(VoiceBank):
-    """A bank of SineVoices rendered by one fused kernel per block.
+class FusedBank(VoiceBank):
+    """What every fused kernel bank shares, the counterpart of
+    ``pallas_bank._bank_setup``: the event-free path (the carried ramp
+    state as it is) or the breakpoint round fold with act and trigger
+    words, then the ramp advance after the kernel.
 
     Use: ``state = bank.init(ctx, device=...)``, then per block
     ``state, out = bank.process(ctx, state, events=...)`` with ``events``
     from ``node_events_from_lists`` (or None for an event-free block);
-    ``out`` is the [2, B] stereo mix."""
+    ``out`` is the [voice.outputs, B] mix."""
 
     # same-block bursts are exact up to this many events per (param, voice)
     # slot; deeper bursts keep their last kernel_burst_depth events and the
     # bank warns once
     kernel_burst_depth = 3
 
-    def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,
-                 attack: float = 0.01, release: float = 0.1,
-                 kernel_burst_depth: int = 3):
-        super().__init__(
-            SineVoice(attack=attack, release=release),
-            n_voices,
-            voice_defaults=voice_defaults,
-            event_capacity=event_capacity,
-        )
+    def __init__(self, voice, n_voices: int, voice_defaults=None,
+                 event_capacity=256, kernel_burst_depth: int = 3):
+        super().__init__(voice, n_voices, voice_defaults=voice_defaults,
+                         event_capacity=event_capacity)
         if int(kernel_burst_depth) < 1:
             raise ValueError("kernel_burst_depth must be >= 1")
         self.kernel_burst_depth = int(kernel_burst_depth)
-        self._attack = float(attack)
-        self._release = float(release)
-
-    def name(self):
-        return f"FusedSineBank[{self.n_voices}]"
 
     def init(self, ctx: AudioCtx, device):
-        _check_block(ctx, "FusedSineVoiceBank")
-        base = super().init(ctx, device)
-        V = self.n_voices
-        base["phase"] = torch.zeros((V,), dtype=torch.int32, device=device)
-        base["stage"] = torch.zeros((V,), dtype=ctx.dtype, device=device)
-        base["t"] = torch.zeros((V,), dtype=ctx.dtype, device=device)
-        base["rscale"] = torch.ones((V,), dtype=ctx.dtype, device=device)
-        return base
+        _check_block(ctx, type(self).__name__)
+        return super().init(ctx, device)
 
-    def kernel_operands(self, ctx: AudioCtx, state, events=None):
-        """Stage one block: apply the event channel and build the kernel's
-        operands. Returns (operands, carry): ``operands`` are the keyword
-        arguments of ``kernels.sine_bank.sine_bank``; ``carry`` is what
-        ``finish`` needs besides the kernel's outputs."""
-        _check_block(ctx, "FusedSineVoiceBank")
+    def stage_block(self, ctx: AudioCtx, state, events=None):
+        """Apply the event channel and build the operands every kernel
+        takes. Returns (ramps, rounds, act, words, carry): ``rounds`` and
+        ``words`` are None for an event-free block; ``act`` is the f32 0/1
+        active gain; ``carry`` is what ``finish_ramps`` needs."""
+        _check_block(ctx, type(self).__name__)
         dtype = ctx.dtype
         if events is None:
-            # event-free block: fold active into amp, swap pan's ramp group
-            # for the linear-angle pack, no breakpoints or trigger words
             fstate, ivals, active, idle = self._apply_events(state)
             ramps = _ramp_operands(fstate, dtype)
-            act = active.to(dtype)
-            _fold_act(self, ramps, act)
-            ramps[self.float_index("pan")] = _pan_fast_operands(
-                self, fstate, dtype)
-            rounds = act = words = None
+            rounds = words = None
         else:
             events = self._events_to(events, state["fvals"].device)
             fstate, pieces, ivals, active, idle = \
@@ -164,44 +150,193 @@ class FusedSineVoiceBank(VoiceBank):
                 (state["fvals"], state["ftarget"], state["fstep"],
                  state["felapsed"], state["fdur"], state["fsdur"]), dtype)
             rounds = _ramp_operands_bursts(pieces, dtype)
-            act = active.to(dtype)
-            words = torch.stack([
-                self._packed_trigs(ctx, events, self.trig_index("t_restart")),
-                self._packed_trigs(ctx, events, self.trig_index("t_release")),
-            ])
-        operands = dict(
-            ramps=ramps, rounds=rounds, act=act, words=words,
-            phase=state["phase"], stage=state["stage"], t=state["t"],
-            rscale=state["rscale"], block_size=ctx.block_size,
-            atk=float(np.float32(
-                1.0 / max(self._attack * ctx.sample_rate, 1.0))),
-            rel=float(np.float32(
-                1.0 / max(self._release * ctx.sample_rate, 1.0))),
-            f2pi=float(np.float32(
-                TABLE_SIZE * FRACTIONAL_PART / ctx.sample_rate)),
-        )
-        return operands, (fstate, ivals, active, idle)
+            words = torch.stack([self._packed_trigs(ctx, events, k)
+                                 for k in range(len(self._trig_names))])
+        return ramps, rounds, active.to(dtype), words, (fstate, ivals, active, idle)
 
-    def finish(self, ctx: AudioCtx, carry, kernel_out):
-        """The block's new state and [2, B] mix from the staging ``carry``
-        and the kernel's (mix, phase, stage, t, rscale)."""
-        fstate, ivals, active, idle = carry
-        mix, phase, stage, t, rscale = kernel_out
+    def finish_ramps(self, ctx: AudioCtx, carry, idle):
+        """The ramp and flag part of the block's new state; ``idle`` is the
+        new idle latch."""
+        fstate, ivals, active, _ = carry
         fvals, ftarget, fstep, felapsed, fdur, fsdur = self._advance_ramps(
             fstate, ctx.block_size)
-        new_state = {
+        return {
             "fvals": fvals, "ftarget": ftarget, "fstep": fstep,
             "felapsed": felapsed, "fdur": fdur, "fsdur": fsdur,
-            "ivals": ivals, "active": active,
-            "idle": idle | (stage == 0),
-            "phase": phase, "stage": stage, "t": t, "rscale": rscale,
+            "ivals": ivals, "active": active, "idle": idle,
         }
-        return new_state, mix
 
     def process(self, ctx: AudioCtx, state, inputs=None, params=None,
                 events=None):
-        """Render one block: (new_state, [2, B] mix). ``inputs`` and
+        """Render one block: (new_state, [C, B] mix). ``inputs`` and
         ``params`` are unused (a bank is controlled by its events); they
         keep the UGen call shape."""
         operands, carry = self.kernel_operands(ctx, state, events)
-        return self.finish(ctx, carry, sine_bank(**operands))
+        return self.finish(ctx, carry, self.kernel(**operands))
+
+
+class _HandBank(FusedBank):
+    """A bank whose voice has a hand-written kernel: the kernel's state is
+    ``STATE`` (name, "u32" | "f32", initial value) in the kernel's order;
+    event-free blocks fold act into amp (and, with ``PAN_PACK``, swap
+    pan's ramp group for the linear-angle pack)."""
+
+    STATE = ()
+    PAN_PACK = False
+    kernel = None  # the kernel wrapper (staticmethod in subclasses)
+
+    def __init__(self, voice, n_voices, voice_defaults, event_capacity,
+                 kernel_burst_depth):
+        super().__init__(voice, n_voices, voice_defaults=voice_defaults,
+                         event_capacity=event_capacity,
+                         kernel_burst_depth=kernel_burst_depth)
+        self._attack = voice.attack
+        self._release = voice.release
+
+    def init(self, ctx: AudioCtx, device):
+        base = super().init(ctx, device)
+        V = self.n_voices
+        for name, kind, value in self.STATE:
+            dtype = torch.int32 if kind == "u32" else ctx.dtype
+            base[name] = torch.full((V,), value, dtype=dtype, device=device)
+        return base
+
+    def scalars(self, ctx: AudioCtx):
+        """The kernel's float arguments besides the tensors."""
+        return dict(
+            atk=float(np.float32(1.0 / max(self._attack * ctx.sample_rate, 1.0))),
+            rel=float(np.float32(1.0 / max(self._release * ctx.sample_rate, 1.0))),
+            f2pi=float(np.float32(TABLE_SIZE * FRACTIONAL_PART / ctx.sample_rate)),
+        )
+
+    def kernel_operands(self, ctx: AudioCtx, state, events=None):
+        """Stage one block: apply the event channel and build the kernel's
+        operands. Returns (operands, carry): ``operands`` are the keyword
+        arguments of the bank's kernel wrapper; ``carry`` is what
+        ``finish`` needs besides the kernel's outputs."""
+        ramps, rounds, act, words, carry = self.stage_block(ctx, state, events)
+        if rounds is None:
+            # event-free block: fold active into amp (and swap pan's ramp
+            # group for the linear-angle pack); no act or trigger words
+            _fold_act(self, ramps, act)
+            if self.PAN_PACK:
+                ramps[self.float_index("pan")] = _pan_fast_operands(
+                    self, carry[0], ctx.dtype)
+            act = None
+        operands = dict(ramps=ramps, rounds=rounds, act=act, words=words,
+                        block_size=ctx.block_size, **self.scalars(ctx))
+        for name, _, _ in self.STATE:
+            operands[name] = state[name]
+        return operands, carry
+
+    def finish(self, ctx: AudioCtx, carry, kernel_out):
+        """The block's new state and mix from the staging ``carry`` and the
+        kernel's (mix, *state in ``STATE`` order)."""
+        mix, *kstate = kernel_out
+        new = dict(zip((name for name, _, _ in self.STATE), kstate))
+        state = self.finish_ramps(ctx, carry, carry[3] | (new["stage"] == 0))
+        state.update(new)
+        return state, mix
+
+
+class FusedSineVoiceBank(_HandBank):
+    """A bank of SineVoices (table-quantized sine on a u32 phase, EnvAsr,
+    equal-power pan, stereo mix) in one fused kernel per block."""
+
+    STATE = (("phase", "u32", 0), ("stage", "f32", 0.0), ("t", "f32", 0.0),
+             ("rscale", "f32", 1.0))
+    PAN_PACK = True
+    kernel = staticmethod(sine_bank.sine_bank)
+
+    def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,
+                 attack: float = 0.01, release: float = 0.1,
+                 kernel_burst_depth: int = 3):
+        super().__init__(SineVoice(attack=attack, release=release), n_voices,
+                         voice_defaults, event_capacity, kernel_burst_depth)
+
+    def name(self):
+        return f"FusedSineBank[{self.n_voices}]"
+
+
+class FusedFMVoiceBank(_HandBank):
+    """A bank of FMVoices (modulator and carrier u32 phases, audio-rate FM,
+    EnvAr, mono mix) in one fused kernel per block."""
+
+    STATE = (("phm", "u32", 0), ("phc", "u32", 0), ("stage", "f32", 0.0),
+             ("t", "f32", 0.0))
+    kernel = staticmethod(fm_bank.fm_bank)
+
+    def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,
+                 attack: float = 0.005, release: float = 0.3,
+                 kernel_burst_depth: int = 3):
+        super().__init__(FMVoice(attack=attack, release=release), n_voices,
+                         voice_defaults, event_capacity, kernel_burst_depth)
+
+    def name(self):
+        return f"FusedFMBank[{self.n_voices}]"
+
+
+class FusedSubtractiveVoiceBank(_HandBank):
+    """A bank of SubtractiveVoices (polyBLEP saw, per-sample SVF lowpass,
+    EnvAsr, mono mix) in one fused kernel per block. As in the JAX
+    package, the saw has no > sr/4 sine fallback: keep fundamentals below
+    sr/4."""
+
+    STATE = (("t", "f32", 0.0), ("ic1", "f32", 0.0), ("ic2", "f32", 0.0),
+             ("stage", "f32", 0.0), ("et", "f32", 0.0), ("rscale", "f32", 1.0))
+    kernel = staticmethod(sub_bank.sub_bank)
+
+    def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,
+                 attack: float = 0.01, release: float = 0.2,
+                 kernel_burst_depth: int = 3):
+        super().__init__(SubtractiveVoice(attack=attack, release=release),
+                         n_voices, voice_defaults, event_capacity,
+                         kernel_burst_depth)
+
+    def name(self):
+        return f"FusedSubtractiveBank[{self.n_voices}]"
+
+    def scalars(self, ctx: AudioCtx):
+        base = super().scalars(ctx)
+        inv_sr = np.float32(1.0 / ctx.sample_rate)
+        return dict(atk=base["atk"], rel=base["rel"], inv_sr=float(inv_sr),
+                    pi_inv_sr=float(np.float32(np.pi) * inv_sr))
+
+
+class FusedWavetableVoiceBank(_HandBank):
+    """A bank of AdditiveVoices: arbitrary band-limited wavetables (OscWt's
+    role) re-synthesized from ``n_harmonics`` partials with per-sample
+    anti-aliasing, EnvAsr, equal-power pan, stereo mix, in one fused kernel
+    per block. Pass ``table`` (one cycle) or ``harmonics`` (mags, or (mags,
+    u32 offsets)). Cost scales linearly with ``n_harmonics``."""
+
+    STATE = (("phase", "u32", 0), ("stage", "f32", 0.0), ("t", "f32", 0.0),
+             ("rscale", "f32", 1.0))
+    PAN_PACK = True
+    kernel = staticmethod(wt_bank.wt_bank)
+
+    def __init__(self, n_voices: int, table=None, harmonics=None,
+                 n_harmonics: int = 16, voice_defaults=None,
+                 event_capacity=256, attack: float = 0.01,
+                 release: float = 0.1, kernel_burst_depth: int = 3):
+        voice = AdditiveVoice(table=table, harmonics=harmonics,
+                              n_harmonics=n_harmonics, attack=attack,
+                              release=release)
+        super().__init__(voice, n_voices, voice_defaults, event_capacity,
+                         kernel_burst_depth)
+        self.mags = voice.mags
+        self.offsets = voice.offsets
+        self._coefs = {}  # (sample rate, device) -> f32 [3, H]
+
+    def name(self):
+        return f"FusedWavetableBank[{self.n_voices}x{len(self.mags)}h]"
+
+    def kernel_operands(self, ctx: AudioCtx, state, events=None):
+        operands, carry = super().kernel_operands(ctx, state, events)
+        dev = state["phase"].device
+        key = (ctx.sample_rate, dev)
+        if key not in self._coefs:
+            self._coefs[key] = torch.from_numpy(
+                wt_bank.wt_coefs(self.mags, self.offsets, ctx.sample_rate)).to(dev)
+        operands["coefs"] = self._coefs[key]
+        return operands, carry

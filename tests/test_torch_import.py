@@ -101,3 +101,123 @@ def test_bank_rejects_f64_and_large_blocks():
     with pytest.raises(ValueError, match="block_size"):
         bank.init(AudioCtx(48000, 2048, torch.float32), device="cpu")
     assert np.isclose(AudioCtx(48000).nyquist, 24000.0)
+
+
+def _small_bank(kind):
+    """A 40-voice bank of each kernel (V not a multiple of 32 or 128)."""
+    from knaster_tpu_torch import (
+        FMVoice, FusedFMVoiceBank, FusedSubtractiveVoiceBank, FusedVoiceBank,
+        FusedWavetableVoiceBank,
+    )
+    from knaster_tpu_torch.kernels import fm_bank, generic_bank, sub_bank, wt_bank
+
+    if kind == "fm":
+        return FusedFMVoiceBank(40), fm_bank
+    if kind == "sub":
+        return FusedSubtractiveVoiceBank(40), sub_bank
+    if kind == "wt":
+        return FusedWavetableVoiceBank(40, harmonics=[1.0, 0.5, 0.25]), wt_bank
+    return FusedVoiceBank(FMVoice(), 40), generic_bank
+
+
+NEW_KERNELS = ["fm", "sub", "wt", "generic"]
+
+
+@pytest.mark.parametrize("kind", NEW_KERNELS)
+def test_bank_kernel_dispatch_by_device(kind):
+    """CPU tensors take the plain version without counting a launch; meta
+    tensors (neither CPU nor CUDA) raise instead of falling back."""
+    from knaster_tpu_torch import AudioCtx
+
+    ctx = AudioCtx(48000, 32, torch.float32)
+    bank, mod = _small_bank(kind)
+    ops, _ = bank.kernel_operands(ctx, bank.init(ctx, device="cpu"))
+    before = mod.LAUNCHES
+    mix, *_ = bank.kernel(**ops)
+    assert mix.shape == (bank.voice.outputs, 32) and mod.LAUNCHES == before
+    meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
+            for k, v in ops.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        bank.kernel(**meta)
+
+
+@pytest.mark.parametrize("kind", NEW_KERNELS)
+def test_bank_kernel_rejects_bad_operands(kind):
+    """Each wrapper checks dtype, shape, contiguity, the eventful set and
+    its own extra operands."""
+    from knaster_tpu_torch import AudioCtx
+
+    ctx = AudioCtx(48000, 64, torch.float32)
+    bank, _ = _small_bank(kind)
+    ops, _ = bank.kernel_operands(ctx, bank.init(ctx, device="cpu"))
+    ramps = ops["ramps"]
+    bad = [
+        dict(ramps=ramps.transpose(0, 1).contiguous().transpose(0, 1)),
+        dict(ramps=ramps[:-1]),
+        dict(block_size=2048),
+        dict(words=torch.zeros((2, 2, 40), dtype=torch.int32)),  # without rounds
+    ]
+    if kind == "generic":
+        bad += [dict(carry=ops["carry"].float()), dict(carry=ops["carry"][:-1]),
+                dict(act=None), dict(consts=ops["consts"][None])]
+    else:
+        state = [k for k in ops if ops[k] is not None and k not in
+                 ("ramps", "coefs", "block_size") and isinstance(ops[k], torch.Tensor)]
+        bad += [dict(act=torch.ones(40))]  # act without rounds
+        bad += [{k: ops[k][:-1]} for k in state]
+        bad += [{k: ops[k].double()} for k in state]
+    if kind == "wt":
+        bad += [dict(coefs=ops["coefs"][:2]), dict(coefs=ops["coefs"].T)]
+    for change in bad:
+        with pytest.raises((ValueError, TypeError)):
+            bank.kernel(**{**ops, **change})
+
+
+def test_fused_voice_bank_rejects_unsupported_voices():
+    from knaster_tpu_torch import FMVoice, FusedVoiceBank, pinteger
+
+    class IntVoice(FMVoice):
+        params = FMVoice.params + (pinteger("mode", 0),)
+
+    with pytest.raises(ValueError, match="integer params"):
+        FusedVoiceBank(IntVoice(), 128)
+
+    class Plain:  # a voice with no kernel body at all
+        inputs, outputs, params = 0, 1, FMVoice.params
+
+        def name(self):
+            return "Plain"
+
+    with pytest.raises(ValueError, match="kernel_voice"):
+        FusedVoiceBank(Plain(), 128)
+
+    class Blocky(FMVoice):
+        block_invariant = False
+
+    with pytest.raises(ValueError, match="block-invariant"):
+        FusedVoiceBank(Blocky(), 128)
+
+
+@pytest.mark.parametrize("name", ["sine_bank", "fm_bank", "sub_bank", "wt_bank",
+                                  "generic_bank"])
+def test_ctypes_bindings_match_the_c_entry_points(name):
+    """Each kernel module's ARGTYPES agree, argument by argument, with its
+    library's extern "C" entry point (pointers, ints, floats), and
+    build.py builds every source under csrc/."""
+    import ctypes
+    import re
+
+    from knaster_tpu_torch.kernels import build
+
+    assert sorted(build.KERNELS) == sorted(
+        p.stem for p in (PORT / "csrc").glob("*.cu"))
+    module = __import__(f"knaster_tpu_torch.kernels.{name}", fromlist=["x"])
+    src = (PORT / "csrc" / f"{name}.cu").read_text()
+    sig = re.search(rf"int ktt_{name}\(([^)]*)\)", src).group(1)
+    kinds = []
+    for arg in sig.split(","):
+        arg = arg.strip()
+        kinds.append(ctypes.c_void_p if "*" in arg
+                     else ctypes.c_float if arg.startswith("float")
+                     else ctypes.c_int)
+    assert kinds == module.ARGTYPES

@@ -20,7 +20,10 @@ Tolerances:
 - phase and stage: exact (integer and small-integer state);
 - t and rscale: 1e-6 (f32 envelope arithmetic in the same order; in
   practice bit-equal);
-- the ramp state (fvals ... fsdur, active, idle): exact / 1e-6 likewise.
+- the ramp state (fvals ... fsdur, active, idle): exact.
+
+``lockstep`` and ``assert_state`` serve every bank's parity tests
+(``tests/test_torch_*_bank.py``).
 """
 
 import jax
@@ -52,22 +55,28 @@ def _defaults(V, seed, lo=100.0, hi=4000.0, amp=0.01):
     }
 
 
-def _assert_state(sj, st, label):
+# per-voice float state compared within STATE_TOL (f32 arithmetic in the
+# same order; in practice bit-equal); everything else exactly
+LOOSE_STATE = ("t", "rscale", "ic1", "ic2", "et")
+
+
+def assert_state(sj, st, label):
     a = {k: np.asarray(v) for k, v in sj.items()}
     b = bank_state_to_numpy(st)
     assert sorted(a) == sorted(b), label
     for k in a:
-        if a[k].dtype.kind == "f" and k != "stage":
+        if k in LOOSE_STATE:
             np.testing.assert_allclose(b[k], a[k], rtol=0, atol=STATE_TOL,
                                        err_msg=f"{label}: {k}")
         else:
             np.testing.assert_array_equal(b[k], a[k], err_msg=f"{label}: {k}")
 
 
-def _lockstep(pb, fb, B, blocks, patch_state=None):
-    """Run both banks over ``blocks`` (each an event list, ``"empty"`` for
-    an empty event tensor, or None for an event-free block), asserting
-    mix and state parity per block. Returns the port's mixes and state."""
+def lockstep(pb, fb, B, blocks, patch_state=None, mix_atol=MIX_ATOL):
+    """Run a JAX bank ``pb`` and the port's ``fb`` over ``blocks`` (each an
+    event list, ``"empty"`` for an empty event tensor, or None for an
+    event-free block), asserting mix and state parity per block. Returns
+    the port's mixes and state."""
     ctx, tctx = AudioCtx(SR, B, np.float32), ktt.AudioCtx(SR, B)
     sj = {k: np.asarray(v) for k, v in pb.init(ctx).items()}
     if patch_state is not None:
@@ -75,7 +84,7 @@ def _lockstep(pb, fb, B, blocks, patch_state=None):
     st = bank_state_from_jax(sj, "cpu")
     no_in = np.zeros((0, B), np.float32)
     jax_process = jax.jit(
-        lambda s, e: pb.process(ctx, s, no_in, {}, events=e),
+        lambda s, e: pb.process(ctx, s, no_in, {}, events=e)[:2],
         compiler_options=NO_FMA)
     mixes = []
     for blk, evs in enumerate(blocks):
@@ -87,12 +96,13 @@ def _lockstep(pb, fb, B, blocks, patch_state=None):
             ej, et = pb.node_events_from_lists(evs), fb.node_events_from_lists(evs)
         sj, oj = jax_process(sj, ej)
         st, ot = fb.process(tctx, st, events=et)
-        assert ot.shape == (2, B) and ot.dtype == torch.float32
+        assert ot.shape == (fb.voice.outputs, B) and ot.dtype == torch.float32
         np.testing.assert_allclose(ot.numpy(), np.asarray(oj), rtol=0,
-                                   atol=MIX_ATOL, err_msg=f"block {blk}")
-        _assert_state(sj, st, f"block {blk}")
+                                   atol=mix_atol, err_msg=f"block {blk}")
+        assert_state(sj, st, f"block {blk}")
         mixes.append(ot.numpy())
     return np.concatenate(mixes, axis=1), st
+
 
 
 def _trigger_all(V, ti=0):
@@ -109,7 +119,7 @@ def test_matches_jax_bank_mid_block_events():
     events = [(0, v, fb.trig_index("t_restart"), 1, 0.0) for v in range(0, V, 5)]
     events += [(17, 5, fb.trig_index("t_release"), 1, 0.0)]
     events += [(0, 7, fb.float_index("freq"), 0, 1234.0)]
-    mix, _ = _lockstep(pb, fb, 64, [events, "empty", "empty", "empty"])
+    mix, _ = lockstep(pb, fb, 64, [events, "empty", "empty", "empty"])
     assert np.abs(mix).max() > 1e-4
 
 
@@ -142,7 +152,7 @@ def test_matches_jax_bank_event_parity_scenarios(name, by_block):
     blocks = [list(by_block.get(b, [])) for b in range(4)]
     blocks[0] += _trigger_all(V)
     blocks = [b or None for b in blocks]
-    mix, _ = _lockstep(pb, fb, 64, blocks)
+    mix, _ = lockstep(pb, fb, 64, blocks)
     assert np.abs(mix).max() > 1e-4
 
 
@@ -157,7 +167,7 @@ def test_matches_jax_bank_deep_burst_truncation():
     fb = ktt.FusedSineVoiceBank(V, voice_defaults=defaults, event_capacity=2048)
     burst = [(5 + 10 * i, 2, 0, 0, 200.0 + 100 * i) for i in range(5)]
     with pytest.warns(UserWarning, match="kernel_burst_depth=3"):
-        _lockstep(pb, fb, 64, [burst + _trigger_all(V), None])
+        lockstep(pb, fb, 64, [burst + _trigger_all(V), None])
 
 
 @pytest.mark.parametrize("B", [48, 64, 1024])
@@ -179,7 +189,7 @@ def test_matches_jax_bank_saturation_and_phase_wrap(B):
     ev0 = _trigger_all(V) + [(0, 9, 0, 4, float(2 * B)), (1, 9, 0, 0, 1e5),
                              (B // 2, 10, 0, 0, -50.0)]
     ev0 += [(B // 2, v, 1, 1, 0.0) for v in range(0, V, 7)]
-    mix, st = _lockstep(pb, fb, B, [ev0, None, None], patch_state=near_top)
+    mix, st = lockstep(pb, fb, B, [ev0, None, None], patch_state=near_top)
     assert np.abs(mix).max() > 1e-4
     ph = st["phase"].numpy().view(np.uint32).astype(np.uint64)
     # 1e5 and 1e9 Hz advance by the saturated 2^31 - 128 per sample
@@ -199,7 +209,7 @@ def test_bench_shaped_slice():
     cap = fb.event_capacity
     stages = [[(0, v, 0, 1, 0.0) for v in range(base, min(base + cap, V))]
               for base in range(0, V, cap)]
-    mix, st = _lockstep(pb, fb, 64, stages + [None] * 20)
+    mix, st = lockstep(pb, fb, 64, stages + [None] * 20)
     assert len(stages) == V // cap
     assert bool((st["stage"] != 0).all())
     assert np.isfinite(mix).all() and np.abs(mix[:, -64:]).max() > 0.1
