@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's fused voice banks on one CUDA card and check them.
+"""Drive the PyTorch port on one CUDA card and check it.
 
     python3 chip_smoke.py
 
@@ -7,16 +7,21 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. device — a CUDA card is required; prints its name and power limit;
-2. build — compiles every CUDA kernel of ``knaster_tpu_torch/csrc``, one
-   nvcc per source, all at once;
-3. kernel vs plain — each kernel (sine, FM, subtractive, wavetable, and the
-   generic harness with its Sine, FM, Subtractive and Additive bodies) in
-   both variants against its plain torch version on the card, at V in
-   {1000, 131072} and B in {48, 64, 1024}, over eventful blocks (restarts,
-   releases for the ASR voices, float sets, smoothing configs with ramps
-   in flight, a depth-3 burst, active/note-on flags, saturating and
-   negative frequencies) and event-free blocks; carried state bit-equal,
-   mix within a stated tolerance;
+2. build — compiles every CUDA kernel of ``knaster_tpu_torch/csrc`` (seven
+   libraries), one nvcc per source, all at once;
+3. kernel vs plain — each bank kernel (sine, FM, subtractive, wavetable,
+   and the generic harness with its Sine, FM, Subtractive and Additive
+   bodies) in both variants against its plain torch version on the card, at
+   V in {1000, 131072} and B = 64, over eventful blocks (restarts, releases
+   for the ASR voices, float sets, smoothing configs with ramps in flight,
+   a depth-3 burst, active/note-on flags, saturating and negative
+   frequencies) and event-free blocks; carried state bit-equal, mix within a
+   stated tolerance. Then the two stage-loop kernels: ``fm_cascade`` at N in
+   {16, 256} and ``chain_kernel`` on the lowered plans of the 256-stage
+   graph cascade and of a 14-stage cascade with a mid-chain tap, each at B
+   in {16, 64, 1024}, with phases near the top of the u32 range, one stage
+   frequency that saturates and one that is negative: state and outputs
+   bit-equal;
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
@@ -26,11 +31,21 @@ result line):
    every block launched the bank's kernel (its launch counter, reset just
    before), that every voice sounded, that the mix is finite and not
    silent, that the generic FM bank matches the hand FM bank, and prints
-   voice-samples/s (and two more renders' rates, for the host's spread);
-5. timings and profile — per kernel at V=131072, B=64: kernel ms (CUDA
+   voice-samples/s (and two more renders' rates, for the host's spread).
+   Then the graph slices through ``AudioProcessor.render`` on the card:
+   ``readme_sine`` (0.5 s, against the port's CPU render) and the README
+   example with smoothing and a scheduled set (2 s); ``fm_cascade`` (256
+   SinWt stages as graph nodes, B=64, 2 s, the chain kernel once per
+   block, against the scan executor over 64 blocks); ``fm_cascade_model``
+   (``FMCascade(256)``, the fm_cascade kernel once per block);
+   ``sines_const`` (256 independent sines, B=16 and 64, no kernel). Each
+   prints realtime x (samples/s / 48,000);
+5. timings and profile — per bank kernel at V=131072, B=64: kernel ms (CUDA
    events over back-to-back ``launch()`` calls into preallocated outputs),
    wrapper ms and plain ms, event-free and eventful; then torch.profiler's
-   device time by kernel over 100 event-free blocks of each bank.
+   device time by kernel over 100 event-free blocks of each bank; and the
+   two stage-loop kernels at K = N = 256, B = 64: kernel ms, the
+   profiler's device time and plain ms.
 
 The last lines are the kernel table (JSON), the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -60,7 +75,11 @@ REPLACES = {
     "sub_bank": "knaster_tpu/parallel/pallas_bank.py:1093",
     "wt_bank": "knaster_tpu/parallel/pallas_bank.py:1325",
     "generic_bank": "knaster_tpu/parallel/generic_bank.py:103",
+    "fm_cascade": "knaster_tpu/models/voices.py:639",
+    "chain_kernel": "knaster_tpu/graph/chain_kernel.py:155",
 }
+CASCADE = 256  # benchmarks/suite.py's bench_fm_cascade and bench_fm_cascade_model
+GRAPH_SECONDS = 2.0
 
 
 def fail(msg):
@@ -378,27 +397,36 @@ def phase_slice(torch, np, ktt, dev, kind, card, sustains):
 
 
 def profile_blocks(torch, kind, bank, ctx, state, n=100):
-    """Device time by kernel over ``n`` event-free blocks (torch.profiler,
-    CUPTI). Prints the device-busy share of the profiled window and the
-    kernels that fill it; the profiler's own host cost inflates the wall
-    time, so the share is a lower bound on the unprofiled one."""
+    """Device time by kernel over ``n`` event-free blocks of a bank."""
+    def blocks():
+        st = state
+        for _ in range(n):
+            st, _ = bank.process(ctx, st)
+
+    profile_window(torch, kind, blocks, n)
+
+
+def profile_window(torch, label, run, n):
+    """torch.profiler (CUPTI) over ``run()``, which renders ``n`` blocks.
+    Prints the device-busy share of the profiled window and the kernels
+    that fill it; the profiler's own host cost inflates the wall time, so
+    the share is a lower bound on the unprofiled one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            state, _ = bank.process(ctx, state)
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
-        print(f"profile {kind}: the profiler recorded no device time (not measured)")
+        print(f"profile {label}: the profiler recorded no device time (not measured)")
         return
-    print(f"profile {kind}: {n} event-free blocks, device busy "
+    print(f"profile {label}: {n} event-free blocks, device busy "
           f"{busy_us / n:.2f} us/block of {wall_us / n:.2f} us/block wall under the "
           f"profiler ({100 * busy_us / wall_us:.1f}% busy), "
           f"{sum(e.count for e in kernels) / n:.1f} kernels/block")
@@ -450,6 +478,459 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     return ms, plain_ms
 
 
+# --------------------------------------------------------------------------
+# the stage-loop kernels and the graph slices
+# --------------------------------------------------------------------------
+
+def stage_module(name):
+    from knaster_tpu_torch.kernels import chain_kernel, fm_cascade
+
+    return {"fm_cascade": fm_cascade, "chain_kernel": chain_kernel}[name]
+
+
+def reset_all_counts():
+    reset_counts()
+    for name in ("fm_cascade", "chain_kernel"):
+        stage_module(name).LAUNCHES = 0
+
+
+def read_all_counts():
+    counts = read_counts()
+    for name in ("fm_cascade", "chain_kernel"):
+        counts[name] = stage_module(name).LAUNCHES
+    return counts
+
+
+def u32_near_top(torch, np, n, seed, dev):
+    """n u32 phases within 2^26 of 2^32 (int32 bit patterns): the first
+    increments wrap."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(2**32 - 2**26, 2**32, n, dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32)).to(dev)
+
+
+def build_cascade(kt, gg, n, handles=None):
+    """benchmarks/suite.py:374-399: n SinWt stages, each one's output
+    FM-modulating the next one's freq through (prev * 100) + 200."""
+    prev = None
+    for i in range(n):
+        s = gg.push(kt.SinWt(100.0 + i))
+        if prev is not None:
+            mod = (prev * 100.0) + 200.0
+            gg.connect_param(gg.handle(mod.channels[0][1]), 0, s, "freq")
+        prev = s
+        if handles is not None:
+            handles.append(s)
+    (prev * 0.1).to_graph_out()
+
+
+def offset_constant(gg, sine):
+    """The Constant(200) node whose value is added to ``sine``'s modulator."""
+    add = gg.param_edges[(sine.node_id, 0)].src
+    return gg.handle(gg.in_edges[add][1][0].src)
+
+
+# the fm_cascade kernel's block-rate params (freq, base, depth, amp): the
+# benchmark's defaults; stage 0 saturating with every later stage negative;
+# every later stage saturating
+FM_PARAM_SETS = (
+    ("defaults", (100.0, 200.0, 100.0, 0.1)),
+    ("saturating stage 0, negative stages", (1.0e5, -300.0, 100.0, 0.1)),
+    ("saturating stages", (100.0, 96500.0, 100.0, 0.1)),
+)
+
+
+def stage_consts(np):
+    from knaster_tpu_torch.ugens.wavetable import FRACTIONAL_PART, TABLE_SIZE
+
+    return (float(np.float32(TABLE_SIZE * FRACTIONAL_PART / SR)),
+            float(np.float32(2.0 * np.pi / TABLE_SIZE)))
+
+
+def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=(16, 64, 1024)):
+    """The fm_cascade kernel against its plain version over three blocks of
+    each param set at every N and B, phases starting near the top of the
+    u32 range; checks the saturation rule on the stage phases. Returns the
+    max |output difference| (0.0: bit-equal)."""
+    mod = stage_module("fm_cascade")
+    f2pi, scale = stage_consts(np)
+    for N in Ns:
+        for B in Bs:
+            for label, vals in FM_PARAM_SETS:
+                params = torch.tensor(vals, dtype=torch.float32, device=dev)
+                ph = u32_near_top(torch, np, N, N + B, dev)
+                for blk in range(3):
+                    pk, pp = ph.clone(), ph.clone()
+                    ok = mod.fm_cascade(params=params, phases=pk, block_size=B,
+                                        f2pi=f2pi, scale=scale)
+                    op = mod.fm_cascade_plain(params=params, phases=pp, block_size=B,
+                                              f2pi=f2pi, scale=scale)
+                    torch.cuda.synchronize()
+                    where = f"fm_cascade N={N} B={B} {label} block {blk}"
+                    if not torch.equal(pk, pp):
+                        fail(f"{where}: phases differ from the plain version in "
+                             f"{int((pk != pp).sum())} stages")
+                    if not torch.equal(bits(ok), bits(op)):
+                        fail(f"{where}: output differs from the plain version by "
+                             f"{float((ok - op).abs().max())}")
+                    if not bool(torch.isfinite(ok).all()) or float(ok.abs().max()) == 0.0:
+                        fail(f"{where}: output not finite or silent")
+                    step = (pk.long() - ph.long()) % 2**32
+                    if label.startswith("saturating stage 0") and (
+                            int(step[0]) != (B * (2**31 - 1)) % 2**32
+                            or bool((step[1:] != 0).any())):
+                        fail(f"{where}: stage 0 must advance 2^31 - 1 per sample "
+                             "and the negative stages not at all")
+                    if label == "saturating stages" and int(step[-1]) != (B * (2**31 - 1)) % 2**32:
+                        fail(f"{where}: a saturating stage must advance 2^31 - 1 per sample")
+                    ph = pk
+        print(f"kernel vs plain fm_cascade N={N} B={Bs}: phases and output bit-equal "
+              f"over 3 blocks of {len(FM_PARAM_SETS)} param sets")
+    return 0.0
+
+
+def capture_chain(torch, proc):
+    """The chain kernel's operands on the processor's main path: one
+    event-free block of the compiled graph (not kept), with the wrapper
+    wrapped to record what it is given."""
+    kck = stage_module("chain_kernel")
+    real, got = kck.chain_kernel, []
+
+    def spy(program, **operands):
+        got.append((program, operands))
+        return real(program, **operands)
+
+    kck.chain_kernel = spy
+    try:
+        proc._ensure_compiled()
+        proc.compiled.render_fast(proc.state, proc._zero_inputs())
+    finally:
+        kck.chain_kernel = real
+    if len(got) != 1:
+        fail(f"expected one chain kernel call per block, saw {len(got)}")
+    return got[0]
+
+
+def chain_graph(kt, dev, n, B, tap):
+    """The cascade of n stages as graph nodes on ``dev`` (with a mid-chain
+    tap when ``tap``), one stage's offset constant set to saturate its
+    oscillator and another's to make its frequency negative; returns the
+    processor after one eventful block."""
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
+                                    device=dev)
+    hs = []
+
+    def build(gg):
+        build_cascade(kt, gg, n, hs)
+        if tap:
+            (hs[7] * 0.05).to_graph_out()
+
+    g.edit(build)
+    offset_constant(g, hs[n // 2]).param("value").set(96500.0)
+    offset_constant(g, hs[n // 3]).param("value").set(-500.0)
+    proc.render(frames=B, fetch=False)  # the eventful block (scan executor)
+    return proc
+
+
+def phase_chain_vs_plain(torch, np, kt, dev, Bs=(16, 64, 1024)):
+    """The chain kernel against its plain version on the lowered plans of
+    the 256-stage cascade and of a 14-stage cascade with a mid-chain tap,
+    at every B, from the graph's own state and from phases near the top of
+    the u32 range. Returns the max |output difference|."""
+    kck = stage_module("chain_kernel")
+    for n, tap in ((CASCADE, False), (14, True)):
+        for B in Bs:
+            proc = chain_graph(kt, dev, n, B, tap)
+            program, ops = capture_chain(torch, proc)
+            K = ops["K"]
+            for label, state in (("graph state", ops["state"]),
+                                 ("phases near 2^32",
+                                  u32_near_top(torch, np, K, n + B, dev)
+                                  .reshape(ops["state"].shape))):
+                run = dict(ops, state=state)
+                ok, sk = kck.chain_kernel(program, **run)
+                op, sp = kck.chain_kernel_plain(program, **run)
+                torch.cuda.synchronize()
+                where = f"chain_kernel {n} stages B={B} {label}"
+                if not torch.equal(sk, sp):
+                    fail(f"{where}: state differs from the plain version in "
+                         f"{int((sk != sp).sum())} words")
+                if not torch.equal(bits(ok), bits(op)):
+                    fail(f"{where}: outputs differ from the plain version by "
+                         f"{float((ok - op).abs().max())}")
+                if not bool(torch.isfinite(ok).all()):
+                    fail(f"{where}: non-finite outputs")
+        print(f"kernel vs plain chain_kernel {n} stages (p={program.period}, "
+              f"{program.n_out} out planes) B={Bs}: state and outputs bit-equal")
+    return 0.0
+
+
+def body_chain(kt, ops):
+    """A 9-sine cascade whose stage passes the modulator through three
+    Math1 ops and a Math sub and div (tests/test_torch_chain_kernel.py)."""
+    def build(gg):
+        prev = None
+        for i in range(9):
+            s = gg.push(kt.SinWt(100.0 + 3 * i))
+            if prev is not None:
+                x = prev + 1.5
+                for op in ops:
+                    u = gg.push(kt.Math1UGen(op))
+                    x.to(u)
+                    x = u
+                mod = (((x - 0.25) / 2.0) * 100.0) + 200.0
+                gg.connect_param(gg.handle(mod.channels[0][1]), 0, s, "freq")
+            prev = s
+        (prev * 0.1).to_graph_out()
+    return build
+
+
+BODY_OPS = (("abs", "sqrt", "log"), ("exp", "sin", "cos"), ("tanh", "neg", "ceil"),
+            ("floor", "neg", "abs"))
+
+
+def phase_bodies_vs_plain(torch, kt, dev):
+    """Every Math and Math1 body of the chain kernel against the plain
+    version on the card, B = 64: state and outputs bit-equal."""
+    kck = stage_module("chain_kernel")
+    for ops in BODY_OPS:
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                        device=dev)
+        g.edit(body_chain(kt, ops))
+        proc.render(frames=4 * BLOCK, fetch=False)
+        program, run = capture_chain(torch, proc)
+        ok, sk = kck.chain_kernel(program, **run)
+        op, sp = kck.chain_kernel_plain(program, **run)
+        torch.cuda.synchronize()
+        if not torch.equal(sk, sp) or not torch.equal(bits(ok), bits(op)):
+            fail(f"chain_kernel bodies {ops}: state differs in {int((sk != sp).sum())} "
+                 f"words, outputs by {float((ok - op).abs().max())}")
+    print(f"kernel vs plain chain_kernel bodies add/sub/mul/div and "
+          f"{sorted({o for ops in BODY_OPS for o in ops})} in 9-sine chains, B={BLOCK}: "
+          "state and outputs bit-equal")
+
+
+def render_timed(torch, proc, seconds):
+    """Render on the card; returns (audio tensor, wall seconds)."""
+    proc._ensure_compiled()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio = proc.render(seconds=seconds, fetch=False)
+    torch.cuda.synchronize()
+    return audio, time.perf_counter() - t0
+
+
+def zero_crossing_hz(np, x, sr):
+    return float(np.sum((x[:-1] < 0) & (x[1:] >= 0))) * sr / len(x)
+
+
+def expect_counts(counts, want, where):
+    """Every kernel's launch count is zero but those in ``want``."""
+    bad = {k: n for k, n in counts.items() if n != want.get(k, 0)}
+    if bad:
+        fail(f"{where}: kernel launches {bad}, expected {want or 'none'}")
+
+
+def phase_graph_slices(torch, np, kt, dev, card):
+    """The graph slices through AudioProcessor.render on the card. Returns
+    {kernel: launches} of the two cascade slices."""
+    import knaster_tpu_torch.graph.chain_kernel as gck
+
+    launches = {}
+    # readme_sine: tests/golden_configs.py:41-54, against the CPU render
+    renders = {}
+    for d in (dev, "cpu"):
+        g, proc = kt.AudioProcessor.new(0, 2, kt.AudioProcessorOptions(block_size=BLOCK),
+                                        dtype=torch.float32, device=d)
+
+        def build(gg):
+            sine = gg.push(kt.SinWt(440.0))
+            amp = gg.push(kt.Constant(0.2))
+            (sine * amp).out([0, 0]).to_graph_out()
+
+        g.edit(build)
+        reset_all_counts()
+        renders[str(d)] = np.asarray(proc.render(seconds=0.5))
+        if d == dev:
+            expect_counts(read_all_counts(), {}, "readme_sine")
+    gap = float(np.abs(renders[str(dev)] - renders["cpu"]).max())
+    peak = float(np.abs(renders["cpu"]).max())
+    if gap > 1e-6 or not 0.19 < peak <= 0.2:
+        fail(f"readme_sine: card vs CPU render differ by {gap} (peak {peak})")
+    print(f"slice readme_sine: 0.5 s on the card equals the CPU render to {gap:.3e} "
+          f"(peak {peak:.4g}); no kernel on its path")
+
+    # the README example, 2 s: smoothing and a set at 1.0 s
+    graph, proc = kt.knaster(outputs=2, device=dev)
+
+    def build(g):
+        sine = g.push(kt.SinWt(440.0))
+        amp = g.push(kt.Constant(0.2))
+        (sine * amp).out([0, 0]).to_graph_out()
+        return sine.param("freq"), amp.param("value")
+
+    freq, amp = graph.edit(build)
+    amp.smooth(kt.Smoothing.linear(0.1))
+    freq.set_at(880.0, kt.Seconds.from_secs_f64(1.0))
+    audio = proc.render(seconds=2.0)
+    halves = (audio[0, :SR], audio[0, SR:])
+    desc = ", ".join(f"peak {np.abs(h).max():.4g} at {zero_crossing_hz(np, h, SR):.1f} Hz"
+                     for h in halves)
+    if not (abs(zero_crossing_hz(np, halves[0], SR) - 440) <= 2
+            and abs(zero_crossing_hz(np, halves[1], SR) - 880) <= 2):
+        fail(f"README example: {desc}")
+    print(f"slice README example: 2 s, before the set {desc.split(', ')[0]}, after it "
+          f"{desc.split(', ')[1]}")
+
+    # fm_cascade: 256 SinWt stages as graph nodes, B=64, 2 s
+    n_blocks = int(GRAPH_SECONDS * SR) // BLOCK
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                    device=dev)
+    g.edit(lambda gg: build_cascade(kt, gg, CASCADE))
+    reset_all_counts()
+    audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
+    counts = read_all_counts()
+    expect_counts(counts, {"chain_kernel": n_blocks}, "fm_cascade")
+    launches["chain_kernel"] = counts["chain_kernel"]
+    if [k for k, _ in proc.compiled.plan].count("chain") != 1:
+        fail("fm_cascade: the cascade did not collapse into one chain")
+    if not bool(torch.isfinite(audio).all()) or float(audio.abs().max()) == 0.0:
+        fail("fm_cascade: output not finite or silent")
+    _, secs2 = render_timed(torch, proc, GRAPH_SECONDS)
+    rt = [GRAPH_SECONDS / t for t in (secs, secs2)]
+    # the scan executor over the first 64 blocks, against the kernel path
+    gck._MODE = "0"
+    try:
+        g2, scan = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                         device=dev)
+        g2.edit(lambda gg: build_cascade(kt, gg, CASCADE))
+        t0 = time.perf_counter()
+        ref = scan.render(frames=64 * BLOCK, fetch=False)
+        torch.cuda.synchronize()
+        t_scan = time.perf_counter() - t0
+    finally:
+        gck._MODE = None
+    err = float((audio[:, :64 * BLOCK] - ref).abs().max())
+    if not torch.equal(bits(audio[:, :64 * BLOCK].contiguous()), bits(ref)):
+        fail(f"fm_cascade: the kernel path differs from the scan executor by {err}")
+    print(f"slice fm_cascade: {CASCADE} stages as graph nodes, {n_blocks} blocks of "
+          f"{BLOCK} in {secs:.4f} s, realtime x {rt[0]:.4g} (again: {rt[1]:.4g}) on "
+          f"{card}; chain kernel launches {counts['chain_kernel']}; the first 64 "
+          f"blocks bit-equal to the scan executor ({t_scan:.2f} s for them, realtime x "
+          f"{64 * BLOCK / SR / t_scan:.3g})")
+
+    # fm_cascade_model: FMCascade(256), B=64, 2 s
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                    device=dev)
+    g.edit(lambda gg: gg.push(kt.FMCascade(CASCADE)).to_graph_out())
+    reset_all_counts()
+    audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
+    counts = read_all_counts()
+    expect_counts(counts, {"fm_cascade": n_blocks}, "fm_cascade_model")
+    launches["fm_cascade"] = counts["fm_cascade"]
+    peak = float(audio.abs().max())
+    if not bool(torch.isfinite(audio).all()) or not 0.05 < peak <= float(np.float32(0.1)):
+        fail(f"fm_cascade_model: output not finite or peak {peak} outside (0.05, amp]")
+    _, secs2 = render_timed(torch, proc, GRAPH_SECONDS)
+    rt_model = [GRAPH_SECONDS / t for t in (secs, secs2)]
+    print(f"slice fm_cascade_model: FMCascade({CASCADE}), {n_blocks} blocks in "
+          f"{secs:.4f} s, realtime x {rt_model[0]:.4g} (again: {rt_model[1]:.4g}) on "
+          f"{card}; fm_cascade launches {counts['fm_cascade']}. A/B: graph nodes on the "
+          f"chain kernel {rt[0]:.4g}x vs the fused UGen {rt_model[0]:.4g}x realtime")
+
+    # sines_const: 256 independent SinWt * 0.001 (benchmarks/suite.py:328-345)
+    for bs in (16, 64):
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=bs),
+                                        device=dev)
+
+        def build(gg):
+            rng = np.random.default_rng(1)
+            for _ in range(256):
+                s = gg.push(kt.SinWt(float(rng.uniform(100, 1000))))
+                (s * 0.001).to_graph_out()
+
+        g.edit(build)
+        reset_all_counts()
+        audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
+        expect_counts(read_all_counts(), {}, f"sines_const B={bs}")
+        plan = [k for k, _ in proc.compiled.plan]
+        if plan.count("batch") < 3 or not bool(torch.isfinite(audio).all()) or float(
+                audio.abs().max()) == 0.0:
+            fail(f"sines_const B={bs}: plan {plan} or output not finite or silent")
+        _, secs2 = render_timed(torch, proc, GRAPH_SECONDS)
+        print(f"slice sines_const: 256 sines, B={bs}, auto-batched {plan}, no kernel; "
+              f"realtime x {GRAPH_SECONDS / secs:.4g} (again: {GRAPH_SECONDS / secs2:.4g}) "
+              f"on {card}")
+    return launches
+
+
+def device_ms(torch, fn, name, n=50):
+    """The profiler's device time per call of the kernels whose name holds
+    ``name``, over ``n`` calls (None when it records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and name in e.key)
+    return us / n / 1000.0 if us else None
+
+
+def phase_stage_timings(torch, np, kt, dev, card):
+    """Kernel ms (CUDA events over back-to-back launches into preallocated
+    outputs) of the two stage-loop kernels at B in {16, 64, 1024}, and at
+    B = 64 the profiler's device ms and plain ms; the 256-stage graph
+    cascade gives the chain kernel K = 255 (its first sine heads the
+    chain). Returns {kernel: (ms, plain_ms)} at B = 64."""
+    f2pi, scale = stage_consts(np)
+    kck, kfc = stage_module("chain_kernel"), stage_module("fm_cascade")
+    out = {}
+    for B in (16, BLOCK, 1024):
+        params = torch.tensor(FM_PARAM_SETS[0][1], dtype=torch.float32, device=dev)
+        ph = u32_near_top(torch, np, CASCADE, 0, dev)
+        buf = torch.empty((B,), dtype=torch.float32, device=dev)
+        ops = dict(params=params, phases=ph, block_size=B, f2pi=f2pi, scale=scale)
+        fm_ms = time_call(torch, lambda: kfc.launch(buf, **ops), 200)
+
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
+                                        device=dev)
+        g.edit(lambda gg: build_cascade(kt, gg, CASCADE))
+        program, cops = capture_chain(torch, proc)
+        outs = kck.empty_outputs(program, dev, cops["K"], B)
+        ch_ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
+        line = (f"timing B={B} on {card}: fm_cascade N={CASCADE} kernel {fm_ms:.4f} ms, "
+                f"chain_kernel K={cops['K']} p={program.period} kernel {ch_ms:.4f} ms")
+        if B == BLOCK:
+            fm_dev = device_ms(torch, lambda: kfc.launch(buf, **ops), "fm_cascade")
+            ch_dev = device_ms(torch, lambda: kck.launch(outs, program, **cops),
+                               "chain_kernel")
+            fm_plain = time_call(
+                torch, lambda: kfc.fm_cascade_plain(**dict(ops, phases=ph.clone())), 3)
+            ch_plain = time_call(torch, lambda: kck.chain_kernel_plain(program, **cops), 3)
+            out = {"fm_cascade": (fm_ms, fm_plain), "chain_kernel": (ch_ms, ch_plain)}
+            line += (f"; profiler device {fm_dev} and {ch_dev} ms; plain {fm_plain:.3f} "
+                     f"and {ch_plain:.3f} ms")
+        print(line)
+    return out
+
+
+def profile_render(torch, kt, dev, label, build, block_size, n=100):
+    """The profiler over ``n`` event-free blocks of a graph rendered on the
+    card: device busy per block against the wall, kernels per block, and
+    the kernels that fill the busy time."""
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=block_size),
+                                    device=dev)
+    g.edit(build)
+    proc.render(frames=8 * block_size, fetch=False)
+    profile_window(torch, label, lambda: proc.render(frames=n * block_size, fetch=False),
+                   n)
+
+
 def main():
     import numpy as np
     import torch
@@ -482,8 +963,13 @@ def main():
     for kind in ("sine", "fm", "sub", "wt", "generic-sine", "generic-fm",
                  "generic-subtractive", "generic-additive"):
         name = kernel_module(kind).KERNEL
+        # B = 64 only, the slices' block, to keep the whole run within its
+        # time limit
         errs[name] = max(errs.get(name, 0.0),
-                         phase_kernel_vs_plain(torch, np, ktt, dev, kind))
+                         phase_kernel_vs_plain(torch, np, ktt, dev, kind, Bs=(BLOCK,)))
+    errs["fm_cascade"] = phase_fm_cascade_vs_plain(torch, np, dev)
+    errs["chain_kernel"] = phase_chain_vs_plain(torch, np, ktt, dev)
+    phase_bodies_vs_plain(torch, ktt, dev)
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
@@ -510,6 +996,7 @@ def main():
     if gap > 5e-7 * math.sqrt(N_VOICES / 512):
         fail(f"generic FM slice: mix differs from the hand FM bank by {gap}")
     print(f"slice generic-fm vs fm: state equal, max |mix diff| {gap:.3e}")
+    stage_launches = phase_graph_slices(torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -526,6 +1013,28 @@ def main():
             "source": f"knaster_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
             "launches": launches,
+            "max_abs_err": errs[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+        })
+    profile_render(torch, ktt, dev, "fm_cascade graph",
+                   lambda gg: build_cascade(ktt, gg, CASCADE), BLOCK)
+    profile_render(torch, ktt, dev, "fm_cascade_model",
+                   lambda gg: gg.push(ktt.FMCascade(CASCADE)).to_graph_out(), BLOCK)
+
+    def sines(gg):
+        rng = np.random.default_rng(1)
+        for _ in range(256):
+            (gg.push(ktt.SinWt(float(rng.uniform(100, 1000)))) * 0.001).to_graph_out()
+
+    profile_render(torch, ktt, dev, "sines_const B=64", sines, BLOCK)
+    for name, (ms, plain_ms) in phase_stage_timings(torch, np, ktt, dev, card).items():
+        table.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"knaster_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name],
+            "launches": stage_launches[name],
             "max_abs_err": errs[name],
             "ms": ms,
             "plain_ms": plain_ms,

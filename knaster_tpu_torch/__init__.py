@@ -2,30 +2,44 @@
 
 The JAX package ``knaster_tpu`` is the reference; this package reproduces it
 slice by slice on PyTorch, with every Pallas TPU kernel rewritten by hand for
-NVIDIA Hopper. It imports no JAX. The slices ported so far are the fused
-voice banks: the headline sine bank (``bench.py``'s workload), the FM,
-subtractive and wavetable banks, and the generic ``FusedVoiceBank`` for
-any voice with a kernel body::
+NVIDIA Hopper. It imports no JAX. Ported so far: the graph (edit, compile,
+render) with the UGens of the README example and the FM cascade, and the
+fused voice banks. The README example::
 
-    import torch
-    from knaster_tpu_torch import AudioCtx, FusedSineVoiceBank
+    import knaster_tpu_torch as kt
 
-    ctx = AudioCtx(sample_rate=48000, block_size=64, dtype=torch.float32)
-    bank = FusedSineVoiceBank(131072)
+    graph, proc = kt.knaster(outputs=2, device="cuda")   # default "cpu"
+    def build(g):
+        sine = g.push(kt.SinWt(440.0))
+        amp = g.push(kt.Constant(0.2))
+        (sine * amp).out([0, 0]).to_graph_out()
+        return sine.param("freq"), amp.param("value")
+    freq, amp = graph.edit(build)
+    amp.smooth(kt.Smoothing.linear(0.1))
+    freq.set_at(880.0, kt.Seconds.from_secs_f64(1.0))
+    audio = proc.render(seconds=2.0)                      # numpy [2, 96000]
+
+The banks run through their own API::
+
+    ctx = kt.AudioCtx(sample_rate=48000, block_size=64, dtype=torch.float32)
+    bank = kt.FusedSineVoiceBank(131072)
     state = bank.init(ctx, device="cuda")
-    ev = bank.node_events_from_lists([(0, v, bank.trig_index("t_restart"), 1, 0.0)
-                                      for v in range(256)])
-    state, out = bank.process(ctx, state, events=ev)    # eventful block
     state, out = bank.process(ctx, state)               # event-free block
 
-The other banks are used alike (``FusedFMVoiceBank``,
-``FusedSubtractiveVoiceBank``, ``FusedWavetableVoiceBank(V, table=...)``,
-``FusedVoiceBank(FMVoice(), V)``). Kernels run on CUDA tensors (built with
-nvcc at first use); CPU tensors take each kernel's plain torch version.
+(also ``FusedFMVoiceBank``, ``FusedSubtractiveVoiceBank``,
+``FusedWavetableVoiceBank(V, table=...)``, ``FusedVoiceBank(FMVoice(), V)``).
+Kernels run on CUDA tensors (built with nvcc at first use); CPU tensors take
+each kernel's plain torch version. The device is always the caller's:
+nothing picks one.
 """
 
 from .core.ugen import AudioCtx, UGen
-from .models.voices import AdditiveVoice, FMVoice, SineVoice, SubtractiveVoice
+from .graph.graph import CircularConnection, Done, Graph, GraphError, NodeFreed
+from .graph.handles import Handle, Parameter, Source
+from .graph.processor import AudioProcessor, AudioProcessorOptions
+from .graph.scheduling import SchedulingToken, Time
+from .models.voices import (AdditiveVoice, FMCascade, FMVoice, SineVoice,
+                            SubtractiveVoice)
 from .parallel.fused_bank import (
     FusedBank,
     FusedFMVoiceBank,
@@ -37,11 +51,14 @@ from .parallel.generic_bank import FusedVoiceBank, KernelVoiceSpec
 from .parallel.voicebank import VoiceBank
 from .primitives import (
     NYQUIST,
+    Beats,
     FloatHint,
     IntegerHint,
     Nyquist,
     Param,
     ParameterKind,
+    Seconds,
+    Smoothing,
     default_dtype,
     enable_f64,
     pbool,
@@ -50,11 +67,35 @@ from .primitives import (
     ptrigger,
     set_default_dtype,
 )
+from .ugens.math import Math1UGen, MathUGen
+from .ugens.osc import SinWt
+from .ugens.util import Constant
 from .ugens.wavetable import NonAaWavetable, harmonics_from_table
 
 __all__ = [
+    "knaster",
     "AudioCtx",
     "UGen",
+    "AudioProcessor",
+    "AudioProcessorOptions",
+    "Graph",
+    "GraphError",
+    "CircularConnection",
+    "NodeFreed",
+    "Done",
+    "Handle",
+    "Parameter",
+    "Source",
+    "SchedulingToken",
+    "Time",
+    "SinWt",
+    "Constant",
+    "MathUGen",
+    "Math1UGen",
+    "FMCascade",
+    "Beats",
+    "Seconds",
+    "Smoothing",
     "SineVoice",
     "FMVoice",
     "SubtractiveVoice",
@@ -83,3 +124,13 @@ __all__ = [
     "ptrigger",
     "set_default_dtype",
 ]
+
+
+def knaster(outputs: int = 2, sample_rate: int = 48000, block_size: int = 64,
+            device="cpu", dtype=None):
+    """One-liner entry point (reference knaster/src/lib.rs:79 ``knaster()``):
+    a ``(graph, processor)`` pair ready for offline rendering on ``device``
+    ("cpu" unless the caller names another)."""
+    opts = AudioProcessorOptions(block_size=block_size, sample_rate=sample_rate)
+    return AudioProcessor.new(inputs=0, outputs=outputs, options=opts, dtype=dtype,
+                              device=device)

@@ -1,4 +1,4 @@
-"""Carry a fused bank's state between the JAX package and this port.
+"""Carry state between the JAX package and this port: a fused bank's, a compiled graph's.
 
 A JAX kernel bank's state (``PallasSineVoiceBank``, ``PallasFMVoiceBank``,
 ``PallasSubtractiveVoiceBank``, ``PallasWavetableVoiceBank``,
@@ -16,6 +16,12 @@ generic carry...) crosses alike: uint32 becomes int32 bits, and a 2-D
 array of shape ``(V / 128, 128)`` is a tile (V from ``active``). Events
 need no converter: both packages' ``node_events_from_lists`` return the
 same numpy dict.
+
+A compiled graph's state ``{"nodes", "pe", "fb"}`` has the same keys in
+both packages for the same graph (the plan, and so every state, group and
+chain key, is the JAX package's), so it crosses leaf by leaf: batched
+groups and chain stacks keep their leading axes, uint32 leaves (oscillator
+phases) become int32 bit patterns, everything else keeps its dtype.
 """
 
 from __future__ import annotations
@@ -64,3 +70,28 @@ def bank_state_to_numpy(state):
                 v = v.view(np.uint32)
         out[k] = v
     return out
+
+
+def graph_state_from_jax(np_state, device):
+    """The port's graph state on ``device`` from a JAX ``CompiledGraph``
+    state given as numpy arrays (``jax.tree_util.tree_map(np.asarray,
+    proc.state)``), for the same graph compiled by the port."""
+    if isinstance(np_state, dict):
+        return {k: graph_state_from_jax(v, device) for k, v in np_state.items()}
+    v = np.array(np_state)  # a writable copy: arrays from JAX are read-only
+    if v.dtype == np.uint32:
+        v = v.view(np.int32)
+    return torch.from_numpy(v).to(device)
+
+
+def graph_state_to_numpy(state, like=None):
+    """The inverse of ``graph_state_from_jax``: numpy arrays, int32 leaves
+    viewed as uint32 where ``like`` (a JAX state of the same graph) holds
+    uint32, kept as int32 without it."""
+    if isinstance(state, dict):
+        return {k: graph_state_to_numpy(v, None if like is None else like[k])
+                for k, v in state.items()}
+    v = state.detach().cpu().numpy()
+    if like is not None and np.asarray(like).dtype == np.uint32 and v.dtype == np.int32:
+        v = v.view(np.uint32)
+    return v

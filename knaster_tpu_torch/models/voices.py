@@ -5,9 +5,11 @@
 * ``FMVoice`` — 2-operator FM with an AR envelope (the fm_bench family).
 * ``SubtractiveVoice`` — polyBLEP saw -> SVF lowpass -> ASR envelope.
 * ``AdditiveVoice`` — a wavetable cycle re-synthesized from its harmonics.
+* ``FMCascade`` — an N-stage FM cascade as one graph node, with its own
+  kernel (``kernels/fm_cascade.py``).
 
-Each declares its parameter table, defaults and envelope times (what the
-fused banks read) and ``kernel_voice(ctx)``: the per-sample body the
+Each voice declares its parameter table, defaults and envelope times (what
+the fused banks read) and ``kernel_voice(ctx)``: the per-sample body the
 generic ``FusedVoiceBank`` runs, in torch over ``[V]`` tensors (the plain
 version) and by name as a CUDA body. Each body is the math of its
 ``mosaic_voice`` in the JAX package, op for op. The vmap ``process`` path
@@ -22,7 +24,7 @@ import torch
 from ..core.ugen import AudioCtx, UGen
 from ..kernels.bank_common import (
     _HALF_PI, _blep, _env_ar, _env_asr, _sin_quant, _svf_low_coeffs,
-    _theta_full, _to_inc, u32_add,
+    _theta_full, _to_inc, i32_of, u32_add, u32_of,
 )
 from ..primitives.params import ParameterKind, pfloat, ptrigger
 from ..ugens.wavetable import FRACTIONAL_PART, TABLE_SIZE, harmonics_from_table
@@ -277,3 +279,77 @@ class AdditiveVoice(UGen):
             consts=np.concatenate([np.array([f2pi, atk, rel], np.float32),
                                    coefs.reshape(-1)]),
             voice_name=self.name())
+
+
+class FMCascade(UGen):
+    """An N-stage FM cascade as ONE node: stage 0 sine at ``freq``, stage k's
+    frequency ``base + depth * out[k-1]``, the last stage times ``amp``
+    (the reference's 256-stage FM cascade benchmark shape,
+    knaster_benchmarks/benches/graph_dsp_performance.rs:38-80, hand-fused).
+
+    Two paths, as in the JAX package: the fused kernel (``use_kernel``, f32
+    only; params read at block rate; ``kernels/fm_cascade.py``, the port of
+    ``_process_pallas``) and the scan form (a loop over the stages with
+    per-sample params) for ``use_kernel=False`` or f64. Their saturation
+    differs above 96 kHz, as the JAX package's two paths do: see
+    ``kernels/fm_cascade.py``."""
+
+    inputs = 0
+    outputs = 1
+    params = (
+        pfloat("freq", 100.0, kind=ParameterKind.FREQUENCY),
+        pfloat("base", 200.0, kind=ParameterKind.FREQUENCY),
+        pfloat("depth", 100.0),
+        pfloat("amp", 0.1),
+    )
+
+    def __init__(self, n_stages: int = 256, freq: float = 100.0,
+                 base: float = 200.0, depth: float = 100.0, amp: float = 0.1,
+                 use_kernel: bool = True):
+        self.n_stages = int(n_stages)
+        self.pdefaults = {
+            "freq": float(freq),
+            "base": float(base),
+            "depth": float(depth),
+            "amp": float(amp),
+        }
+        self.use_kernel = bool(use_kernel)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"phases": torch.zeros((self.n_stages,), dtype=torch.int32,
+                                      device=device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        f2pi = float(_f2pi(ctx))
+        scale = float(np.float32(2.0 * np.pi / TABLE_SIZE))
+        if self.use_kernel and ctx.dtype == torch.float32:
+            from ..kernels.fm_cascade import fm_cascade
+
+            p = torch.stack([params["freq"][0], params["base"][0],
+                             params["depth"][0], params["amp"][0]])
+            phases = state["phases"].clone()
+            out = fm_cascade(params=p, phases=phases, block_size=ctx.block_size,
+                             f2pi=f2pi, scale=scale)
+            return {"phases": phases}, out[None, :]
+        return self._process_scan(ctx, state, params, f2pi, scale)
+
+    def _process_scan(self, ctx, state, params, f2pi, scale):
+        """The scan form (voices.py:614-637): u32 increments with the uint32
+        convert's saturation, ``sin`` of the quantized index in ctx.dtype."""
+        base, depth = params["base"], params["depth"]
+        # np.float32(2**31 - 1) is 2^31 in f32; exact 2^31 - 1 in f64
+        hi = 2.0**31 - 1
+        ph = u32_of(state["phases"])
+
+        def stage(freq, ph0):
+            inc = (freq * f2pi).clamp(0.0, hi).to(torch.int64)
+            csum = torch.cumsum(inc, dim=0)
+            idx = ((ph0 + csum - inc) >> 16) & 16383
+            return torch.sin(idx.to(ctx.dtype) * scale), (ph0 + csum[-1]) & 0xFFFFFFFF
+
+        out, new = stage(params["freq"], ph[0])
+        phases = [new]
+        for k in range(1, self.n_stages):
+            out, new = stage(base + depth * out, ph[k])
+            phases.append(new)
+        return {"phases": i32_of(torch.stack(phases))}, (out * params["amp"])[None, :]

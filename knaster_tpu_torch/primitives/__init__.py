@@ -1,4 +1,4 @@
-"""Port of knaster_tpu/primitives: float policy and parameter types."""
+"""Port of knaster_tpu/primitives: float policy, parameter types and time."""
 
 from .floats import default_dtype, enable_f64, set_default_dtype
 from .params import (
@@ -8,11 +8,13 @@ from .params import (
     Nyquist,
     Param,
     ParameterKind,
+    Smoothing,
     pbool,
     pfloat,
     pinteger,
     ptrigger,
 )
+from .time import Beats, Seconds
 
 __all__ = [
     "default_dtype",
@@ -24,6 +26,9 @@ __all__ = [
     "Nyquist",
     "Param",
     "ParameterKind",
+    "Smoothing",
+    "Beats",
+    "Seconds",
     "pbool",
     "pfloat",
     "pinteger",

@@ -1,4 +1,4 @@
-"""Port of knaster_tpu/primitives/params.py: parameter value types, kinds and hints.
+"""Port of knaster_tpu/primitives/params.py: parameter value types, kinds, hints and smoothing.
 
 Framework-free (no torch either): the declarations are the same as the JAX
 package's (reference: knaster_primitives/src/parameters.rs,
@@ -194,3 +194,30 @@ def pbool(name=None, default: bool = _UNSET) -> Param:
     name, default = _shift_name_default(name, default, False)
     return Param(name, ptype="bool", default=int(default))
 
+
+
+@dataclass(frozen=True)
+class Smoothing:
+    """Parameter smoothing config.
+
+    reference: knaster_core/src/parameters/types.rs:35 (ParameterSmoothing) and
+    knaster_core_dsp/src/wrappers_core/smooth_params.rs (WrSmoothParams).
+
+    mode:   'none' or 'linear'
+    time:   ramp duration in seconds (linear mode)
+    rate:   'audio' — the ramp advances every sample;
+            'block' — the value only updates at block starts (stair-step),
+            matching the reference's Rate::BlockRate smoothing.
+    """
+
+    mode: str = "none"
+    time: float = 0.0
+    rate: str = "audio"
+
+    @staticmethod
+    def linear(time: float, rate: str = "audio") -> "Smoothing":
+        return Smoothing("linear", float(time), rate)
+
+    @staticmethod
+    def none() -> "Smoothing":
+        return Smoothing("none", 0.0, "audio")

@@ -199,7 +199,7 @@ def test_fused_voice_bank_rejects_unsupported_voices():
 
 
 @pytest.mark.parametrize("name", ["sine_bank", "fm_bank", "sub_bank", "wt_bank",
-                                  "generic_bank"])
+                                  "generic_bank", "fm_cascade", "chain_kernel"])
 def test_ctypes_bindings_match_the_c_entry_points(name):
     """Each kernel module's ARGTYPES agree, argument by argument, with its
     library's extern "C" entry point (pointers, ints, floats), and
@@ -221,3 +221,105 @@ def test_ctypes_bindings_match_the_c_entry_points(name):
                      else ctypes.c_float if arg.startswith("float")
                      else ctypes.c_int)
     assert kinds == module.ARGTYPES
+
+
+def _stage_operands(kind):
+    """(wrapper, operands) of a stage-loop kernel on the CPU: the fm_cascade
+    of 8 stages, or the chain kernel as a 10-stage graph cascade gives it."""
+    import knaster_tpu_torch as kt
+    from knaster_tpu_torch.kernels import chain_kernel as kck
+    from knaster_tpu_torch.kernels import fm_cascade as kfc
+
+    if kind == "fm_cascade":
+        return kfc.fm_cascade, dict(
+            params=torch.tensor([100.0, 200.0, 100.0, 0.1]),
+            phases=torch.zeros(8, dtype=torch.int32), block_size=32,
+            f2pi=22369.62109375, scale=0.0003834951)
+    import knaster_tpu_torch.graph.chain_kernel as gck
+
+    got = []
+    real, mode = kck.chain_kernel, gck._MODE
+
+    def spy(program, **ops):
+        got.append((program, ops))
+        return real(program, **ops)
+
+    kck.chain_kernel = spy
+    gck._MODE = "1"
+    try:
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16))
+
+        def build(gg):
+            prev = None
+            for i in range(10):
+                s = gg.push(kt.SinWt(100.0 + i))
+                if prev is not None:
+                    mod = (prev * 100.0) + 200.0
+                    gg.connect_param(gg.handle(mod.channels[0][1]), 0, s, "freq")
+                prev = s
+            (prev * 0.1).to_graph_out()
+
+        g.edit(build)
+        proc.render(frames=16)
+    finally:
+        kck.chain_kernel, gck._MODE = real, mode
+    program, ops = got[0]
+    return (lambda **kw: kck.chain_kernel(program, **kw)), ops
+
+
+@pytest.mark.parametrize("kind", ["fm_cascade", "chain_kernel"])
+def test_stage_kernel_dispatch_by_device(kind):
+    """CPU tensors take the plain version without counting a launch; meta
+    tensors (neither CPU nor CUDA) raise instead of falling back."""
+    from knaster_tpu_torch.kernels import chain_kernel as kck
+    from knaster_tpu_torch.kernels import fm_cascade as kfc
+
+    mod = kfc if kind == "fm_cascade" else kck
+    fn, ops = _stage_operands(kind)
+    before = mod.LAUNCHES
+    out = fn(**ops)
+    assert mod.LAUNCHES == before
+    assert (out.shape == (32,) if kind == "fm_cascade" else out[0].shape[1:] == (9, 16))
+    meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
+            for k, v in ops.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(**meta)
+
+
+@pytest.mark.parametrize("kind", ["fm_cascade", "chain_kernel"])
+def test_stage_kernel_rejects_bad_operands(kind):
+    fn, ops = _stage_operands(kind)
+    if kind == "fm_cascade":
+        bad = [dict(phases=ops["phases"].float()), dict(params=ops["params"][:3]),
+               dict(params=ops["params"].double()), dict(block_size=0),
+               dict(phases=ops["phases"][None])]
+    else:
+        st, rows, planes = ops["state"], ops["rows"], ops["planes"]
+        bad = [dict(state=st.float()), dict(state=st[:, :-1]), dict(rows=rows[:, :8]),
+               dict(planes=planes.double()), dict(planes=planes[:, :, :8]),
+               dict(planes=planes.transpose(1, 2).contiguous().transpose(1, 2)),
+               dict(K=0)]
+    for change in bad:
+        with pytest.raises((ValueError, TypeError)):
+            fn(**{**ops, **change})
+    if kind == "chain_kernel":
+        from knaster_tpu_torch.kernels import chain_kernel as kck
+
+        with pytest.raises(TypeError):
+            kck.chain_kernel(object(), **ops)
+
+
+def test_processor_device_is_the_callers(monkeypatch):
+    """Without a device the processor renders on the CPU, even where a card
+    is present: nothing picks CUDA on its own."""
+    import knaster_tpu_torch as kt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for graph, proc in (kt.knaster(outputs=2),
+                        kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions())):
+        graph.edit(lambda g: (g.push(kt.SinWt(440.0)) * 0.2).to_graph_out())
+        audio = proc.render(frames=256)
+        assert proc.device.type == "cpu" and isinstance(audio, np.ndarray)
+        assert proc.state["pe"]["value"].device.type == "cpu"
+        assert proc.render(frames=64, fetch=False).device.type == "cpu"
