@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against OTHER_CHECKOUT]
 
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
@@ -21,7 +21,14 @@ result line):
    graph cascade and of a 14-stage cascade with a mid-chain tap, each at B
    in {16, 64, 1024}, with phases near the top of the u32 range, one stage
    frequency that saturates and one that is negative: state and outputs
-   bit-equal;
+   bit-equal. Then the chain kernel's PolyBlep, SvfFilter, one-pole,
+   EnvAsr, EnvAr and Pan2 bodies on the lowered plans of the subtractive
+   slice's chains (``polyblep_cascade``, ``graphic_eq_31``, the one-pole,
+   envelope-mix, FREE_PARENT, EnvAr and Pan2 chains) at B in {16, 64,
+   1024}, from the graph's state and from edge states (phases near 2^32, a
+   cutoff just under Nyquist, attacks that cross 1 and releases that end
+   mid-block, an EnvAr making both transitions in one block): state words,
+   outputs and done rows bit-equal;
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
@@ -38,16 +45,29 @@ result line):
    SinWt stages as graph nodes, B=64, 2 s, the chain kernel once per
    block, against the scan executor over 64 blocks); ``fm_cascade_model``
    (``FMCascade(256)``, the fm_cascade kernel once per block);
-   ``sines_const`` (256 independent sines, B=16 and 64, no kernel). Each
-   prints realtime x (samples/s / 48,000);
+   ``sines_const`` (256 independent sines, B=16 and 64, no kernel). Then
+   the subtractive slice: ``subtractive_voice`` (the golden config, 0.4 s,
+   against the port's CPU render, no kernel); ``polyblep_cascade`` (256
+   PolyBlep stages) and ``graphic_eq_31`` (a saw into 31 Bell SVFs), B=64,
+   2 s each, the chain kernel once per event-free block, against the scan
+   executor over 64 blocks; the one-pole, envelope, FREE_PARENT and Pan2
+   chains at B=16 against the scan executor (the FREE_PARENT chain's
+   output zero from its done frame on). Each prints realtime x (samples/s
+   / 48,000);
 5. timings and profile — per bank kernel at V=131072, B=64: kernel ms (CUDA
    events over back-to-back ``launch()`` calls into preallocated outputs),
    wrapper ms and plain ms, event-free and eventful; then torch.profiler's
-   device time by kernel over 100 event-free blocks of each bank; and the
-   two stage-loop kernels at K = N = 256, B = 64: kernel ms, the
-   profiler's device time and plain ms.
+   device time by kernel over 100 event-free blocks of each bank and graph
+   slice; and the stage-loop kernels at B in {16, 64, 1024} (fm_cascade at
+   N = 256, the chain kernel on the FM cascade, ``polyblep_cascade`` and
+   ``graphic_eq_31``): kernel ms, and at B = 64 the profiler's device time
+   and plain ms. Every kernel row carries its bound (the larger of its
+   bytes over HBM bandwidth and its f32 operations over the FP32 peak).
 
-The last lines are the kernel table (JSON), the card's
+With ``--against DIR`` it then times the chain kernel on the FM cascade in
+this checkout and in DIR (another checkout, e.g. the parent commit's) in
+turns, each in its own process. The last lines are the kernel table
+(JSON), the card's
 ``name, power.limit`` and ``{"ok": true, "device": {...}}``.
 """
 
@@ -80,6 +100,22 @@ REPLACES = {
 }
 CASCADE = 256  # benchmarks/suite.py's bench_fm_cascade and bench_fm_cascade_model
 GRAPH_SECONDS = 2.0
+STAGE_BLOCKS = (16, 64, 1024)  # the block sizes the chain kernel is held and timed at
+WARM_BLOCKS = 4  # blocks rendered before a timed graph render: they carry the param sets
+
+# The card's peaks for the bound (the on-chip-measurement guide's table:
+# NVIDIA's H100 SXM data sheet): HBM bytes/s and FP32 operations/s outside
+# the tensor cores. A bound is the larger of bytes over the one and
+# operations over the other, each input byte read once and each output
+# written once.
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# f32 operations a kernel does per voice-sample (banks) or per stage-sample
+# (fm_cascade), counted from each kernel's per-sample arithmetic with every
+# add, multiply, divide, compare-select and transcendental call as one
+# operation: a lower bound on the work
+OPS_PER_SAMPLE = {"sine_bank": 40, "fm_bank": 60, "sub_bank": 70, "wt_bank": 110,
+                  "generic_bank": 60, "fm_cascade": 8}
 
 
 def fail(msg):
@@ -448,6 +484,28 @@ def time_call(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def tensor_bytes(*objs):
+    """The bytes of every tensor in ``objs`` (dicts, tuples and lists
+    walked)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += tensor_bytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            total += tensor_bytes(*o)
+    return total
+
+
+def bound(nbytes, nops):
+    """(bound_ms, bound_by): the least time the card could take."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, nops / FP32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def empty_outputs(mod, bank, operands):
     if mod.KERNEL == "generic_bank":
         return mod.empty_outputs(operands["carry"], bank.voice.outputs, BLOCK)
@@ -471,11 +529,13 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     ev_ms = time_call(torch, lambda: mod.launch(outs, **ev_ops), 100)
     ev_wrapper_ms = time_call(torch, lambda: bank.kernel(**ev_ops), 100)
     ev_plain_ms = time_call(torch, lambda: plain(**ev_ops), 3)
+    bound_ms, bound_by = bound(tensor_bytes(ops, outs),
+                               OPS_PER_SAMPLE[mod.KERNEL] * N_VOICES * BLOCK)
     print(f"timing {kind} V={N_VOICES} B={BLOCK} on {card}: event-free kernel "
           f"{ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; "
           f"eventful kernel {ev_ms:.4f} ms, wrapper {ev_wrapper_ms:.4f} ms, "
-          f"plain {ev_plain_ms:.3f} ms")
-    return ms, plain_ms
+          f"plain {ev_plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return ms, plain_ms, bound_ms, bound_by
 
 
 # --------------------------------------------------------------------------
@@ -648,8 +708,8 @@ def phase_chain_vs_plain(torch, np, kt, dev, Bs=(16, 64, 1024)):
                                   u32_near_top(torch, np, K, n + B, dev)
                                   .reshape(ops["state"].shape))):
                 run = dict(ops, state=state)
-                ok, sk = kck.chain_kernel(program, **run)
-                op, sp = kck.chain_kernel_plain(program, **run)
+                ok, sk, _ = kck.chain_kernel(program, **run)
+                op, sp, _ = kck.chain_kernel_plain(program, **run)
                 torch.cuda.synchronize()
                 where = f"chain_kernel {n} stages B={B} {label}"
                 if not torch.equal(sk, sp):
@@ -699,8 +759,8 @@ def phase_bodies_vs_plain(torch, kt, dev):
         g.edit(body_chain(kt, ops))
         proc.render(frames=4 * BLOCK, fetch=False)
         program, run = capture_chain(torch, proc)
-        ok, sk = kck.chain_kernel(program, **run)
-        op, sp = kck.chain_kernel_plain(program, **run)
+        ok, sk, _ = kck.chain_kernel(program, **run)
+        op, sp, _ = kck.chain_kernel_plain(program, **run)
         torch.cuda.synchronize()
         if not torch.equal(sk, sp) or not torch.equal(bits(ok), bits(op)):
             fail(f"chain_kernel bodies {ops}: state differs in {int((sk != sp).sum())} "
@@ -708,6 +768,353 @@ def phase_bodies_vs_plain(torch, kt, dev):
     print(f"kernel vs plain chain_kernel bodies add/sub/mul/div and "
           f"{sorted({o for ops in BODY_OPS for o in ops})} in 9-sine chains, B={BLOCK}: "
           "state and outputs bit-equal")
+
+
+# --------------------------------------------------------------------------
+# the subtractive slice: PolyBlep, SvfFilter, the one-poles, the envelopes
+# and Pan2 on the chain kernel
+# --------------------------------------------------------------------------
+
+# ISO 266 1/3-octave centres, 20 Hz to 20 kHz
+ISO_THIRDS = (20.0, 25.0, 31.5, 40.0, 50.0, 63.0, 80.0, 100.0, 125.0, 160.0, 200.0,
+              250.0, 315.0, 400.0, 500.0, 630.0, 800.0, 1000.0, 1250.0, 1600.0, 2000.0,
+              2500.0, 3150.0, 4000.0, 5000.0, 6300.0, 8000.0, 10000.0, 12500.0,
+              16000.0, 20000.0)
+
+
+def polyblep_cascade(kt, gg, n=CASCADE):
+    """benchmarks/suite.py:1247-1255's wiring with PolyBlep stages: each
+    stage's output * 100 + 200 drives the next stage's freq; the waveforms
+    cycle through Sawtooth, Square, Triangle, Rectangle and
+    TrapezoidVariable, the last two with a pulse width of 0.3."""
+    W = kt.Waveform
+    waves = (W.Sawtooth, W.Square, W.Triangle, W.Rectangle, W.TrapezoidVariable)
+    prev = None
+    for i in range(n):
+        s = gg.push(kt.PolyBlep(waves[i % len(waves)], 100.0 + i))
+        if i % len(waves) >= 3:
+            s.param("pulse_width").set(0.3)
+        if prev is not None:
+            mod = (prev * 100.0) + 200.0
+            gg.connect_param(gg.handle(mod.channels[0][1]), 0, s, "freq")
+        prev = s
+    (prev * 0.1).to_graph_out()
+
+
+def graphic_eq_31(kt, gg):
+    """A PolyBlep saw at 110 Hz into a 31-band 1/3-octave graphic EQ: 31
+    SvfFilter(Bell) in series at the ISO 266 centres, q = 4.32, gains
+    alternating +6 / -6 dB."""
+    node = gg.push(kt.PolyBlep(kt.Waveform.Sawtooth, 110.0))
+    for i, fc in enumerate(ISO_THIRDS):
+        f = gg.push(kt.SvfFilter(kt.SvfFilterType.Bell, fc, q=4.32,
+                                 gain_db=6.0 if i % 2 == 0 else -6.0))
+        node.to(f)
+        node = f
+    (node * 0.25).to_graph_out()
+
+
+def onepole_chain(kt, gg):
+    """tests/test_chain_kernel.py:142: 16 one-poles alternating Lpf / Hpf
+    (period 2) and a last Hpf, from a PolyBlep saw."""
+    node = gg.push(kt.PolyBlep(kt.Waveform.Sawtooth, 220.0))
+    for i in range(16):
+        f = gg.push(kt.OnePoleLpf(8000.0 + 100.0 * i) if i % 2 == 0
+                    else kt.OnePoleHpf(40.0 + 5.0 * i))
+        node.to(f)
+        node = f
+    hp = gg.push(kt.OnePoleHpf(50.0))
+    node.to(hp)
+    hp.to_graph_out()
+
+
+def env_chain(env_cls, done_action=None):
+    """tests/test_chain_kernel.py:265-318 and :355: ten envelopes mixed
+    serially (env_i + the running sum), a period-2 (envelope, Math add)
+    chain, each envelope with its own off-grid times."""
+    def build(kt, gg):
+        prev = None
+        for i in range(10):
+            e = env_cls(attack_time=(50.3 + 7.1 * i) / SR,
+                        release_time=(95.5 + 3.0 * i) / SR)
+            e = gg.push(e) if done_action is None else gg.push_with_done_action(
+                e, done_action)
+            prev = e if prev is None else prev + e
+        (prev * 0.05).to_graph_out()
+    return build
+
+
+def pan2_chain(kt, gg):
+    """tests/test_chain_kernel.py:431: ten Pan2 stages, stereo folded back
+    to mono between them, from a PolyBlep square."""
+    prev = gg.push(kt.PolyBlep(kt.Waveform.Square, 330.0))
+    for i in range(10):
+        p = gg.push(kt.Pan2(-0.4 + 0.08 * i))
+        prev.to(p)
+        prev = p.out([0]) + p.out([1])
+    (prev * 0.1).to_graph_out()
+
+
+def chain_paths(kt):
+    """The graphs whose chains run the new bodies: name -> builder."""
+    return {
+        "polyblep_cascade": polyblep_cascade,
+        "graphic_eq_31": graphic_eq_31,
+        "onepole_chain": onepole_chain,
+        "env_asr_chain": env_chain(kt.EnvAsr),
+        "env_asr_free_parent": env_chain(kt.EnvAsr, kt.Done.FREE_PARENT),
+        "env_ar_chain": env_chain(kt.EnvAr),
+        "pan2_chain": pan2_chain,
+    }
+
+
+def restart_envelopes(g):
+    """Trigger every envelope of the graph now (an eventful block)."""
+    for nid, e in list(g.nodes.items()):
+        if "t_restart" in e.ugen.param_names():
+            g.handle(nid).param("t_restart").trig()
+
+
+def records_of(program, body):
+    """[(stage-record index, record)] of a program's records of one body."""
+    return [(i, r) for i, r in enumerate(program.records()) if r[0].name == body]
+
+
+def edge_operands(torch, np, kck, program, ops, B, seed):
+    """The captured operands with the state and planes moved to the edges:
+    phases within 2^26 of 2^32; one SVF stage's cutoff at 23,900 Hz (just
+    under Nyquist) and random filter state; envelope stages cycling through
+    an attack that crosses 1 mid-block, a release that ends mid-block,
+    sustain and stopped for EnvAsr, and an attack that crosses and then a
+    release that ends in the same block for EnvAr."""
+    rng = np.random.default_rng(seed)
+    K = ops["K"]
+    state = ops["state"].clone()
+    planes = ops["planes"].clone()
+    dev = state.device
+
+    def set_plane(src, k, value):
+        if src[0] == kck.SRC_PLANE:
+            planes[src[1], k] = value
+
+    def f32_words(x):
+        return torch.from_numpy(np.asarray(x, np.float32).view(np.int32)).to(dev)
+
+    for name in ("polyblep", "sinwt"):
+        for _, rec in records_of(program, name):
+            state[rec[5]] = u32_near_top(torch, np, K, seed, dev)
+    for _, rec in records_of(program, "svf"):
+        set_plane(rec[3][1], K // 2, 23900.0)
+        state[rec[5]:rec[5] + 2] = f32_words(rng.uniform(-0.5, 0.5, (2, K)))
+    for body in ("env_asr", "env_ar"):
+        for _, rec in records_of(program, body):
+            srow = rec[5]
+            for k in range(K):
+                # rate 1/(B/2) attack from t = 0.5: crosses at ~B/4; rate
+                # 2/B release from 1 (EnvAr) ends at ~3B/4, from 0.5 at ~B/4
+                set_plane(rec[3][0], k, (B / 2.0) / SR * (1.0 + 0.01 * k))
+                set_plane(rec[3][1], k, (B / 2.0) / SR * (1.0 + 0.013 * k))
+                stage = (1, 3, 2, 0)[k % 4] if body == "env_asr" else (1, 3)[k % 2]
+                words = f32_words([rng.uniform(0.5, 1.0), 0.0, 0.5])
+                words[1] = stage
+                state[srow:srow + 3, k] = words
+    return dict(ops, state=state, planes=planes)
+
+
+def compare_chain(torch, kck, program, run, where):
+    """Kernel against plain on one set of operands: outputs, state words and
+    done rows bit-equal. Returns the kernel's (out, state, done)."""
+    ok, sk, dk = kck.chain_kernel(program, **run)
+    op, sp, dp = kck.chain_kernel_plain(program, **run)
+    torch.cuda.synchronize()
+    if not torch.equal(sk, sp):
+        fail(f"{where}: state differs from the plain version in "
+             f"{int((sk != sp).sum())} words")
+    if not torch.equal(bits(ok), bits(op)):
+        fail(f"{where}: outputs differ from the plain version by "
+             f"{float((ok - op).abs().max())} in {int((bits(ok) != bits(op)).sum())} samples")
+    if not torch.equal(dk, dp):
+        fail(f"{where}: done rows differ from the plain version in "
+             f"{int((dk != dp).sum())} samples")
+    if not bool(torch.isfinite(ok).all()):
+        fail(f"{where}: non-finite outputs")
+    return ok, sk, dk
+
+
+def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
+    """The chain kernel against its plain version on the lowered programs of
+    the subtractive slice's chains, at every B, from the graph's own state
+    (after an eventful block that restarts the envelopes) and from the edge
+    state. Returns the max |output difference| (0.0: bit-equal)."""
+    kck = stage_module("chain_kernel")
+    for name, build in chain_paths(kt).items():
+        if names is not None and name not in names:
+            continue
+        dones = 0
+        for B in Bs:
+            g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
+                                            device=dev)
+            g.edit(lambda gg: build(kt, gg))
+            restart_envelopes(g)
+            proc.render(frames=B, fetch=False)
+            program, ops = capture_chain(torch, proc)
+            for label, run in (("graph state", ops),
+                               ("edge state", edge_operands(torch, np, kck, program, ops, B,
+                                                            B + program.n_state))):
+                _, _, dk = compare_chain(torch, kck, program, run,
+                                         f"chain_kernel {name} B={B} {label}")
+                dones += int(dk.sum())
+        bodies = sorted({r[0].name for r in program.records()})
+        print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
+              f"bodies {bodies}, {program.n_done} done planes) B={Bs}: state, outputs "
+              f"and done rows bit-equal; {dones} done samples compared set")
+        if program.n_done and not dones:
+            fail(f"chain_kernel {name}: no done row was set in any compared block")
+    return 0.0
+
+
+def subtractive_voice(kt, g):
+    """tests/golden_configs.py:57-82 (config 2): a PolyBlep saw into an SVF
+    lowpass gated by EnvAsr, with sample-accurate cutoff sets, a smoothing
+    ramp, a restart and a release at frame 12,000."""
+    hs = {}
+
+    def build(gg):
+        saw = gg.push(kt.PolyBlep(kt.Waveform.Sawtooth, 110.0))
+        svf = gg.push(kt.SvfFilter(kt.SvfFilterType.Low, 900.0, q=2.5))
+        env = gg.push(kt.EnvAsr(attack_time=0.01, release_time=0.08))
+        saw.to(svf)
+        (svf * env * 0.5).to_graph_out()
+        hs["svf"], hs["env"] = svf, env
+
+    g.edit(build)
+    hs["env"].param("t_restart").trig()
+    cutoff = hs["svf"].param("cutoff_freq")
+    cutoff.set_at(500.0, kt.Seconds.from_samples(4000, SR))
+    cutoff.smooth(kt.Smoothing.linear(0.1))
+    cutoff.set_at(4500.0, kt.Seconds.from_samples(4801, SR))
+    hs["env"].param("t_release").trig_at(kt.Seconds.from_samples(12000, SR))
+
+
+def kernel_vs_scan(torch, kt, dev, build, n_blocks, skip):
+    """The graph's blocks ``skip`` to ``skip + n_blocks`` through the scan
+    executor on the card (``_MODE = "0"``); returns (audio tensor, seconds
+    for them)."""
+    import knaster_tpu_torch.graph.chain_kernel as gck
+
+    gck._MODE = "0"
+    try:
+        g, scan = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                        device=dev)
+        g.edit(lambda gg: build(kt, gg))
+        restart_envelopes(g)
+        scan.render(frames=skip * BLOCK, fetch=False)
+        t0 = time.perf_counter()
+        ref = scan.render(frames=n_blocks * BLOCK, fetch=False)
+        torch.cuda.synchronize()
+        return ref, time.perf_counter() - t0
+    finally:
+        gck._MODE = None
+
+
+def phase_subtractive_slices(torch, np, kt, dev, card):
+    """The subtractive slice through AudioProcessor.render on the card.
+    Returns {path: chain kernel launches}."""
+    launches = {}
+    # subtractive_voice: the golden config, card against the CPU render;
+    # three nodes are no chain, so no kernel runs
+    renders = {}
+    for d in (dev, "cpu"):
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                        dtype=torch.float32, device=d)
+        subtractive_voice(kt, g)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        renders[str(d)] = np.asarray(proc.render(frames=19200))
+        secs = time.perf_counter() - t0
+        if d == dev:
+            expect_counts(read_all_counts(), {}, "subtractive_voice")
+            card_secs = secs
+    gap = float(np.abs(renders[str(dev)] - renders["cpu"]).max())
+    peak = float(np.abs(renders["cpu"]).max())
+    if gap > 1e-6 or not np.isfinite(renders[str(dev)]).all() or peak < 0.5:
+        fail(f"subtractive_voice: card vs CPU render differ by {gap} (peak {peak})")
+    print(f"slice subtractive_voice: 0.4 s on the card ({card_secs:.3f} s, realtime x "
+          f"{0.4 / card_secs:.4g}) equals the CPU render to {gap:.3e} (peak {peak:.4g}); "
+          "no kernel on its path")
+
+    n_blocks = int(GRAPH_SECONDS * SR) // BLOCK
+    for name in ("polyblep_cascade", "graphic_eq_31"):
+        build = chain_paths(kt)[name]
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                        device=dev)
+        g.edit(lambda gg: build(kt, gg))
+        # the blocks that carry the graph's initial param sets (eventful:
+        # the scan executor), then every block is event-free
+        proc.render(frames=WARM_BLOCKS * BLOCK, fetch=False)
+        reset_all_counts()
+        audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
+        counts = read_all_counts()
+        expect_counts(counts, {"chain_kernel": n_blocks}, name)
+        launches[name] = counts["chain_kernel"]
+        if [k for k, _ in proc.compiled.plan].count("chain") != 1:
+            fail(f"{name}: the graph did not collapse into one chain")
+        peak = float(audio.abs().max())
+        if not bool(torch.isfinite(audio).all()) or peak == 0.0:
+            fail(f"{name}: output not finite or silent")
+        _, secs2 = render_timed(torch, proc, GRAPH_SECONDS)
+        ref, t_scan = kernel_vs_scan(torch, kt, dev, build, 64, WARM_BLOCKS)
+        head = audio[:, :64 * BLOCK].contiguous()
+        if not torch.equal(bits(head), bits(ref)):
+            fail(f"{name}: the kernel path differs from the scan executor by "
+                 f"{float((head - ref).abs().max())}")
+        print(f"slice {name}: {n_blocks} blocks of {BLOCK} in {secs:.4f} s, realtime x "
+              f"{GRAPH_SECONDS / secs:.4g} (again: {GRAPH_SECONDS / secs2:.4g}) on {card}; "
+              f"chain kernel launches {counts['chain_kernel']} (one per event-free "
+              f"block); peak {peak:.4g}; its first 64 blocks bit-equal to the scan "
+              f"executor's ({t_scan:.2f} s for them)")
+
+    # the test shapes at B = 16: restart, then release; kernel path against
+    # the scan executor, and the FREE_PARENT chain zeroes the output from
+    # its done frame
+    for name in ("onepole_chain", "env_asr_chain", "env_asr_free_parent", "env_ar_chain",
+                 "pan2_chain"):
+        build = chain_paths(kt)[name]
+        runs = {}
+        for mode in (None, "0"):
+            import knaster_tpu_torch.graph.chain_kernel as gck
+
+            gck._MODE = mode
+            try:
+                g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                                device=dev)
+                g.edit(lambda gg: build(kt, gg))
+                restart_envelopes(g)
+                reset_all_counts()
+                a = proc.render(frames=64)
+                for nid, e in list(g.nodes.items()):
+                    if "t_release" in e.ugen.param_names():
+                        g.handle(nid).param("t_release").trig()
+                b = proc.render(frames=320)
+                runs[mode] = (np.concatenate([a, b], axis=1), read_all_counts(), proc)
+            finally:
+                gck._MODE = None
+        (audio, counts, proc), (ref, _, _) = runs[None], runs["0"]
+        if counts["chain_kernel"] < 1 or not np.array_equal(audio, ref):
+            fail(f"{name}: kernel path ({counts['chain_kernel']} launches) differs from "
+                 f"the scan executor by {float(np.abs(audio - ref).max())}")
+        note = ""
+        if name == "env_asr_free_parent":
+            nz = np.flatnonzero(np.abs(audio[0]) > 0)
+            if not nz.size or nz[-1] >= audio.shape[1] - 1 or not proc.freed:
+                fail(f"{name}: the output was not zeroed from the done frame on")
+            note = f"; the output is zero from frame {nz[-1] + 1} on, the graph freed"
+        elif name.startswith("env"):
+            if np.abs(audio[:, -16:]).max() != 0.0:
+                fail(f"{name}: the release did not end")
+        print(f"slice {name} (B=16): {counts['chain_kernel']} chain kernel launches, "
+              f"384 samples equal to the scan executor's{note}")
+    return launches
 
 
 def render_timed(torch, proc, seconds):
@@ -886,11 +1293,12 @@ def phase_stage_timings(torch, np, kt, dev, card):
     outputs) of the two stage-loop kernels at B in {16, 64, 1024}, and at
     B = 64 the profiler's device ms and plain ms; the 256-stage graph
     cascade gives the chain kernel K = 255 (its first sine heads the
-    chain). Returns {kernel: (ms, plain_ms)} at B = 64."""
+    chain). Returns {kernel: (ms, plain_ms, bound_ms,
+    bound_by)} at B = 64."""
     f2pi, scale = stage_consts(np)
     kck, kfc = stage_module("chain_kernel"), stage_module("fm_cascade")
     out = {}
-    for B in (16, BLOCK, 1024):
+    for B in STAGE_BLOCKS:
         params = torch.tensor(FM_PARAM_SETS[0][1], dtype=torch.float32, device=dev)
         ph = u32_near_top(torch, np, CASCADE, 0, dev)
         buf = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -912,10 +1320,65 @@ def phase_stage_timings(torch, np, kt, dev, card):
             fm_plain = time_call(
                 torch, lambda: kfc.fm_cascade_plain(**dict(ops, phases=ph.clone())), 3)
             ch_plain = time_call(torch, lambda: kck.chain_kernel_plain(program, **cops), 3)
-            out = {"fm_cascade": (fm_ms, fm_plain), "chain_kernel": (ch_ms, ch_plain)}
+            fm_bound = bound(tensor_bytes(params, ph, ph, buf),
+                             OPS_PER_SAMPLE["fm_cascade"] * CASCADE * B)
+            out = {"fm_cascade": (fm_ms, fm_plain) + fm_bound,
+                   "chain_kernel": (ch_ms, ch_plain) + chain_bound(program, cops)}
             line += (f"; profiler device {fm_dev} and {ch_dev} ms; plain {fm_plain:.3f} "
-                     f"and {ch_plain:.3f} ms")
+                     f"and {ch_plain:.3f} ms; bound {fm_bound[0]:.5f} ms ({fm_bound[1]}) "
+                     f"and {out['chain_kernel'][2]:.5f} ms ({out['chain_kernel'][3]})")
         print(line)
+    return out
+
+
+# f32 operations per sample of each chain-kernel body, counted from
+# csrc/chain_kernel.cu as OPS_PER_SAMPLE is (a lower bound); the scan
+# bodies add their log2(B) Hillis-Steele steps
+def body_ops(name, B, channels):
+    steps = max(1, math.ceil(math.log2(B)))
+    return {"constant": 0, "math": channels, "math1": channels, "sinwt": 5,
+            "polyblep": 24, "svf": 57 + 18 * steps, "onepole_lpf": 11 + 3 * steps,
+            "onepole_hpf": 12 + 3 * steps, "env_asr": 16 + 2 * steps,
+            "env_ar": 24 + 2 * steps, "pan2": 7}[name]
+
+
+def chain_bound(program, ops):
+    """(bound_ms, bound_by) of one chain kernel launch on ``ops``."""
+    kck = stage_module("chain_kernel")
+    K, B = ops["K"], ops["block_size"]
+    n_ops = K * B * sum(body_ops(r[0].name, B, len(r[4])) for r in program.records())
+    outs = kck.empty_outputs(program, ops["state"].device, K, B)
+    return bound(tensor_bytes(ops, outs) + 4 * len(program.words), n_ops)
+
+
+def phase_chain_path_timings(torch, kt, dev, card):
+    """The chain kernel's ms per block on the subtractive slice's two
+    chain paths at every B (CUDA events over back-to-back launches into
+    preallocated outputs), with the profiler's device time, the plain
+    version's ms and the bound at B = 64. Returns {path: (ms, plain_ms,
+    bound_ms, bound_by)} at B = 64."""
+    kck = stage_module("chain_kernel")
+    out = {}
+    for name in ("polyblep_cascade", "graphic_eq_31"):
+        build = chain_paths(kt)[name]
+        line = []
+        for B in STAGE_BLOCKS:
+            g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
+                                            device=dev)
+            g.edit(lambda gg: build(kt, gg))
+            program, cops = capture_chain(torch, proc)
+            outs = kck.empty_outputs(program, dev, cops["K"], B)
+            ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
+            b_ms, b_by = chain_bound(program, cops)
+            line.append(f"B={B} {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})")
+            if B == BLOCK:
+                dev_ms = device_ms(torch, lambda: kck.launch(outs, program, **cops),
+                                   "chain_kernel")
+                plain_ms = time_call(torch, lambda: kck.chain_kernel_plain(program, **cops), 3)
+                out[name] = (ms, plain_ms, b_ms, b_by)
+                line.append(f"profiler device {dev_ms} ms, plain {plain_ms:.3f} ms")
+        print(f"timing chain_kernel {name} K={cops['K']} p={program.period} on {card}: "
+              + "; ".join(line))
     return out
 
 
@@ -929,6 +1392,54 @@ def profile_render(torch, kt, dev, label, build, block_size, n=100):
     proc.render(frames=8 * block_size, fetch=False)
     profile_window(torch, label, lambda: proc.render(frames=n * block_size, fetch=False),
                    n)
+
+
+# Times the chain kernel on the 256-stage FM cascade's lowered program at
+# B = 16 and 64 in the checkout it runs in (any version of this script has
+# the helpers it calls); prints one line "chain_ab <label> <ms16> <ms64>".
+AB_SNIPPET = """
+import sys, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+import knaster_tpu_torch as kt
+from knaster_tpu_torch.kernels import chain_kernel as kck
+dev = torch.device("cuda", 0)
+ms = []
+for B in (16, 64):
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
+                                    device=dev)
+    g.edit(lambda gg: cs.build_cascade(kt, gg, 256))
+    program, ops = cs.capture_chain(torch, proc)
+    outs = kck.empty_outputs(program, dev, ops["K"], B)
+    ms.append(min(cs.time_call(torch, lambda: kck.launch(outs, program, **ops), 300)
+                  for _ in range(3)))
+print("chain_ab", sys.argv[1], *("%.4f" % m for m in ms))
+"""
+
+
+def phase_chain_ab(other, card):
+    """The chain kernel on the FM cascade in this checkout and in ``other``
+    (another checkout of the repository, e.g. the parent commit), in turns
+    other, this, this, other, each in its own process on this card."""
+    lines = []
+    for label, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
+        run = subprocess.run([sys.executable, "-c", AB_SNIPPET, label], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        line = [x for x in run.stdout.splitlines() if x.startswith("chain_ab")]
+        if run.returncode != 0 or not line:
+            fail(f"chain A/B in {root}: {run.stderr[-2000:]}")
+        lines.append(line[0])
+    print(f"A/B chain_kernel on fm_cascade (ms at B=16, 64) on {card}, {other} as "
+          f"other: " + "; ".join(x[len("chain_ab "):] for x in lines))
+
+
+def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, label=None):
+    """One entry of the kernels line. No single PyTorch call computes any of
+    these DSP kernels' functions, so ``library_ms`` is null."""
+    return {"name": label or name, "route": "cuda",
+            "source": f"knaster_tpu_torch/csrc/{name}.cu", "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def main():
@@ -970,6 +1481,7 @@ def main():
     errs["fm_cascade"] = phase_fm_cascade_vs_plain(torch, np, dev)
     errs["chain_kernel"] = phase_chain_vs_plain(torch, np, ktt, dev)
     phase_bodies_vs_plain(torch, ktt, dev)
+    phase_subtractive_vs_plain(torch, np, ktt, dev)
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
@@ -997,6 +1509,7 @@ def main():
         fail(f"generic FM slice: mix differs from the hand FM bank by {gap}")
     print(f"slice generic-fm vs fm: state equal, max |mix diff| {gap:.3e}")
     stage_launches = phase_graph_slices(torch, np, ktt, dev, card)
+    path_launches = phase_subtractive_slices(torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -1004,19 +1517,11 @@ def main():
     table = []
     for kind in ("sine", "fm", "sub", "wt", "generic-fm"):
         bank, state, launches, _ = results[kind]
-        ms, plain_ms = phase_timings(torch, ktt, kind, bank, state, card)
+        ms, plain_ms, bound_ms, bound_by = phase_timings(torch, ktt, kind, bank, state, card)
         profile_blocks(torch, kind, bank, ctx, state)
         name = kernel_module(kind).KERNEL
-        table.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"knaster_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name],
-            "launches": launches,
-            "max_abs_err": errs[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-        })
+        table.append(kernel_row(name, launches, errs[name], ms, plain_ms, bound_ms,
+                                bound_by))
     profile_render(torch, ktt, dev, "fm_cascade graph",
                    lambda gg: build_cascade(ktt, gg, CASCADE), BLOCK)
     profile_render(torch, ktt, dev, "fm_cascade_model",
@@ -1028,20 +1533,21 @@ def main():
             (gg.push(ktt.SinWt(float(rng.uniform(100, 1000)))) * 0.001).to_graph_out()
 
     profile_render(torch, ktt, dev, "sines_const B=64", sines, BLOCK)
-    for name, (ms, plain_ms) in phase_stage_timings(torch, np, ktt, dev, card).items():
-        table.append({
-            "name": name,
-            "route": "cuda",
-            "source": f"knaster_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name],
-            "launches": stage_launches[name],
-            "max_abs_err": errs[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-        })
+    for name in ("polyblep_cascade", "graphic_eq_31"):
+        profile_render(torch, ktt, dev, name,
+                       lambda gg, b=chain_paths(ktt)[name]: b(ktt, gg), BLOCK)
+    for name, row in phase_stage_timings(torch, np, ktt, dev, card).items():
+        table.append(kernel_row(name, stage_launches[name], errs[name], *row))
+    # the chain kernel on the subtractive slice's two chain paths: one row
+    # each, with that path's launches
+    for path, row in phase_chain_path_timings(torch, ktt, dev, card).items():
+        table.append(kernel_row("chain_kernel", path_launches[path], errs["chain_kernel"],
+                                *row, label=f"chain_kernel:{path}"))
     print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--against":
+        phase_chain_ab(os.path.abspath(sys.argv[2]), card)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,13 @@
 The JAX package ``knaster_tpu`` is the reference; this package reproduces it
 slice by slice on PyTorch, with every Pallas TPU kernel rewritten by hand for
 NVIDIA Hopper. It imports no JAX. Ported so far: the graph (edit, compile,
-render) with the UGens of the README example and the FM cascade, and the
-fused voice banks. The README example::
+render) with the UGens of the README example, the subtractive voice's
+(``PolyBlep``, ``SvfFilter``, the one-poles, ``EnvAsr``/``EnvAr``, ``Pan2``)
+and the FM cascade, and the fused voice banks. The README example::
 
     import knaster_tpu_torch as kt
 
-    graph, proc = kt.knaster(outputs=2, device="cuda")   # default "cpu"
+    graph, proc = kt.knaster(outputs=2)       # on the card; device="cpu" for the CPU
     def build(g):
         sine = g.push(kt.SinWt(440.0))
         amp = g.push(kt.Constant(0.2))
@@ -29,8 +30,9 @@ The banks run through their own API::
 (also ``FusedFMVoiceBank``, ``FusedSubtractiveVoiceBank``,
 ``FusedWavetableVoiceBank(V, table=...)``, ``FusedVoiceBank(FMVoice(), V)``).
 Kernels run on CUDA tensors (built with nvcc at first use); CPU tensors take
-each kernel's plain torch version. The device is always the caller's:
-nothing picks one.
+each kernel's plain torch version. Graphs render on the card unless the
+caller passes ``device="cpu"``, and raise where there is no card; a bank's
+state lies on the device its ``init`` is given.
 """
 
 from .core.ugen import AudioCtx, UGen
@@ -67,8 +69,12 @@ from .primitives import (
     ptrigger,
     set_default_dtype,
 )
+from .ugens.envelopes import EnvAr, EnvAsr
+from .ugens.filters import OnePoleHpf, OnePoleLpf, SvfFilter, SvfFilterType
 from .ugens.math import Math1UGen, MathUGen
 from .ugens.osc import SinWt
+from .ugens.pan import Pan2
+from .ugens.polyblep import PolyBlep, Waveform
 from .ugens.util import Constant
 from .ugens.wavetable import NonAaWavetable, harmonics_from_table
 
@@ -92,6 +98,15 @@ __all__ = [
     "Constant",
     "MathUGen",
     "Math1UGen",
+    "PolyBlep",
+    "Waveform",
+    "SvfFilter",
+    "SvfFilterType",
+    "OnePoleLpf",
+    "OnePoleHpf",
+    "EnvAsr",
+    "EnvAr",
+    "Pan2",
     "FMCascade",
     "Beats",
     "Seconds",
@@ -127,10 +142,11 @@ __all__ = [
 
 
 def knaster(outputs: int = 2, sample_rate: int = 48000, block_size: int = 64,
-            device="cpu", dtype=None):
+            device="cuda", dtype=None):
     """One-liner entry point (reference knaster/src/lib.rs:79 ``knaster()``):
-    a ``(graph, processor)`` pair ready for offline rendering on ``device``
-    ("cpu" unless the caller names another)."""
+    a ``(graph, processor)`` pair ready for offline rendering on ``device``:
+    the card unless the caller passes ``device="cpu"``; raises where there
+    is no card."""
     opts = AudioProcessorOptions(block_size=block_size, sample_rate=sample_rate)
     return AudioProcessor.new(inputs=0, outputs=outputs, options=opts, dtype=dtype,
                               device=device)

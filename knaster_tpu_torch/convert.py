@@ -21,7 +21,9 @@ A compiled graph's state ``{"nodes", "pe", "fb"}`` has the same keys in
 both packages for the same graph (the plan, and so every state, group and
 chain key, is the JAX package's), so it crosses leaf by leaf: batched
 groups and chain stacks keep their leading axes, uint32 leaves (oscillator
-phases) become int32 bit patterns, everything else keeps its dtype.
+and PolyBlep phases) become int32 bit patterns, everything else keeps its
+dtype (the SVF's ``ic`` [..., 2] and the one-poles' ``last`` as f32, the
+envelopes' ``stage`` as int32 beside their f32 ``t`` and ``release_scale``).
 """
 
 from __future__ import annotations

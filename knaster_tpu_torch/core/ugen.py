@@ -42,6 +42,11 @@ class AudioCtx:
     # all-False, so nodes may skip trigger machinery. Must not change what
     # ``process`` computes.
     no_events: bool = False
+    # True when ``process`` runs over a WIDE batch (a voice bank): the
+    # envelopes then keep their per-sample loop instead of the event-free
+    # closed form, as in the JAX package. Must not change what ``process``
+    # computes beyond float reassociation.
+    wide_batch: bool = False
 
     @property
     def nyquist(self) -> float:

@@ -10,10 +10,12 @@
 //
 // Program layout (int32):
 //   [0] p  [1] n_carry  [2] n_slots  [3] n_ext  [4] n_state  [5] n_out
-//   [6, 6 + n_carry)            the slot each carry row is copied from at
+//   [6] n_done  [7] n_scratch
+//   [8, 8 + n_carry)            the slot each carry row is copied from at
 //                               the end of a stage
-//   [6 + n_carry, .. + p)       the start of each offset's record
-//   record: op, arg, n_in, n_par, n_out, state_row, in_tab, par_tab, out_tab
+//   [8 + n_carry, .. + p)       the start of each offset's record
+//   record: op, arg, n_in, n_par, n_out, state_row, in_tab, par_tab, out_tab,
+//           done_plane (-1 unless the unit may set done)
 //     in_tab:  n_in pairs (start, count) of source lists; a list is count
 //              (kind, index) pairs summed left to right (0.0 when empty)
 //     par_tab: n_par (kind, index) sources, in the body's param order
@@ -23,21 +25,37 @@
 //   1 a carry row (an output of the previous stage), 2 an external row,
 //   3 a param plane planes[index][k][t].
 //
-// Operands: planes f32 [n_planes, K, B] (stage-stacked float params),
-// state i32 [n_state, K] (state words, u32 as bit patterns), rows f32
+// Operands: planes f32 [n_planes, K, B] (stage-stacked params; integer
+// params as whole-number floats), state i32 [n_state, K] (32-bit state
+// words: u32 phases, f32 values and int32 stages as bit patterns), rows f32
 // [n_ext + n_carry, B] (external rows, then the carry rows stage 0 reads);
-// out f32 [n_out, K, B] and state_out i32 [n_state, K].
+// out f32 [n_out, K, B], state_out i32 [n_state, K] and done u8 (torch
+// bool) [n_done, K, B].
 //
 // Design. One CTA per chain, one thread per sample. The rows of the stage
-// being computed (one slot per output channel) and the carry rows live in
-// shared memory; each thread reads and writes only its own samples there,
-// so the only cross-thread step is SinWt's phase scan, the block scan of
-// stage_scan.cuh shared with the cascade kernel. The k and j loops are
-// uniform across the block, and each record's body is a switch on its
-// opcode. What bounds it: K*p dependent bodies per block, each a few
-// instructions per sample plus, for SinWt, a scan and a sinf; one SM of
-// 132 does the work, which is what a serial 256-deep chain at B = 64 is.
-// Running several chains or graphs per launch is later work.
+// being computed (one slot per output channel), the carry rows and the
+// scan scratch live in shared memory. Each thread reads and writes only its
+// own samples of the slots and carry rows; the cross-thread steps are the
+// block scans: SinWt's and PolyBlep's u32 phase sums (stage_scan.cuh), and
+// the Hillis-Steele doubling of the filters' affine maps and the
+// envelopes' rate cumsums, log2(B) steps over ping-pong scratch rows with
+// one __syncthreads() a step, with the identity fills and the multiply-add
+// order of the plain versions (knaster_tpu_torch/core/dsp.py). EnvAr's
+// anchor R[k] is a block min. With --fmad=false every product and sum
+// rounds on its own, as in the plain torch versions, so state, outputs and
+// done rows are bit-equal to them at every B; the transcendental calls
+// (sinf, cosf, expf, powf) are the libdevice functions torch's CUDA ops
+// call. The k and j loops are uniform across the block, each record's body
+// is a switch on its opcode, and PolyBlep's waveform switch reads one
+// plane value per stage, so every warp takes the same branch. A stage's
+// done row is written after its output. The subtractive slice's bodies
+// are out-of-line functions: inlined, they made the switch so large that
+// the SinWt/Math stage loop of the FM cascade ran 19% slower on an H100.
+//
+// What bounds it: K*p dependent bodies per block, each a few instructions
+// per sample plus, for the scan bodies, log2(B) barrier-separated steps;
+// one SM of 132 does the work, which is what a serial 256-deep chain at
+// B = 64 is. Running several chains or graphs per launch is later work.
 
 #include "stage_scan.cuh"
 
@@ -46,19 +64,49 @@ namespace {
 using namespace ktt;
 
 // body opcodes (knaster_tpu_torch/kernels/chain_kernel.py BODIES)
-constexpr int kOpConstant = 0, kOpSinWt = 1, kOpMath = 2, kOpMath1 = 3;
+constexpr int kOpConstant = 0, kOpSinWt = 1, kOpMath = 2, kOpMath1 = 3, kOpPolyBlep = 4,
+              kOpSvf = 5, kOpLpf = 6, kOpHpf = 7, kOpEnvAsr = 8, kOpEnvAr = 9,
+              kOpPan2 = 10;
 // Math args (ugens/math.py KERNEL_BINOPS) and Math1 args (KERNEL_UNOPS)
 constexpr int kAdd = 0, kSub = 1, kMul = 2, kDiv = 3;
 constexpr int kCeil = 0, kFloor = 1, kSqrt = 2, kExp = 3, kAbs = 4, kNeg = 5,
               kLog = 6, kSin = 7, kCos = 8, kTanh = 9;
 constexpr int kSrcSlot = 0, kSrcCarry = 1, kSrcRow = 2, kSrcPlane = 3;
-constexpr int kHeader = 6;
+constexpr int kHeader = 8;
+
+// Python's float constants, rounded to f32 as torch rounds a Python number
+// (double first, then to the nearest float)
+constexpr double kPi = 3.141592653589793;
+constexpr float kPiF = static_cast<float>(kPi);
+constexpr float kTau = static_cast<float>(2.0 * kPi);
+constexpr float kHalfPi = static_cast<float>(kPi / 2.0);
+constexpr float kTwoOverPi = static_cast<float>(2.0 / kPi);
+constexpr float kFourOverPi = static_cast<float>(4.0 / kPi);
+constexpr float kThird = static_cast<float>(1.0 / 3.0);
+constexpr float kNegTwoPi = static_cast<float>(-2.0 * kPi);
+constexpr float kPwLo = static_cast<float>(0.0001), kPwHi = static_cast<float>(0.9999);
+constexpr float kBig = static_cast<float>(3.4e38);
+// the degree-9 sine polynomial (core/dsp.py SIN9_C)
+constexpr float kS1 = static_cast<float>(-0.16666652), kS2 = static_cast<float>(0.008332964),
+                kS3 = static_cast<float>(-0.00019804752),
+                kS4 = static_cast<float>(2.5981028e-06);
+// PolyBlep's u32 phase: 2^30 units a cycle, t from the top 24 bits
+constexpr uint32_t kPhaseMask = (1u << 30) - 1u;
+constexpr float kTScale = 1.0f / 16777216.0f;
+// EnvAsr stages (envelopes.rs AsrState)
+constexpr int kStopped = 0, kAttacking = 1, kSustaining = 2, kReleasing = 3;
+
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
 
 struct Frame {
   const float* planes;
   const float* rows;
   float* slots;
   float* carry;
+  float* scratch;
   int K, B, k;
 };
 
@@ -78,7 +126,7 @@ __device__ __forceinline__ float input(const Frame& f, const int* prog, int in_t
   if (count == 0) return 0.0f;
   float acc = fetch(f, prog[start], prog[start + 1], t);
   for (int i = 1; i < count; ++i)
-    acc = __fadd_rn(acc, fetch(f, prog[start + 2 * i], prog[start + 2 * i + 1], t));
+    acc = add(acc, fetch(f, prog[start + 2 * i], prog[start + 2 * i + 1], t));
   return acc;
 }
 
@@ -96,10 +144,10 @@ __device__ __forceinline__ void emit(const Frame& f, const int* prog, int out_ta
 
 __device__ __forceinline__ float binop(int op, float a, float b) {
   switch (op) {
-    case kAdd: return __fadd_rn(a, b);
-    case kSub: return __fsub_rn(a, b);
-    case kMul: return __fmul_rn(a, b);
-    default: return __fdiv_rn(a, b);
+    case kAdd: return add(a, b);
+    case kSub: return sub(a, b);
+    case kMul: return mul(a, b);
+    default: return fdiv(a, b);
   }
 }
 
@@ -118,22 +166,524 @@ __device__ __forceinline__ float unop(int op, float x) {
   }
 }
 
-__global__ void chain_kernel(const int* __restrict__ prog,
+// ---------------------------------------------------------------------------
+// PolyBlep (ugens/polyblep.py): the 14 waveforms of (t, dt, pulse width)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float frac(float t) { return sub(t, truncf(t)); }
+__device__ __forceinline__ float sel(bool c, float a, float b) { return c ? a : b; }
+
+__device__ float blep(float t, float dt) {
+  const float a = sub(fdiv(t, dt), 1.0f);
+  const float b = add(fdiv(sub(t, 1.0f), dt), 1.0f);
+  return sel(t < dt, -mul(a, a), sel(t > sub(1.0f, dt), mul(b, b), 0.0f));
+}
+
+__device__ float blamp(float t, float dt) {
+  const float ta = sub(fdiv(t, dt), 1.0f);
+  const float a = mul(mul(mul(-kThird, ta), ta), ta);
+  const float tb = add(fdiv(sub(t, 1.0f), dt), 1.0f);
+  const float b = mul(mul(mul(kThird, tb), tb), tb);
+  return sel(t < dt, a, sel(t > sub(1.0f, dt), b, 0.0f));
+}
+
+// y = 4t folded into the triangle: y - 4 from 3 up, 2 - y above 1
+__device__ __forceinline__ float fold4(float y) {
+  return sel(y >= 3.0f, sub(y, 4.0f), sel(y > 1.0f, sub(2.0f, y), y));
+}
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ float polyblep_wave(int w, float t, float dt, float pw) {
+  switch (w) {
+    case 0: {  // Sawtooth
+      const float u = frac(add(t, 0.5f));
+      return sub(sub(mul(2.0f, u), 1.0f), blep(u, dt));
+    }
+    case 1: return sinf(mul(t, kTau));  // Sine
+    case 2: return cosf(mul(t, kTau));  // Cosine
+    case 3: {  // Triangle
+      const float t1 = frac(add(t, 0.25f)), t2 = frac(add(t, 0.75f));
+      const float y = fold4(mul(t, 4.0f));
+      return add(y, mul(mul(4.0f, dt), sub(blamp(t1, dt), blamp(t2, dt))));
+    }
+    case 4: {  // Square
+      const float t2 = frac(add(t, 0.5f));
+      return sub(add(sel(t < 0.5f, 1.0f, -1.0f), blep(t, dt)), blep(t2, dt));
+    }
+    case 5: {  // Rectangle
+      const float t2 = frac(sub(add(t, 1.0f), pw));
+      const float y = add(mul(-2.0f, pw), sel(t < pw, 2.0f, 0.0f));
+      return sub(add(y, blep(t, dt)), blep(t2, dt));
+    }
+    case 6: {  // Ramp
+      const float u = frac(t);
+      return add(sub(1.0f, mul(2.0f, u)), blep(u, dt));
+    }
+    case 7: {  // ModifiedTriangle
+      const float p = clampf(pw, kPwLo, kPwHi);
+      const float t1 = frac(add(t, mul(0.5f, p)));
+      const float t2 = frac(sub(add(t, 1.0f), mul(0.5f, p)));
+      const float y2 = mul(t, 2.0f);
+      const float y = sel(y2 >= sub(2.0f, p), fdiv(sub(y2, 2.0f), p),
+                          sel(y2 >= p, sub(1.0f, fdiv(sub(y2, p), sub(1.0f, p))),
+                              fdiv(y2, p)));
+      return add(y, mul(fdiv(dt, sub(p, mul(p, p))), sub(blamp(t1, dt), blamp(t2, dt))));
+    }
+    case 8: {  // ModifiedSquare
+      const float q = mul(0.25f, sub(pw, 0.5f));
+      float t1 = frac(add(add(t, 0.875f), q));
+      float t2 = frac(add(add(t, 0.375f), q));
+      float y = sub(add(sel(t1 < 0.5f, 1.0f, -1.0f), blep(t1, dt)), blep(t2, dt));
+      const float h = mul(0.5f, sub(1.0f, pw));
+      t1 = frac(add(t1, h));
+      t2 = frac(add(t2, h));
+      y = sub(add(add(y, sel(t1 < 0.5f, 1.0f, -1.0f)), blep(t1, dt)), blep(t2, dt));
+      return mul(0.5f, y);
+    }
+    case 9: {  // HalfWaveRectifiedSine
+      const float t2 = frac(add(t, 0.5f));
+      const float y = sel(t < 0.5f, sub(mul(2.0f, sinf(mul(t, kTau))), kTwoOverPi),
+                          -kTwoOverPi);
+      return add(y, mul(mul(kTau, dt), add(blamp(t, dt), blamp(t2, dt))));
+    }
+    case 10: {  // FullWaveRectifiedSine
+      const float u = frac(add(t, 0.25f));
+      const float y = sub(mul(2.0f, sinf(mul(u, kPiF))), kFourOverPi);
+      return add(y, mul(mul(kTau, dt), blamp(u, dt)));
+    }
+    case 11: {  // TriangularPulse
+      const float t1 = frac(add(add(t, 0.75f), mul(0.5f, pw)));
+      const float y1 = mul(4.0f, t1);
+      const float y = sel(t1 >= pw, -pw,
+                          sel(y1 >= mul(2.0f, pw), sub(sub(4.0f, fdiv(y1, pw)), pw),
+                              sub(fdiv(y1, pw), pw)));
+      const float t2 = frac(sub(add(t1, 1.0f), mul(0.5f, pw)));
+      const float t3 = frac(sub(add(t1, 1.0f), pw));
+      const float corr = mul(fdiv(mul(2.0f, dt), pw),
+                             add(sub(blamp(t1, dt), mul(2.0f, blamp(t2, dt))),
+                                 blamp(t3, dt)));
+      return sel(pw > 0.0f, add(y, corr), y);
+    }
+    case 12: {  // TrapezoidFixed
+      float y = clampf(mul(2.0f, fold4(mul(4.0f, t))), -1.0f, 1.0f);
+      float t1 = frac(add(t, 0.125f));
+      float t2 = frac(add(t1, 0.5f));
+      y = add(y, mul(mul(4.0f, dt), sub(blamp(t1, dt), blamp(t2, dt))));
+      t1 = frac(add(t, 0.375f));
+      t2 = frac(add(t1, 0.5f));
+      return add(y, mul(mul(4.0f, dt), sub(blamp(t1, dt), blamp(t2, dt))));
+    }
+    default: {  // TrapezoidVariable
+      const float p = fminf(pw, kPwHi);
+      const float scale = fdiv(1.0f, sub(1.0f, p));
+      const float s2dt = mul(mul(scale, 2.0f), dt);
+      float y = clampf(mul(scale, fold4(mul(4.0f, t))), -1.0f, 1.0f);
+      float t1 = frac(sub(add(t, 0.25f), mul(0.25f, p)));
+      float t2 = frac(add(t1, 0.5f));
+      y = add(y, mul(s2dt, sub(blamp(t1, dt), blamp(t2, dt))));
+      t1 = frac(add(add(t, 0.25f), mul(0.25f, p)));
+      t2 = frac(add(t1, 0.5f));
+      return add(y, mul(s2dt, sub(blamp(t1, dt), blamp(t2, dt))));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// SvfFilter (ugens/filters.py svf_coefficients)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float sin_poly(float u) {
+  const float u2 = mul(u, u);
+  float p = add(mul(kS4, u2), kS3);
+  p = add(mul(p, u2), kS2);
+  p = add(mul(p, u2), kS1);
+  return mul(add(mul(p, u2), 1.0f), u);
+}
+
+// tan on [0, pi/2) as sin / sin(pi/2 - x) by the polynomial (core/dsp.py)
+__device__ __forceinline__ float tan_first_quadrant(float x) {
+  return fdiv(sin_poly(x), sin_poly(sub(kHalfPi, x)));
+}
+
+struct SvfCoefs {
+  float a1, a2, a3, m0, m1, m2;
+};
+
+// ty: the filter type as a float (SvfFilterType: Low 0, High 1, Band 2,
+// Notch 3, Peak 4, All 5, Bell 6, LowShelf 7, HighShelf 8; any other value
+// takes the defaults, as the chained wheres do)
+__device__ SvfCoefs svf_coefs(float ty, float cutoff, float q, float gain, float sr) {
+  const float amp = powf(10.0f, fdiv(gain, 40.0f));
+  const float sqrt_amp = __fsqrt_rn(amp);
+  const bool bell = ty == 6.0f, ls = ty == 7.0f, hs = ty == 8.0f;
+  const float g_base = tan_first_quadrant(fdiv(mul(kPiF, cutoff), sr));
+  const float g = (bell || ls) ? fdiv(g_base, sqrt_amp) : (hs ? mul(g_base, sqrt_amp) : g_base);
+  const float k = bell ? fdiv(1.0f, mul(q, amp)) : fdiv(1.0f, q);
+  SvfCoefs c;
+  c.a1 = fdiv(1.0f, add(1.0f, mul(g, add(g, k))));
+  c.a2 = mul(g, c.a1);
+  c.a3 = mul(g, c.a2);
+  const float amp2 = mul(amp, amp);
+  c.m0 = (ty == 0.0f || ty == 2.0f) ? 0.0f : (hs ? amp2 : 1.0f);
+  c.m1 = ty == 0.0f ? 0.0f
+       : ty == 2.0f ? 1.0f
+       : (ty == 3.0f || ty == 1.0f || ty == 4.0f) ? -k
+       : ty == 5.0f ? mul(-2.0f, k)
+       : bell ? mul(k, sub(amp2, 1.0f))
+       : ls ? mul(k, sub(amp, 1.0f))
+       : hs ? mul(mul(k, sub(1.0f, amp)), amp)
+       : 0.0f;
+  c.m2 = ty == 0.0f ? 1.0f
+       : ty == 1.0f ? -1.0f
+       : ty == 4.0f ? -2.0f
+       : ls ? sub(amp2, 1.0f)
+       : hs ? sub(1.0f, amp2)
+       : 0.0f;
+  return c;
+}
+
+// ---------------------------------------------------------------------------
+// Hillis-Steele block scans over shared scratch rows (core/dsp.py): at step
+// s, lane t combines with lane t - s, or with the identity where t < s.
+// Rows r of ping-pong buffer b live at scratch + (b * n + r) * B; each
+// returns the buffer that holds the result. The caller has written buffer
+// 0 and synchronised.
+// ---------------------------------------------------------------------------
+
+__device__ int scan_affine_1d(float* sc, int B) {  // rows A, C
+  int cur = 0;
+  for (int s = 1; s < B; s <<= 1) {
+    const float* A = sc + (cur * 2) * B;
+    const float* C = A + B;
+    float* nA = sc + ((cur ^ 1) * 2) * B;
+    float* nC = nA + B;
+    for (int t = threadIdx.x; t < B; t += blockDim.x) {
+      const bool has = t >= s;
+      const float al = has ? A[t - s] : 1.0f, cl = has ? C[t - s] : 0.0f;
+      nC[t] = add(mul(A[t], cl), C[t]);
+      nA[t] = mul(al, A[t]);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+__device__ int scan_affine_2x2(float* sc, int B) {  // rows A00 A01 A10 A11 C0 C1
+  int cur = 0;
+  for (int s = 1; s < B; s <<= 1) {
+    const float* r = sc + (cur * 6) * B;
+    float* n = sc + ((cur ^ 1) * 6) * B;
+    for (int t = threadIdx.x; t < B; t += blockDim.x) {
+      const bool has = t >= s;
+      const int u = t - s;
+      const float l00 = has ? r[u] : 1.0f, l01 = has ? r[B + u] : 0.0f,
+                  l10 = has ? r[2 * B + u] : 0.0f, l11 = has ? r[3 * B + u] : 1.0f,
+                  lc0 = has ? r[4 * B + u] : 0.0f, lc1 = has ? r[5 * B + u] : 0.0f;
+      const float a00 = r[t], a01 = r[B + t], a10 = r[2 * B + t], a11 = r[3 * B + t],
+                  c0 = r[4 * B + t], c1 = r[5 * B + t];
+      n[t] = add(mul(a00, l00), mul(a01, l10));
+      n[B + t] = add(mul(a00, l01), mul(a01, l11));
+      n[2 * B + t] = add(mul(a10, l00), mul(a11, l10));
+      n[3 * B + t] = add(mul(a10, l01), mul(a11, l11));
+      n[4 * B + t] = add(add(mul(a00, lc0), mul(a01, lc1)), c0);
+      n[5 * B + t] = add(add(mul(a10, lc0), mul(a11, lc1)), c1);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+__device__ int scan_cumsum_2(float* sc, int B) {  // two rows, x + x[t - s]
+  int cur = 0;
+  for (int s = 1; s < B; s <<= 1) {
+    const float* r = sc + (cur * 2) * B;
+    float* n = sc + ((cur ^ 1) * 2) * B;
+    for (int t = threadIdx.x; t < B; t += blockDim.x) {
+      const bool has = t >= s;
+      n[t] = add(r[t], has ? r[t - s] : 0.0f);
+      n[B + t] = add(r[B + t], has ? r[B + t - s] : 0.0f);
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  return cur;
+}
+
+// the minimum of one float per thread over the block; `red` is 32 words of
+// shared memory. Every thread of the block must call it.
+__device__ float block_min(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, d));
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < n_warps ? red[lane] : kBig;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) w = fminf(w, __shfl_xor_sync(0xffffffffu, w, d));
+    if (lane == 0) red[0] = w;
+  }
+  __syncthreads();
+  const float r = red[0];
+  __syncthreads();
+  return r;
+}
+
+// the envelopes' rate from a time: 1/(t*sr), t == 0 instant
+__device__ __forceinline__ float rate_from_time(float seconds, float sr) {
+  return seconds == 0.0f ? 1.0f : fdiv(1.0f, mul(seconds, sr));
+}
+
+__device__ __forceinline__ float word_f(uint32_t w) { return __uint_as_float(w); }
+__device__ __forceinline__ uint32_t f_word(float x) { return __float_as_uint(x); }
+
+// What a stage body reads and writes besides the frame: the program, the
+// state words, the outputs, the shared scan scratch and the constants.
+struct Io {
+  const int* prog;
+  const uint32_t* state;
+  uint32_t* state_out;
+  float* out;
+  uint32_t* scan32;  // 32 words of shared memory (block_scan_u32)
+  float* red;        // 32 words of shared memory (block_min)
+  float f2pi, scale, sr;
+};
+
+// One record of the program, decoded.
+struct Rec {
+  int arg, n_out, srow, in_tab, par_tab, out_tab;
+  uint8_t* done_row;  // this stage's done row, or null
+};
+
+// The bodies of the subtractive slice run out of line (__noinline__), so
+// that the stage loop the SinWt, Constant and Math bodies share stays small;
+// every thread of the block calls them.
+
+__device__ __noinline__ void body_polyblep(const Frame& f, const Io& io, const Rec& rc) {
+  // params: waveform, freq, pulse_width; the phase as SinWt's, in 2^30
+  // units a cycle (f2pi is the same constant); the waveform from sample 0
+  const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
+  const uint32_t ph0 = io.state[rc.srow * K + k];
+  const float wv = param(f, io.prog, rc.par_tab, 0, 0);
+  const int w = wv <= 0.0f ? 0 : (wv >= 13.0f ? 13 : static_cast<int>(wv));
+  const float quarter = mul(io.sr, 0.25f);
+  uint32_t running = 0u;
+  for (int t0 = 0; t0 < B; t0 += blockDim.x) {
+    const int t = t0 + tid;
+    const bool live = t < B;
+    uint32_t inc = 0u;
+    float freq = 0.0f, pw = 0.0f;
+    if (live) {
+      freq = param(f, io.prog, rc.par_tab, 1, t);
+      pw = param(f, io.prog, rc.par_tab, 2, t);
+      inc = inc_u32(mul(freq, io.f2pi));
+    }
+    uint32_t total;
+    const uint32_t incl = block_scan_u32(inc, io.scan32, &total);
+    if (live) {
+      const uint32_t ph = ph0 + running + incl - inc;
+      const float tt = mul(static_cast<float>(static_cast<int>((ph & kPhaseMask) >> 6)), kTScale);
+      float y = polyblep_wave(w, tt, fdiv(freq, io.sr), pw);
+      if (freq >= quarter) y = sinf(mul(tt, kTau));
+      emit(f, io.prog, rc.out_tab, 0, t, y, io.out);
+    }
+    running += total;
+  }
+  if (tid == 0) io.state_out[rc.srow * K + k] = ph0 + running;
+}
+
+__device__ __noinline__ void body_svf(const Frame& f, const Io& io, const Rec& rc) {
+  // params: filter, cutoff_freq, q, gain; words ic0, ic1
+  const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
+  const int* prog = io.prog;
+  const float ic0 = word_f(io.state[rc.srow * K + k]);
+  const float ic1 = word_f(io.state[(rc.srow + 1) * K + k]);
+  float* sc = f.scratch;
+  __syncthreads();  // the previous body's scratch reads are done
+  for (int t = tid; t < B; t += blockDim.x) {
+    const SvfCoefs c = svf_coefs(param(f, prog, rc.par_tab, 0, t),
+                                 param(f, prog, rc.par_tab, 1, t),
+                                 param(f, prog, rc.par_tab, 2, t),
+                                 param(f, prog, rc.par_tab, 3, t), io.sr);
+    const float x = input(f, prog, rc.in_tab, 0, t);
+    sc[t] = sub(mul(2.0f, c.a1), 1.0f);
+    sc[B + t] = mul(-2.0f, c.a2);
+    sc[2 * B + t] = mul(2.0f, c.a2);
+    sc[3 * B + t] = sub(1.0f, mul(2.0f, c.a3));
+    sc[4 * B + t] = mul(mul(2.0f, c.a2), x);
+    sc[5 * B + t] = mul(mul(2.0f, c.a3), x);
+  }
+  __syncthreads();
+  const float* m = sc + scan_affine_2x2(sc, B) * 6 * B;
+  for (int t = tid; t < B; t += blockDim.x) {
+    const SvfCoefs c = svf_coefs(param(f, prog, rc.par_tab, 0, t),
+                                 param(f, prog, rc.par_tab, 1, t),
+                                 param(f, prog, rc.par_tab, 2, t),
+                                 param(f, prog, rc.par_tab, 3, t), io.sr);
+    const float x = input(f, prog, rc.in_tab, 0, t);
+    float s0 = ic0, s1 = ic1;
+    if (t > 0) {
+      const int u = t - 1;
+      s0 = add(add(mul(m[u], ic0), mul(m[B + u], ic1)), m[4 * B + u]);
+      s1 = add(add(mul(m[2 * B + u], ic0), mul(m[3 * B + u], ic1)), m[5 * B + u]);
+    }
+    const float v3 = sub(x, s1);
+    const float v1 = add(mul(c.a1, s0), mul(c.a2, v3));
+    const float v2 = add(add(s1, mul(c.a2, s0)), mul(c.a3, v3));
+    emit(f, prog, rc.out_tab, 0, t, add(add(mul(c.m0, x), mul(c.m1, v1)), mul(c.m2, v2)),
+         io.out);
+    if (t == B - 1) {
+      io.state_out[rc.srow * K + k] =
+          f_word(add(add(mul(m[t], ic0), mul(m[B + t], ic1)), m[4 * B + t]));
+      io.state_out[(rc.srow + 1) * K + k] =
+          f_word(add(add(mul(m[2 * B + t], ic0), mul(m[3 * B + t], ic1)), m[5 * B + t]));
+    }
+  }
+}
+
+__device__ __noinline__ void body_onepole(const Frame& f, const Io& io, const Rec& rc,
+                                          bool highpass) {
+  // y[t] = b1*y[t-1] + a0*x[t]; the highpass outputs x - y
+  const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
+  const int* prog = io.prog;
+  const float last = word_f(io.state[rc.srow * K + k]);
+  float* sc = f.scratch;
+  __syncthreads();
+  for (int t = tid; t < B; t += blockDim.x) {
+    const float b1 = expf(mul(kNegTwoPi, fdiv(param(f, prog, rc.par_tab, 0, t), io.sr)));
+    sc[t] = b1;
+    sc[B + t] = mul(sub(1.0f, b1), input(f, prog, rc.in_tab, 0, t));
+  }
+  __syncthreads();
+  const float* m = sc + scan_affine_1d(sc, B) * 2 * B;
+  for (int t = tid; t < B; t += blockDim.x) {
+    const float b1 = expf(mul(kNegTwoPi, fdiv(param(f, prog, rc.par_tab, 0, t), io.sr)));
+    const float x = input(f, prog, rc.in_tab, 0, t);
+    const float pre = t > 0 ? add(mul(m[t - 1], last), m[B + t - 1]) : last;
+    const float y = add(mul(b1, pre), mul(sub(1.0f, b1), x));
+    emit(f, prog, rc.out_tab, 0, t, highpass ? sub(x, y) : y, io.out);
+    if (t == B - 1) io.state_out[rc.srow * K + k] = f_word(add(mul(m[t], last), m[B + t]));
+  }
+}
+
+__device__ __noinline__ void body_env(const Frame& f, const Io& io, const Rec& rc, bool ar) {
+  // the event-free closed forms (ugens/envelopes.py); params attack_time,
+  // release_time; words release_scale, stage, t
+  const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x, srow = rc.srow;
+  const int* prog = io.prog;
+  const float rs = word_f(io.state[srow * K + k]);
+  const int stage0 = static_cast<int>(io.state[(srow + 1) * K + k]);
+  const float t0 = word_f(io.state[(srow + 2) * K + k]);
+  float* sc = f.scratch;
+  __syncthreads();
+  for (int t = tid; t < B; t += blockDim.x) {
+    sc[t] = rate_from_time(param(f, prog, rc.par_tab, 0, t), io.sr);
+    sc[B + t] = rate_from_time(param(f, prog, rc.par_tab, 1, t), io.sr);
+  }
+  __syncthreads();
+  const float* A = sc + scan_cumsum_2(sc, B) * 2 * B;
+  const float* R = A + B;
+  const float inc_atk_last = add(t0, A[B - 1]);
+  const bool atk_any = inc_atk_last >= 1.0f;
+  const float inc_rel_last = sub(t0, R[B - 1]);
+  const bool rel_done = inc_rel_last <= 0.0f;
+  const float t_rel = rel_done ? 0.0f : inc_rel_last;
+  const int st_rel = rel_done ? kStopped : kReleasing;
+  float t_fin, rs_fin = rs;
+  int st_fin;
+  if (!ar) {
+    for (int t = tid; t < B; t += blockDim.x) {
+      const float e_atk = add(t0, t > 0 ? A[t - 1] : 0.0f);
+      const float e_rel = sub(t0, t > 0 ? R[t - 1] : 0.0f);
+      const bool alive = t == 0 || e_rel > 0.0f;
+      const bool done_rel = alive && sub(t0, R[t]) <= 0.0f;
+      const float out_rel = alive ? mul(mul(mul(e_rel, e_rel), e_rel), rs) : 0.0f;
+      const float y = stage0 == kAttacking ? (e_atk >= 1.0f ? 1.0f : e_atk)
+                    : stage0 == kSustaining ? 1.0f
+                    : stage0 == kReleasing ? out_rel : 0.0f;
+      emit(f, prog, rc.out_tab, 0, t, y, io.out);
+      if (rc.done_row) rc.done_row[t] = stage0 == kReleasing && done_rel;
+    }
+    t_fin = stage0 == kAttacking ? (atk_any ? 1.0f : inc_atk_last)
+          : stage0 == kReleasing ? t_rel : t0;
+    st_fin = stage0 == kAttacking ? (atk_any ? kSustaining : kAttacking)
+           : stage0 == kReleasing ? st_rel : stage0;
+  } else {
+    // EnvAr: R at the first crossed lane, the minimum of R there (atk_any
+    // is the same in every thread: all or none reduce)
+    float lmin = kBig;
+    for (int t = tid; t < B; t += blockDim.x)
+      if (add(t0, A[t]) >= 1.0f) lmin = fminf(lmin, R[t]);
+    const float Rk = atk_any ? block_min(lmin, io.red) : 0.0f;
+    for (int t = tid; t < B; t += blockDim.x) {
+      const float Rex = t > 0 ? R[t - 1] : 0.0f;
+      const float e_atk = add(t0, t > 0 ? A[t - 1] : 0.0f);
+      const bool in_rel2 = e_atk >= 1.0f;
+      const float t_rel2 = sub(1.0f, sub(Rex, Rk));
+      const bool alive2 = t_rel2 > 0.0f;
+      const float out_a = in_rel2 ? (alive2 ? mul(mul(t_rel2, t_rel2), t_rel2) : 0.0f) : e_atk;
+      const bool done_a = in_rel2 && alive2 && sub(1.0f, sub(R[t], Rk)) <= 0.0f;
+      const float e_rel = sub(t0, Rex);
+      const bool alive = t == 0 || e_rel > 0.0f;
+      const bool done_r = alive && sub(t0, R[t]) <= 0.0f;
+      const float out_r = alive ? mul(mul(mul(e_rel, e_rel), e_rel), rs) : 0.0f;
+      const float y = stage0 == kAttacking ? out_a : stage0 == kReleasing ? out_r : 0.0f;
+      emit(f, prog, rc.out_tab, 0, t, y, io.out);
+      if (rc.done_row)
+        rc.done_row[t] = (stage0 == kAttacking && done_a) || (stage0 == kReleasing && done_r);
+    }
+    const float t_after = sub(1.0f, sub(R[B - 1], Rk));
+    const bool a_done = atk_any && t_after <= 0.0f;
+    const float t_a = a_done ? 0.0f : (atk_any ? t_after : inc_atk_last);
+    const int st_a = a_done ? kStopped : (atk_any ? kReleasing : kAttacking);
+    t_fin = stage0 == kAttacking ? t_a : stage0 == kReleasing ? t_rel : t0;
+    st_fin = stage0 == kAttacking ? st_a : stage0 == kReleasing ? st_rel : stage0;
+    if (stage0 == kAttacking && atk_any) rs_fin = 1.0f;
+  }
+  if (tid == (B - 1) % blockDim.x) {
+    io.state_out[srow * K + k] = f_word(rs_fin);
+    io.state_out[(srow + 1) * K + k] = static_cast<uint32_t>(st_fin);
+    io.state_out[(srow + 2) * K + k] = f_word(t_fin);
+  }
+}
+
+__device__ __noinline__ void body_pan2(const Frame& f, const Io& io, const Rec& rc) {
+  for (int t = threadIdx.x; t < f.B; t += blockDim.x) {
+    const float x = input(f, io.prog, rc.in_tab, 0, t);
+    const float angle =
+        mul(add(mul(param(f, io.prog, rc.par_tab, 0, t), 0.5f), 0.5f), kHalfPi);
+    emit(f, io.prog, rc.out_tab, 0, t, mul(x, cosf(angle)), io.out);
+    emit(f, io.prog, rc.out_tab, 1, t, mul(x, sinf(angle)), io.out);
+  }
+}
+
+// up to 1024 threads a block (one per sample): at most 64 registers each
+__global__ void __launch_bounds__(1024) chain_kernel(const int* __restrict__ prog,
                              const float* __restrict__ planes,
                              const uint32_t* __restrict__ state,
                              const float* __restrict__ rows, float* __restrict__ out,
-                             uint32_t* __restrict__ state_out, int K, int B, float f2pi,
-                             float scale) {
-  extern __shared__ float smem[];
+                             uint32_t* __restrict__ state_out,
+                             uint8_t* __restrict__ done_out, int K, int B, float f2pi,
+                             float scale, float sr) {
   __shared__ uint32_t scratch[32];
+  __shared__ float red[32];
   const int p = prog[0], n_carry = prog[1], n_slots = prog[2], n_ext = prog[3];
-  Frame f{planes, rows, smem, smem + static_cast<size_t>(n_slots) * B, K, B, 0};
+  extern __shared__ float smem[];
+  float* carry = smem + static_cast<size_t>(n_slots) * B;
+  Frame f{planes, rows, smem, carry, carry + static_cast<size_t>(n_carry) * B, K, B, 0};
+  const Io io{prog, state, state_out, out, scratch, red, f2pi, scale, sr};
   const int* carry_src = prog + kHeader;
   const int* records = carry_src + n_carry;
+  const int tid = threadIdx.x;
 
   for (int i = 0; i < n_carry; ++i)
-    for (int t = threadIdx.x; t < B; t += blockDim.x)
-      f.carry[i * B + t] = rows[(n_ext + i) * B + t];
+    for (int t = tid; t < B; t += blockDim.x)
+      carry[i * B + t] = rows[(n_ext + i) * B + t];
 
   for (int k = 0; k < K; ++k) {
     f.k = k;
@@ -143,12 +693,12 @@ __global__ void chain_kernel(const int* __restrict__ prog,
       const int in_tab = r[6], par_tab = r[7], out_tab = r[8];
       switch (op) {
         case kOpConstant:
-          for (int t = threadIdx.x; t < B; t += blockDim.x)
+          for (int t = tid; t < B; t += blockDim.x)
             emit(f, prog, out_tab, 0, t, param(f, prog, par_tab, 0, t), out);
           break;
         case kOpMath:
           for (int c = 0; c < n_out; ++c)
-            for (int t = threadIdx.x; t < B; t += blockDim.x)
+            for (int t = tid; t < B; t += blockDim.x)
               emit(f, prog, out_tab, c, t,
                    binop(arg, input(f, prog, in_tab, c, t),
                          input(f, prog, in_tab, c + n_out, t)),
@@ -156,7 +706,7 @@ __global__ void chain_kernel(const int* __restrict__ prog,
           break;
         case kOpMath1:
           for (int c = 0; c < n_out; ++c)
-            for (int t = threadIdx.x; t < B; t += blockDim.x)
+            for (int t = tid; t < B; t += blockDim.x)
               emit(f, prog, out_tab, c, t, unop(arg, input(f, prog, in_tab, c, t)), out);
           break;
         case kOpSinWt: {
@@ -164,34 +714,51 @@ __global__ void chain_kernel(const int* __restrict__ prog,
           const uint32_t ph0 = state[srow * K + k];
           uint32_t running = 0u;
           for (int t0 = 0; t0 < B; t0 += blockDim.x) {
-            const int t = t0 + threadIdx.x;
+            const int t = t0 + tid;
             const bool live = t < B;
             uint32_t inc = 0u;
             float poff = 0.0f;
             if (live) {
-              inc = inc_u32(__fmul_rn(param(f, prog, par_tab, 0, t), f2pi));
+              inc = inc_u32(mul(param(f, prog, par_tab, 0, t), f2pi));
               poff = param(f, prog, par_tab, 1, t);
             }
             uint32_t total;
             const uint32_t incl = block_scan_u32(inc, scratch, &total);
             if (live) {
-              const uint32_t off = inc_u32(__fmul_rn(poff, kFractionalPart));
+              const uint32_t off = inc_u32(mul(poff, kFractionalPart));
               emit(f, prog, out_tab, 0, t,
                    sin_quant(ph0 + running + incl - inc + off, scale), out);
             }
             running += total;
           }
-          if (threadIdx.x == 0) state_out[srow * K + k] = ph0 + running;
+          if (tid == 0) state_out[srow * K + k] = ph0 + running;
           break;
         }
-        default:
-          break;
+        default: {
+          // the subtractive slice's bodies, out of line; a stage's done row
+          // is written with its output
+          const int done_plane = r[9];
+          const Rec rc{arg, n_out, srow, in_tab, par_tab, out_tab,
+                       done_plane >= 0
+                           ? done_out + (static_cast<size_t>(done_plane) * K + k) * B
+                           : nullptr};
+          switch (op) {
+            case kOpPolyBlep: body_polyblep(f, io, rc); break;
+            case kOpSvf: body_svf(f, io, rc); break;
+            case kOpLpf: body_onepole(f, io, rc, false); break;
+            case kOpHpf: body_onepole(f, io, rc, true); break;
+            case kOpEnvAsr: body_env(f, io, rc, false); break;
+            case kOpEnvAr: body_env(f, io, rc, true); break;
+            case kOpPan2: body_pan2(f, io, rc); break;
+            default: break;
+          }
+        }
       }
     }
     // the stage's carried outputs become the next stage's carry rows
     for (int i = 0; i < n_carry; ++i)
-      for (int t = threadIdx.x; t < B; t += blockDim.x)
-        f.carry[i * B + t] = f.slots[carry_src[i] * B + t];
+      for (int t = tid; t < B; t += blockDim.x)
+        carry[i * B + t] = smem[carry_src[i] * B + t];
   }
 }
 
@@ -200,10 +767,12 @@ __global__ void chain_kernel(const int* __restrict__ prog,
 extern "C" {
 
 // Runs one chain over one block on `stream`; returns cudaGetLastError().
-// smem_floats = (n_slots + n_carry) * B, from the program's header.
+// smem_floats = (n_slots + n_carry + n_scratch) * B, from the program's
+// header.
 int ktt_chain_kernel(const int* prog, const float* planes, const uint32_t* state,
-                     const float* rows, float* out, uint32_t* state_out, int K, int B,
-                     int smem_floats, float f2pi, float scale, void* stream) {
+                     const float* rows, float* out, uint32_t* state_out, uint8_t* done,
+                     int K, int B, int smem_floats, float f2pi, float scale, float sr,
+                     void* stream) {
   if (K < 1 || B < 1 || smem_floats < 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -212,7 +781,7 @@ int ktt_chain_kernel(const int* prog, const float* planes, const uint32_t* state
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   chain_kernel<<<1, stage_threads(B), smem, static_cast<cudaStream_t>(stream)>>>(
-      prog, planes, state, rows, out, state_out, K, B, f2pi, scale);
+      prog, planes, state, rows, out, state_out, done, K, B, f2pi, scale, sr);
   return static_cast<int>(cudaGetLastError());
 }
 

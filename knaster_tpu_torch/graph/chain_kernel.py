@@ -4,18 +4,20 @@ The chain-collapse pass (compile._find_chains) runs K isomorphic units as a
 loop over the stage axis. On a card that loop runs as one launch of the CUDA
 kernel in ``csrc/chain_kernel.cu``: the carried block rows stay in shared
 memory across the stages, per-stage params are rows of the stacked [K, B]
-planes, and per-stage state (SinWt's u32 phase) is read and written by
-stage index. The kernel is generic: ``lower`` turns a ``ChainPlan`` into a
-small int32 program once per compile (no code is generated per graph, so
-an edit never waits for a compiler), and ``run`` launches it per block.
+planes, and per-stage state (phases, filter and envelope state) is read and
+written by stage index, one 32-bit word per value. The kernel is generic:
+``lower`` turns a ``ChainPlan`` into a small int32 program once per compile
+(no code is generated per graph, so an edit never waits for a compiler),
+and ``run`` launches it per block. Done-capable units (the envelopes) write
+a done row per stage, which ``run`` hands back as the JAX package's does.
 
 UGens opt in with ``UGen.kernel_stage``. Only the event-free fast program
 uses this path; eventful blocks keep the scan executor, as in the JAX
 package. ``run`` returns None, and the scan executor runs, exactly where
 the JAX package's does: f64 graphs, a unit with no body (``SinWt(lookup=
 True)``, Math ``pow``, Math1 ``trunc``/``fract``), and state leaves that are
-not rows. The Mosaic validation valve, the VMEM budget and the unroll knob
-exist only for Mosaic and are not ported.
+not [K] or [K, n] tensors of 32-bit words. The Mosaic validation valve, the
+VMEM budget and the unroll knob exist only for Mosaic and are not ported.
 
 Selection: ``_MODE`` None (the default) runs the kernel on a card and the
 scan executor on the CPU, as the JAX package's "auto" does; "1" takes this
@@ -95,9 +97,11 @@ def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):
 
     ``plane_index`` maps (offset j, param name) to a plane of the stacked
     param planes; ``exts`` orders the external rows; ``state_leaves[j]`` is
-    the sorted leaf names of offset j's state. Returns (program, out_map,
-    state_rows): ``out_map[j]`` the out plane of each output channel (or
-    None), ``state_rows[j]`` the first state row of offset j."""
+    [(name, words)] of offset j's state leaves in sorted order. Returns
+    (program, out_map, state_rows, done_map): ``out_map[j]`` the out plane
+    of each output channel (or None), ``state_rows[j]`` the first state row
+    of offset j, ``done_map[j]`` its done plane (None unless its unit may
+    set done)."""
     p = cp.period
     stages = []
     for rep in reps:
@@ -122,10 +126,10 @@ def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):
             return (SRC_CARRY, carry_index[(p + r, c)])
         return (SRC_ROW, ext_index[d])
 
-    out_map, state_rows, n_state, n_out, n_planes = [], [], 0, 0, 0
+    out_map, state_rows, done_map, n_state, n_out, n_planes = [], [], [], 0, 0, 0
     records = []
     for j, (rep, (body, arg)) in enumerate(zip(reps, stages)):
-        if len(state_leaves[j]) != body.n_words:
+        if sum(n for _name, n in state_leaves[j]) != body.n_words:
             return None
         state_rows.append(n_state)
         n_state += body.n_words
@@ -146,18 +150,24 @@ def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):
             else:
                 planes_j.append(None)
         out_map.append(planes_j)
+        done_map.append(sum(d is not None for d in done_map)
+                        if getattr(rep, "may_set_done", False) else None)
         records.append((body.op, arg, ins, pars,
                         [(slot_of[(j, c)], -1 if pl is None else pl)
-                         for c, pl in enumerate(planes_j)], state_rows[j]))
+                         for c, pl in enumerate(planes_j)], state_rows[j],
+                        -1 if done_map[j] is None else done_map[j]))
 
-    words = [p, len(cp.carry_keys), n_slots, len(exts), n_state, n_out]
+    n_done = sum(d is not None for d in done_map)
+    n_scratch = max(body.scratch for body, _arg in stages)
+    words = [p, len(cp.carry_keys), n_slots, len(exts), n_state, n_out, n_done,
+             n_scratch]
     words += [slot_of[key] for key in cp.carry_keys]
     table = len(words)
     words += [0] * p
-    for j, (op, arg, ins, pars, outs, srow) in enumerate(records):
+    for j, (op, arg, ins, pars, outs, srow, done) in enumerate(records):
         words[table + j] = len(words)
         head = len(words)
-        words += [op, arg, len(ins), len(pars), len(outs), srow, 0, 0, 0]
+        words += [op, arg, len(ins), len(pars), len(outs), srow, 0, 0, 0, done]
         in_tab = len(words)
         words += [0] * (2 * len(ins))
         for c, srcs in enumerate(ins):
@@ -172,18 +182,20 @@ def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):
         for slot, plane in outs:
             words += [slot, plane]
         words[head + 6:head + 9] = [in_tab, par_tab, out_tab]
-    return ChainProgram(tuple(words), n_planes), out_map, state_rows
+    return ChainProgram(tuple(words), n_planes), out_map, state_rows, done_map
 
 
 def run(cp, reps, ctx, state_stack, planes, plane_index, carry0, ext_rows, needed):
     """Execute the chain plan for one block as one kernel launch.
 
-    state_stack: {"j{j}": {leaf: [K] or [K, 1]}}; planes: f32 [n, K, B], the
-    float params of every (offset, param) without an edge, plane_index
-    mapping (j, name) to its plane; carry0: {"{dj}_{c}": [B] row}; ext_rows:
-    {abs-desc: [B] row} in ``ext_descs`` order; needed: ``needed_outputs``.
-    Returns (new_state_stack, outs, None) with outs[j] = [K, out_ch, B]
-    (None for offsets nothing outside the chain reads), or None when the
+    state_stack: {"j{j}": {leaf: [K] or [K, n]}}; planes: f32 [n, K, B], the
+    params of every (offset, param) without an edge (integer params as
+    whole-number floats), plane_index mapping (j, name) to its plane;
+    carry0: {"{dj}_{c}": [B] row}; ext_rows: {abs-desc: [B] row} in
+    ``ext_descs`` order; needed: ``needed_outputs``. Returns
+    (new_state_stack, outs, dones) with outs[j] = [K, out_ch, B] (None for
+    offsets nothing outside the chain reads) and dones[j] = [K, B] bool for
+    offsets whose unit may set done (None for the rest), or None when the
     plan is not kernel-eligible (the caller runs the scan executor)."""
     if ctx.dtype != torch.float32:
         return None
@@ -191,12 +203,13 @@ def run(cp, reps, ctx, state_stack, planes, plane_index, carry0, ext_rows, neede
     leaves = []
     for j in range(cp.period):
         st = state_stack[f"j{j}"]
-        names = sorted(st)
-        for name in names:
+        names = []
+        for name in sorted(st):
             leaf = st[name]
             if leaf.dim() == 0 or leaf.shape[0] != K or leaf.dim() > 2 or (
-                    leaf.dim() == 2 and leaf.shape[1] != 1):
-                return None  # per-node state bigger than one word
+                    leaf.dtype not in (torch.float32, torch.int32)):
+                return None  # not a row of 32-bit words per stage
+            names.append((name, 1 if leaf.dim() == 1 else leaf.shape[1]))
         leaves.append(names)
     device = next(iter(carry0.values())).device  # a chain always has a carry
     lowered = (cp.lowered or {}).get(str(device))
@@ -205,15 +218,16 @@ def run(cp, reps, ctx, state_stack, planes, plane_index, carry0, ext_rows, neede
         cp.lowered = {**(cp.lowered or {}), str(device): lowered or False}
     if not lowered:
         return None
-    program, out_map, state_rows = lowered
+    program, out_map, state_rows, done_map = lowered
 
-    # state words [n_state, K]: the leaves in program order, u32 as int32
+    # state words [n_state, K]: the leaves' columns in program order, every
+    # word as its int32 bit pattern
     words = []
     for j in range(cp.period):
         st = state_stack[f"j{j}"]
-        words += [st[name].reshape(K).view(torch.int32) for name in leaves[j]]
-    state = (words[0].reshape(1, K) if len(words) == 1
-             else torch.stack(words) if words
+        words += [st[name].reshape(K, n).view(torch.int32).t() for name, n in leaves[j]]
+    state = (words[0].contiguous() if len(words) == 1
+             else torch.cat(words) if words
              else torch.zeros((0, K), dtype=torch.int32, device=device))
     row_list = list(ext_rows.values()) + [carry0[f"{dj}_{c}"] for (dj, c) in cp.carry_keys]
     rows = (row_list[0].reshape(1, B) if len(row_list) == 1
@@ -223,16 +237,18 @@ def run(cp, reps, ctx, state_stack, planes, plane_index, carry0, ext_rows, neede
         planes = torch.zeros((0, K, B), dtype=torch.float32, device=device)
     f2pi = float(np.float32(TABLE_SIZE * FRACTIONAL_PART / ctx.sample_rate))
     scale = float(np.float32(2.0 * np.pi / TABLE_SIZE))
-    out, state_out = kck.chain_kernel(program, planes=planes, state=state, rows=rows,
-                                      K=K, block_size=B, f2pi=f2pi, scale=scale)
+    out, state_out, done = kck.chain_kernel(
+        program, planes=planes, state=state, rows=rows, K=K, block_size=B, f2pi=f2pi,
+        scale=scale, sample_rate=float(ctx.sample_rate))
 
     new_state_stack = {}
     for j in range(cp.period):
-        st = state_stack[f"j{j}"]
-        new_state_stack[f"j{j}"] = {
-            name: state_out[state_rows[j] + i].view(st[name].dtype).reshape(st[name].shape)
-            for i, name in enumerate(leaves[j])
-        }
+        st, row, new = state_stack[f"j{j}"], state_rows[j], {}
+        for name, n in leaves[j]:
+            new[name] = (state_out[row:row + n].t().contiguous().view(st[name].dtype)
+                         .reshape(st[name].shape))
+            row += n
+        new_state_stack[f"j{j}"] = new
     outs = {}
     for j, planes_j in enumerate(out_map):
         if all(pl is None for pl in planes_j):
@@ -243,4 +259,5 @@ def run(cp, reps, ctx, state_stack, planes, plane_index, carry0, ext_rows, neede
             zero = torch.zeros((K, B), dtype=torch.float32, device=device)
             outs[j] = torch.stack([out[pl] if pl is not None else zero
                                    for pl in planes_j], dim=1)
-    return new_state_stack, outs, None
+    dones = {j: None if d is None else done[d] for j, d in enumerate(done_map)}
+    return new_state_stack, outs, dones

@@ -16,9 +16,9 @@ The plan (``_plan_batches``) follows the JAX package exactly, so state keys
   leading batch axis (the JAX package's ``vmap``);
 * ``chain``: a collapsed run of K isomorphic units (``_find_chains``). On
   the fast renderer it runs the chain kernel (``chain_kernel.run``: one
-  CUDA kernel for the whole stage loop) when the device is a card, and
-  falls back to the scan executor (a loop over the stages) where the
-  kernel does not apply; the eventful renderer always takes the scan.
+  CUDA kernel for the whole stage loop, done rows included) when the
+  device is a card; the scan executor (a loop over the stages) runs where
+  the JAX package runs it: eventful blocks, f64, a unit with no body.
 
 * Additive connects: summed by the renderer.
 * Feedback edges: read previous-block outputs carried in ``state["fb"]``.
@@ -242,10 +242,26 @@ class CompiledGraph:
         return any(e.done_action != Done.NONE for e in self.entries.values())
 
 
+def resolve_device(device) -> torch.device:
+    """The device a graph renders on: the caller's, the card ("cuda") when
+    none is named. Raises when that is a card and there is none: the CPU is
+    taken only when the caller says ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA card is available: graphs render on the card unless the "
+                "caller passes device=\"cpu\"")
+        if device.index is None:  # the index the tensors made on it carry
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def compile_graph(
     graph: Graph, event_capacity: int = 64, auto_batch: bool = True,
-    device="cpu",
+    device="cuda",
 ) -> CompiledGraph:
+    device = resolve_device(device)
     root = graph.root()
     ctx = AudioCtx(root.sample_rate, root.block_size, root.dtype)
 
@@ -372,7 +388,7 @@ def compile_graph(
     cg = CompiledGraph(
         graph=root,
         ctx=ctx,
-        device=torch.device(device),
+        device=device,
         layout=None,  # assigned after planning (slot order follows the plan)
         engine=None,
         order=order,
@@ -833,8 +849,10 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
             K, p = len(cp.stages), cp.period
             reps = [cg.entries[cp.stages[0][j]].ugen for j in range(p)]
             # float planes of every (offset, param) without an edge, in one
-            # read: the layout gives a chain contiguous float slots
-            float_slots, plane_index, others = [], {}, []
+            # read: the layout gives a chain contiguous float slots. The
+            # kernel also reads integer params, as planes after the float
+            # ones (whole numbers in f32: kernels/chain_kernel.py)
+            float_slots, plane_index, others, int_idx = [], {}, [], []
             for j, rep in enumerate(reps):
                 pe_pat = dict(cp.pe_pattern[j])
                 for pidx, spec in enumerate(rep.params):
@@ -848,11 +866,17 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                     else:
                         others.append((j, spec.name, typ, _idx(slots),
                                        getattr(spec, "retrigger", False)))
+                        if typ == "int":
+                            int_idx.append(((j, spec.name), _idx(slots)))
+            kernel_index = dict(plane_index)
+            for i, (key, _idx_) in enumerate(int_idx):
+                kernel_index[key] = len(plane_index) + i
             steps.append(("chain", cp, reps,
                           (_idx(float_slots) if float_slots else None,
                            plane_index, others,
                            chain_kernel.needed_outputs(cg, cp),
-                           chain_kernel.ext_descs(cp))))
+                           chain_kernel.ext_descs(cp),
+                           [idx for _key, idx in int_idx], kernel_index)))
 
     def render(state, events, graph_inputs):
         pe = state["pe"]
@@ -988,7 +1012,8 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                 if track_done:
                     done_parts.append(done.any(dim=1))
             else:
-                _, cp, reps, (fidx, plane_index, others, needed, exts) = step
+                (_, cp, reps, (fidx, plane_index, others, needed, exts, int_idx,
+                               kernel_index)) = step
                 K, p = len(cp.stages), cp.period
                 ckey = cg.chain_key(cp)
                 n_planes = len(plane_index)
@@ -1001,9 +1026,23 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                 res = None
                 if fast and chain_kernel.enabled(device):
                     ext = {d: read_source(d[1], d[2], d[3]) for d in exts}
+                    kplanes = planes
+                    if int_idx:
+                        ints = torch.stack([rows_of("int", idx, K) for idx in int_idx])
+                        ints = ints.to(dtype)
+                        kplanes = ints if planes is None else torch.cat([planes, ints])
                     res = chain_kernel.run(
-                        cp, reps, ctx, state["nodes"][ckey], planes, plane_index,
+                        cp, reps, ctx, state["nodes"][ckey], kplanes, kernel_index,
                         carry0, ext, needed=needed)
+                    if res is not None and track_done:
+                        # the kernel's done planes in the scan executor's
+                        # [K, p, B] layout
+                        no = torch.zeros((K, B), dtype=torch.bool, device=device)
+                        res = res[:2] + (torch.stack(
+                            [no if res[2][j] is None else res[2][j] for j in range(p)],
+                            dim=1),)
+                    elif res is not None:
+                        res = res[:2] + (None,)
                 if res is None:
                     par = [dict() for _ in range(p)]
                     for (j, name), pi_ in plane_index.items():

@@ -6,9 +6,9 @@ the graph's revision changed, it is recompiled and node state is carried
 over by node id (the functional equivalent of swapping TaskData and
 ``TakeFromTask``, graph_gen.rs:93-109 / task.rs:101-131).
 
-The device is explicit: ``AudioProcessor.new(..., device=...)``, with
-"cpu" as the default whether or not a card is present. Nothing picks a
-device for the caller.
+The device is the card: ``AudioProcessor.new(..., device=...)`` defaults
+to "cuda" and raises where there is none. The CPU is taken only when the
+caller passes ``device="cpu"`` (the tests do); nothing falls back to it.
 
 ``render`` runs block by block: event-free blocks through the compiled
 graph's ``render_fast`` (where collapsed chains take the chain kernel on a
@@ -27,7 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .compile import CompiledGraph, compile_graph
+from .compile import CompiledGraph, compile_graph, resolve_device
 from .graph import Done, Graph
 from .param_engine import events_from_lists
 from .scheduling import ScheduledEvent
@@ -51,10 +51,10 @@ class AudioProcessor:
     """Runs a Graph one block at a time; also the offline bounce engine."""
 
     def __init__(self, graph: Graph, options: Optional[AudioProcessorOptions] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.graph = graph.root()
         self.options = options or AudioProcessorOptions()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.compiled: Optional[CompiledGraph] = None
         self.state = None
         self._last_out = None
@@ -70,10 +70,11 @@ class AudioProcessor:
         outputs: int = 2,
         options: Optional[AudioProcessorOptions] = None,
         dtype=None,
-        device="cpu",
+        device="cuda",
     ) -> Tuple[Graph, "AudioProcessor"]:
         """Create a top-level Graph + processor (processor.rs:69-116)."""
         options = options or AudioProcessorOptions()
+        device = resolve_device(device)
         g = Graph(
             inputs=inputs,
             outputs=outputs,

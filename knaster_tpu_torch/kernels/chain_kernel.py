@@ -10,9 +10,22 @@ kernel source). ``chain_kernel_plain`` runs the same program in torch.
 ``BODIES`` are the stage bodies the kernel's ``switch`` knows, each with
 its opcode and its plain torch version (what a UGen's ``kernel_stage``
 names): ``constant`` (Constant), ``sinwt`` (SinWt's no-reset path),
-``math`` (MathUGen add/sub/mul/div) and ``math1`` (Math1UGen's unary ops but
-trunc and fract). A new body is one more case in the kernel and one more
-entry here; the program and the harness stay as they are.
+``math`` (MathUGen add/sub/mul/div), ``math1`` (Math1UGen's unary ops but
+trunc and fract), ``polyblep`` (PolyBlep), ``svf`` (SvfFilter),
+``onepole_lpf`` and ``onepole_hpf``, ``env_asr`` and ``env_ar`` (the
+event-free closed forms, with a done row) and ``pan2`` (Pan2, two output
+channels). Each plain version calls the block function its UGen's
+``process`` calls, so the kernel path and the scan executor share one
+arithmetic. A new body is one more case in the kernel and one more entry
+here; the program and the harness stay as they are.
+
+State words are 32-bit: u32 phases, f32 values (the SVF's two ``ic``, the
+one-pole's ``last``, the envelopes' ``t`` and ``release_scale``) and the
+envelopes' int32 ``stage``, each as its bit pattern. Integer params (the
+PolyBlep waveform, the SVF filter type) reach the kernel in the f32 param
+planes: a whole number below 2^24 is exact there, and larger ones still
+select as the int would (clamped to the last waveform, equal to no filter
+type).
 
 What bounds it on an H100: K*p dependent bodies on one SM; see the kernel
 source.
@@ -36,25 +49,42 @@ KERNEL = "chain_kernel"
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
 
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 \
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 \
     + [ctypes.c_void_p]
 
-HEADER = 6
+HEADER = 8
+RECORD = 10
 SRC_SLOT, SRC_CARRY, SRC_ROW, SRC_PLANE = 0, 1, 2, 3
+# shared memory a block can hold, less the kernel's static 64 words
+SMEM_LIMIT = 227 * 1024 - 256
 
 
 @dataclass(frozen=True)
 class Body:
     """A stage body of the kernel: its opcode, the param names it reads (in
-    order), its state words and its plain torch version
-    ``plain(arg, ins, pars, words, consts) -> (outs, new_words)`` over [B]
-    rows (``words`` are int64 u32 values, ``consts`` = (f2pi, scale))."""
+    order), its state words, the [B] rows of shared scratch its scans use,
+    and its plain torch version ``plain(arg, ins, pars, words, consts) ->
+    (outs, new_words[, done])`` over [B] rows (``words`` are int64 u32
+    values, ``consts`` = (f2pi, scale, sample_rate), ``done`` a bool row)."""
 
     name: str
     op: int
     params: Tuple[str, ...]
     n_words: int
     plain: Callable
+    scratch: int = 0
+
+
+def _f32(word):
+    """A state word (int64 u32 value) as the f32 it holds."""
+    return bc.i32_of(word).view(torch.float32)
+
+
+def _word(x):
+    """A 0-d f32 or int32 tensor as a state word (int64 u32 value)."""
+    if x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    return bc.u32_of(x.to(torch.int32))
 
 
 def _constant_plain(arg, ins, pars, words, consts):
@@ -65,7 +95,7 @@ def _sinwt_plain(arg, ins, pars, words, consts):
     """SinWt.process without resets (osc.py), on one [B] row."""
     from ..ugens.osc import U32_MASK, _f32_to_u32
 
-    f2pi, scale = consts
+    f2pi, scale, _sr = consts
     freq, poff = pars
     (ph0,) = words
     inc = _f32_to_u32(freq * f2pi)
@@ -90,12 +120,68 @@ def _math1_plain(arg, ins, pars, words, consts):
     return [op(x) for x in ins], []
 
 
+def _polyblep_plain(arg, ins, pars, words, consts):
+    from ..ugens.polyblep import polyblep_block
+
+    t, out = polyblep_block(bc.i32_of(words[0]), pars[0], pars[1], pars[2], consts[2])
+    return [out], [bc.u32_of(t)]
+
+
+def _svf_plain(arg, ins, pars, words, consts):
+    from ..ugens.filters import svf_block
+
+    ic = torch.stack([_f32(words[0]), _f32(words[1])])
+    ic, y = svf_block(ic, ins[0], *pars, consts[2])
+    return [y], [_word(ic[0]), _word(ic[1])]
+
+
+def _onepole_plain(highpass):
+    def plain(arg, ins, pars, words, consts):
+        from ..ugens.filters import onepole_block
+
+        last, y = onepole_block(_f32(words[0]), ins[0], pars[0], consts[2], highpass)
+        return [y], [_word(last)]
+
+    return plain
+
+
+def _env_plain(form_name):
+    def plain(arg, ins, pars, words, consts):
+        from ..ugens import envelopes
+
+        atk = envelopes.rate_from_time(pars[0], consts[2])
+        rel = envelopes.rate_from_time(pars[1], consts[2])
+        # the words in the sorted order of the state's names
+        stage, t, rscale, out, done = getattr(envelopes, form_name)(
+            bc.i32_of(words[1]), _f32(words[2]), _f32(words[0]), atk, rel)
+        return [out], [_word(rscale), _word(stage), _word(t)], done
+
+    return plain
+
+
+def _pan2_plain(arg, ins, pars, words, consts):
+    from ..ugens.pan import pan2_block
+
+    return list(pan2_block(ins[0], pars[0])), []
+
+
 BODIES: Dict[str, Body] = {
     b.name: b for b in (
         Body("constant", 0, ("value",), 0, _constant_plain),
         Body("sinwt", 1, ("freq", "phase_offset"), 1, _sinwt_plain),
         Body("math", 2, (), 0, _math_plain),
         Body("math1", 3, (), 0, _math1_plain),
+        Body("polyblep", 4, ("waveform", "freq", "pulse_width"), 1, _polyblep_plain),
+        # the 2x2 scan's six rows, twice (Hillis-Steele steps ping-pong)
+        Body("svf", 5, ("filter", "cutoff_freq", "q", "gain"), 2, _svf_plain, 12),
+        Body("onepole_lpf", 6, ("cutoff_freq",), 1, _onepole_plain(False), 4),
+        Body("onepole_hpf", 7, ("cutoff_freq",), 1, _onepole_plain(True), 4),
+        # words: release_scale, stage, t; the two cumsums, twice
+        Body("env_asr", 8, ("attack_time", "release_time"), 3,
+             _env_plain("asr_closed_form"), 4),
+        Body("env_ar", 9, ("attack_time", "release_time"), 3,
+             _env_plain("ar_closed_form"), 4),
+        Body("pan2", 10, ("pan",), 0, _pan2_plain),
     )
 }
 _BY_OP = {b.op: b for b in BODIES.values()}
@@ -134,6 +220,14 @@ class ChainProgram:
     def n_out(self):
         return self.words[5]
 
+    @property
+    def n_done(self):
+        return self.words[6]
+
+    @property
+    def n_scratch(self):
+        return self.words[7]
+
     def on(self, device) -> torch.Tensor:
         key = str(device)
         t = self._device.get(key)
@@ -144,12 +238,13 @@ class ChainProgram:
 
     def records(self):
         """Per offset: (body, arg, inputs [[(kind, idx)]], params
-        [(kind, idx)], outputs [(slot, plane)], state_row)."""
+        [(kind, idx)], outputs [(slot, plane)], state_row, done_plane)."""
         w = self.words
         recs = []
         for j in range(self.period):
             r = w[HEADER + self.n_carry + j]
-            op, arg, n_in, n_par, n_out, srow, in_tab, par_tab, out_tab = w[r:r + 9]
+            (op, arg, n_in, n_par, n_out, srow, in_tab, par_tab, out_tab,
+             done) = w[r:r + RECORD]
             ins = []
             for c in range(n_in):
                 start, count = w[in_tab + 2 * c], w[in_tab + 2 * c + 1]
@@ -157,7 +252,7 @@ class ChainProgram:
                             for i in range(count)])
             pars = [(w[par_tab + 2 * i], w[par_tab + 2 * i + 1]) for i in range(n_par)]
             outs = [(w[out_tab + 2 * c], w[out_tab + 2 * c + 1]) for c in range(n_out)]
-            recs.append((_BY_OP[op], arg, ins, pars, outs, srow))
+            recs.append((_BY_OP[op], arg, ins, pars, outs, srow, done))
         return recs
 
 
@@ -180,22 +275,25 @@ def _validate(program, planes, state, rows, K, block_size):
     return K, B
 
 
-def chain_kernel(program, *, planes, state, rows, K, block_size, f2pi, scale):
+def chain_kernel(program, *, planes, state, rows, K, block_size, f2pi, scale,
+                 sample_rate):
     """One block of one collapsed chain.
 
     program: the ``ChainProgram`` of the chain.
-    planes:  f32 [n_planes, K, B] — the stage-stacked float param planes.
-    state:   int32 [n_state, K] — the state words (u32 bit patterns).
+    planes:  f32 [n_planes, K, B] — the stage-stacked param planes (float
+             params, then integer params as whole-number floats).
+    state:   int32 [n_state, K] — the state words (32-bit bit patterns).
     rows:    f32 [n_ext + n_carry, B] — the external rows, then the carry
              rows stage 0 reads.
-    f2pi, scale: f32-representable floats (SinWt's phase units per Hz and
-             radians per table index).
+    f2pi, scale, sample_rate: f32-representable floats (the u32 phase units
+             per Hz shared by SinWt and PolyBlep, SinWt's radians per table
+             index, the sample rate).
 
-    Returns (out f32 [n_out, K, B], state_out int32 [n_state, K]), new
-    tensors. CPU tensors run ``chain_kernel_plain``; CUDA tensors launch the
-    kernel."""
-    operands = dict(planes=planes, state=state, rows=rows, K=K,
-                    block_size=block_size, f2pi=f2pi, scale=scale)
+    Returns (out f32 [n_out, K, B], state_out int32 [n_state, K], done bool
+    [n_done, K, B]), new tensors. CPU tensors run ``chain_kernel_plain``;
+    CUDA tensors launch the kernel."""
+    operands = dict(planes=planes, state=state, rows=rows, K=K, block_size=block_size,
+                    f2pi=f2pi, scale=scale, sample_rate=sample_rate)
     if state.device.type == "cpu":
         return chain_kernel_plain(program, **operands)
     outs = empty_outputs(program, state.device, K, block_size)
@@ -204,13 +302,16 @@ def chain_kernel(program, *, planes, state, rows, K, block_size, f2pi, scale):
 
 
 def empty_outputs(program, device, K, block_size):
-    """The kernel's output buffers: (out [n_out, K, B], state_out [n_state, K])."""
-    return (torch.empty((program.n_out, int(K), int(block_size)), dtype=torch.float32,
-                        device=device),
-            torch.empty((program.n_state, int(K)), dtype=torch.int32, device=device))
+    """The kernel's output buffers: (out [n_out, K, B], state_out [n_state,
+    K], done [n_done, K, B])."""
+    K, B = int(K), int(block_size)
+    return (torch.empty((program.n_out, K, B), dtype=torch.float32, device=device),
+            torch.empty((program.n_state, K), dtype=torch.int32, device=device),
+            torch.empty((program.n_done, K, B), dtype=torch.bool, device=device))
 
 
-def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale):
+def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
+           sample_rate):
     """Launch the CUDA kernel on the current stream, writing ``outs`` (from
     ``empty_outputs``). Raises for anything but CUDA tensors of the layout the
     program needs, and if the launch fails."""
@@ -218,14 +319,15 @@ def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale):
     K, B = _validate(program, planes, state, rows, K, block_size)
     device = state.device
     bc.require_cuda(KERNEL, device)
-    out, state_out = outs
+    out, state_out, done = outs
     bc.check(KERNEL, "out", out, torch.float32, (program.n_out, K, B), device)
     bc.check(KERNEL, "state_out", state_out, torch.int32, (program.n_state, K), device)
-    smem_floats = (program.n_slots + program.n_carry) * B
-    if smem_floats * 4 > 227 * 1024:
+    bc.check(KERNEL, "done", done, torch.bool, (program.n_done, K, B), device)
+    n_rows = program.n_slots + program.n_carry + program.n_scratch
+    if n_rows * B * 4 > SMEM_LIMIT:
         raise ValueError(
-            f"{KERNEL}: {program.n_slots + program.n_carry} rows of {B} samples "
-            "exceed the 227 KB of shared memory a block can hold")
+            f"{KERNEL}: {n_rows} shared rows of {B} samples (slots, carry and "
+            "scan scratch) exceed the 227 KB of shared memory a block can hold")
 
     from .build import load_library
 
@@ -235,25 +337,28 @@ def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ktt_chain_kernel(
             bc.ptr(prog), bc.ptr(planes), bc.ptr(state), bc.ptr(rows), bc.ptr(out),
-            bc.ptr(state_out), K, B, smem_floats, ctypes.c_float(f2pi),
-            ctypes.c_float(scale), ctypes.c_void_p(stream))
+            bc.ptr(state_out), bc.ptr(done), K, B, n_rows * B, ctypes.c_float(f2pi),
+            ctypes.c_float(scale), ctypes.c_float(sample_rate), ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
 
 
-def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, scale):
+def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, scale,
+                       sample_rate):
     """``chain_kernel`` in plain torch: the same program, a Python loop over
     the K stages and p offsets with [B]-wide ops, each body's plain version
     in the kernel's order, on whatever device the tensors are on."""
     K, B = _validate(program, planes, state, rows, K, block_size)
-    consts = (float(np.float32(f2pi)), float(np.float32(scale)))
+    consts = tuple(float(np.float32(c)) for c in (f2pi, scale, sample_rate))
     recs = program.records()
     n_ext = program.n_ext
     carry_src = program.words[HEADER:HEADER + program.n_carry]
     carry = [rows[n_ext + i] for i in range(program.n_carry)]
     words = bc.u32_of(state)
     new_words = [[None] * K for _ in range(program.n_state)]
-    out = torch.zeros((program.n_out, K, B), dtype=torch.float32, device=state.device)
+    dev = state.device
+    out = torch.zeros((program.n_out, K, B), dtype=torch.float32, device=dev)
+    done_out = torch.zeros((program.n_done, K, B), dtype=torch.bool, device=dev)
     for k in range(K):
         slots = {}
 
@@ -266,26 +371,28 @@ def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, sca
                 return rows[idx]
             return planes[idx, k]
 
-        for body, arg, ins, pars, outs, srow in recs:
+        for body, arg, ins, pars, outs, srow, done_plane in recs:
             in_rows = []
             for srcs in ins:
                 if not srcs:
-                    in_rows.append(torch.zeros((B,), dtype=torch.float32,
-                                               device=state.device))
+                    in_rows.append(torch.zeros((B,), dtype=torch.float32, device=dev))
                     continue
                 acc = fetch(*srcs[0])
                 for s in srcs[1:]:
                     acc = acc + fetch(*s)
                 in_rows.append(acc)
             st = [words[srow + i, k] for i in range(body.n_words)]
-            vals, new = body.plain(arg, in_rows, [fetch(*s) for s in pars], st, consts)
+            vals, new, *done = body.plain(arg, in_rows, [fetch(*s) for s in pars], st,
+                                          consts)
             for i, w in enumerate(new):
                 new_words[srow + i][k] = w
             for (slot, plane), v in zip(outs, vals):
                 slots[slot] = v
                 if plane >= 0:
                     out[plane, k] = v
+            if done_plane >= 0:
+                done_out[done_plane, k] = done[0]
         carry = [slots[s] for s in carry_src]
     state_out = (bc.i32_of(torch.stack([torch.stack(r) for r in new_words]))
                  if program.n_state else torch.empty_like(state))
-    return out, state_out
+    return out, state_out, done_out

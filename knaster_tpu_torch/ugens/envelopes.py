@@ -1,0 +1,246 @@
+"""Port of knaster_tpu/ugens/envelopes.py: ``EnvAsr`` and ``EnvAr`` (reference envelopes.rs).
+
+Envelopes are trigger-driven state machines, so the eventful path runs
+sample by sample over the block. In the event-free fast program
+(``ctx.no_events``) a machine makes at most one spontaneous transition a
+block (attack -> sustain or release -> stopped for ASR; attack -> release
+-> stopped for AR), so the block has a closed form over cumulative sums of
+the rates; it runs where ``no_events and not wide_batch``, as in the JAX
+package. The cumsums are the Hillis-Steele doubling of ``core/dsp.py`` and
+the crossing tests read the last lane (the rates are positive, so the
+trajectories are monotone): the JAX package's chain-kernel form, which
+``csrc/chain_kernel.cu`` repeats op for op. ``asr_closed_form`` and
+``ar_closed_form`` serve ``process`` and the kernel's plain bodies alike.
+
+Both envelopes may set done: the frame the release ends. The multi-segment
+``Envelope`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.dsp import const, cumsum, shift1
+from ..core.ugen import AudioCtx, UGen
+from ..primitives.params import ParameterKind, pfloat, ptrigger
+
+# EnvAsr stages (envelopes.rs AsrState)
+STOPPED, ATTACKING, SUSTAINING, RELEASING = 0, 1, 2, 3
+# above any cumulative rate a block can reach: EnvAr's masked lane-min fill
+BIG = 3.4e38
+
+
+def rate_from_time(seconds, sample_rate):
+    """1/(t*sr), with t == 0 mapping to rate 1 (instant) — envelopes.rs:88-111."""
+    one = const(1.0, seconds)
+    return torch.where(seconds == 0, one, one / (seconds * const(sample_rate, seconds)))
+
+
+def _last(x):
+    return x[..., -1]
+
+
+def asr_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
+    """EnvAsr's event-free block over ``[..., B]`` rate rows; the state
+    ``[...]``. Returns (stage, t, release_scale, out [..., B], done [..., B])."""
+    one = const(1.0, t0)
+    zero = const(0.0, t0)
+    s0, t0_, rs = stage0.unsqueeze(-1), t0.unsqueeze(-1), rscale.unsqueeze(-1)
+    lane0 = torch.arange(atk_rate.shape[-1], device=t0.device) == 0
+
+    A = cumsum(atk_rate)
+    inc_atk = t0_ + A          # t after step i
+    e_atk = t0_ + shift1(A)    # t at step i
+    atk_any = _last(inc_atk) >= one
+    out_atk = torch.where(e_atk >= one, one, e_atk)
+    t_atk = torch.where(atk_any, one, _last(inc_atk))
+    stage_atk = torch.where(atk_any, SUSTAINING, ATTACKING)
+
+    R = cumsum(rel_rate)
+    inc_rel = t0_ - R
+    e_rel = t0_ - shift1(R)
+    alive = lane0 | (e_rel > zero)
+    out_rel = torch.where(alive, e_rel * e_rel * e_rel * rs, zero)
+    done_rel = alive & (inc_rel <= zero)
+    rel_done = _last(inc_rel) <= zero
+    t_rel = torch.where(rel_done, zero, _last(inc_rel))
+    stage_rel = torch.where(rel_done, STOPPED, RELEASING)
+
+    is_atk, is_sus, is_rel = s0 == ATTACKING, s0 == SUSTAINING, s0 == RELEASING
+    out = torch.where(is_atk, out_atk,
+                      torch.where(is_sus, one, torch.where(is_rel, out_rel, zero)))
+    done = is_rel & done_rel
+    t = torch.where(stage0 == ATTACKING, t_atk, torch.where(stage0 == RELEASING, t_rel, t0))
+    stage = torch.where(stage0 == ATTACKING, stage_atk,
+                        torch.where(stage0 == RELEASING, stage_rel, stage0))
+    return stage.to(stage0.dtype), t, rscale, out, done
+
+
+def ar_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
+    """EnvAr's event-free block, including the attack -> release -> stopped
+    double transition: the release after the crossing step k runs on the
+    release-rate cumsum anchored at R[k], found as the masked lane-min of R
+    (R rises, so the first crossed lane holds the minimum). Returns (stage,
+    t, release_scale, out, done) as ``asr_closed_form``."""
+    one = const(1.0, t0)
+    zero = const(0.0, t0)
+    s0, t0_, rs = stage0.unsqueeze(-1), t0.unsqueeze(-1), rscale.unsqueeze(-1)
+    lane0 = torch.arange(atk_rate.shape[-1], device=t0.device) == 0
+
+    A = cumsum(atk_rate)
+    R = cumsum(rel_rate)
+    Rexc = shift1(R)
+    R_last = _last(R)
+
+    # starting in ATTACKING
+    inc_atk = t0_ + A
+    e_atk = t0_ + shift1(A)
+    crossed = inc_atk >= one
+    in_rel2 = e_atk >= one     # the lanes after the crossing step
+    atk_any = _last(crossed)
+    Rk = torch.where(crossed, R, const(BIG, R)).amin(dim=-1)
+    Rk = torch.where(atk_any, Rk, zero)
+    Rk_ = Rk.unsqueeze(-1)
+    t_rel2 = one - (Rexc - Rk_)  # the release t at step i after the crossing
+    alive2 = t_rel2 > zero
+    out_a = torch.where(in_rel2, torch.where(alive2, t_rel2 * t_rel2 * t_rel2, zero),
+                        e_atk)
+    done_a = in_rel2 & alive2 & ((one - (R - Rk_)) <= zero)
+    a_done = atk_any & ((one - (R_last - Rk)) <= zero)
+    t_a = torch.where(a_done, zero,
+                      torch.where(atk_any, one - (R_last - Rk), _last(inc_atk)))
+    stage_a = torch.where(a_done, STOPPED, torch.where(atk_any, RELEASING, ATTACKING))
+    rscale_a = torch.where(atk_any, one, rscale)
+
+    # starting in RELEASING (as ASR)
+    inc_rel = t0_ - R
+    e_rel = t0_ - Rexc
+    alive = lane0 | (e_rel > zero)
+    out_r = torch.where(alive, e_rel * e_rel * e_rel * rs, zero)
+    done_r = alive & (inc_rel <= zero)
+    r_done = _last(inc_rel) <= zero
+    t_r = torch.where(r_done, zero, _last(inc_rel))
+    stage_r = torch.where(r_done, STOPPED, RELEASING)
+
+    is_atk, is_rel = s0 == ATTACKING, s0 == RELEASING
+    out = torch.where(is_atk, out_a, torch.where(is_rel, out_r, zero))
+    done = (is_atk & done_a) | (is_rel & done_r)
+    at, rel = stage0 == ATTACKING, stage0 == RELEASING
+    t = torch.where(at, t_a, torch.where(rel, t_r, t0))
+    stage = torch.where(at, stage_a, torch.where(rel, stage_r, stage0))
+    return stage.to(stage0.dtype), t, torch.where(at, rscale_a, rscale), out, done
+
+
+class _EnvBase(UGen):
+    may_set_done = True
+    inputs = 0
+    outputs = 1
+
+    def __init__(self, attack_time: float = 0.0, release_time: float = 0.0):
+        self.pdefaults = {"attack_time": float(attack_time),
+                          "release_time": float(release_time)}
+
+    def batch_key(self):
+        return (type(self),)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {
+            "stage": torch.full((), STOPPED, dtype=torch.int32, device=device),
+            "t": torch.zeros((), dtype=ctx.dtype, device=device),
+            "release_scale": torch.ones((), dtype=ctx.dtype, device=device),
+        }
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        atk = rate_from_time(params["attack_time"].to(ctx.dtype), ctx.sample_rate)
+        rel = rate_from_time(params["release_time"].to(ctx.dtype), ctx.sample_rate)
+        stage, t, rscale = state["stage"], state["t"], state["release_scale"]
+        if ctx.no_events and not ctx.wide_batch:
+            stage, t, rscale, out, done = self.CLOSED_FORM(stage, t, rscale, atk, rel)
+        else:
+            outs, dones = [], []
+            for i in range(ctx.block_size):
+                stage, t, rscale, o, d = self._step(params, i, stage, t, rscale,
+                                                    atk[..., i], rel[..., i])
+                outs.append(o)
+                dones.append(d)
+            out, done = torch.stack(outs, dim=-1), torch.stack(dones, dim=-1)
+        return ({"stage": stage, "t": t, "release_scale": rscale}, out.unsqueeze(-2),
+                done)
+
+
+class EnvAsr(_EnvBase):
+    """Attack-Sustain-Release envelope: linear attack, cubic release
+    (envelopes.rs:19-163 EnvAsr). Marks done at the frame the release ends."""
+
+    params = (
+        pfloat("attack_time", 0.0, kind=ParameterKind.SECONDS),
+        pfloat("release_time", 0.0, kind=ParameterKind.SECONDS),
+        ptrigger("t_release"),
+        ptrigger("t_restart"),
+    )
+    CLOSED_FORM = staticmethod(asr_closed_form)
+
+    @staticmethod
+    def _step(params, i, stage, t, rscale, atk, rel):
+        """One sample of the state machine (envelopes.rs:52-80); the
+        triggers apply before the sample, as param_apply does."""
+        one, zero = const(1.0, t), const(0.0, t)
+        stage = torch.where(params["t_restart"][..., i], ATTACKING, stage)
+        release = params["t_release"][..., i]
+        rel_from_atk = release & (stage == ATTACKING)
+        rel_from_sus = release & (stage == SUSTAINING)
+        rscale = torch.where(rel_from_atk, t, torch.where(rel_from_sus, one, rscale))
+        t = torch.where(rel_from_atk | rel_from_sus, one, t)
+        stage = torch.where(rel_from_atk | rel_from_sus, RELEASING, stage)
+        out = torch.where(stage == ATTACKING, t,
+                          torch.where(stage == SUSTAINING, one,
+                                      torch.where(stage == RELEASING, t * t * t * rscale,
+                                                  zero)))
+        t_next = torch.where(stage == ATTACKING, t + atk,
+                             torch.where(stage == RELEASING, t - rel, t))
+        to_sustain = (stage == ATTACKING) & (t_next >= one)
+        # pin t to exactly 1 in sustain, as the closed form does
+        t_next = torch.where(to_sustain, one, t_next)
+        done = (stage == RELEASING) & (t_next <= zero)
+        stage = torch.where(to_sustain, SUSTAINING, stage)
+        stage = torch.where(done, STOPPED, stage).to(torch.int32)
+        t_next = torch.where(done, zero, t_next)
+        return stage, t_next, rscale, out, done
+
+    def kernel_stage(self, ctx: AudioCtx):
+        from ..kernels.chain_kernel import BODIES
+
+        return BODIES["env_asr"], 0
+
+
+class EnvAr(_EnvBase):
+    """Attack-Release one-shot envelope (envelopes.rs:174-315 EnvAr)."""
+
+    params = (
+        pfloat("attack_time", 0.0, kind=ParameterKind.SECONDS),
+        pfloat("release_time", 0.0, kind=ParameterKind.SECONDS),
+        ptrigger("t_restart"),
+    )
+    CLOSED_FORM = staticmethod(ar_closed_form)
+
+    @staticmethod
+    def _step(params, i, stage, t, rscale, atk, rel):
+        one, zero = const(1.0, t), const(0.0, t)
+        stage = torch.where(params["t_restart"][..., i], ATTACKING, stage)
+        out = torch.where(stage == ATTACKING, t,
+                          torch.where(stage == RELEASING, t * t * t * rscale, zero))
+        t_next = torch.where(stage == ATTACKING, t + atk,
+                             torch.where(stage == RELEASING, t - rel, t))
+        to_rel = (stage == ATTACKING) & (t_next >= one)
+        rscale = torch.where(to_rel, one, rscale)
+        stage = torch.where(to_rel, RELEASING, stage)
+        t_next = torch.where(to_rel, one, t_next)
+        done = (stage == RELEASING) & ~to_rel & (t_next <= zero)
+        stage = torch.where(done, STOPPED, stage).to(torch.int32)
+        t_next = torch.where(done, zero, t_next)
+        return stage, t_next, rscale, out, done
+
+    def kernel_stage(self, ctx: AudioCtx):
+        from ..kernels.chain_kernel import BODIES
+
+        return BODIES["env_ar"], 0

@@ -65,7 +65,7 @@ def render(m, mode, make, frames, monkeypatch, bs=16, edits=None, dtype=None):
     else:
         monkeypatch.setattr(tck, "_MODE", mode)
     g, proc = m.AudioProcessor.new(0, 1, m.AudioProcessorOptions(block_size=bs),
-                                   dtype=dtype)
+                                   dtype=dtype, **({} if m is jk else {"device": "cpu"}))
     hs = []
     g.edit(lambda gg: make(m, gg, hs))
     outs = [np.asarray(proc.render(frames=frames))]
@@ -110,7 +110,8 @@ def test_state_carries_across_blocks(monkeypatch):
     whole, _ = render(kt, "1", lambda m, gg, hs: build_cascade(m, gg, 12), 160,
                       monkeypatch)
     monkeypatch.setattr(tck, "_MODE", "1")
-    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16))
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                    device="cpu")
     g.edit(lambda gg: build_cascade(kt, gg, 12))
     parts = np.concatenate([proc.render(frames=32) for _ in range(5)], axis=1)
     np.testing.assert_array_equal(whole, parts)
@@ -232,16 +233,18 @@ def test_lowered_program_of_the_cascade(monkeypatch):
         return real(program, **ops)
 
     monkeypatch.setattr(kck, "chain_kernel", spy)
-    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16))
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                    device="cpu")
     g.edit(lambda gg: build_cascade(kt, gg, 16))
     proc.render(frames=16)
     program, ops = got[0]
     assert (program.period, program.n_carry, program.n_slots, program.n_ext,
-            program.n_state, program.n_out) == (5, 1, 5, 0, 1, 1)
+            program.n_state, program.n_out, program.n_done,
+            program.n_scratch) == (5, 1, 5, 0, 1, 1, 0, 0)
     assert ops["planes"].shape == (program.n_planes, 15, 16)
     assert [r[0].name for r in program.records()] == [
         "constant", "math", "constant", "math", "sinwt"]
-    out, state = kck.chain_kernel_plain(program, **ops)
-    assert out.shape == (1, 15, 16) and state.shape == (1, 15)
+    out, state, done = kck.chain_kernel_plain(program, **ops)
+    assert out.shape == (1, 15, 16) and state.shape == (1, 15) and done.shape == (0, 15, 16)
     with pytest.raises(ValueError):
         kck.chain_kernel_plain(program, **dict(ops, rows=ops["rows"][:, :8]))

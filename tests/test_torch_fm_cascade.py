@@ -39,7 +39,8 @@ NO_FMA = {"xla_backend_optimization_level": 0}
 def test_fm_cascade_renders_like_jax(kernel):
     gj, pj = jk.AudioProcessor.new(0, 1, jk.AudioProcessorOptions(block_size=64))
     gj.edit(lambda gg: gg.push(jk.FMCascade(16, use_pallas=kernel)).to_graph_out())
-    gt, pt = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=64))
+    gt, pt = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=64),
+                                   device="cpu")
     gt.edit(lambda gg: gg.push(kt.FMCascade(16, use_kernel=kernel)).to_graph_out())
     a = np.asarray(pj.render(frames=640))
     b = pt.render(frames=640)

@@ -96,8 +96,11 @@ PROBES = {jk: JaxProbe, kt: PortProbe}
 
 
 def _proc(m, ins, outs, block_size=16, dtype=None):
+    # the port renders on the card unless told otherwise; the JAX package
+    # takes no device
+    dev = {} if m is jk else {"device": "cpu"}
     return m.AudioProcessor.new(ins, outs, m.AudioProcessorOptions(
-        block_size=block_size, sample_rate=SR), dtype=dtype)
+        block_size=block_size, sample_rate=SR), dtype=dtype, **dev)
 
 
 def _blocks(proc, n, inputs=None):

@@ -247,7 +247,8 @@ def _stage_operands(kind):
     kck.chain_kernel = spy
     gck._MODE = "1"
     try:
-        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16))
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                        device="cpu")
 
         def build(gg):
             prev = None
@@ -309,17 +310,39 @@ def test_stage_kernel_rejects_bad_operands(kind):
             kck.chain_kernel(object(), **ops)
 
 
-def test_processor_device_is_the_callers(monkeypatch):
-    """Without a device the processor renders on the CPU, even where a card
-    is present: nothing picks CUDA on its own."""
+def test_processor_device_is_the_callers():
+    """The CPU only when the caller names it: ``device="cpu"`` renders on
+    the CPU; without a device the entry points take the card, and where
+    there is none (this machine) they raise instead of falling back."""
     import knaster_tpu_torch as kt
+    from knaster_tpu_torch.graph.compile import compile_graph
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    for graph, proc in (kt.knaster(outputs=2),
-                        kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions())):
+    for graph, proc in (kt.knaster(outputs=2, device="cpu"),
+                        kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(),
+                                              device="cpu")):
         graph.edit(lambda g: (g.push(kt.SinWt(440.0)) * 0.2).to_graph_out())
         audio = proc.render(frames=256)
         assert proc.device.type == "cpu" and isinstance(audio, np.ndarray)
         assert proc.state["pe"]["value"].device.type == "cpu"
         assert proc.render(frames=64, fetch=False).device.type == "cpu"
+    if torch.cuda.is_available():
+        assert kt.knaster(outputs=2)[1].device.type == "cuda"
+        return
+    for make in (lambda: kt.knaster(outputs=2),
+                 lambda: kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions()),
+                 lambda: kt.AudioProcessor(graph),
+                 lambda: compile_graph(graph)):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()
+
+
+def test_default_device_asks_for_the_card(monkeypatch):
+    """Where torch reports a card, the processors made without a device are
+    on it (cuda:0), not on the CPU."""
+    import knaster_tpu_torch as kt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for _graph, proc in (kt.knaster(outputs=2),
+                         kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions())):
+        assert proc.device == torch.device("cuda", 0)
