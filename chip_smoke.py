@@ -103,8 +103,7 @@ GRAPH_SECONDS = 2.0
 STAGE_BLOCKS = (16, 64, 1024)  # the block sizes the chain kernel is held and timed at
 WARM_BLOCKS = 4  # blocks rendered before a timed graph render: they carry the param sets
 
-# The card's peaks for the bound (the on-chip-measurement guide's table:
-# NVIDIA's H100 SXM data sheet): HBM bytes/s and FP32 operations/s outside
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet): HBM bytes/s and FP32 operations/s outside
 # the tensor cores. A bound is the larger of bytes over the one and
 # operations over the other, each input byte read once and each output
 # written once.
