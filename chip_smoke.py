@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card and check it.
 
-    python3 chip_smoke.py [--against OTHER_CHECKOUT]
+    python3 chip_smoke.py
 
 Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
@@ -64,11 +64,8 @@ result line):
    and plain ms. Every kernel row carries its bound (the larger of its
    bytes over HBM bandwidth and its f32 operations over the FP32 peak).
 
-With ``--against DIR`` it then times the chain kernel on the FM cascade in
-this checkout and in DIR (another checkout, e.g. the parent commit's) in
-turns, each in its own process. The last lines are the kernel table
-(JSON), the card's
-``name, power.limit`` and ``{"ok": true, "device": {...}}``.
+The last lines are the kernel table (JSON), the card's ``name,
+power.limit`` and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -610,9 +607,10 @@ def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=(16, 64, 1024
     """The fm_cascade kernel against its plain version over three blocks of
     each param set at every N and B, phases starting near the top of the
     u32 range; checks the saturation rule on the stage phases. Returns the
-    max |output difference| (0.0: bit-equal)."""
+    max |output difference| it measured (0.0: bit-equal)."""
     mod = stage_module("fm_cascade")
     f2pi, scale = stage_consts(np)
+    err = 0.0
     for N in Ns:
         for B in Bs:
             for label, vals in FM_PARAM_SETS:
@@ -629,9 +627,9 @@ def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=(16, 64, 1024
                     if not torch.equal(pk, pp):
                         fail(f"{where}: phases differ from the plain version in "
                              f"{int((pk != pp).sum())} stages")
+                    err = max(err, float((ok - op).abs().max()))
                     if not torch.equal(bits(ok), bits(op)):
-                        fail(f"{where}: output differs from the plain version by "
-                             f"{float((ok - op).abs().max())}")
+                        fail(f"{where}: output differs from the plain version by {err}")
                     if not bool(torch.isfinite(ok).all()) or float(ok.abs().max()) == 0.0:
                         fail(f"{where}: output not finite or silent")
                     step = (pk.long() - ph.long()) % 2**32
@@ -645,7 +643,7 @@ def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=(16, 64, 1024
                     ph = pk
         print(f"kernel vs plain fm_cascade N={N} B={Bs}: phases and output bit-equal "
               f"over 3 blocks of {len(FM_PARAM_SETS)} param sets")
-    return 0.0
+    return err
 
 
 def capture_chain(torch, proc):
@@ -695,8 +693,9 @@ def phase_chain_vs_plain(torch, np, kt, dev, Bs=(16, 64, 1024)):
     """The chain kernel against its plain version on the lowered plans of
     the 256-stage cascade and of a 14-stage cascade with a mid-chain tap,
     at every B, from the graph's own state and from phases near the top of
-    the u32 range. Returns the max |output difference|."""
+    the u32 range. Returns the max |output difference| it measured."""
     kck = stage_module("chain_kernel")
+    err = 0.0
     for n, tap in ((CASCADE, False), (14, True)):
         for B in Bs:
             proc = chain_graph(kt, dev, n, B, tap)
@@ -706,22 +705,12 @@ def phase_chain_vs_plain(torch, np, kt, dev, Bs=(16, 64, 1024)):
                                  ("phases near 2^32",
                                   u32_near_top(torch, np, K, n + B, dev)
                                   .reshape(ops["state"].shape))):
-                run = dict(ops, state=state)
-                ok, sk, _ = kck.chain_kernel(program, **run)
-                op, sp, _ = kck.chain_kernel_plain(program, **run)
-                torch.cuda.synchronize()
                 where = f"chain_kernel {n} stages B={B} {label}"
-                if not torch.equal(sk, sp):
-                    fail(f"{where}: state differs from the plain version in "
-                         f"{int((sk != sp).sum())} words")
-                if not torch.equal(bits(ok), bits(op)):
-                    fail(f"{where}: outputs differ from the plain version by "
-                         f"{float((ok - op).abs().max())}")
-                if not bool(torch.isfinite(ok).all()):
-                    fail(f"{where}: non-finite outputs")
+                err = max(err, compare_chain(torch, kck, program, dict(ops, state=state),
+                                             where)[0])
         print(f"kernel vs plain chain_kernel {n} stages (p={program.period}, "
               f"{program.n_out} out planes) B={Bs}: state and outputs bit-equal")
-    return 0.0
+    return err
 
 
 def body_chain(kt, ops):
@@ -750,23 +739,22 @@ BODY_OPS = (("abs", "sqrt", "log"), ("exp", "sin", "cos"), ("tanh", "neg", "ceil
 
 def phase_bodies_vs_plain(torch, kt, dev):
     """Every Math and Math1 body of the chain kernel against the plain
-    version on the card, B = 64: state and outputs bit-equal."""
+    version on the card, B = 64: state and outputs bit-equal. Returns the
+    max |output difference| it measured."""
     kck = stage_module("chain_kernel")
+    err = 0.0
     for ops in BODY_OPS:
         g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
                                         device=dev)
         g.edit(body_chain(kt, ops))
         proc.render(frames=4 * BLOCK, fetch=False)
         program, run = capture_chain(torch, proc)
-        ok, sk, _ = kck.chain_kernel(program, **run)
-        op, sp, _ = kck.chain_kernel_plain(program, **run)
-        torch.cuda.synchronize()
-        if not torch.equal(sk, sp) or not torch.equal(bits(ok), bits(op)):
-            fail(f"chain_kernel bodies {ops}: state differs in {int((sk != sp).sum())} "
-                 f"words, outputs by {float((ok - op).abs().max())}")
+        err = max(err, compare_chain(torch, kck, program, run,
+                                     f"chain_kernel bodies {ops}")[0])
     print(f"kernel vs plain chain_kernel bodies add/sub/mul/div and "
           f"{sorted({o for ops in BODY_OPS for o in ops})} in 9-sine chains, B={BLOCK}: "
           "state and outputs bit-equal")
+    return err
 
 
 # --------------------------------------------------------------------------
@@ -922,34 +910,37 @@ def edge_operands(torch, np, kck, program, ops, B, seed):
 
 def compare_chain(torch, kck, program, run, where):
     """Kernel against plain on one set of operands: outputs, state words and
-    done rows bit-equal. Returns the kernel's (out, state, done)."""
+    done rows bit-equal. Returns (max |output difference|, the kernel's done
+    rows)."""
     ok, sk, dk = kck.chain_kernel(program, **run)
     op, sp, dp = kck.chain_kernel_plain(program, **run)
     torch.cuda.synchronize()
+    err = float((ok - op).abs().max()) if ok.numel() else 0.0
     if not torch.equal(sk, sp):
         fail(f"{where}: state differs from the plain version in "
              f"{int((sk != sp).sum())} words")
     if not torch.equal(bits(ok), bits(op)):
-        fail(f"{where}: outputs differ from the plain version by "
-             f"{float((ok - op).abs().max())} in {int((bits(ok) != bits(op)).sum())} samples")
+        fail(f"{where}: outputs differ from the plain version by {err} in "
+             f"{int((bits(ok) != bits(op)).sum())} samples")
     if not torch.equal(dk, dp):
         fail(f"{where}: done rows differ from the plain version in "
              f"{int((dk != dp).sum())} samples")
     if not bool(torch.isfinite(ok).all()):
         fail(f"{where}: non-finite outputs")
-    return ok, sk, dk
+    return err, dk
 
 
 def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
     """The chain kernel against its plain version on the lowered programs of
     the subtractive slice's chains, at every B, from the graph's own state
     (after an eventful block that restarts the envelopes) and from the edge
-    state. Returns the max |output difference| (0.0: bit-equal)."""
+    state. Returns {chain: the max |output difference| it measured}."""
     kck = stage_module("chain_kernel")
+    errs = {}
     for name, build in chain_paths(kt).items():
         if names is not None and name not in names:
             continue
-        dones = 0
+        dones, errs[name] = 0, 0.0
         for B in Bs:
             g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
                                             device=dev)
@@ -960,8 +951,9 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
             for label, run in (("graph state", ops),
                                ("edge state", edge_operands(torch, np, kck, program, ops, B,
                                                             B + program.n_state))):
-                _, _, dk = compare_chain(torch, kck, program, run,
-                                         f"chain_kernel {name} B={B} {label}")
+                err, dk = compare_chain(torch, kck, program, run,
+                                        f"chain_kernel {name} B={B} {label}")
+                errs[name] = max(errs[name], err)
                 dones += int(dk.sum())
         bodies = sorted({r[0].name for r in program.records()})
         print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
@@ -969,7 +961,7 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
               f"and done rows bit-equal; {dones} done samples compared set")
         if program.n_done and not dones:
             fail(f"chain_kernel {name}: no done row was set in any compared block")
-    return 0.0
+    return errs
 
 
 def subtractive_voice(kt, g):
@@ -1393,45 +1385,6 @@ def profile_render(torch, kt, dev, label, build, block_size, n=100):
                    n)
 
 
-# Times the chain kernel on the 256-stage FM cascade's lowered program at
-# B = 16 and 64 in the checkout it runs in (any version of this script has
-# the helpers it calls); prints one line "chain_ab <label> <ms16> <ms64>".
-AB_SNIPPET = """
-import sys, torch
-sys.path.insert(0, ".")
-import chip_smoke as cs
-import knaster_tpu_torch as kt
-from knaster_tpu_torch.kernels import chain_kernel as kck
-dev = torch.device("cuda", 0)
-ms = []
-for B in (16, 64):
-    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
-                                    device=dev)
-    g.edit(lambda gg: cs.build_cascade(kt, gg, 256))
-    program, ops = cs.capture_chain(torch, proc)
-    outs = kck.empty_outputs(program, dev, ops["K"], B)
-    ms.append(min(cs.time_call(torch, lambda: kck.launch(outs, program, **ops), 300)
-                  for _ in range(3)))
-print("chain_ab", sys.argv[1], *("%.4f" % m for m in ms))
-"""
-
-
-def phase_chain_ab(other, card):
-    """The chain kernel on the FM cascade in this checkout and in ``other``
-    (another checkout of the repository, e.g. the parent commit), in turns
-    other, this, this, other, each in its own process on this card."""
-    lines = []
-    for label, root in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
-        run = subprocess.run([sys.executable, "-c", AB_SNIPPET, label], cwd=root,
-                             capture_output=True, text=True, timeout=600)
-        line = [x for x in run.stdout.splitlines() if x.startswith("chain_ab")]
-        if run.returncode != 0 or not line:
-            fail(f"chain A/B in {root}: {run.stderr[-2000:]}")
-        lines.append(line[0])
-    print(f"A/B chain_kernel on fm_cascade (ms at B=16, 64) on {card}, {other} as "
-          f"other: " + "; ".join(x[len("chain_ab "):] for x in lines))
-
-
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, label=None):
     """One entry of the kernels line. No single PyTorch call computes any of
     these DSP kernels' functions, so ``library_ms`` is null."""
@@ -1478,9 +1431,9 @@ def main():
         errs[name] = max(errs.get(name, 0.0),
                          phase_kernel_vs_plain(torch, np, ktt, dev, kind, Bs=(BLOCK,)))
     errs["fm_cascade"] = phase_fm_cascade_vs_plain(torch, np, dev)
-    errs["chain_kernel"] = phase_chain_vs_plain(torch, np, ktt, dev)
-    phase_bodies_vs_plain(torch, ktt, dev)
-    phase_subtractive_vs_plain(torch, np, ktt, dev)
+    errs["chain_kernel"] = max(phase_chain_vs_plain(torch, np, ktt, dev),
+                               phase_bodies_vs_plain(torch, ktt, dev))
+    path_errs = phase_subtractive_vs_plain(torch, np, ktt, dev)
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
@@ -1538,15 +1491,13 @@ def main():
     for name, row in phase_stage_timings(torch, np, ktt, dev, card).items():
         table.append(kernel_row(name, stage_launches[name], errs[name], *row))
     # the chain kernel on the subtractive slice's two chain paths: one row
-    # each, with that path's launches
+    # each, with that path's launches and its program's measured error
     for path, row in phase_chain_path_timings(torch, ktt, dev, card).items():
-        table.append(kernel_row("chain_kernel", path_launches[path], errs["chain_kernel"],
+        table.append(kernel_row("chain_kernel", path_launches[path], path_errs[path],
                                 *row, label=f"chain_kernel:{path}"))
     print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 
-    if len(sys.argv) > 2 and sys.argv[1] == "--against":
-        phase_chain_ab(os.path.abspath(sys.argv[2]), card)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

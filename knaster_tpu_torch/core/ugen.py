@@ -14,6 +14,10 @@ declared ``params``); runtime state lives in the dict of tensors its
   (optional) a bool ``[..., B]``. Where the JAX package ``vmap``s a batch of
   same-kind nodes, the port writes the batch out: every leading axis is a
   batch axis, and state leaves carry the same leading axes.
+* ``host_int_params`` — int params whose value at a block's first sample
+  ``process`` branches on: the graph renderer also passes each as
+  ``params[name + "_host"]``, numpy of the leading shape, from the param
+  engine's host copy, so that the branch costs no device-to-host read.
 * ``kernel_stage(ctx)`` — the port's counterpart of ``mosaic_stage``: the
   chain-kernel body of this UGen (``graph/chain_kernel.py``), or None.
 
@@ -66,6 +70,8 @@ class UGen:
     block_invariant: bool = True
     # True when ``process`` can return a done mask.
     may_set_done: bool = False
+    # int params the renderer also passes on the host (module docstring)
+    host_int_params: Tuple[str, ...] = ()
 
     def empty_node_events(self, dtype=None):
         raise NotImplementedError

@@ -48,9 +48,16 @@
 // call. The k and j loops are uniform across the block, each record's body
 // is a switch on its opcode, and PolyBlep's waveform switch reads one
 // plane value per stage, so every warp takes the same branch. A stage's
-// done row is written after its output. The subtractive slice's bodies
-// are out-of-line functions: inlined, they made the switch so large that
-// the SinWt/Math stage loop of the FM cascade ran 19% slower on an H100.
+// done row is written after its output.
+//
+// Two kernels from one stage loop, a template on whether the program uses a
+// body past Math1 (the host reads that from the program's opcodes): a
+// program of Constant, SinWt, Math and Math1 bodies only runs
+// chain_kernel_small, whose switch holds those four cases and nothing else,
+// since the subtractive slice's bodies, compiled into the same switch, made
+// the SinWt/Math stage loop of the FM cascade run 19% slower on an H100
+// (7.5% with those bodies out of line). chain_kernel_all holds every body,
+// inlined.
 //
 // What bounds it: K*p dependent bodies per block, each a few instructions
 // per sample plus, for the scan bodies, log2(B) barrier-separated steps;
@@ -460,11 +467,9 @@ struct Rec {
   uint8_t* done_row;  // this stage's done row, or null
 };
 
-// The bodies of the subtractive slice run out of line (__noinline__), so
-// that the stage loop the SinWt, Constant and Math bodies share stays small;
-// every thread of the block calls them.
+// The bodies of the subtractive slice; every thread of the block calls them.
 
-__device__ __noinline__ void body_polyblep(const Frame& f, const Io& io, const Rec& rc) {
+__device__ void body_polyblep(const Frame& f, const Io& io, const Rec& rc) {
   // params: waveform, freq, pulse_width; the phase as SinWt's, in 2^30
   // units a cycle (f2pi is the same constant); the waveform from sample 0
   const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
@@ -497,7 +502,7 @@ __device__ __noinline__ void body_polyblep(const Frame& f, const Io& io, const R
   if (tid == 0) io.state_out[rc.srow * K + k] = ph0 + running;
 }
 
-__device__ __noinline__ void body_svf(const Frame& f, const Io& io, const Rec& rc) {
+__device__ void body_svf(const Frame& f, const Io& io, const Rec& rc) {
   // params: filter, cutoff_freq, q, gain; words ic0, ic1
   const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
   const int* prog = io.prog;
@@ -546,7 +551,7 @@ __device__ __noinline__ void body_svf(const Frame& f, const Io& io, const Rec& r
   }
 }
 
-__device__ __noinline__ void body_onepole(const Frame& f, const Io& io, const Rec& rc,
+__device__ void body_onepole(const Frame& f, const Io& io, const Rec& rc,
                                           bool highpass) {
   // y[t] = b1*y[t-1] + a0*x[t]; the highpass outputs x - y
   const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
@@ -571,7 +576,7 @@ __device__ __noinline__ void body_onepole(const Frame& f, const Io& io, const Re
   }
 }
 
-__device__ __noinline__ void body_env(const Frame& f, const Io& io, const Rec& rc, bool ar) {
+__device__ void body_env(const Frame& f, const Io& io, const Rec& rc, bool ar) {
   // the event-free closed forms (ugens/envelopes.py); params attack_time,
   // release_time; words release_scale, stage, t
   const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x, srow = rc.srow;
@@ -652,7 +657,7 @@ __device__ __noinline__ void body_env(const Frame& f, const Io& io, const Rec& r
   }
 }
 
-__device__ __noinline__ void body_pan2(const Frame& f, const Io& io, const Rec& rc) {
+__device__ void body_pan2(const Frame& f, const Io& io, const Rec& rc) {
   for (int t = threadIdx.x; t < f.B; t += blockDim.x) {
     const float x = input(f, io.prog, rc.in_tab, 0, t);
     const float angle =
@@ -662,14 +667,17 @@ __device__ __noinline__ void body_pan2(const Frame& f, const Io& io, const Rec& 
   }
 }
 
-// up to 1024 threads a block (one per sample): at most 64 registers each
-__global__ void __launch_bounds__(1024) chain_kernel(const int* __restrict__ prog,
-                             const float* __restrict__ planes,
-                             const uint32_t* __restrict__ state,
-                             const float* __restrict__ rows, float* __restrict__ out,
-                             uint32_t* __restrict__ state_out,
-                             uint8_t* __restrict__ done_out, int K, int B, float f2pi,
-                             float scale, float sr) {
+// The stage loop of the two kernels below. kAllBodies: the program may use
+// a body past Math1.
+template <bool kAllBodies>
+__device__ __forceinline__ void run_chain(const int* __restrict__ prog,
+                                          const float* __restrict__ planes,
+                                          const uint32_t* __restrict__ state,
+                                          const float* __restrict__ rows,
+                                          float* __restrict__ out,
+                                          uint32_t* __restrict__ state_out,
+                                          uint8_t* __restrict__ done_out, int K, int B,
+                                          float f2pi, float scale, float sr) {
   __shared__ uint32_t scratch[32];
   __shared__ float red[32];
   const int p = prog[0], n_carry = prog[1], n_slots = prog[2], n_ext = prog[3];
@@ -734,25 +742,25 @@ __global__ void __launch_bounds__(1024) chain_kernel(const int* __restrict__ pro
           if (tid == 0) state_out[srow * K + k] = ph0 + running;
           break;
         }
-        default: {
-          // the subtractive slice's bodies, out of line; a stage's done row
-          // is written with its output
-          const int done_plane = r[9];
-          const Rec rc{arg, n_out, srow, in_tab, par_tab, out_tab,
-                       done_plane >= 0
-                           ? done_out + (static_cast<size_t>(done_plane) * K + k) * B
-                           : nullptr};
-          switch (op) {
-            case kOpPolyBlep: body_polyblep(f, io, rc); break;
-            case kOpSvf: body_svf(f, io, rc); break;
-            case kOpLpf: body_onepole(f, io, rc, false); break;
-            case kOpHpf: body_onepole(f, io, rc, true); break;
-            case kOpEnvAsr: body_env(f, io, rc, false); break;
-            case kOpEnvAr: body_env(f, io, rc, true); break;
-            case kOpPan2: body_pan2(f, io, rc); break;
-            default: break;
+        default:
+          if constexpr (kAllBodies) {
+            // a stage's done row is written with its output
+            const int done_plane = r[9];
+            const Rec rc{arg, n_out, srow, in_tab, par_tab, out_tab,
+                         done_plane >= 0
+                             ? done_out + (static_cast<size_t>(done_plane) * K + k) * B
+                             : nullptr};
+            switch (op) {
+              case kOpPolyBlep: body_polyblep(f, io, rc); break;
+              case kOpSvf: body_svf(f, io, rc); break;
+              case kOpLpf: body_onepole(f, io, rc, false); break;
+              case kOpHpf: body_onepole(f, io, rc, true); break;
+              case kOpEnvAsr: body_env(f, io, rc, false); break;
+              case kOpEnvAr: body_env(f, io, rc, true); break;
+              case kOpPan2: body_pan2(f, io, rc); break;
+              default: break;
+            }
           }
-        }
       }
     }
     // the stage's carried outputs become the next stage's carry rows
@@ -762,25 +770,53 @@ __global__ void __launch_bounds__(1024) chain_kernel(const int* __restrict__ pro
   }
 }
 
+// Constant, SinWt, Math and Math1 bodies only. No launch bound: with
+// __launch_bounds__(1024) this loop ran slower on an H100, and it needs no
+// more than 64 registers a thread without one.
+__global__ void chain_kernel_small(const int* __restrict__ prog,
+                                   const float* __restrict__ planes,
+                                   const uint32_t* __restrict__ state,
+                                   const float* __restrict__ rows, float* __restrict__ out,
+                                   uint32_t* __restrict__ state_out,
+                                   uint8_t* __restrict__ done_out, int K, int B, float f2pi,
+                                   float scale, float sr) {
+  run_chain<false>(prog, planes, state, rows, out, state_out, done_out, K, B, f2pi, scale, sr);
+}
+
+// Every body. Up to 1024 threads a block (one per sample) allow at most 64
+// registers each, which the inlined bodies exceed unbounded.
+__global__ void __launch_bounds__(1024) chain_kernel_all(const int* __restrict__ prog,
+                                                         const float* __restrict__ planes,
+                                                         const uint32_t* __restrict__ state,
+                                                         const float* __restrict__ rows,
+                                                         float* __restrict__ out,
+                                                         uint32_t* __restrict__ state_out,
+                                                         uint8_t* __restrict__ done_out,
+                                                         int K, int B, float f2pi,
+                                                         float scale, float sr) {
+  run_chain<true>(prog, planes, state, rows, out, state_out, done_out, K, B, f2pi, scale, sr);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Runs one chain over one block on `stream`; returns cudaGetLastError().
 // smem_floats = (n_slots + n_carry + n_scratch) * B, from the program's
-// header.
+// header; all_bodies: nonzero when the program uses a body past Math1.
 int ktt_chain_kernel(const int* prog, const float* planes, const uint32_t* state,
                      const float* rows, float* out, uint32_t* state_out, uint8_t* done,
-                     int K, int B, int smem_floats, float f2pi, float scale, float sr,
-                     void* stream) {
+                     int K, int B, int smem_floats, int all_bodies, float f2pi, float scale,
+                     float sr, void* stream) {
   if (K < 1 || B < 1 || smem_floats < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = all_bodies ? chain_kernel_all : chain_kernel_small;
   const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  chain_kernel<<<1, stage_threads(B), smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<1, stage_threads(B), smem, static_cast<cudaStream_t>(stream)>>>(
       prog, planes, state, rows, out, state_out, done, K, B, f2pi, scale, sr);
   return static_cast<int>(cudaGetLastError());
 }

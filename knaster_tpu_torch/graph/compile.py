@@ -815,10 +815,18 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
             return pe["int_value"][idx][:, None].expand(n, B) if fast else pi[idx]
         return false_row.expand(n, B) if fast else pset[idx]  # "set" masks
 
+    def host_slots(rep, spec, typ, slots):
+        """The slots of an int param whose UGen reads its values on the host
+        (``UGen.host_int_params``), else None."""
+        if typ == "int" and spec.name in getattr(rep, "host_int_params", ()):
+            return slots
+        return None
+
     def param_specs(nids, rep):
-        """Per param of ``rep``: (name, type, slot idx, retrigger) when every
-        member reads the engine, or (name, None, [member sources]) when some
-        member's param is driven by an audio-rate edge."""
+        """Per param of ``rep``: (name, type, slot idx, retrigger, host
+        slots) when every member reads the engine, or (name, None, [member
+        sources], False, None) when some member's param is driven by an
+        audio-rate edge."""
         specs = []
         for pidx, spec in enumerate(rep.params):
             edges = [cg.resolved_param_edges.get((n, pidx)) for n in nids]
@@ -827,12 +835,13 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                 for n, e in zip(nids, edges):
                     typ, slot = cg.layout.lookup(n, pidx)
                     srcs.append(("edge", e) if e is not None else (typ, slot))
-                specs.append((spec.name, None, srcs, False))
+                specs.append((spec.name, None, srcs, False, None))
                 continue
             typ = cg.layout.lookup(nids[0], pidx)[0]
             slots = [cg.layout.lookup(n, pidx)[1] for n in nids]
             specs.append((spec.name, typ, _idx(slots),
-                          typ == "int" and getattr(spec, "retrigger", False)))
+                          typ == "int" and getattr(spec, "retrigger", False),
+                          host_slots(rep, spec, typ, slots)))
         return specs
 
     # ----------------------------------------------- per plan entry, once
@@ -865,7 +874,8 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                         float_slots += slots
                     else:
                         others.append((j, spec.name, typ, _idx(slots),
-                                       getattr(spec, "retrigger", False)))
+                                       getattr(spec, "retrigger", False),
+                                       host_slots(rep, spec, typ, slots)))
                         if typ == "int":
                             int_idx.append(((j, spec.name), _idx(slots)))
             kernel_index = dict(plane_index)
@@ -878,9 +888,17 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                            chain_kernel.ext_descs(cp),
                            [idx for _key, idx in int_idx], kernel_index)))
 
+    # a UGen that branches on an int param per block (PolyBlep's waveform)
+    # reads its values from the engine's host copy: no block waits on a
+    # device read
+    host_specs = [spec[4] for step in steps if step[0] != "chain" for spec in step[3]]
+    host_specs += [o[5] for step in steps if step[0] == "chain" for o in step[3][2]]
+    wants_host = any(h is not None for h in host_specs)
+
     def render(state, events, graph_inputs):
         pe = state["pe"]
         pf = pt = pi = pset = None
+        ints_host = engine.ints_at_block_start(pe, events) if wants_host else None
         if fast:
             # every float param of the graph in one read of the ramp state:
             # on the eager device path a few wide ops beat many narrow ones
@@ -950,7 +968,7 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
         def params_of(specs, nids):
             """{name: [B] or [N, B]} for one node or a batch."""
             out = {}
-            for name, typ, idx, retrig in specs:
+            for name, typ, idx, retrig, host in specs:
                 if typ is None:  # some member's param follows an edge
                     rows = []
                     for src in idx:
@@ -964,6 +982,8 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                     out[name] = rows_of(typ, idx, len(nids))
                     if retrig:
                         out[name + "_set"] = rows_of("set", idx, len(nids))
+                    if host is not None:
+                        out[name + "_host"] = ints_host[host]
             if len(nids) == 1:
                 out = {k: v[0] for k, v in out.items()}
             return out
@@ -1047,10 +1067,12 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
                     par = [dict() for _ in range(p)]
                     for (j, name), pi_ in plane_index.items():
                         par[j][name] = planes[pi_]
-                    for (j, name, typ, idx, retrig) in others:
+                    for (j, name, typ, idx, retrig, host) in others:
                         par[j][name] = rows_of(typ, idx, K)
                         if typ == "int" and retrig:
                             par[j][name + "_set"] = rows_of("set", idx, K)
+                        if host is not None:
+                            par[j][name + "_host"] = ints_host[host]
                     res = _scan_chain(cp, reps, ctx, state["nodes"][ckey], par,
                                       carry0, read_source, track_done, device)
                 st_stack, outs_stack, chain_dones = res

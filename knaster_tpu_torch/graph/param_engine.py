@@ -22,11 +22,16 @@ same dict the JAX package builds). The JAX package folds its padded event
 tensor in a device loop; here the host walks the valid events in their
 order and each applies the same ``where`` arithmetic to its slot on the
 device, so padding costs nothing. Trigger and int-set masks are built on
-the host and uploaded once.
+the host and uploaded once. The engine also keeps the int params' values on
+the host (``ints_at_block_start``), for UGens that branch on one per block
+(PolyBlep's waveform): it reads them from the device once for a state it
+has not seen, and applies the int events to its copy as it applies them on
+the device.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
@@ -178,6 +183,8 @@ class PEngine:
         self.block_size = int(block_size)
         self.dtype = dtype
         self._ramps = {}  # device -> (t [B+1], stair [B+1]) int32
+        # (the int_value tensor, its version, its values as numpy)
+        self._ints_host = None
 
     def _time(self, device):
         """Sample index t in [0, B] and its block-rate stair (0 inside the
@@ -201,6 +208,36 @@ class PEngine:
         new_state = dict(fstate)
         new_state["int_value"] = int_value
         return pf, pt, pi, pset, new_state
+
+    def _ints_kept(self, int_value):
+        """The host copy of ``int_value`` if the engine holds it, else None."""
+        got = self._ints_host
+        if got is not None and got[0]() is int_value and got[1] == int_value._version:
+            return got[2]
+        return None
+
+    def ints_on_host(self, int_value):
+        """``int_value`` as numpy. Read from the device only for a tensor
+        the engine has not seen or that changed in place since."""
+        host = self._ints_kept(int_value)
+        if host is None:
+            host = int_value.detach().cpu().numpy()
+            self._ints_host = (weakref.ref(int_value), int_value._version, host)
+        return host
+
+    def ints_at_block_start(self, state, events=None):
+        """The int params' values at a block's first sample, as numpy: the
+        state's, with the block's frame-0 int events applied."""
+        host = self.ints_on_host(state["int_value"])
+        if events is None:
+            return host
+        first = [e for e, s in enumerate(events["i_slot"])
+                 if s >= 0 and events["i_frame"][e] == 0]
+        if first:
+            host = host.copy()
+            for e in first:
+                host[int(events["i_slot"][e])] = int(events["i_value"][e])
+        return host
 
     def materialize_rows_fast(self, state, idx):
         """[len(idx), B] per-sample values for the given float slots (a slice
@@ -333,7 +370,10 @@ class PEngine:
         setm = np.zeros((Pi, B), dtype=np.bool_)
         vals = int_value[:, None].expand(Pi, B)
         valid = [i for i, s in enumerate(events["i_slot"]) if s >= 0]
+        # a host copy the engine keeps follows the events without a read
+        host = self._ints_kept(int_value)
         if valid:
+            host = None if host is None else host.copy()
             vals = vals.clone()
             int_value = int_value.clone()
         for e in valid:
@@ -341,4 +381,8 @@ class PEngine:
             setm[s, f] = True
             vals[s, f:] = v
             int_value[s] = v
+            if host is not None:
+                host[s] = v
+        if valid and host is not None:
+            self._ints_host = (weakref.ref(int_value), int_value._version, host)
         return vals, torch.from_numpy(setm).to(device), int_value

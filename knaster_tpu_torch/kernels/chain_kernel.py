@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -49,7 +50,7 @@ KERNEL = "chain_kernel"
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
 
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 \
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
     + [ctypes.c_void_p]
 
 HEADER = 8
@@ -185,6 +186,9 @@ BODIES: Dict[str, Body] = {
     )
 }
 _BY_OP = {b.op: b for b in BODIES.values()}
+# the bodies of chain_kernel_small, the kernel for programs of these alone
+# (csrc/chain_kernel.cu)
+SMALL_OPS = frozenset(BODIES[n].op for n in ("constant", "sinwt", "math", "math1"))
 
 
 @dataclass
@@ -227,6 +231,14 @@ class ChainProgram:
     @property
     def n_scratch(self):
         return self.words[7]
+
+    @cached_property
+    def all_bodies(self) -> bool:
+        """Whether the program uses a body outside ``SMALL_OPS``: it then
+        runs ``chain_kernel_all``, else ``chain_kernel_small``."""
+        w = self.words
+        return any(w[w[HEADER + self.n_carry + j]] not in SMALL_OPS
+                   for j in range(self.period))
 
     def on(self, device) -> torch.Tensor:
         key = str(device)
@@ -337,8 +349,9 @@ def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ktt_chain_kernel(
             bc.ptr(prog), bc.ptr(planes), bc.ptr(state), bc.ptr(rows), bc.ptr(out),
-            bc.ptr(state_out), bc.ptr(done), K, B, n_rows * B, ctypes.c_float(f2pi),
-            ctypes.c_float(scale), ctypes.c_float(sample_rate), ctypes.c_void_p(stream))
+            bc.ptr(state_out), bc.ptr(done), K, B, n_rows * B, int(program.all_bodies),
+            ctypes.c_float(f2pi), ctypes.c_float(scale), ctypes.c_float(sample_rate),
+            ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
 

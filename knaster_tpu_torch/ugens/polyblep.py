@@ -198,15 +198,17 @@ WAVEFORM_FNS = (_saw, _sin, _cos, _tri, _sqr, _rect, _ramp, _tri2, _sqr2, _half,
                 _full, _trip, _trap, _trap2)
 
 
-def polyblep_block(t_word, waveform, freq, pulse_width, sample_rate):
+def polyblep_block(t_word, waveform, freq, pulse_width, sample_rate, waveform_host=None):
     """One block of PolyBlep over ``[..., B]`` rows.
 
     t_word: the phase words ``[...]`` (u32 as int32); waveform: int
     ``[..., B]`` (read at sample 0 of each row; float rows holding whole
     numbers, as the chain kernel's planes carry them, work alike); freq and
     pulse_width: ``[..., B]``. Returns (new phase words, out ``[..., B]``).
-    The waveform of each row is selected on the host: one device-to-host
-    read of the distinct waveforms per call."""
+    The distinct waveforms of the rows pick the waveform functions to run:
+    ``waveform_host`` gives the rows' waveforms on the host (numpy of the
+    leading shape, as the graph renderer passes them); without it they are
+    read from the device, which waits for it."""
     dtype = freq.dtype
     sr = float(sample_rate)
     dt = freq / const(sr, freq)
@@ -216,7 +218,11 @@ def polyblep_block(t_word, waveform, freq, pulse_width, sample_rate):
     t = phase_to_t(ph0.unsqueeze(-1) + csum - inc, dtype)
     carry = (ph0 + csum[..., -1]) & U32_MASK
     w = waveform[..., 0].clamp(0, len(WAVEFORM_FNS) - 1).to(torch.int64)
-    kinds = sorted(set(w.reshape(-1).tolist()))
+    if waveform_host is None:
+        kinds = sorted(set(w.reshape(-1).tolist()))
+    else:
+        kinds = sorted(set(np.clip(np.asarray(waveform_host), 0, len(WAVEFORM_FNS) - 1)
+                           .reshape(-1).tolist()))
     out = WAVEFORM_FNS[kinds[0]](t, dt, pulse_width)
     for k in kinds[1:]:
         out = torch.where((w == k).unsqueeze(-1), WAVEFORM_FNS[k](t, dt, pulse_width), out)
@@ -235,6 +241,9 @@ class PolyBlep(UGen):
         pfloat("pulse_width", 0.5),
     )
 
+    # the waveform selects at block rate: the renderer passes it on the host
+    host_int_params = ("waveform",)
+
     def __init__(self, waveform: Waveform = Waveform.Sawtooth, freq: float = 440.0):
         self.pdefaults = {"waveform": int(waveform), "freq": float(freq)}
 
@@ -248,7 +257,8 @@ class PolyBlep(UGen):
 
     def process(self, ctx: AudioCtx, state, inputs, params):
         t, out = polyblep_block(state["t"], params["waveform"], params["freq"],
-                                params["pulse_width"], ctx.sample_rate)
+                                params["pulse_width"], ctx.sample_rate,
+                                params.get("waveform_host"))
         return {"t": t}, out.unsqueeze(-2)
 
     def kernel_stage(self, ctx: AudioCtx):

@@ -244,6 +244,7 @@ def test_lowered_program_of_the_cascade(monkeypatch):
     assert ops["planes"].shape == (program.n_planes, 15, 16)
     assert [r[0].name for r in program.records()] == [
         "constant", "math", "constant", "math", "sinwt"]
+    assert not program.all_bodies  # the kernel's small instantiation
     out, state, done = kck.chain_kernel_plain(program, **ops)
     assert out.shape == (1, 15, 16) and state.shape == (1, 15) and done.shape == (0, 15, 16)
     with pytest.raises(ValueError):

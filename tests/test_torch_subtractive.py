@@ -13,6 +13,8 @@ kernel's plain path.
   (the JAX package's associative-scan tree against the port's
   Hillis-Steele doubling), the envelopes' closed forms 1.8e-7 (jnp.cumsum
   against the doubling) and their per-sample loops 0, Pan2 6.0e-8.
+- The graph renderer hands PolyBlep its waveforms from the param engine's
+  host copy, and the render equals the one that reads them from the device.
 - Each new chain-kernel body through ``chain_kernel_plain``
   (``graph.chain_kernel._MODE = "1"``) against the port's own scan
   executor, bit for bit, and against the JAX package's Pallas chain kernel
@@ -164,6 +166,68 @@ def test_polyblep_batch_mixes_waveforms():
         "pulse_width": _rng_rows(rng, 0.2, 0.8, B, (N,))}) for _ in range(3)]
     res = run_blocks(jk.PolyBlep(), kt.PolyBlep(), B, blocks, True, batch=N)
     assert_blocks(res, exact=("t",))
+
+
+def test_renderer_passes_polyblep_waveforms_on_the_host(monkeypatch):
+    """The graph renderer hands every PolyBlep call its rows' waveforms from
+    the param engine's host copy, equal to the device rows at sample 0,
+    for a single node, a batch and a chain on the scan executor, through
+    waveform sets at frame 0 and mid-block; the render equals the one that
+    reads the waveforms back from the device, bit for bit; after the sets
+    the engine's copy follows the state's tensor without a read."""
+    from knaster_tpu_torch.ugens import polyblep as pb
+
+    seen = []
+    real = pb.polyblep_block
+
+    def spy(t_word, waveform, *a):
+        seen.append((waveform[..., 0].numpy().copy(), a[-1]))
+        return real(t_word, waveform, *a)
+
+    monkeypatch.setattr(pb, "polyblep_block", spy)
+
+    def run():
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                        device="cpu")
+        hs = {}
+
+        def build(gg):
+            hs["one"] = gg.push(kt.PolyBlep(kt.Waveform.Square, 200.0))
+            lone = hs["one"] * 0.1
+            hs["batch"] = [gg.push(kt.PolyBlep(kt.Waveform(w), 300.0 + 50 * w))
+                           for w in (0, 3, 5)]
+            for b in hs["batch"]:
+                lone = lone + b * 0.1
+            lone.to_graph_out()
+            polyblep_cascade(kt, gg)
+
+        g.edit(build)
+        proc.render(frames=32)
+        hs["one"].param("waveform").set(int(kt.Waveform.Triangle))
+        hs["batch"][1].param("waveform").set_at(int(kt.Waveform.TrapezoidVariable),
+                                                kt.Seconds.from_samples(32 + 7, SR))
+        cascade = [n for n in g.nodes if n not in (hs["one"].id, *(b.id for b in hs["batch"]))
+                   and isinstance(g.nodes[n].ugen, kt.PolyBlep)]
+        g.handle(cascade[4]).param("waveform").set(int(kt.Waveform.Sine))
+        audio = proc.render(frames=64)
+        return audio, proc
+
+    a, proc = run()
+    plan = [k for k, _ in proc.compiled.plan]
+    assert "single" in plan and "batch" in plan and "chain" in plan
+    assert seen and all(h is not None for _, h in seen)
+    for rows, host in seen:
+        np.testing.assert_array_equal(np.asarray(host).reshape(rows.shape), rows)
+    assert {int(w) for rows, _ in seen for w in np.ravel(rows)} >= {1, 3, 4, 13}
+    engine, pe = proc.compiled.engine, proc.state["pe"]
+    assert engine._ints_host[0]() is pe["int_value"]
+    np.testing.assert_array_equal(engine._ints_host[2], pe["int_value"].numpy())
+    monkeypatch.setattr(kt.PolyBlep, "host_int_params", ())
+    seen.clear()
+    b, _ = run()
+    assert seen and all(h is None for _, h in seen)
+    np.testing.assert_array_equal(a, b)
+    assert np.abs(a).max() > 0.05
 
 
 @pytest.mark.parametrize("no_events", [False, True], ids=["eventful", "event_free"])
@@ -498,6 +562,7 @@ def test_chain_state_words_and_done_planes(monkeypatch):
     assert (program.period, program.n_state, program.n_done, program.n_scratch) == (1, 2, 0, 12)
     (rec,) = program.records()
     assert rec[0].name == "svf" and rec[3][0] == (kck.SRC_PLANE, 3)  # the int plane
+    assert program.all_bodies  # the kernel's instantiation with every body
     assert sorted(set(ops["planes"][3].flatten().tolist())) == [6.0]  # Bell
     runs = []
     real_run = tck.run
