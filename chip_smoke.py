@@ -19,16 +19,23 @@ result line):
    stated tolerance. Then the two stage-loop kernels: ``fm_cascade`` at N in
    {16, 256} and ``chain_kernel`` on the lowered plans of the 256-stage
    graph cascade and of a 14-stage cascade with a mid-chain tap, each at B
-   in {16, 64, 1024}, with phases near the top of the u32 range, one stage
-   frequency that saturates and one that is negative: state and outputs
-   bit-equal. Then the chain kernel's PolyBlep, SvfFilter, one-pole,
-   EnvAsr, EnvAr and Pan2 bodies on the lowered plans of the subtractive
-   slice's chains (``polyblep_cascade``, ``graphic_eq_31``, the one-pole,
-   envelope-mix, FREE_PARENT, EnvAr and Pan2 chains) at B in {16, 64,
-   1024}, from the graph's state and from edge states (phases near 2^32, a
-   cutoff just under Nyquist, attacks that cross 1 and releases that end
-   mid-block, an EnvAr making both transitions in one block): state words,
-   outputs and done rows bit-equal;
+   in {16, 64, 1024} (``fm_cascade`` also at 8,192, the longest superblock
+   of a B = 64 render, and at its own limit), with phases near the top of
+   the u32 range, one stage frequency that saturates and one that is
+   negative: state and outputs bit-equal. Then the chain kernel's PolyBlep,
+   SvfFilter, one-pole, EnvAsr, EnvAr and Pan2 bodies on the lowered plans
+   of the subtractive slice's chains (``polyblep_cascade``,
+   ``graphic_eq_31``, the one-pole, envelope-mix, FREE_PARENT, EnvAr and
+   Pan2 chains) at B in {16, 64, 1024} and at the longest superblock each
+   path's render takes, from the
+   graph's state and from edge states (phases near 2^32, a cutoff just
+   under Nyquist, attacks that cross 1 and releases that end mid-block, an
+   EnvAr making both transitions in one block): state words, outputs and
+   done rows bit-equal. Then the SinNumeric and Phasor bodies on the
+   12-stage Phasor LFO cascade and the 256-stage SinNumeric FM cascade at
+   B in {16, 64, 1024}, at the longest superblock and at the chain's
+   shared-memory cap, from the graph's state and from f32 phases just under
+   the wrap: state words and outputs bit-equal;
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
@@ -43,26 +50,37 @@ result line):
    ``readme_sine`` (0.5 s, against the port's CPU render) and the README
    example with smoothing and a scheduled set (2 s); ``fm_cascade`` (256
    SinWt stages as graph nodes, B=64, 2 s, the chain kernel once per
-   block, against the scan executor over 64 blocks); ``fm_cascade_model``
-   (``FMCascade(256)``, the fm_cascade kernel once per block);
+   superblock, against the scan executor over 64 blocks);
+   ``fm_cascade_model`` (``FMCascade(256)``, the fm_cascade kernel once per
+   superblock);
    ``sines_const`` (256 independent sines, B=16 and 64, no kernel). Then
    the subtractive slice: ``subtractive_voice`` (the golden config, 0.4 s,
    against the port's CPU render, no kernel); ``polyblep_cascade`` (256
    PolyBlep stages) and ``graphic_eq_31`` (a saw into 31 Bell SVFs), B=64,
-   2 s each, the chain kernel once per event-free block, against the scan
-   executor over 64 blocks; the one-pole, envelope, FREE_PARENT and Pan2
-   chains at B=16 against the scan executor (the FREE_PARENT chain's
+   2 s each, the chain kernel once per event-free superblock, against the
+   scan executor over 64 blocks; the one-pole, envelope, FREE_PARENT and
+   Pan2 chains at B=16 against the scan executor (the FREE_PARENT chain's
    output zero from its done frame on). Each prints realtime x (samples/s
-   / 48,000);
+   / 48,000). Then golden ``param_sweep`` at f32 and f64 against the port's
+   CPU render. Then every graph slice, the param sweep's two cascades
+   included, rendered twice from one schedule, with superblocks and block
+   by block (``render_chunk_blocks=1``): bit-equal where the phases are
+   u32, within a stated tolerance where a float scan spans the superblock;
+   each render's realtime x and kernel launches per rendered second, and
+   the superblocked render's own kernel launches (one per superblock);
 5. timings and profile — per bank kernel at V=131072, B=64: kernel ms (CUDA
    events over back-to-back ``launch()`` calls into preallocated outputs),
    wrapper ms and plain ms, event-free and eventful; then torch.profiler's
-   device time by kernel over 100 event-free blocks of each bank and graph
-   slice; and the stage-loop kernels at B in {16, 64, 1024} (fm_cascade at
-   N = 256, the chain kernel on the FM cascade, ``polyblep_cascade`` and
-   ``graphic_eq_31``): kernel ms, and at B = 64 the profiler's device time
-   and plain ms. Every kernel row carries its bound (the larger of its
-   bytes over HBM bandwidth and its f32 operations over the FP32 peak).
+   device time by kernel over 100 event-free blocks of each bank and one
+   render chunk of each graph slice; and the stage-loop kernels at B in
+   {16, 64, 1024} and at the longest superblock their renders take
+   (fm_cascade at N = 256, the chain kernel on the FM cascade,
+   ``polyblep_cascade``, ``graphic_eq_31``, ``phasor_cascade`` and
+   ``sin_numeric_cascade``): kernel ms (the FM cascade's at B = 64 against
+   its recorded time), and at the superblock length the profiler's device time and
+   plain ms. Every kernel row carries its bound (the larger of its bytes
+   over HBM bandwidth and its f32 operations over the FP32 peak), at the
+   superblock length.
 
 The last lines are the kernel table (JSON), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -98,6 +116,7 @@ REPLACES = {
 CASCADE = 256  # benchmarks/suite.py's bench_fm_cascade and bench_fm_cascade_model
 GRAPH_SECONDS = 2.0
 STAGE_BLOCKS = (16, 64, 1024)  # the block sizes the chain kernel is held and timed at
+CHUNK = 128  # AudioProcessorOptions.render_chunk_blocks: the longest superblock, in blocks
 WARM_BLOCKS = 4  # blocks rendered before a timed graph render: they carry the param sets
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet): HBM bytes/s and FP32 operations/s outside
@@ -565,12 +584,13 @@ def u32_near_top(torch, np, n, seed, dev):
                             .astype(np.uint32).view(np.int32)).to(dev)
 
 
-def build_cascade(kt, gg, n, handles=None):
-    """benchmarks/suite.py:374-399: n SinWt stages, each one's output
-    FM-modulating the next one's freq through (prev * 100) + 200."""
+def build_cascade(kt, gg, n, handles=None, osc=None):
+    """benchmarks/suite.py:374-399: n SinWt (or ``osc``) stages, each one's
+    output FM-modulating the next one's freq through (prev * 100) + 200."""
+    osc = osc or kt.SinWt
     prev = None
     for i in range(n):
-        s = gg.push(kt.SinWt(100.0 + i))
+        s = gg.push(osc(100.0 + i))
         if prev is not None:
             mod = (prev * 100.0) + 200.0
             gg.connect_param(gg.handle(mod.channels[0][1]), 0, s, "freq")
@@ -603,12 +623,15 @@ def stage_consts(np):
             float(np.float32(2.0 * np.pi / TABLE_SIZE)))
 
 
-def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=(16, 64, 1024)):
+def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=None):
     """The fm_cascade kernel against its plain version over three blocks of
-    each param set at every N and B, phases starting near the top of the
-    u32 range; checks the saturation rule on the stage phases. Returns the
-    max |output difference| it measured (0.0: bit-equal)."""
+    each param set at every N and B (by default STAGE_BLOCKS, the longest
+    superblock of a B = 64 render and the kernel's own limit), phases
+    starting near the top of the u32 range; checks the saturation rule on
+    the stage phases. Returns the max |output difference| it measured (0.0:
+    bit-equal)."""
     mod = stage_module("fm_cascade")
+    Bs = Bs or STAGE_BLOCKS + (CHUNK * BLOCK, mod.MAX_BLOCK)
     f2pi, scale = stage_consts(np)
     err = 0.0
     for N in Ns:
@@ -842,6 +865,30 @@ def pan2_chain(kt, gg):
     (prev * 0.1).to_graph_out()
 
 
+def phasor_cascade(kt, gg):
+    """tests/test_chain_kernel.py:209-232: 12 Phasor LFOs, each one's output
+    * 40 + 60 driving the next one's freq."""
+    prev = None
+    for i in range(12):
+        ph = gg.push(kt.Phasor(0.5 + 0.25 * i))
+        if prev is not None:
+            mod = (prev * 40.0) + 60.0
+            gg.connect_param(gg.handle(mod.channels[0][1]), 0, ph, "freq")
+        prev = ph
+    (prev * 0.2).to_graph_out()
+
+
+def sin_numeric_cascade(kt, gg):
+    """build_cascade's 256-stage FM wiring (benchmarks/suite.py:374-399)
+    with SinNumeric stages: a float phase in every stage."""
+    build_cascade(kt, gg, CASCADE, osc=kt.SinNumeric)
+
+
+def float_osc_paths(kt):
+    """The param-sweep slice's chains, on the SinNumeric and Phasor bodies."""
+    return {"phasor_cascade": phasor_cascade, "sin_numeric_cascade": sin_numeric_cascade}
+
+
 def chain_paths(kt):
     """The graphs whose chains run the new bodies: name -> builder."""
     return {
@@ -893,6 +940,10 @@ def edge_operands(torch, np, kck, program, ops, B, seed):
     for _, rec in records_of(program, "svf"):
         set_plane(rec[3][1], K // 2, 23900.0)
         state[rec[5]:rec[5] + 2] = f32_words(rng.uniform(-0.5, 0.5, (2, K)))
+    for body in ("sin_numeric", "phasor"):
+        for _, rec in records_of(program, body):
+            # f32 phases just under the wrap at 1.0
+            state[rec[5]] = f32_words(1.0 - rng.uniform(0.0, 1e-4, K))
     for body in ("env_asr", "env_ar"):
         for _, rec in records_of(program, body):
             srow = rec[5]
@@ -941,7 +992,8 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
         if names is not None and name not in names:
             continue
         dones, errs[name] = 0, 0.0
-        for B in Bs:
+        # and at the longest superblock the path's render takes
+        for B in Bs + (superblock_len(kt, dev, build)[0],):
             g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
                                             device=dev)
             g.edit(lambda gg: build(kt, gg))
@@ -957,11 +1009,113 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
                 dones += int(dk.sum())
         bodies = sorted({r[0].name for r in program.records()})
         print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
-              f"bodies {bodies}, {program.n_done} done planes) B={Bs}: state, outputs "
-              f"and done rows bit-equal; {dones} done samples compared set")
+              f"bodies {bodies}, {program.n_done} done planes) B={Bs} and {B}: state, "
+              f"outputs and done rows bit-equal; {dones} done samples compared set")
         if program.n_done and not dones:
             fail(f"chain_kernel {name}: no done row was set in any compared block")
     return errs
+
+
+def superblock_len(kt, dev, build):
+    """(the longest superblock, in samples, the graph's render takes at B =
+    64: 64 m for the largest power of two m up to the render chunk within
+    the graph's cap; the cap, in samples)."""
+    from knaster_tpu_torch.graph.compile import superblock_eligible
+
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                    device=dev)
+    g.edit(lambda gg: build(kt, gg))
+    proc._ensure_compiled()
+    if not superblock_eligible(proc.compiled):
+        fail("a chain slice's graph is not superblock-eligible")
+    cap, m = proc.compiled.superblock_max, CHUNK
+    while m > 1 and m * BLOCK > cap:
+        m //= 2
+    return m * BLOCK, cap
+
+
+def phase_float_osc_vs_plain(torch, np, kt, dev):
+    """The chain kernel's SinNumeric and Phasor bodies against the plain
+    version on the lowered programs of the 12-stage Phasor LFO cascade and
+    the 256-stage SinNumeric FM cascade, at B in STAGE_BLOCKS, at the
+    longest superblock their renders take and at the chain's cap (the most
+    samples whose shared rows fit), from the graph's state after one block
+    and from phases just under the wrap: state words and outputs bit-equal.
+    Returns ({path: max |output difference|}, {path: superblock length})."""
+    kck = stage_module("chain_kernel")
+    errs, lengths = {}, {}
+    for name, build in float_osc_paths(kt).items():
+        sb, cap = superblock_len(kt, dev, build)
+        lengths[name], errs[name] = sb, 0.0
+        Bs = STAGE_BLOCKS + (sb, int(cap))
+        for B in Bs:
+            g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
+                                            device=dev)
+            g.edit(lambda gg: build(kt, gg))
+            proc.render(frames=B, fetch=False)
+            program, ops = capture_chain(torch, proc)
+            for label, run in (("graph state", ops),
+                               ("phases at the wrap",
+                                edge_operands(torch, np, kck, program, ops, B, B + 1))):
+                err, _ = compare_chain(torch, kck, program, run,
+                                       f"chain_kernel {name} B={B} {label}")
+                errs[name] = max(errs[name], err)
+        print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
+              f"bodies {sorted({r[0].name for r in program.records()})}) B={Bs} (the "
+              f"longest superblock {sb}, the cap {int(cap)}): state and outputs bit-equal")
+    return errs, lengths
+
+
+def param_sweep(kt, g):
+    """tests/golden_configs.py:145-169 (config 4): SinNumeric with sets at
+    exact frames and a linear smoothing ramp, plus a Phasor LFO driving a
+    SinWt's freq through a param edge; 0.3 s."""
+    hs = {}
+
+    def build(gg):
+        a = gg.push(kt.SinNumeric(220.0))
+        lfo = gg.push(kt.Phasor(3.0))
+        b = gg.push(kt.SinWt(440.0))
+        mod = (lfo * 200.0) + 330.0
+        gg.connect_param(gg.handle(mod.channels[0][1]), 0, b, "freq")
+        ((a + b) * 0.2).to_graph_out()
+        hs["a"] = a
+
+    g.edit(build)
+    freq = hs["a"].param("freq")
+    freq.set_at(330.0, kt.Seconds.from_samples(1000, SR))
+    freq.set_at(550.0, kt.Seconds.from_samples(2500, SR))
+    freq.smooth(kt.Smoothing.linear(0.05))
+    freq.set_at(110.0, kt.Seconds.from_samples(7000, SR))
+
+
+PARAM_SWEEP_FRAMES = 14400
+
+
+def phase_param_sweep(torch, np, kt, dev, card):
+    """Golden param_sweep on the card at f32 and f64 against the port's CPU
+    render: within 1e-6, since both take one association and one
+    partition. Its nodes form no chain, so no kernel runs."""
+    for dtype in (torch.float32, torch.float64):
+        renders = {}
+        for d in (dev, "cpu"):
+            g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                            dtype=dtype, device=d)
+            param_sweep(kt, g)
+            reset_all_counts()
+            t0 = time.perf_counter()
+            renders[str(d)] = np.asarray(proc.render(frames=PARAM_SWEEP_FRAMES))
+            secs = time.perf_counter() - t0
+            if d == dev:
+                expect_counts(read_all_counts(), {}, "param_sweep")
+                card_secs = secs
+        gap = float(np.abs(renders[str(dev)] - renders["cpu"]).max())
+        peak = float(np.abs(renders["cpu"]).max())
+        if gap > 1e-6 or not np.isfinite(renders[str(dev)]).all() or peak < 0.3:
+            fail(f"param_sweep {dtype}: card vs CPU render differ by {gap} (peak {peak})")
+        print(f"slice param_sweep {str(dtype)[6:]}: 0.3 s on the card ({card_secs:.3f} s, "
+              f"realtime x {0.3 / card_secs:.4g}) equals the CPU render to {gap:.3e} "
+              f"(peak {peak:.4g}); no kernel on its path")
 
 
 def subtractive_voice(kt, g):
@@ -1046,7 +1200,7 @@ def phase_subtractive_slices(torch, np, kt, dev, card):
         reset_all_counts()
         audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
         counts = read_all_counts()
-        expect_counts(counts, {"chain_kernel": n_blocks}, name)
+        expect_counts(counts, {"chain_kernel": event_free_pieces(proc, n_blocks)}, name)
         launches[name] = counts["chain_kernel"]
         if [k for k, _ in proc.compiled.plan].count("chain") != 1:
             fail(f"{name}: the graph did not collapse into one chain")
@@ -1061,8 +1215,8 @@ def phase_subtractive_slices(torch, np, kt, dev, card):
                  f"{float((head - ref).abs().max())}")
         print(f"slice {name}: {n_blocks} blocks of {BLOCK} in {secs:.4f} s, realtime x "
               f"{GRAPH_SECONDS / secs:.4g} (again: {GRAPH_SECONDS / secs2:.4g}) on {card}; "
-              f"chain kernel launches {counts['chain_kernel']} (one per event-free "
-              f"block); peak {peak:.4g}; its first 64 blocks bit-equal to the scan "
+              f"chain kernel launches {counts['chain_kernel']} (one per superblock); "
+              f"peak {peak:.4g}; its first 64 blocks bit-equal to the scan "
               f"executor's ({t_scan:.2f} s for them)")
 
     # the test shapes at B = 16: restart, then release; kernel path against
@@ -1122,6 +1276,40 @@ def zero_crossing_hz(np, x, sr):
     return float(np.sum((x[:-1] < 0) & (x[1:] >= 0))) * sr / len(x)
 
 
+def event_free_pieces(proc, n_blocks):
+    """The renderer calls (each one launch of a kernel on the path) with
+    which ``AudioProcessor.render`` covers ``n_blocks`` event-free blocks
+    from a chunk boundary: per chunk, lengths halving from the chunk, each
+    one superblock within the graph's cap, a loop of capped superblocks
+    from MIN_SCAN blocks up, else single blocks (graph/processor.py)."""
+    from knaster_tpu_torch.graph.compile import superblock_eligible
+    from knaster_tpu_torch.graph.processor import MIN_SCAN
+
+    cg, chunk = proc.compiled, proc.options.render_chunk_blocks
+    cap = (int(min(cg.superblock_max, 2**31) // cg.ctx.block_size)
+           if superblock_eligible(cg) else 1)
+    calls = 0
+    while n_blocks:
+        run = min(chunk, n_blocks)
+        n_blocks -= run
+        while run:
+            sub = chunk
+            while sub > run:
+                sub //= 2
+            if 2 <= sub <= cap:
+                calls += 1
+            elif sub >= MIN_SCAN:
+                k = 1
+                while 2 * k <= min(sub, cap) and sub % (2 * k) == 0:
+                    k *= 2
+                calls += sub // k if k >= 2 else sub
+            else:
+                sub = 1
+                calls += 1
+            run -= sub
+    return calls
+
+
 def expect_counts(counts, want, where):
     """Every kernel's launch count is zero but those in ``want``."""
     bad = {k: n for k, n in counts.items() if n != want.get(k, 0)}
@@ -1140,13 +1328,7 @@ def phase_graph_slices(torch, np, kt, dev, card):
     for d in (dev, "cpu"):
         g, proc = kt.AudioProcessor.new(0, 2, kt.AudioProcessorOptions(block_size=BLOCK),
                                         dtype=torch.float32, device=d)
-
-        def build(gg):
-            sine = gg.push(kt.SinWt(440.0))
-            amp = gg.push(kt.Constant(0.2))
-            (sine * amp).out([0, 0]).to_graph_out()
-
-        g.edit(build)
+        readme_sine(kt, g)
         reset_all_counts()
         renders[str(d)] = np.asarray(proc.render(seconds=0.5))
         if d == dev:
@@ -1160,16 +1342,7 @@ def phase_graph_slices(torch, np, kt, dev, card):
 
     # the README example, 2 s: smoothing and a set at 1.0 s
     graph, proc = kt.knaster(outputs=2, device=dev)
-
-    def build(g):
-        sine = g.push(kt.SinWt(440.0))
-        amp = g.push(kt.Constant(0.2))
-        (sine * amp).out([0, 0]).to_graph_out()
-        return sine.param("freq"), amp.param("value")
-
-    freq, amp = graph.edit(build)
-    amp.smooth(kt.Smoothing.linear(0.1))
-    freq.set_at(880.0, kt.Seconds.from_secs_f64(1.0))
+    readme_example(kt, graph)
     audio = proc.render(seconds=2.0)
     halves = (audio[0, :SR], audio[0, SR:])
     desc = ", ".join(f"peak {np.abs(h).max():.4g} at {zero_crossing_hz(np, h, SR):.1f} Hz"
@@ -1188,7 +1361,7 @@ def phase_graph_slices(torch, np, kt, dev, card):
     reset_all_counts()
     audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
     counts = read_all_counts()
-    expect_counts(counts, {"chain_kernel": n_blocks}, "fm_cascade")
+    expect_counts(counts, {"chain_kernel": event_free_pieces(proc, n_blocks)}, "fm_cascade")
     launches["chain_kernel"] = counts["chain_kernel"]
     if [k for k, _ in proc.compiled.plan].count("chain") != 1:
         fail("fm_cascade: the cascade did not collapse into one chain")
@@ -1224,7 +1397,8 @@ def phase_graph_slices(torch, np, kt, dev, card):
     reset_all_counts()
     audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
     counts = read_all_counts()
-    expect_counts(counts, {"fm_cascade": n_blocks}, "fm_cascade_model")
+    expect_counts(counts, {"fm_cascade": event_free_pieces(proc, n_blocks)},
+                  "fm_cascade_model")
     launches["fm_cascade"] = counts["fm_cascade"]
     peak = float(audio.abs().max())
     if not bool(torch.isfinite(audio).all()) or not 0.05 < peak <= float(np.float32(0.1)):
@@ -1240,14 +1414,7 @@ def phase_graph_slices(torch, np, kt, dev, card):
     for bs in (16, 64):
         g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=bs),
                                         device=dev)
-
-        def build(gg):
-            rng = np.random.default_rng(1)
-            for _ in range(256):
-                s = gg.push(kt.SinWt(float(rng.uniform(100, 1000))))
-                (s * 0.001).to_graph_out()
-
-        g.edit(build)
+        g.edit(lambda gg: sines_const(kt, gg))
         reset_all_counts()
         audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
         expect_counts(read_all_counts(), {}, f"sines_const B={bs}")
@@ -1260,6 +1427,194 @@ def phase_graph_slices(torch, np, kt, dev, card):
               f"realtime x {GRAPH_SECONDS / secs:.4g} (again: {GRAPH_SECONDS / secs2:.4g}) "
               f"on {card}")
     return launches
+
+
+def sines_const(kt, gg):
+    """benchmarks/suite.py:328-345: 256 independent SinWt * 0.001."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    for _ in range(256):
+        (gg.push(kt.SinWt(float(rng.uniform(100, 1000)))) * 0.001).to_graph_out()
+
+
+def readme_example(kt, g):
+    """README.md's example: a sine times a constant, amp smoothing, a set at
+    1.0 s."""
+    def build(gg):
+        sine = gg.push(kt.SinWt(440.0))
+        amp = gg.push(kt.Constant(0.2))
+        (sine * amp).out([0, 0]).to_graph_out()
+        return sine.param("freq"), amp.param("value")
+
+    freq, amp = g.edit(build)
+    amp.smooth(kt.Smoothing.linear(0.1))
+    freq.set_at(880.0, kt.Seconds.from_secs_f64(1.0))
+
+
+def readme_sine(kt, g):
+    """tests/golden_configs.py:41-54 (config 1)."""
+    def build(gg):
+        sine = gg.push(kt.SinWt(440.0))
+        amp = gg.push(kt.Constant(0.2))
+        (sine * amp).out([0, 0]).to_graph_out()
+
+    g.edit(build)
+
+
+def test_chain(name):
+    """The B = 16 test-shape chain ``name``: its envelopes restarted now and
+    released at frame 64, as the subtractive slices phase drives it."""
+    def setup(kt, g):
+        build = chain_paths(kt)[name]
+        g.edit(lambda gg: build(kt, gg))
+        restart_envelopes(g)
+        for nid, e in list(g.nodes.items()):
+            if "t_release" in e.ugen.param_names():
+                g.handle(nid).param("t_release").trig_at(kt.Seconds.from_samples(64, SR))
+    return setup
+
+
+def nodes(build):
+    """A slice setup from a graph builder over ``gg``."""
+    return lambda kt, g: g.edit(lambda gg: build(kt, gg))
+
+
+# How a slice's superblocked render compares with its per-block one. u32
+# phases (SinWt, PolyBlep, the FM cascade kernel) and stateless bodies do
+# not depend on the partition: bit-equal. A float scan over a superblock
+# associates otherwise than over single blocks: the SVF's and the
+# one-poles' affine scans and the envelopes' rate sums, within 1e-6 (CPU
+# renders of these graphs: 4.8e-7 at most); param_sweep's SinNumeric
+# holds an unwrapped f32 phase over up to 64 blocks (up to 47 cycles,
+# an ulp of 3.8e-6 there) where the per-block render wraps it every block,
+# and its LFO's drift moves SinWt's table index: within 1e-4 (8.55e-5 on
+# the CPU); the two float-oscillator cascades feed each stage's error into
+# the next one's frequency, so only their first 64 blocks are held, the
+# Phasor's by the distance on its 0.2-period wrap: 1e-6 and 1e-5 (3.5e-7
+# and 1.3e-6 on the CPU). sines_const's 256-source mix is one torch.sum,
+# whose order torch picks by the row length: within 1e-6 (3.0e-8 on the
+# CPU).
+EXACT = ("exact",)
+
+
+def partition_slices():
+    """name -> (block size, outputs, frames, setup(kt, g), comparison, the
+    kernel its chain or UGen launches or None, whether it renders without
+    events)."""
+    s2 = int(GRAPH_SECONDS * SR)
+    ck = "chain_kernel"
+    return {
+        "readme_sine": (BLOCK, 2, SR // 2, readme_sine, EXACT, None, True),
+        "README example": (BLOCK, 2, s2, readme_example, EXACT, None, False),
+        "fm_cascade": (BLOCK, 1, s2, nodes(lambda kt, gg: build_cascade(kt, gg, CASCADE)),
+                       EXACT, ck, True),
+        "fm_cascade_model": (BLOCK, 1, s2, nodes(
+            lambda kt, gg: gg.push(kt.FMCascade(CASCADE)).to_graph_out()), EXACT,
+            "fm_cascade", True),
+        "sines_const B=16": (16, 1, s2, nodes(sines_const), ("tol", 1e-6), None, True),
+        "sines_const B=64": (BLOCK, 1, s2, nodes(sines_const), ("tol", 1e-6), None, True),
+        "subtractive_voice": (BLOCK, 1, 19200, subtractive_voice, ("tol", 1e-6), None,
+                              False),
+        "polyblep_cascade": (BLOCK, 1, s2, nodes(polyblep_cascade), EXACT, ck, False),
+        "graphic_eq_31": (BLOCK, 1, s2, nodes(graphic_eq_31), ("tol", 1e-6), ck, False),
+        "param_sweep": (BLOCK, 1, PARAM_SWEEP_FRAMES, param_sweep, ("tol", 1e-4), None,
+                        False),
+        "phasor_cascade": (BLOCK, 1, s2, nodes(phasor_cascade), ("head", 1e-6, 0.2), ck,
+                           True),
+        "sin_numeric_cascade": (BLOCK, 1, s2, nodes(sin_numeric_cascade),
+                                ("head", 1e-5, None), ck, True),
+        "onepole_chain": (16, 1, 384, test_chain("onepole_chain"), ("tol", 1e-6), ck,
+                          False),
+        "env_asr_chain": (16, 1, 384, test_chain("env_asr_chain"), ("tol", 1e-6), ck,
+                          False),
+        "env_asr_free_parent": (16, 1, 384, test_chain("env_asr_free_parent"),
+                                ("tol", 1e-6), ck, False),
+        "env_ar_chain": (16, 1, 384, test_chain("env_ar_chain"), ("tol", 1e-6), ck, False),
+        "pan2_chain": (16, 1, 384, test_chain("pan2_chain"), EXACT, ck, False),
+    }
+
+
+def count_kernels(torch, run):
+    """The CUDA kernels torch.profiler records over ``run()`` (None when it
+    records no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0)
+    return n or None
+
+
+PROFILE_BLOCKS = CHUNK  # the window whose launches are counted: one render chunk
+
+
+def phase_partitions(torch, np, kt, dev, card):
+    """Every graph slice rendered on the card twice from the same schedule:
+    with superblocks (the default) and block by block
+    (``render_chunk_blocks=1``). Each pair compared as ``partition_slices``
+    says; each render's realtime x (unprofiled) and its kernel launches per
+    rendered second (the profiler's count over up to PROFILE_BLOCKS blocks
+    of a third and fourth render) printed beside the card. Returns {slice:
+    (realtime x, launches/s) superblocked and per block, the port's own
+    kernel launches of the superblocked render}."""
+    out = {}
+    for name, (bs, outs, frames, setup, how, kernel, free) in partition_slices().items():
+        res = {}
+        for chunk in (CHUNK, 1):
+            opts = kt.AudioProcessorOptions(block_size=bs, render_chunk_blocks=chunk)
+            runs = []
+            for _ in range(2):  # the timed render, then the profiled one
+                g, proc = kt.AudioProcessor.new(0, outs, opts, device=dev)
+                setup(kt, g)
+                proc._ensure_compiled()
+                runs.append(proc)
+            reset_all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = runs[0].render(frames=frames, fetch=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = {k: n for k, n in read_all_counts().items() if n}
+            if chunk == CHUNK:  # the main path's run: its kernel, and no other
+                want = {} if kernel is None else {
+                    kernel: event_free_pieces(runs[0], frames // bs) if free
+                    else max(1, counts.get(kernel, 0))}
+                expect_counts(counts, want, f"partition {name}")
+            n_prof = min(frames, PROFILE_BLOCKS * bs)
+            n_k = count_kernels(torch, lambda: runs[1].render(frames=n_prof, fetch=False))
+            res[chunk] = (audio, frames / SR / secs,
+                          None if n_k is None else n_k / (n_prof / SR), counts)
+        (a, rt_sb, lps_sb, counts), (b, rt_pb, lps_pb, _) = res[CHUNK], res[1]
+        if not bool(torch.isfinite(a).all()) or float(a.abs().max()) == 0.0:
+            fail(f"partition {name}: the superblocked render is not finite or silent")
+        if how[0] == "exact":
+            diff = float((a - b).abs().max())
+            ok = torch.equal(bits(a), bits(b))
+            held = "bit-equal"
+        elif how[0] == "tol":
+            diff = float((a - b).abs().max())
+            ok, held = diff <= how[1], f"within {how[1]:g}"
+        else:
+            d = (a - b)[:, :64 * bs].abs()
+            if how[2] is not None:
+                d = torch.minimum(d, how[2] - d)
+            diff = float(d.max())
+            ok, held = diff <= how[1], f"within {how[1]:g} over the first 64 blocks"
+        if not ok:
+            fail(f"partition {name}: superblocked and per-block renders differ by {diff} "
+                 f"(held {held})")
+        full = float((a - b).abs().max())
+        print(f"partition {name} (B={bs}, {frames / SR:g} s) on {card}: superblocks "
+              f"realtime x {rt_sb:.4g}, {lps_sb} launches per rendered s, kernels {counts}; "
+              f"per block realtime x {rt_pb:.4g}, {lps_pb} launches per rendered s; "
+              f"{held} ({diff:.3e}; whole render {full:.3e})")
+        out[name] = (rt_sb, lps_sb, rt_pb, lps_pb, counts)
+    return out
 
 
 def device_ms(torch, fn, name, n=50):
@@ -1279,17 +1634,26 @@ def device_ms(torch, fn, name, n=50):
     return us / n / 1000.0 if us else None
 
 
+# the FM cascade's chain_kernel_small at B = 64 on an H100 at 700 W before
+# the SinNumeric and Phasor bodies joined chain_kernel_all (PERF.md §6):
+# those bodies are to leave it unchanged
+REF_FM_CHAIN_MS = 0.6820
+
+
 def phase_stage_timings(torch, np, kt, dev, card):
     """Kernel ms (CUDA events over back-to-back launches into preallocated
-    outputs) of the two stage-loop kernels at B in {16, 64, 1024}, and at
-    B = 64 the profiler's device ms and plain ms; the 256-stage graph
+    outputs) of the two stage-loop kernels at B in STAGE_BLOCKS and at the
+    longest superblock of a B = 64 render (CHUNK * BLOCK), there with the
+    profiler's device ms, the plain ms and the bound; the 256-stage graph
     cascade gives the chain kernel K = 255 (its first sine heads the
-    chain). Returns {kernel: (ms, plain_ms, bound_ms,
-    bound_by)} at B = 64."""
+    chain). Prints the chain kernel's B = 64 time against REF_FM_CHAIN_MS. Returns
+    {kernel: (ms, plain_ms, bound_ms, bound_by)} at the superblock length,
+    the length the slices' renders launch them at."""
     f2pi, scale = stage_consts(np)
     kck, kfc = stage_module("chain_kernel"), stage_module("fm_cascade")
     out = {}
-    for B in STAGE_BLOCKS:
+    sb = CHUNK * BLOCK
+    for B in STAGE_BLOCKS + (sb,):
         params = torch.tensor(FM_PARAM_SETS[0][1], dtype=torch.float32, device=dev)
         ph = u32_near_top(torch, np, CASCADE, 0, dev)
         buf = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -1305,6 +1669,9 @@ def phase_stage_timings(torch, np, kt, dev, card):
         line = (f"timing B={B} on {card}: fm_cascade N={CASCADE} kernel {fm_ms:.4f} ms, "
                 f"chain_kernel K={cops['K']} p={program.period} kernel {ch_ms:.4f} ms")
         if B == BLOCK:
+            line += (f" ({100 * (ch_ms / REF_FM_CHAIN_MS - 1):+.2f}% against the recorded "
+                     f"{REF_FM_CHAIN_MS} ms)")
+        if B == sb:
             fm_dev = device_ms(torch, lambda: kfc.launch(buf, **ops), "fm_cascade")
             ch_dev = device_ms(torch, lambda: kck.launch(outs, program, **cops),
                                "chain_kernel")
@@ -1324,13 +1691,16 @@ def phase_stage_timings(torch, np, kt, dev, card):
 
 # f32 operations per sample of each chain-kernel body, counted from
 # csrc/chain_kernel.cu as OPS_PER_SAMPLE is (a lower bound); the scan
-# bodies add their log2(B) Hillis-Steele steps
+# bodies add their log2(B) Hillis-Steele steps; SinNumeric and Phasor count
+# the increment's multiply, ~10 adds of the base-16 scan (8.5 in-row adds
+# on average, the row total, the rows-before add), the phase add and sin's
+# add, multiply and call, or floor and subtract
 def body_ops(name, B, channels):
     steps = max(1, math.ceil(math.log2(B)))
     return {"constant": 0, "math": channels, "math1": channels, "sinwt": 5,
             "polyblep": 24, "svf": 57 + 18 * steps, "onepole_lpf": 11 + 3 * steps,
             "onepole_hpf": 12 + 3 * steps, "env_asr": 16 + 2 * steps,
-            "env_ar": 24 + 2 * steps, "pan2": 7}[name]
+            "env_ar": 24 + 2 * steps, "pan2": 7, "sin_numeric": 15, "phasor": 14}[name]
 
 
 def chain_bound(program, ops):
@@ -1342,18 +1712,19 @@ def chain_bound(program, ops):
     return bound(tensor_bytes(ops, outs) + 4 * len(program.words), n_ops)
 
 
-def phase_chain_path_timings(torch, kt, dev, card):
-    """The chain kernel's ms per block on the subtractive slice's two
-    chain paths at every B (CUDA events over back-to-back launches into
-    preallocated outputs), with the profiler's device time, the plain
-    version's ms and the bound at B = 64. Returns {path: (ms, plain_ms,
-    bound_ms, bound_by)} at B = 64."""
+def phase_chain_path_timings(torch, kt, dev, card, paths):
+    """The chain kernel's ms per launch on the chain paths ``paths`` ({name:
+    builder}) at B in STAGE_BLOCKS and at the longest superblock their
+    renders take (CUDA events over back-to-back launches into preallocated
+    outputs), there with the profiler's device time, the plain version's ms
+    and the bound. Returns {path: (ms, plain_ms, bound_ms, bound_by)} at the
+    superblock length."""
     kck = stage_module("chain_kernel")
     out = {}
-    for name in ("polyblep_cascade", "graphic_eq_31"):
-        build = chain_paths(kt)[name]
+    for name, build in paths.items():
         line = []
-        for B in STAGE_BLOCKS:
+        sb = superblock_len(kt, dev, build)[0]
+        for B in STAGE_BLOCKS + (sb,):
             g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
                                             device=dev)
             g.edit(lambda gg: build(kt, gg))
@@ -1362,7 +1733,7 @@ def phase_chain_path_timings(torch, kt, dev, card):
             ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
             b_ms, b_by = chain_bound(program, cops)
             line.append(f"B={B} {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})")
-            if B == BLOCK:
+            if B == sb:
                 dev_ms = device_ms(torch, lambda: kck.launch(outs, program, **cops),
                                    "chain_kernel")
                 plain_ms = time_call(torch, lambda: kck.chain_kernel_plain(program, **cops), 3)
@@ -1373,10 +1744,11 @@ def phase_chain_path_timings(torch, kt, dev, card):
     return out
 
 
-def profile_render(torch, kt, dev, label, build, block_size, n=100):
-    """The profiler over ``n`` event-free blocks of a graph rendered on the
-    card: device busy per block against the wall, kernels per block, and
-    the kernels that fill the busy time."""
+def profile_render(torch, kt, dev, label, build, block_size, n=CHUNK):
+    """The profiler over ``n`` event-free blocks (one render chunk: one
+    superblock, or a loop of capped ones) of a graph rendered on the card:
+    device busy per block against the wall, kernels per block, and the
+    kernels that fill the busy time."""
     g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=block_size),
                                     device=dev)
     g.edit(build)
@@ -1434,6 +1806,8 @@ def main():
     errs["chain_kernel"] = max(phase_chain_vs_plain(torch, np, ktt, dev),
                                phase_bodies_vs_plain(torch, ktt, dev))
     path_errs = phase_subtractive_vs_plain(torch, np, ktt, dev)
+    osc_errs, _ = phase_float_osc_vs_plain(torch, np, ktt, dev)
+    path_errs.update(osc_errs)
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
@@ -1462,6 +1836,10 @@ def main():
     print(f"slice generic-fm vs fm: state equal, max |mix diff| {gap:.3e}")
     stage_launches = phase_graph_slices(torch, np, ktt, dev, card)
     path_launches = phase_subtractive_slices(torch, np, ktt, dev, card)
+    phase_param_sweep(torch, np, ktt, dev, card)
+    partitions = phase_partitions(torch, np, ktt, dev, card)
+    for path in float_osc_paths(ktt):
+        path_launches[path] = partitions[path][4]["chain_kernel"]
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -1478,21 +1856,19 @@ def main():
                    lambda gg: build_cascade(ktt, gg, CASCADE), BLOCK)
     profile_render(torch, ktt, dev, "fm_cascade_model",
                    lambda gg: gg.push(ktt.FMCascade(CASCADE)).to_graph_out(), BLOCK)
-
-    def sines(gg):
-        rng = np.random.default_rng(1)
-        for _ in range(256):
-            (gg.push(ktt.SinWt(float(rng.uniform(100, 1000)))) * 0.001).to_graph_out()
-
-    profile_render(torch, ktt, dev, "sines_const B=64", sines, BLOCK)
+    profile_render(torch, ktt, dev, "sines_const B=64", lambda gg: sines_const(ktt, gg),
+                   BLOCK)
     for name in ("polyblep_cascade", "graphic_eq_31"):
         profile_render(torch, ktt, dev, name,
                        lambda gg, b=chain_paths(ktt)[name]: b(ktt, gg), BLOCK)
     for name, row in phase_stage_timings(torch, np, ktt, dev, card).items():
         table.append(kernel_row(name, stage_launches[name], errs[name], *row))
-    # the chain kernel on the subtractive slice's two chain paths: one row
-    # each, with that path's launches and its program's measured error
-    for path, row in phase_chain_path_timings(torch, ktt, dev, card).items():
+    # the chain kernel on the subtractive slice's two chain paths and the
+    # param-sweep slice's two: one row each, with that path's launches and
+    # its program's measured error
+    paths = {n: b for n, b in chain_paths(ktt).items() if n in path_launches}
+    paths.update(float_osc_paths(ktt))
+    for path, row in phase_chain_path_timings(torch, ktt, dev, card, paths).items():
         table.append(kernel_row("chain_kernel", path_launches[path], path_errs[path],
                                 *row, label=f"chain_kernel:{path}"))
     print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "

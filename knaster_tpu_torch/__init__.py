@@ -3,9 +3,11 @@
 The JAX package ``knaster_tpu`` is the reference; this package reproduces it
 slice by slice on PyTorch, with every Pallas TPU kernel rewritten by hand for
 NVIDIA Hopper. It imports no JAX. Ported so far: the graph (edit, compile,
-render) with the UGens of the README example, the subtractive voice's
-(``PolyBlep``, ``SvfFilter``, the one-poles, ``EnvAsr``/``EnvAr``, ``Pan2``)
-and the FM cascade, and the fused voice banks. The README example::
+render, event-free runs as superblocks) with the UGens of the README
+example and of the param sweep (``SinNumeric``, ``Phasor``), the
+subtractive voice's (``PolyBlep``, ``SvfFilter``, the one-poles,
+``EnvAsr``/``EnvAr``, ``Pan2``) and the FM cascade, and the fused voice
+banks. The README example::
 
     import knaster_tpu_torch as kt
 
@@ -72,7 +74,7 @@ from .primitives import (
 from .ugens.envelopes import EnvAr, EnvAsr
 from .ugens.filters import OnePoleHpf, OnePoleLpf, SvfFilter, SvfFilterType
 from .ugens.math import Math1UGen, MathUGen
-from .ugens.osc import SinWt
+from .ugens.osc import Phasor, SinNumeric, SinWt
 from .ugens.pan import Pan2
 from .ugens.polyblep import PolyBlep, Waveform
 from .ugens.util import Constant
@@ -95,6 +97,8 @@ __all__ = [
     "SchedulingToken",
     "Time",
     "SinWt",
+    "SinNumeric",
+    "Phasor",
     "Constant",
     "MathUGen",
     "Math1UGen",

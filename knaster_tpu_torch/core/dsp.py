@@ -10,6 +10,12 @@ lanes variants' multiply-add order, for ``process``, for the chain kernel's
 plain bodies and, step for step, in ``csrc/chain_kernel.cu``. So the scan
 executor and the kernel path agree bit for bit.
 
+The float phase sums of ``SinNumeric`` and ``Phasor`` take a second
+association, ``cumsum_base16``: the one ``jnp.cumsum`` takes on XLA's CPU
+backend, so that those oscillators reproduce the JAX package's phases (and
+its golden renders) bit for bit. It too serves ``process``, the plain
+bodies and the kernel alike.
+
 Every function takes leading batch axes with time on the last axis.
 Divisions in these helpers and in the UGens built on them divide by tensors
 on the operand's device, never by a Python number: torch's CUDA ``div``
@@ -72,6 +78,45 @@ def shift1(x):
     """``x`` one lane right along the last axis, 0 in lane 0 (the closed
     forms' exclusive prefix)."""
     return _shift(x, 1, 0.0)
+
+
+# the row length of cumsum_base16's blocked scan
+SCAN_BASE = 16
+
+
+def _row_scan(x):
+    """Inclusive prefix sum along the last axis, left to right from 0.0:
+    ``((0 + x0) + x1) + ...``."""
+    acc = x[..., 0] + 0.0
+    cols = [acc]
+    for c in range(1, x.shape[-1]):
+        acc = acc + x[..., c]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def cumsum_base16(x):
+    """Inclusive float prefix sum along the last axis in the association
+    ``jnp.cumsum`` takes on XLA's CPU backend, which the JAX package's
+    ``SinNumeric`` and ``Phasor`` (and the golden fixtures rendered through
+    them) use: XLA lowers the cumsum to a reduce-window and rewrites it as a
+    blocked scan of base 16. Rows of 16 (the tail padded with zeros) are
+    summed left to right from 0.0, the row totals are scanned the same way,
+    recursively, and each row adds the total of the rows before it (0.0 for
+    the first). A length of at most 16 is one such row. Bit-equal to
+    ``jnp.cumsum`` on XLA:CPU at every length, f32 and f64
+    (``tests/test_torch_param_sweep.py``); ``csrc/chain_kernel.cu``'s
+    ``scan_sum_base16`` takes the same steps."""
+    n = x.shape[-1]
+    if n <= SCAN_BASE:
+        return _row_scan(x)
+    rows = -(-n // SCAN_BASE)
+    pad = rows * SCAN_BASE - n
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    s = _row_scan(x.reshape(x.shape[:-1] + (rows, SCAN_BASE)))
+    before = shift1(cumsum_base16(s[..., SCAN_BASE - 1]))
+    return (s + before.unsqueeze(-1)).reshape(x.shape)[..., :n]
 
 
 def affine_scan_1d(a, b, s0):

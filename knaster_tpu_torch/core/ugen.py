@@ -28,7 +28,7 @@ fused banks hold it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,8 +66,14 @@ class UGen:
     # Nodes with a private event channel (VoiceBank's per-voice events) set
     # this > 0 and build events with empty_node_events / node_events_from_lists.
     event_capacity: int = 0
-    # True when ``process`` over k*B samples equals k calls of B samples.
+    # True when ``process`` over k*B samples equals k calls of B samples
+    # (state carried through). Nodes that are not keep their graph out of
+    # superblocks unless they declare ``superblock_cap``.
     block_invariant: bool = True
+    # The longest block (in samples) ``process`` takes as one superblock,
+    # or None for no limit: a kernel's shared-memory ceiling, a blockwise
+    # node's shortest delay. May be set in ``init``.
+    superblock_cap: Optional[int] = None
     # True when ``process`` can return a done mask.
     may_set_done: bool = False
     # int params the renderer also passes on the host (module docstring)

@@ -40,7 +40,9 @@
 // the Hillis-Steele doubling of the filters' affine maps and the
 // envelopes' rate cumsums, log2(B) steps over ping-pong scratch rows with
 // one __syncthreads() a step, with the identity fills and the multiply-add
-// order of the plain versions (knaster_tpu_torch/core/dsp.py). EnvAr's
+// order of the plain versions (knaster_tpu_torch/core/dsp.py), and
+// SinNumeric's and Phasor's f32 phase sums in the blocked base-16
+// association of core/dsp.py cumsum_base16 (one barrier a level). EnvAr's
 // anchor R[k] is a block min. With --fmad=false every product and sum
 // rounds on its own, as in the plain torch versions, so state, outputs and
 // done rows are bit-equal to them at every B; the transcendental calls
@@ -63,6 +65,11 @@
 // per sample plus, for the scan bodies, log2(B) barrier-separated steps;
 // one SM of 132 does the work, which is what a serial 256-deep chain at
 // B = 64 is. Running several chains or graphs per launch is later work.
+//
+// B is a superblock's length in the graph's event-free runs (thousands of
+// samples): every per-sample loop strides by blockDim (at most 1024), and
+// the host caps the superblock so that the shared rows fit
+// (knaster_tpu_torch/graph/chain_kernel.py max_block).
 
 #include "stage_scan.cuh"
 
@@ -73,7 +80,7 @@ using namespace ktt;
 // body opcodes (knaster_tpu_torch/kernels/chain_kernel.py BODIES)
 constexpr int kOpConstant = 0, kOpSinWt = 1, kOpMath = 2, kOpMath1 = 3, kOpPolyBlep = 4,
               kOpSvf = 5, kOpLpf = 6, kOpHpf = 7, kOpEnvAsr = 8, kOpEnvAr = 9,
-              kOpPan2 = 10;
+              kOpPan2 = 10, kOpSinNumeric = 11, kOpPhasor = 12;
 // Math args (ugens/math.py KERNEL_BINOPS) and Math1 args (KERNEL_UNOPS)
 constexpr int kAdd = 0, kSub = 1, kMul = 2, kDiv = 3;
 constexpr int kCeil = 0, kFloor = 1, kSqrt = 2, kExp = 3, kAbs = 4, kNeg = 5,
@@ -421,6 +428,66 @@ __device__ int scan_cumsum_2(float* sc, int B) {  // two rows, x + x[t - s]
   return cur;
 }
 
+// The inclusive prefix sum x[0, n) -> r[0, n) in the association of
+// core/dsp.py cumsum_base16 (jnp.cumsum on XLA's CPU backend), step for
+// step: rows of 16, the last one padded with zeros, summed left to right
+// from 0; the row totals scanned the same way, level by level, until a
+// level is one row; then, level by level downwards, each lane's in-row sum
+// plus the scanned total of the rows before its own (0 for the first).
+// `work` holds every upper level's totals and scans: 2 * (ceil(n/16) +
+// ceil(n/256) + ...) floats, at most n for n > 16. Every thread of the
+// block calls it after x is written and synchronised; r is complete and
+// synchronised when it returns.
+constexpr int kScanBase = 16;
+constexpr int kMaxLevels = 8;  // n up to 16^8
+
+__device__ void scan_sum_base16(const float* x, float* r, float* work, int n) {
+  int size[kMaxLevels];
+  const float* in[kMaxLevels];
+  float* res[kMaxLevels];
+  size[0] = n;
+  in[0] = x;
+  res[0] = r;
+  int top = 0;
+  while (size[top] > kScanBase) {
+    const int rows = (size[top] + kScanBase - 1) / kScanBase;
+    float* tot = work;
+    res[top + 1] = work + rows;
+    work += 2 * rows;
+    const float* v = in[top];
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      const int c0 = i * kScanBase;
+      float acc = add(0.0f, v[c0]);
+      for (int c = c0 + 1; c < c0 + kScanBase; ++c)
+        acc = add(acc, c < size[top] ? v[c] : 0.0f);
+      tot[i] = acc;
+    }
+    __syncthreads();
+    ++top;
+    size[top] = rows;
+    in[top] = tot;
+  }
+  if (threadIdx.x == 0) {  // the top level: one row
+    float acc = add(0.0f, in[top][0]);
+    res[top][0] = acc;
+    for (int i = 1; i < size[top]; ++i) {
+      acc = add(acc, in[top][i]);
+      res[top][i] = acc;
+    }
+  }
+  __syncthreads();
+  for (int l = top - 1; l >= 0; --l) {
+    const float* v = in[l];
+    for (int i = threadIdx.x; i < size[l]; i += blockDim.x) {
+      const int row = i / kScanBase, c0 = row * kScanBase;
+      float acc = add(0.0f, v[c0]);
+      for (int c = c0 + 1; c <= i; ++c) acc = add(acc, v[c]);
+      res[l][i] = add(acc, row > 0 ? res[l + 1][row - 1] : 0.0f);
+    }
+    __syncthreads();
+  }
+}
+
 // the minimum of one float per thread over the block; `red` is 32 words of
 // shared memory. Every thread of the block must call it.
 __device__ float block_min(float v, float* red) {
@@ -667,6 +734,33 @@ __device__ void body_pan2(const Frame& f, const Io& io, const Rec& rc) {
   }
 }
 
+// SinNumeric (the fast program's no-reset path) and Phasor (ugens/osc.py):
+// the f32 phase in cycles, phase_t = ph0 + sum(inc[0:t]) with inc = freq *
+// (1 / sr) summed over the whole block by scan_sum_base16, wrapped only at
+// the block's end. Params: freq (, phase_offset); word: the phase.
+__device__ void body_float_osc(const Frame& f, const Io& io, const Rec& rc, bool phasor) {
+  const int K = f.K, B = f.B, k = f.k, tid = threadIdx.x;
+  const float ph0 = word_f(io.state[rc.srow * K + k]);
+  const float inv_sr = fdiv(1.0f, io.sr);
+  float* inc = f.scratch;
+  float* csum = inc + B;
+  __syncthreads();  // the previous body's scratch reads are done
+  for (int t = tid; t < B; t += blockDim.x)
+    inc[t] = mul(param(f, io.prog, rc.par_tab, 0, t), inv_sr);
+  __syncthreads();
+  scan_sum_base16(inc, csum, csum + B, B);
+  for (int t = tid; t < B; t += blockDim.x) {
+    const float ph = add(ph0, t > 0 ? csum[t - 1] : 0.0f);
+    const float y = phasor ? sub(ph, floorf(ph))
+                           : sinf(mul(add(ph, param(f, io.prog, rc.par_tab, 1, t)), kTau));
+    emit(f, io.prog, rc.out_tab, 0, t, y, io.out);
+  }
+  if (tid == 0) {
+    const float c = add(ph0, csum[B - 1]);
+    io.state_out[rc.srow * K + k] = f_word(sub(c, floorf(c)));
+  }
+}
+
 // The stage loop of the two kernels below. kAllBodies: the program may use
 // a body past Math1.
 template <bool kAllBodies>
@@ -758,6 +852,8 @@ __device__ __forceinline__ void run_chain(const int* __restrict__ prog,
               case kOpEnvAsr: body_env(f, io, rc, false); break;
               case kOpEnvAr: body_env(f, io, rc, true); break;
               case kOpPan2: body_pan2(f, io, rc); break;
+              case kOpSinNumeric: body_float_osc(f, io, rc, false); break;
+              case kOpPhasor: body_float_osc(f, io, rc, true); break;
               default: break;
             }
           }

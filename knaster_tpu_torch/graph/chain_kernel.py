@@ -12,7 +12,8 @@ and ``run`` launches it per block. Done-capable units (the envelopes) write
 a done row per stage, which ``run`` hands back as the JAX package's does.
 
 UGens opt in with ``UGen.kernel_stage``. Only the event-free fast program
-uses this path; eventful blocks keep the scan executor, as in the JAX
+uses this path, at the native block and at every superblock length up to
+``max_block``; eventful blocks keep the scan executor, as in the JAX
 package. ``run`` returns None, and the scan executor runs, exactly where
 the JAX package's does: f64 graphs, a unit with no body (``SinWt(lookup=
 True)``, Math ``pow``, Math1 ``trunc``/``fract``), and state leaves that are
@@ -89,6 +90,21 @@ def needed_outputs(cg, cp) -> set:
             if kind == "node" and s in members:
                 needed.add((members[s], c))
     return needed
+
+
+def max_block(cp, reps, ctx) -> Optional[int]:
+    """The longest block, in samples, the chain kernel runs this plan at:
+    its shared rows (one slot per output channel of the unit, the carry
+    rows and the bodies' scan scratch) hold 4 bytes a sample within
+    ``SMEM_LIMIT``. None when a unit has no kernel body (the plan takes the
+    scan executor at any length). ``compile.superblock_eligible`` caps the
+    graph's superblocks by it."""
+    stages = [rep.kernel_stage(ctx) for rep in reps]
+    if any(s is None for s in stages):
+        return None
+    rows = (sum(rep.outputs for rep in reps) + len(cp.carry_keys)
+            + max(body.scratch for body, _arg in stages))
+    return kck.SMEM_LIMIT // (4 * rows)
 
 
 def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):

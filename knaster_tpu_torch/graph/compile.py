@@ -4,9 +4,15 @@
 nodes, plans their execution and builds two renderers over one state dict
 ``{"nodes", "pe", "fb"}``: ``render(state, events, inputs)`` for blocks
 with events and ``render_fast(state, inputs)`` for event-free blocks. Where
-the JAX package traces them into XLA programs, the port runs them eagerly
-block by block; the programs' caches, superblocks, the eventful-chunk and
-float-event programs are not ported.
+the JAX package traces them into XLA programs, the port runs them eagerly.
+
+Superblocks: ``get_super_fn(cg, m)`` is the event-free renderer built at
+block m*B (the JAX package's superblock fast program), for graphs that pass
+``superblock_eligible``; ``get_super_scan_fn`` covers a run longer than the
+graph's cap as a loop of capped superblocks (a Python loop where the JAX
+package scans). ``processor.render`` splits a bounce into them as the JAX
+package does. The programs' caches, the eventful superblock, the
+eventful-chunk and the float-event programs are not ported.
 
 The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 (``state_key``, ``group_key``, ``chain_key``) name the same nodes in both:
@@ -29,6 +35,7 @@ The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -113,6 +120,11 @@ class CompiledGraph:
     # canonical node labels (position in topo order): state keys use these,
     # as in the JAX package
     canon: Dict[int, int] = field(default_factory=dict)
+    # superblocks (superblock_eligible): None until asked; the longest
+    # superblock in samples; the event-free renderers built at m * B
+    superblock_ok: Optional[bool] = None
+    superblock_max: float = math.inf
+    super_fns: Dict[int, Any] = field(default_factory=dict)
 
     # ----------------------------------------------------- canonical keys
     def state_key(self, nid: int) -> str:
@@ -452,6 +464,92 @@ def compile_graph(
     return cg
 
 
+# ----------------------------------------------------------- superblocks
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return (tuple(tree.shape), tree.dtype)
+
+
+def superblock_eligible(cg: CompiledGraph) -> bool:
+    """True when the graph can render an event-free run of m blocks as one
+    block of m*B samples (the JAX package's rule, compile.py:745-804): no
+    feedback edges (their one-block delay is a semantic boundary), every
+    node block-length invariant or declaring a ``superblock_cap`` of at
+    least 2B (set in ``init`` or on the class), and every node's state
+    shapes equal at B and 2B (compared on CPU inits).
+
+    ``cg.superblock_max`` becomes the least cap, in samples. Unlike the JAX
+    package, it also holds each collapsed chain to the chain kernel's
+    shared memory where the kernel path runs (``chain_kernel.max_block``):
+    there, a chain whose rows outgrow the kernel at a superblock's length
+    falls to the scan executor inside the superblock (graph/chain_kernel.py
+    :249-254); here the superblock is shortened, so a superblock never
+    pushes a chain off its kernel."""
+    if cg.superblock_ok is not None:
+        return cg.superblock_ok
+    B = cg.ctx.block_size
+    ctx2 = AudioCtx(cg.ctx.sample_rate, 2 * B, cg.ctx.dtype)
+    ok, max_len = not cg.fb_sources, math.inf
+    for e in cg.entries.values() if ok else ():
+        u = e.ugen
+        # init first: a node may set its cap there
+        same = _shapes(u.init(cg.ctx, "cpu")) == _shapes(u.init(ctx2, "cpu"))
+        cap = u.superblock_cap
+        if not same or (cap is None and not u.block_invariant) or (
+                cap is not None and cap < 2 * B):
+            ok = False
+            break
+        if cap is not None:
+            max_len = min(max_len, int(cap))
+    if ok and chain_kernel.enabled(cg.device) and cg.ctx.dtype == torch.float32:
+        for kind, cp in cg.plan:
+            if kind != "chain":
+                continue
+            reps = [cg.entries[cp.stages[0][j]].ugen for j in range(cp.period)]
+            cap = chain_kernel.max_block(cp, reps, cg.ctx)
+            if cap is not None:
+                max_len = min(max_len, cap)
+    cg.superblock_ok = ok and max_len >= 2 * B
+    cg.superblock_max = max_len if cg.superblock_ok else 0
+    return cg.superblock_ok
+
+
+def get_super_fn(cg: CompiledGraph, m: int):
+    """The event-free renderer at block m*B: fn(state, inputs [in, m*B]) ->
+    (state, out [ch, m*B], done_vec or None), or None when the graph is
+    superblock-ineligible or m*B exceeds its cap. Built at first use."""
+    if m <= 1 or not superblock_eligible(cg) or m * cg.ctx.block_size > cg.superblock_max:
+        return None
+    fn = cg.super_fns.get(m)
+    if fn is None:
+        raw = _build_render(cg, fast=True, block_multiple=m)
+        fn = cg.super_fns[m] = lambda state, inputs: raw(state, None, inputs)
+    return fn
+
+
+def get_super_scan_fn(cg: CompiledGraph, k: int):
+    """The capped loop (the JAX package's scan of k-superblocks,
+    ``get_super_scan_fn``): fn(state, inputs [in, n*k*B]) renders the n
+    k-superblocks in turn -> (state, out [ch, n*k*B], the OR of their done
+    vectors or None). None where ``get_super_fn(cg, k)`` is."""
+    one = get_super_fn(cg, k)
+    if one is None:
+        return None
+    kB = k * cg.ctx.block_size
+
+    def loop(state, inputs):
+        outs, done = [], None
+        for i in range(inputs.shape[-1] // kB):
+            state, out, d = one(state, inputs[:, i * kB:(i + 1) * kB])
+            outs.append(out)
+            if d is not None:
+                done = d if done is None else done | d
+        return state, torch.cat(outs, dim=1), done
+
+    return loop
+
+
 def _node_depths(cg: CompiledGraph) -> Dict[int, int]:
     depth: Dict[int, int] = {}
     pe_deps: Dict[int, List[int]] = {}
@@ -766,20 +864,28 @@ def _instance_default(ugen, pidx: int):
     return spec.default_value()
 
 
-def _build_render(cg: CompiledGraph, fast: bool = False):
+def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1):
     """The block renderer ``render(state, events, graph_inputs) -> (state,
     out [outputs, B], done_vec)``. ``fast=True`` is the event-free variant:
     params come straight from the ramp state, triggers are all false, and
     collapsed chains try the chain kernel. ``done_vec`` is None unless the
     graph has done actions or a node that frees the top-level graph.
 
+    ``block_multiple`` m > 1 (with ``fast``) builds the superblock
+    renderer: the whole graph over one block of m*B samples, the param
+    engine stairing block-rate ramps at the native blocks, so that it
+    equals m native blocks wherever the nodes are block-length invariant
+    (every phase, scan and closed form is length-parametric; float sums
+    may reassociate).
+
     Everything that depends only on the graph (slot index tensors on the
     device, source lists) is worked out here, once; each call does the
     per-block tensor work."""
-    ctx = (AudioCtx(cg.ctx.sample_rate, cg.ctx.block_size, cg.ctx.dtype,
-                    no_events=True) if fast else cg.ctx)
-    engine = cg.engine
-    B = ctx.block_size
+    m = int(block_multiple)
+    B = cg.ctx.block_size * m
+    ctx = AudioCtx(cg.ctx.sample_rate, B, cg.ctx.dtype, no_events=True) if fast else cg.ctx
+    engine = (PEngine(cg.layout, B, dtype=ctx.dtype, native_block=cg.ctx.block_size)
+              if m > 1 else cg.engine)
     dtype = ctx.dtype
     device = cg.device
 
@@ -898,7 +1004,8 @@ def _build_render(cg: CompiledGraph, fast: bool = False):
     def render(state, events, graph_inputs):
         pe = state["pe"]
         pf = pt = pi = pset = None
-        ints_host = engine.ints_at_block_start(pe, events) if wants_host else None
+        # the compile's own engine keeps the host copy for every renderer
+        ints_host = cg.engine.ints_at_block_start(pe, events) if wants_host else None
         if fast:
             # every float param of the graph in one read of the ramp state:
             # on the eager device path a few wide ops beat many narrow ones

@@ -176,25 +176,33 @@ def events_from_lists(
 
 class PEngine:
     """Bound parameter engine for a fixed layout (created per compiled graph).
-    Block-rate smoothing stairs at block boundaries."""
 
-    def __init__(self, layout: ParamLayout, block_size: int, dtype=torch.float32):
+    ``native_block`` is the graph's block size: block-rate smoothing stairs
+    at its boundaries even when the engine materializes a superblock
+    (``block_size`` = m * native_block, the event-free multi-block
+    renderer)."""
+
+    def __init__(self, layout: ParamLayout, block_size: int, dtype=torch.float32,
+                 native_block=None):
         self.layout = layout
         self.block_size = int(block_size)
+        self.native_block = int(native_block or block_size)
         self.dtype = dtype
         self._ramps = {}  # device -> (t [B+1], stair [B+1]) int32
         # (the int_value tensor, its version, its values as numpy)
         self._ints_host = None
 
     def _time(self, device):
-        """Sample index t in [0, B] and its block-rate stair (0 inside the
-        block, B one past its end)."""
+        """Sample index t in [0, B] and its block-rate stair: ``(t // nb) *
+        nb`` for the native block nb, 0 inside a native block (B one past
+        the end at the native size), stepping at every native-block
+        boundary of a superblock."""
         key = str(device)
         got = self._ramps.get(key)
         if got is None:
-            B = self.block_size
+            B, nb = self.block_size, self.native_block
             t = torch.arange(B + 1, dtype=torch.int32, device=device)
-            got = self._ramps[key] = (t, (t // B) * B)
+            got = self._ramps[key] = (t, (t // nb) * nb)
         return got
 
     def materialize(self, state, events):
@@ -261,8 +269,10 @@ class PEngine:
         )
 
     def advance_fast(self, state):
-        """The carry after one block of event-free ramping, without
-        materializing any per-sample row."""
+        """The carry after one (super)block of event-free ramping, without
+        materializing any per-sample row. Clamping at ``dur`` keeps it
+        bit-identical between one superblock advance and m native-block
+        advances (integers)."""
         B = self.block_size
         out = dict(state)
         out["elapsed"] = torch.minimum(state["elapsed"] + B, state["dur"])

@@ -10,13 +10,23 @@ The device is the card: ``AudioProcessor.new(..., device=...)`` defaults
 to "cuda" and raises where there is none. The CPU is taken only when the
 caller passes ``device="cpu"`` (the tests do); nothing falls back to it.
 
-``render`` runs block by block: event-free blocks through the compiled
-graph's ``render_fast`` (where collapsed chains take the chain kernel on a
-card), blocks with due events through ``render``. The JAX package's
-superblock and chunked-scan programs produce the same samples
-(tests/test_partition_invariance.py), so the port's output matches its
-bounce. Async recompile, the streaming backend, probes and save/load are
-not ported yet.
+``render`` splits a bounce as the JAX package's does
+(knaster_tpu/graph/processor.py:841-1092, the paths an offline bounce
+takes): each chunk of ``render_chunk_blocks`` into runs of eventful and
+event-free blocks. Eventful blocks render one by one through ``render``
+(the JAX package's full scan is the same per-block program). Event-free
+runs are covered by lengths halving from the chunk: a length of 2 or more
+renders as one superblock (``compile.get_super_fn``) or, past the graph's
+cap, as a loop of capped superblocks (``get_super_scan_fn``); a length of 1,
+and every block of a superblock-ineligible graph, through ``render_fast``.
+Where collapsed chains run, they take the chain kernel on a card. Float
+sums such as ``SinNumeric``'s phase depend on the partition, so taking the
+JAX package's keeps the port on its reference's samples;
+``AudioProcessorOptions(render_chunk_blocks=1)`` renders block by block.
+The programs that the JAX bounce runs only once a stream has warmed them
+(``existing_only``: the eventful-chunk, eventful-superblock and float-event
+programs), async recompile, the streaming backend, probes and save/load
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,10 +37,16 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from .compile import CompiledGraph, compile_graph, resolve_device
+from .compile import (CompiledGraph, compile_graph, get_super_fn, get_super_scan_fn,
+                      resolve_device, superblock_eligible)
 from .graph import Done, Graph
 from .param_engine import events_from_lists
 from .scheduling import ScheduledEvent
+
+# run pieces of at least this many blocks render with one done-flag check
+# (the JAX package's one-dispatch scans); shorter eventful pieces, and short
+# event-free pieces without a superblock, go one block at a time
+MIN_SCAN = 16
 
 
 @dataclass
@@ -43,7 +59,8 @@ class AudioProcessorOptions:
     event_capacity: int = 64
     # compiler: batch same-kind nodes at equal depth into one call
     auto_batch: bool = True
-    # render: blocks whose events are collected (and slot-resolved) at once
+    # render: blocks whose events are collected (and slot-resolved) at once,
+    # and the longest superblock; 1 renders block by block
     render_chunk_blocks: int = 128
 
 
@@ -169,13 +186,29 @@ class AudioProcessor:
         return events_from_lists(self.compiled.event_capacity, fl, tl, il,
                                  dtype=self.graph.dtype)
 
-    def _zero_inputs(self):
-        cached = getattr(self, "_zero_in", None)
-        if cached is None or cached.device != self.device:
-            cached = self._zero_in = torch.zeros(
-                (self.graph.inputs, self.graph.block_size), dtype=self.graph.dtype,
-                device=self.device)
-        return cached
+    def _zero_inputs(self, frames=None):
+        """Zero inputs of ``frames`` samples (one block by default), one
+        cached tensor per length: they are only read."""
+        n = frames or self.graph.block_size
+        cache = self.__dict__.setdefault("_zero_in", {})
+        key = (n, self.graph.dtype)
+        if key not in cache:
+            cache[key] = torch.zeros((self.graph.inputs, n), dtype=self.graph.dtype,
+                                     device=self.device)
+        return cache[key]
+
+    def _super_scan_k(self, sub: int) -> int:
+        """Largest power-of-two superblock multiple k (>= 2) that divides
+        ``sub`` and fits the graph's superblock cap, or 0 (the JAX package's
+        ``_super_scan_k``)."""
+        cg = self.compiled
+        if not superblock_eligible(cg):
+            return 0
+        B = self.graph.block_size
+        k = 1
+        while k * 2 <= sub and k * 2 * B <= cg.superblock_max and sub % (k * 2) == 0:
+            k *= 2
+        return k if k >= 2 else 0
 
     def _block(self, lists, inputs):
         """Render one block with its event lists; returns the output [ch, B]."""
@@ -265,9 +298,12 @@ class AudioProcessor:
         tensor on the processor's device (no device-to-host copy; needs
         block-aligned ``frames`` and no pending remainder). Events are
         collected for ``render_chunk_blocks`` blocks at a time (16 when the
-        graph has done actions, or ``check_done_every``). With external
-        ``inputs``, a trailing partial block is rendered with the missing
-        input samples zero-padded.
+        graph has done actions, or ``check_done_every``), and each chunk is
+        split into runs as the module docstring says: done-action frees land
+        after the superblock or run piece that raised them, and take effect
+        in the graph at the next chunk. With external ``inputs``, a trailing
+        partial block is rendered with the missing input samples
+        zero-padded.
         """
         B = self.graph.block_size
         if frames is None:
@@ -307,21 +343,63 @@ class AudioProcessor:
             seg[:, :avail.shape[1]] = avail
             in_all = torch.from_numpy(seg).to(self.device)
 
+        def inputs_for(start, count):
+            """[inputs, count * B] from block ``start``."""
+            if in_all is None:
+                return self._zero_inputs(count * B)
+            return in_all[:, start * B:(start + count) * B]
+
         outs = []
         rendered = 0
+        # as in the JAX package: a chunk is compiled and its events
+        # collected once (done-action frees recompile at the next chunk);
+        # eventful runs and the event-free runs of graphs without
+        # superblocks go block by block, and below MIN_SCAN blocks their
+        # done flags are applied per block, else per run piece
         while rendered < n_blocks and not self.freed:
             n = min(chunk, n_blocks - rendered)
             self._ensure_compiled()
+            cg = self.compiled
             per_block = self._collect_due_events(n)
-            for bi in range(n):
-                if self.freed:
-                    break
-                self._ensure_compiled()
-                blk = rendered + bi
-                inp = (self._zero_inputs() if in_all is None
-                       else in_all[:, blk * B:(blk + 1) * B])
-                outs.append(self._block(per_block[bi], inp))
-            rendered += n
+            eventful = [any(pb) for pb in per_block]
+            bi = 0
+            while bi < n:
+                flag, run = eventful[bi], 1
+                while bi + run < n and eventful[bi + run] == flag:
+                    run += 1
+                while run:
+                    sub = chunk
+                    while sub > run:
+                        sub //= 2
+                    fn = None
+                    if not flag and sub >= 2:
+                        fn = get_super_fn(cg, sub)
+                        if fn is None and sub >= MIN_SCAN:
+                            k = self._super_scan_k(sub)
+                            fn = get_super_scan_fn(cg, k) if k else None
+                    if fn is not None:
+                        self.state, out, done = fn(self.state, inputs_for(rendered, sub))
+                        outs.append(out)
+                        dones = [done]
+                    else:
+                        if sub < MIN_SCAN:
+                            sub = 1
+                        dones = []
+                        for i in range(sub):
+                            inp = inputs_for(rendered + i, 1)
+                            if flag:
+                                self.state, out, done = cg.render(
+                                    self.state, self._events(per_block[bi + i]), inp)
+                            else:
+                                self.state, out, done = cg.render_fast(self.state, inp)
+                            outs.append(out)
+                            dones.append(done)
+                    if cg.has_done_actions:
+                        self._apply_done_flags(torch.stack(dones).any(dim=0).cpu().numpy())
+                    self.graph.clock.frames += sub * B
+                    rendered += sub
+                    run -= sub
+                    bi += sub
 
         dtype = self.graph.dtype
         audio = (torch.cat(outs, dim=1) if outs

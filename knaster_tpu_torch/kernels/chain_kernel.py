@@ -13,14 +13,17 @@ names): ``constant`` (Constant), ``sinwt`` (SinWt's no-reset path),
 ``math`` (MathUGen add/sub/mul/div), ``math1`` (Math1UGen's unary ops but
 trunc and fract), ``polyblep`` (PolyBlep), ``svf`` (SvfFilter),
 ``onepole_lpf`` and ``onepole_hpf``, ``env_asr`` and ``env_ar`` (the
-event-free closed forms, with a done row) and ``pan2`` (Pan2, two output
-channels). Each plain version calls the block function its UGen's
+event-free closed forms, with a done row), ``pan2`` (Pan2, two output
+channels), ``sin_numeric`` and ``phasor`` (SinNumeric's no-reset path and
+Phasor: an f32 phase summed in ``core/dsp.cumsum_base16``'s association
+over the whole block). Each plain version calls the block function its UGen's
 ``process`` calls, so the kernel path and the scan executor share one
 arithmetic. A new body is one more case in the kernel and one more entry
 here; the program and the harness stay as they are.
 
 State words are 32-bit: u32 phases, f32 values (the SVF's two ``ic``, the
-one-pole's ``last``, the envelopes' ``t`` and ``release_scale``) and the
+one-pole's ``last``, the envelopes' ``t`` and ``release_scale``, the float
+oscillators' ``phase``) and the
 envelopes' int32 ``stage``, each as its bit pattern. Integer params (the
 PolyBlep waveform, the SVF filter type) reach the kernel in the f32 param
 planes: a whole number below 2^24 is exact there, and larger ones still
@@ -166,6 +169,19 @@ def _pan2_plain(arg, ins, pars, words, consts):
     return list(pan2_block(ins[0], pars[0])), []
 
 
+def _float_osc_plain(phasor):
+    def plain(arg, ins, pars, words, consts):
+        from ..ugens import osc
+
+        ph0 = _f32(words[0])
+        inv_sr = osc.recip_sample_rate(consts[2], ph0)
+        carry, out = (osc.phasor_block(ph0, pars[0], inv_sr) if phasor
+                      else osc.sin_numeric_block(ph0, pars[0], pars[1], inv_sr))
+        return [out], [_word(carry)]
+
+    return plain
+
+
 BODIES: Dict[str, Body] = {
     b.name: b for b in (
         Body("constant", 0, ("value",), 0, _constant_plain),
@@ -183,6 +199,10 @@ BODIES: Dict[str, Body] = {
         Body("env_ar", 9, ("attack_time", "release_time"), 3,
              _env_plain("ar_closed_form"), 4),
         Body("pan2", 10, ("pan",), 0, _pan2_plain),
+        # the f32 phase; the increments, their prefix sums and the sums'
+        # upper levels (core/dsp.py cumsum_base16)
+        Body("sin_numeric", 11, ("freq", "phase_offset"), 1, _float_osc_plain(False), 3),
+        Body("phasor", 12, ("freq",), 1, _float_osc_plain(True), 3),
     )
 }
 _BY_OP = {b.op: b for b in BODIES.values()}

@@ -40,6 +40,9 @@ ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 \
     + [ctypes.c_void_p]
 
 _TWO31 = float(np.float32(2.0**31 - 1))  # = 2^31
+# the longest block the kernel takes: its one [B] row of shared memory
+# within the 227 KB a block can hold, less its static 32 words
+MAX_BLOCK = (227 * 1024 - 128) // 4
 
 
 def _validate(params, phases, block_size):
@@ -47,8 +50,8 @@ def _validate(params, phases, block_size):
     if not isinstance(phases, torch.Tensor) or phases.dim() != 1 or phases.shape[0] < 1:
         raise ValueError(f"{KERNEL}: phases must be a non-empty [N] tensor")
     N, B = phases.shape[0], int(block_size)
-    if B < 1:
-        raise ValueError(f"{KERNEL}: block_size must be at least 1, got {B}")
+    if not 1 <= B <= MAX_BLOCK:
+        raise ValueError(f"{KERNEL}: block_size must be in [1, {MAX_BLOCK}], got {B}")
     dev = phases.device
     bc.check(KERNEL, "phases", phases, torch.int32, (N,), dev)
     bc.check(KERNEL, "params", params, torch.float32, (4,), dev)

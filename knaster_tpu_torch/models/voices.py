@@ -314,6 +314,12 @@ class FMCascade(UGen):
             "amp": float(amp),
         }
         self.use_kernel = bool(use_kernel)
+        if self.use_kernel:
+            # the kernel's one shared row bounds a superblock's length (the
+            # JAX package's Pallas cascade has no such cap)
+            from ..kernels.fm_cascade import MAX_BLOCK
+
+            self.superblock_cap = MAX_BLOCK
 
     def init(self, ctx: AudioCtx, device="cpu"):
         return {"phases": torch.zeros((self.n_stages,), dtype=torch.int32,

@@ -1,4 +1,4 @@
-"""Port of knaster_tpu/ugens/osc.py: the u32 wavetable-phase helpers and ``SinWt``.
+"""Port of knaster_tpu/ugens/osc.py: the phase helpers, ``SinWt``, ``SinNumeric`` and ``Phasor``.
 
 The reference's per-sample phase-increment loop is a block-level exclusive
 cumulative sum of per-sample increments, exact in u32 fixed point, with
@@ -7,6 +7,17 @@ the latest reset frame). The plain torch versions carry u32 values as int64
 in [0, 2^32) (torch has no uint32 arithmetic): the cumsum of at most a
 block of increments below 2^31 is exact in int64, and one mask wraps it.
 State holds the phase as its int32 bit pattern, as the fused banks do.
+
+``SinNumeric`` and ``Phasor`` accumulate a float phase in cycles instead,
+over the whole block and wrapped only at its end, so their samples depend
+on how the prefix sum associates and on the block length: the port sums in
+``core/dsp.cumsum_base16``, the association the JAX package's
+``jnp.cumsum`` takes on XLA's CPU backend, and the renderer partitions a
+bounce into the same superblocks as the JAX package. Their increment is
+``freq * (1 / sample_rate)``: the JAX package divides by the sample rate,
+a constant, which XLA's CPU backend rewrites into a multiply by its
+reciprocal (measured in ``tests/test_torch_param_sweep.py``); the port
+multiplies by that reciprocal as a tensor, on the CPU and the card alike.
 
 Every function takes leading batch axes: values are ``[..., B]``, phases
 ``[...]``.
@@ -17,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.dsp import const, cumsum_base16
 from ..core.ugen import AudioCtx, UGen
 from ..kernels.bank_common import i32_of, u32_of
 from ..primitives.params import ParameterKind, pfloat, ptrigger
@@ -73,6 +85,53 @@ def _segmented_cumsum_u32(inc, reset_mask, phase0, block_size: int,
     carry = torch.where(last_r >= 0, ecs[..., B] - at_last,
                         phase0 + ecs[..., B]) & U32_MASK
     return phases, carry
+
+
+def recip_sample_rate(sample_rate, like: torch.Tensor) -> torch.Tensor:
+    """``1 / sample_rate`` rounded to ``like``'s dtype, as a 0-d tensor on
+    its device: what the JAX package's division by the sample rate
+    multiplies by (module docstring)."""
+    dt = np.float64 if like.dtype == torch.float64 else np.float32
+    return const(float(dt(1.0) / dt(sample_rate)), like)
+
+
+def _segmented_cumsum_f(inc, reset_mask, phase0, block_size: int, no_resets: bool = False):
+    """Float phase accumulation with reset triggers (SinNumeric, Phasor):
+    ``_segmented_cumsum_u32``'s rule over ``cumsum_base16`` without wrap.
+    Returns (phases [..., B], the unwrapped phase after the block [...])."""
+    B = block_size
+    csum = cumsum_base16(inc)
+    ecs = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)  # [..., B+1]
+    p0 = phase0.unsqueeze(-1)
+    if no_resets:
+        return p0 + ecs[..., :B], phase0 + ecs[..., B]
+    t_idx = torch.arange(B, device=inc.device)
+    marks = torch.where(reset_mask, t_idx, torch.full_like(t_idx, -1))
+    last_reset = torch.cummax(marks, dim=-1).values
+    base_at_reset = torch.gather(ecs, -1, last_reset.clamp(min=0))
+    phases = torch.where(last_reset >= 0, ecs[..., :B] - base_at_reset, p0 + ecs[..., :B])
+    last_r = last_reset[..., B - 1]  # the latest reset frame, or -1
+    at_last = torch.gather(ecs, -1, last_r.clamp(min=0).unsqueeze(-1))[..., 0]
+    carry = torch.where(last_r >= 0, ecs[..., B] - at_last, phase0 + ecs[..., B])
+    return phases, carry
+
+
+def sin_numeric_block(phase0, freq, phase_offset, inv_sr, reset=None):
+    """One block of SinNumeric: (the wrapped phase after it, out [..., B]).
+    ``reset`` None is the event-free path (the chain kernel's body)."""
+    phases, carry = _segmented_cumsum_f(freq * inv_sr, reset, phase0, freq.shape[-1],
+                                        no_resets=reset is None)
+    out = torch.sin((phases + phase_offset) * scalar_of(2.0 * np.pi, freq.dtype))
+    # keep the carried phase bounded (the reference wraps with `-= 1.0`)
+    return carry - torch.floor(carry), out
+
+
+def phasor_block(phase0, freq, inv_sr):
+    """One block of Phasor: (the wrapped phase after it, the 0 -> 1 ramp
+    [..., B])."""
+    phases, carry = _segmented_cumsum_f(freq * inv_sr, None, phase0, freq.shape[-1],
+                                        no_resets=True)
+    return carry - torch.floor(carry), phases - torch.floor(phases)
 
 
 _SINE_TABLES = {}
@@ -141,3 +200,70 @@ class SinWt(UGen):
         from ..kernels.chain_kernel import BODIES
 
         return BODIES["sinwt"], 0
+
+
+class SinNumeric(UGen):
+    """Per-sample computed sine (osc.rs:222-270 SinNumeric): the phase in
+    cycles, out = sin((phase + offset) * tau), the phase wrapped to [0, 1)
+    at the block's end. The float phase makes the samples depend on the
+    block partition (module docstring)."""
+
+    inputs = 0
+    outputs = 1
+    params = (
+        pfloat("freq", 440.0, kind=ParameterKind.FREQUENCY),
+        pfloat("phase_offset", 0.0),
+        ptrigger("reset_phase"),
+    )
+
+    def batch_key(self):
+        return (type(self),)
+
+    def __init__(self, freq: float = 440.0):
+        self.pdefaults = {"freq": float(freq)}
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"phase": torch.zeros((), dtype=ctx.dtype, device=device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        freq = params["freq"]
+        carry, out = sin_numeric_block(
+            state["phase"], freq, params["phase_offset"],
+            recip_sample_rate(ctx.sample_rate, freq),
+            None if ctx.no_events else params["reset_phase"])
+        return {"phase": carry}, out.unsqueeze(-2)
+
+    def kernel_stage(self, ctx: AudioCtx):
+        """Chain-kernel body: the fast program's no-reset path."""
+        from ..kernels.chain_kernel import BODIES
+
+        return BODIES["sin_numeric"], 0
+
+
+class Phasor(UGen):
+    """0 -> 1 ramp at a given frequency; aliasing (osc.rs:172-218 Phasor)."""
+
+    inputs = 0
+    outputs = 1
+    params = (pfloat("freq", 0.0, kind=ParameterKind.FREQUENCY),)
+
+    def batch_key(self):
+        return (type(self),)
+
+    def __init__(self, freq: float = 0.0):
+        self.pdefaults = {"freq": float(freq)}
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"phase": torch.zeros((), dtype=ctx.dtype, device=device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        freq = params["freq"]
+        carry, out = phasor_block(state["phase"], freq,
+                                  recip_sample_rate(ctx.sample_rate, freq))
+        return {"phase": carry}, out.unsqueeze(-2)
+
+    def kernel_stage(self, ctx: AudioCtx):
+        """Chain-kernel body: ``process`` itself (Phasor has no triggers)."""
+        from ..kernels.chain_kernel import BODIES
+
+        return BODIES["phasor"], 0
