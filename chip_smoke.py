@@ -33,9 +33,17 @@ result line):
    EnvAr making both transitions in one block): state words, outputs and
    done rows bit-equal. Then the SinNumeric and Phasor bodies on the
    12-stage Phasor LFO cascade and the 256-stage SinNumeric FM cascade at
-   B in {16, 64, 1024}, at the longest superblock and at the chain's
-   shared-memory cap, from the graph's state and from f32 phases just under
-   the wrap: state words and outputs bit-equal;
+   B in {16, 64, 1024} and at the longest superblock, from the graph's
+   state and from f32 phases just under the wrap: state words and outputs
+   bit-equal. Then the WhiteNoise and SampleDelay bodies on the noise
+   chain, the echo chain (rings of 32 and of 2048 samples), the WhiteNoise
+   twins of the one-pole and Pan2 chains and the 256-stage SampleDelay
+   cascade, at B in {16, 64, 1024} and at the longest superblock, from the
+   graph's state and from edge states (frames within 2^10 of 2^32 under
+   the seed 2^32 - 1; rings written up to L - 1, delays 0, L - 1, beyond L
+   and a per-sample ramp). Then the chain kernel with its rows in the
+   global workspace on the FM, Phasor and SinNumeric cascades at 128 x 64
+   and 128 x 1024 samples. All bit-equal;
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
@@ -67,7 +75,16 @@ result line):
    by block (``render_chunk_blocks=1``): bit-equal where the phases are
    u32, within a stated tolerance where a float scan spans the superblock;
    each render's realtime x and kernel launches per rendered second, and
-   the superblocked render's own kernel launches (one per superblock);
+   the superblocked render's own kernel launches (one per superblock).
+   Then the FDN slice: ``phasor_cascade`` and ``sin_numeric_cascade`` over
+   their first 128 blocks on the card against the CPU (the same (program,
+   length) sequence, one superblock, within 1e-6); the noise chain, the
+   echo chain and the SampleDelay cascade (B=64, 2 s, the chain kernel once
+   per superblock, the first two against the scan executor over 64
+   blocks); golden ``fdn_galactic`` (1 s, block by block behind its
+   feedback edges) against the CPU render and the f32 fixture, read by the
+   repository's own FLAC decoder; ``galactic_chain`` superblocked and per
+   block against the CPU;
 5. timings and profile — per bank kernel at V=131072, B=64: kernel ms (CUDA
    events over back-to-back ``launch()`` calls into preallocated outputs),
    wrapper ms and plain ms, event-free and eventful; then torch.profiler's
@@ -76,9 +93,11 @@ result line):
    {16, 64, 1024} and at the longest superblock their renders take
    (fm_cascade at N = 256, the chain kernel on the FM cascade,
    ``polyblep_cascade``, ``graphic_eq_31``, ``phasor_cascade`` and
-   ``sin_numeric_cascade``): kernel ms (the FM cascade's at B = 64 against
-   its recorded time), and at the superblock length the profiler's device time and
-   plain ms. Every kernel row carries its bound (the larger of its bytes
+   ``sin_numeric_cascade``, the noise chain, the echo chain and the
+   SampleDelay cascade): kernel ms (the FM cascade's at B = 64 against its
+   recorded time, and at the superblock length with its rows in shared
+   memory and in the global workspace), and at the superblock length the
+   profiler's device time and plain ms. Every kernel row carries its bound (the larger of its bytes
    over HBM bandwidth and its f32 operations over the FP32 peak), at the
    superblock length.
 
@@ -824,10 +843,12 @@ def graphic_eq_31(kt, gg):
     (node * 0.25).to_graph_out()
 
 
-def onepole_chain(kt, gg):
+def onepole_chain(kt, gg, noise=False):
     """tests/test_chain_kernel.py:142: 16 one-poles alternating Lpf / Hpf
-    (period 2) and a last Hpf, from a PolyBlep saw."""
-    node = gg.push(kt.PolyBlep(kt.Waveform.Sawtooth, 220.0))
+    (period 2) and a last Hpf, from a PolyBlep saw (or, as the JAX test
+    builds it, a WhiteNoise)."""
+    node = gg.push(kt.WhiteNoise(seed=7) if noise
+                   else kt.PolyBlep(kt.Waveform.Sawtooth, 220.0))
     for i in range(16):
         f = gg.push(kt.OnePoleLpf(8000.0 + 100.0 * i) if i % 2 == 0
                     else kt.OnePoleHpf(40.0 + 5.0 * i))
@@ -854,10 +875,11 @@ def env_chain(env_cls, done_action=None):
     return build
 
 
-def pan2_chain(kt, gg):
+def pan2_chain(kt, gg, noise=False):
     """tests/test_chain_kernel.py:431: ten Pan2 stages, stereo folded back
-    to mono between them, from a PolyBlep square."""
-    prev = gg.push(kt.PolyBlep(kt.Waveform.Square, 330.0))
+    to mono between them, from a PolyBlep square (or a WhiteNoise)."""
+    prev = gg.push(kt.WhiteNoise(seed=3) if noise
+                   else kt.PolyBlep(kt.Waveform.Square, 330.0))
     for i in range(10):
         p = gg.push(kt.Pan2(-0.4 + 0.08 * i))
         prev.to(p)
@@ -920,7 +942,11 @@ def edge_operands(torch, np, kck, program, ops, B, seed):
     under Nyquist) and random filter state; envelope stages cycling through
     an attack that crosses 1 mid-block, a release that ends mid-block,
     sustain and stopped for EnvAsr, and an attack that crosses and then a
-    release that ends in the same block for EnvAr."""
+    release that ends in the same block for EnvAr; WhiteNoise frames within
+    2^10 of 2^32 (the block's frames wrap) under the seed 2^32 - 1;
+    SampleDelay rings of random samples written up to L - 1 (pos = L - 1),
+    the stages' delays cycling through 0, L - 1, beyond L (clamped to L -
+    1) and a per-sample ramp from 0 to L - 1."""
     rng = np.random.default_rng(seed)
     K = ops["K"]
     state = ops["state"].clone()
@@ -944,6 +970,18 @@ def edge_operands(torch, np, kck, program, ops, B, seed):
         for _, rec in records_of(program, body):
             # f32 phases just under the wrap at 1.0
             state[rec[5]] = f32_words(1.0 - rng.uniform(0.0, 1e-4, K))
+    for _, rec in records_of(program, "white_noise"):
+        frames = 2**32 - rng.integers(1, 2**10, K, dtype=np.int64)
+        state[rec[5]] = torch.from_numpy(frames.astype(np.uint32).view(np.int32)).to(dev)
+        state[rec[5] + 1] = -1  # the seed 2^32 - 1
+    for _, rec in records_of(program, "sample_delay"):
+        srow, L = rec[5], rec[1]
+        state[srow:srow + L] = f32_words(rng.uniform(-1.0, 1.0, (L, K)))
+        state[srow + L] = L - 1
+        for k in range(K):
+            set_plane(rec[3][0], k, (
+                0.0, (L - 0.5) / SR, (L + 3.0) / SR,
+                torch.linspace(0.0, (L - 0.5) / SR, B, device=dev))[k % 4])
     for body in ("env_asr", "env_ar"):
         for _, rec in records_of(program, body):
             srow = rec[5]
@@ -959,11 +997,14 @@ def edge_operands(torch, np, kck, program, ops, B, seed):
     return dict(ops, state=state, planes=planes)
 
 
-def compare_chain(torch, kck, program, run, where):
+def compare_chain(torch, kck, program, run, where, global_rows=None):
     """Kernel against plain on one set of operands: outputs, state words and
-    done rows bit-equal. Returns (max |output difference|, the kernel's done
-    rows)."""
-    ok, sk, dk = kck.chain_kernel(program, **run)
+    done rows bit-equal. ``global_rows=True`` launches the kernel with its
+    rows in the global workspace whatever their length. Returns (max
+    |output difference|, the kernel's done rows)."""
+    outs = kck.empty_outputs(program, run["state"].device, run["K"], run["block_size"])
+    kck.launch(outs, program, global_rows=global_rows, **run)
+    ok, sk, dk = outs
     op, sp, dp = kck.chain_kernel_plain(program, **run)
     torch.cuda.synchronize()
     err = float((ok - op).abs().max()) if ok.numel() else 0.0
@@ -981,14 +1022,16 @@ def compare_chain(torch, kck, program, run, where):
     return err, dk
 
 
-def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS):
+def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS, paths=None):
     """The chain kernel against its plain version on the lowered programs of
-    the subtractive slice's chains, at every B, from the graph's own state
-    (after an eventful block that restarts the envelopes) and from the edge
-    state. Returns {chain: the max |output difference| it measured}."""
+    the subtractive slice's chains (or of ``paths``), at every B and at the
+    longest superblock each path's render takes, from the graph's own state
+    (after an eventful block that restarts the envelopes and applies the
+    initial sets) and from the edge state. Returns {chain: the max |output
+    difference| it measured}."""
     kck = stage_module("chain_kernel")
     errs = {}
-    for name, build in chain_paths(kt).items():
+    for name, build in (paths or chain_paths(kt)).items():
         if names is not None and name not in names:
             continue
         dones, errs[name] = 0, 0.0
@@ -1037,17 +1080,17 @@ def superblock_len(kt, dev, build):
 def phase_float_osc_vs_plain(torch, np, kt, dev):
     """The chain kernel's SinNumeric and Phasor bodies against the plain
     version on the lowered programs of the 12-stage Phasor LFO cascade and
-    the 256-stage SinNumeric FM cascade, at B in STAGE_BLOCKS, at the
-    longest superblock their renders take and at the chain's cap (the most
-    samples whose shared rows fit), from the graph's state after one block
-    and from phases just under the wrap: state words and outputs bit-equal.
-    Returns ({path: max |output difference|}, {path: superblock length})."""
+    the 256-stage SinNumeric FM cascade, at B in STAGE_BLOCKS and at the
+    longest superblock their renders take (8192 samples, whose rows take
+    the global workspace), from the graph's state after one block and from
+    phases just under the wrap: state words and outputs bit-equal. Returns
+    ({path: max |output difference|}, {path: superblock length})."""
     kck = stage_module("chain_kernel")
     errs, lengths = {}, {}
     for name, build in float_osc_paths(kt).items():
-        sb, cap = superblock_len(kt, dev, build)
+        sb, _cap = superblock_len(kt, dev, build)
         lengths[name], errs[name] = sb, 0.0
-        Bs = STAGE_BLOCKS + (sb, int(cap))
+        Bs = STAGE_BLOCKS + (sb,)
         for B in Bs:
             g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
                                             device=dev)
@@ -1062,8 +1105,371 @@ def phase_float_osc_vs_plain(torch, np, kt, dev):
                 errs[name] = max(errs[name], err)
         print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
               f"bodies {sorted({r[0].name for r in program.records()})}) B={Bs} (the "
-              f"longest superblock {sb}, the cap {int(cap)}): state and outputs bit-equal")
+              f"longest superblock {sb}): state and outputs bit-equal")
     return errs, lengths
+
+
+# --------------------------------------------------------------------------
+# the FDN + Galactic slice: the WhiteNoise and SampleDelay bodies, the
+# global-row path, the delays and Galactic in graphs
+# --------------------------------------------------------------------------
+
+PRIMES = (1031, 1327, 1523, 1871)  # examples/fdn_reverb.py's loop lengths
+HADAMARD = ((1, 1, 1, 1), (1, -1, 1, -1), (1, 1, -1, -1), (1, -1, -1, 1))
+ECHO = 32  # tests/test_chain_kernel.py:455's SampleDelay ring, in samples
+ECHO_LONG = 2048  # a ring longer than the 1024-sample block
+FDN_FRAMES = SR  # the golden render's 1 s
+# the frames rendered on the CPU to hold the card's render against: the
+# CPU renders the FDN at ~0.1x realtime; the fixture holds the whole second
+FDN_CPU_FRAMES = SR // 4
+GALACTIC_FRAMES = SR // 2  # galactic_chain's 1 s cut to 0.5 s
+# the blocks whose launches are counted: every FDN block renders through the
+# eager path (~1,200 launches), which the profiler is slow to collect
+FDN_PROFILE = 16
+GOLDEN_GATE = 1e-6 + 2.0 ** -23  # tests/golden_configs.py check_fixture at 24 bits
+
+
+def noise_chain(kt, gg):
+    """tests/test_chain_kernel.py:570-597: 12 units of a WhiteNoise summed
+    into the running signal and a OnePoleLpf."""
+    prev = None
+    for i in range(12):
+        n = gg.push(kt.WhiteNoise(seed=100 + i))
+        lp = gg.push(kt.OnePoleLpf(2000.0 + 100.0 * i))
+        (n if prev is None else prev + n).to(lp)
+        prev = lp
+    (prev * 0.2).to_graph_out()
+
+
+def echo_chain(ring=ECHO):
+    """tests/test_chain_kernel.py:455-483: WhiteNoise into ten
+    SampleDelay(ring samples) * 0.8 stages, the delays 3 + 2 i samples, one
+    of them smoothed (a per-sample delay ramp once a later set lands)."""
+    def build(kt, gg):
+        prev = gg.push(kt.WhiteNoise(seed=9))
+        for i in range(10):
+            d = gg.push(kt.SampleDelay(ring / SR))
+            d.param("delay_time").set((3.0 + 2.0 * i) / SR)
+            if i == 4:
+                d.param("delay_time").smooth(kt.Smoothing.linear(20.0 / SR))
+            prev.to(d)
+            prev = d * 0.8
+        (prev * 0.5).to_graph_out()
+    return build
+
+
+def sample_delay_cascade(kt, gg):
+    """The benchmarks/suite.py:374-399 cascade wiring with SampleDelay
+    stages: a WhiteNoise through 256 SampleDelay(10 ms), stage i delayed 3 +
+    2 (i mod 200) samples."""
+    prev = gg.push(kt.WhiteNoise(seed=5))
+    for i in range(CASCADE):
+        d = gg.push(kt.SampleDelay(0.01))
+        d.param("delay_time").set((3.0 + 2.0 * (i % 200)) / SR)
+        prev.to(d)
+        prev = d
+    (prev * 0.5).to_graph_out()
+
+
+def noise_delay_paths(kt):
+    """The chains that run the WhiteNoise and SampleDelay bodies."""
+    return {"noise_chain": noise_chain, "echo_chain": echo_chain(),
+            "echo_chain_long_ring": echo_chain(ECHO_LONG),
+            "noise_onepole_chain": lambda kt_, gg: onepole_chain(kt_, gg, noise=True),
+            "noise_pan2_chain": lambda kt_, gg: pan2_chain(kt_, gg, noise=True),
+            "sample_delay_cascade": sample_delay_cascade}
+
+
+def build_fdn(kt, gg, block_size=BLOCK):
+    """examples/fdn_reverb.py:37-85 (golden fdn_galactic,
+    tests/golden_configs.py:172-184): a WhiteNoise(seed=17) burst under an
+    EnvAr into four long AllpassDelays at prime loop lengths, each damped by
+    a OnePoleLpf at 5200 Hz, mixed back through a Hadamard matrix (g =
+    0.85) over feedback edges, the stereo taps through Galactic. Returns
+    the burst's restart trigger."""
+    env = gg.push(kt.EnvAr(0.004, 0.05))
+    burst = gg.push(kt.WhiteNoise(seed=17)) * env * 0.8
+    delays, damped = [], []
+    for n in PRIMES:
+        d = gg.push(kt.AllpassDelay(
+            kt.Seconds.from_samples(2 * n, SR), long=True,
+            min_delay_time=kt.Seconds.from_samples(min(PRIMES) - block_size, SR)))
+        d.param("delay_time").set(kt.Seconds.from_samples(n - block_size, SR).to_secs_f64())
+        burst.to(d)
+        lp = gg.push(kt.OnePoleLpf(5200.0))
+        d.to(lp)
+        delays.append(d)
+        damped.append(lp)
+    for i in range(4):
+        mix = None
+        for j in range(4):
+            term = damped[j] * (0.85 * 0.5 * HADAMARD[i][j])
+            mix = term if mix is None else mix + term
+        mix.to_feedback(delays[i])
+    gal = gg.push(kt.Galactic(replace=0.25, brightness=0.6, bigness=0.7, wet=0.35))
+    ((damped[0] + damped[2]) * 0.35 | (damped[1] + damped[3]) * 0.35).to(gal)
+    gal.to_graph_out()
+    return env.param("t_restart")
+
+
+def galactic_chain(kt, gg):
+    """benchmarks/suite.py:475-498: PinkNoise into a long
+    AllpassFeedbackDelay (0.25 s, feedback 0.5, min 0.25 s), both channels
+    into Galactic(wet=0.5)."""
+    src = gg.push(kt.PinkNoise())
+    echo = gg.push(kt.AllpassFeedbackDelay(0.25, feedback=0.5, long=True,
+                                           min_delay_time=0.25))
+    verb = gg.push(kt.Galactic(wet=0.5))
+    src.to(echo)
+    echo.out([0, 0]).to(verb)
+    verb.to_graph_out()
+
+
+def read_fixture(np, name):
+    """A golden fixture (tests/golden/<name>.flac, 24-bit) decoded by the
+    repository's own FLAC decoder (native/knaster_flac.cpp), built here into
+    build/ with the host C++ compiler (nvcc where there is none): (data
+    [channels, frames] f32, sample rate)."""
+    import ctypes
+    import shutil
+
+    from knaster_tpu_torch.kernels.build import nvcc_path
+
+    so = os.path.join(ROOT, "build", "knaster_flac_reader.so")
+    if not os.path.exists(so):
+        os.makedirs(os.path.dirname(so), exist_ok=True)
+        src = os.path.join(ROOT, "native", "knaster_flac.cpp")
+        cxx = shutil.which("c++") or shutil.which("g++")
+        cmd = ([cxx, "-O2", "-std=c++17", "-fPIC", "-shared", "-o", so, src] if cxx else
+               [nvcc_path(), "-O2", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                "-o", so, src])
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            fail(f"building the FLAC decoder failed: {r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(so)
+    lib.kn_flac_open.restype = ctypes.c_void_p
+    lib.kn_flac_open.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    for fn in ("kn_flac_channels", "kn_flac_rate", "kn_flac_bits"):
+        getattr(lib, fn).argtypes = [ctypes.c_void_p]
+    lib.kn_flac_frames.restype = ctypes.c_longlong
+    lib.kn_flac_frames.argtypes = [ctypes.c_void_p]
+    lib.kn_flac_read.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
+    lib.kn_flac_close.argtypes = [ctypes.c_void_p]
+    with open(os.path.join(ROOT, "tests", "golden", f"{name}.flac"), "rb") as f:
+        raw = f.read()
+    h = lib.kn_flac_open(raw, len(raw))
+    if not h:
+        fail(f"cannot decode the fixture {name}")
+    try:
+        data = np.zeros((lib.kn_flac_channels(h), lib.kn_flac_frames(h)), np.int32)
+        lib.kn_flac_read(h, data.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        bits_ = lib.kn_flac_bits(h)
+        return data.astype(np.float32) / np.float32(2 ** (bits_ - 1)), lib.kn_flac_rate(h)
+    finally:
+        lib.kn_flac_close(h)
+
+
+def tile_operands(torch, ops, n):
+    """A captured chain block's operands stretched to ``n`` times its
+    length: every plane and row repeated along time (the program does not
+    depend on the length)."""
+    return dict(ops, planes=ops["planes"].repeat(1, 1, n), rows=ops["rows"].repeat(1, n),
+                block_size=ops["block_size"] * n)
+
+
+# the lengths the global-row path is held at: one 128-block render chunk
+# at B = 64 and at B = 1024
+GLOBAL_ROW_LENGTHS = (CHUNK * BLOCK, CHUNK * 1024)
+
+
+def phase_global_rows_vs_plain(torch, np, kt, dev, card):
+    """The chain kernel's global-row path against the plain version on the
+    256-stage FM cascade and on the Phasor and SinNumeric cascades, their
+    programs captured at B = 64 and their operands stretched to 128 x 64 and
+    128 x 1024 samples, from the graph's state and from phases near the
+    wrap: state words and outputs bit-equal. Prints which lengths keep
+    their rows in shared memory, and the FM cascade's time at the longer
+    one. Returns {path: max |output difference|}."""
+    kck = stage_module("chain_kernel")
+    paths = {"fm_cascade": lambda kt_, gg: build_cascade(kt_, gg, CASCADE),
+             **float_osc_paths(kt)}
+    errs = {}
+    for name, build in paths.items():
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                        device=dev)
+        g.edit(lambda gg: build(kt, gg))
+        proc.render(frames=BLOCK, fetch=False)
+        program, ops = capture_chain(torch, proc)
+        edge = edge_operands(torch, np, kck, program, ops, BLOCK, 3)
+        errs[name], placed = 0.0, []
+        for n in GLOBAL_ROW_LENGTHS:
+            for label, run in (("graph state", ops), ("edge state", edge)):
+                run = tile_operands(torch, run, n // BLOCK)
+                errs[name] = max(errs[name], compare_chain(
+                    torch, kck, program, run, f"chain_kernel {name} {n} samples {label}",
+                    global_rows=True)[0])
+            placed.append(f"{n}: {'shared' if kck.rows_in_shared(program, n) else 'global'}")
+        line = (f"kernel vs plain chain_kernel global rows {name} (K={ops['K']}, "
+                f"p={program.period}) at {GLOBAL_ROW_LENGTHS}: state and outputs bit-equal; "
+                f"the default placement {', '.join(placed)}")
+        if name == "fm_cascade":
+            run = tile_operands(torch, ops, GLOBAL_ROW_LENGTHS[1] // BLOCK)
+            outs = kck.empty_outputs(program, dev, run["K"], run["block_size"])
+            ms = time_call(torch, lambda: kck.launch(outs, program, **run), 5)
+            line += f"; {ms:.3f} ms a launch at {GLOBAL_ROW_LENGTHS[1]} on {card}"
+        print(line)
+    return errs
+
+
+def render_sequence(torch, proc, frames):
+    """Render ``frames`` on ``proc`` and record every renderer call as
+    (program, blocks): 'super' (a superblock), 'fast' (an event-free
+    block), 'full' (an eventful block). Returns (audio tensor, sequence)."""
+    import knaster_tpu_torch.graph.processor as gp
+
+    seq, real = [], gp.get_super_fn
+
+    def get(cg, k, *a, **kw):
+        fn = real(cg, k, *a, **kw)
+        if fn is None:
+            return None
+
+        def logged(*args):
+            seq.append(("super", k))
+            return fn(*args)
+        return logged
+
+    proc._ensure_compiled()
+    cg = proc.compiled
+    fast, full = cg.render_fast, cg.render
+
+    def fast_logged(*args):
+        seq.append(("fast", 1))
+        return fast(*args)
+
+    def full_logged(*args):
+        seq.append(("full", 1))
+        return full(*args)
+
+    gp.get_super_fn, cg.render_fast, cg.render = get, fast_logged, full_logged
+    try:
+        audio = proc.render(frames=frames, fetch=False)
+    finally:
+        gp.get_super_fn, cg.render_fast, cg.render = real, fast, full
+    return audio, seq
+
+
+def phase_float_osc_card_vs_cpu(torch, np, kt, dev, card):
+    """``phasor_cascade`` and ``sin_numeric_cascade`` over their first 128
+    blocks (one render chunk) on the card and on the CPU: the card's
+    (program, length) sequence equals the CPU's (the JAX bounce's: one
+    superblock of 128 blocks), its kernel launches once, and the samples
+    agree within 1e-6 (the card's sin and torch's CPU sin differ at the
+    ulp)."""
+    for name, build in float_osc_paths(kt).items():
+        got = {}
+        for d in (dev, "cpu"):
+            g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                            device=d)
+            g.edit(lambda gg: build(kt, gg))
+            reset_all_counts()
+            audio, seq = render_sequence(torch, proc, CHUNK * BLOCK)
+            got[str(d)] = (audio.cpu().numpy(), seq, read_all_counts())
+        (a, seq_card, counts), (b, seq_cpu, _) = got[str(dev)], got["cpu"]
+        expect_counts(counts, {"chain_kernel": 1}, f"{name} first chunk")
+        gap = float(np.abs(a - b).max())
+        if seq_card != seq_cpu or seq_card != [("super", CHUNK)]:
+            fail(f"{name}: the card's partition {seq_card} is not the CPU's {seq_cpu}")
+        if gap > 1e-6 or not np.isfinite(a).all():
+            fail(f"{name}: card vs CPU over the first {CHUNK} blocks differ by {gap}")
+        print(f"slice {name} on {card}: the first {CHUNK} blocks as {seq_card} on the "
+              f"card and the CPU, one chain kernel launch; card vs CPU {gap:.3e}")
+
+
+def fdn_processor(torch, kt, dev):
+    """Golden fdn_galactic's processor on ``dev``, the burst fired, the
+    seed counter reset first (as tests/golden_configs.py renders it)."""
+    kt.reset_randomness_seeds()
+    g, proc = kt.AudioProcessor.new(0, 2, kt.AudioProcessorOptions(block_size=BLOCK),
+                                    dtype=torch.float32, device=dev)
+    g.edit(lambda gg: build_fdn(kt, gg)).trig()
+    proc._ensure_compiled()
+    return proc
+
+
+def phase_fdn_galactic(torch, np, kt, dev, card):
+    """Golden fdn_galactic (f32, 1 s, B = 64): every block eventful or
+    behind a feedback edge, so rendered block by block; no chain forms, so
+    no kernel runs. The card's render against the port's CPU render over
+    its first FDN_CPU_FRAMES, and against the f32 fixture over the whole
+    second (the golden gate, 1e-6 + 2^-23); realtime x of the whole render
+    and the CUDA kernels per rendered second over its first FDN_PROFILE
+    blocks (torch.profiler)."""
+    ref, sr = read_fixture(np, "fdn_galactic_f32")
+    proc = fdn_processor(torch, kt, dev)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    a = np.asarray(proc.render(frames=FDN_FRAMES))
+    card_secs = time.perf_counter() - t0
+    expect_counts(read_all_counts(), {}, "fdn_galactic")
+    b = np.asarray(fdn_processor(torch, kt, "cpu").render(frames=FDN_CPU_FRAMES))
+    proc = fdn_processor(torch, kt, dev)
+    n_k = count_kernels(torch, lambda: proc.render(frames=FDN_PROFILE * BLOCK, fetch=False))
+    gap = float(np.abs(a[:, :FDN_CPU_FRAMES] - b).max())
+    err = float(np.abs(a - ref).max())
+    if sr != SR or ref.shape != a.shape or not np.isfinite(a).all():
+        fail(f"fdn_galactic: fixture {ref.shape} at {sr} Hz against a render {a.shape}")
+    if gap > 1e-6 or err > GOLDEN_GATE or np.abs(ref).max() < 0.05:
+        fail(f"fdn_galactic: card vs CPU {gap}, card vs the fixture {err} (gate "
+             f"{GOLDEN_GATE})")
+    lps = None if n_k is None else n_k / (FDN_PROFILE * BLOCK / SR)
+    print(f"slice fdn_galactic on {card}: 1 s in {card_secs:.3f} s, realtime x "
+          f"{1.0 / card_secs:.4g}, {lps} kernel launches per rendered s; card vs CPU "
+          f"{gap:.3e} over the first {FDN_CPU_FRAMES} samples, card vs the f32 fixture "
+          f"{err:.3e} (gate {GOLDEN_GATE:.3e}); no port kernel on its path")
+    return 1.0 / card_secs, lps
+
+
+def phase_galactic_chain(torch, np, kt, dev, card):
+    """``galactic_chain`` (GALACTIC_FRAMES, B = 64) superblocked (Galactic's cap, 740
+    samples, makes loops of 8-block superblocks) and block by block, each on
+    the card against the same render on the CPU, within 1e-6 (the card's
+    sin in Galactic's vibrato differs from the CPU's at the ulp); no port
+    kernel on its path. Prints realtime x of the card's renders."""
+    out = {}
+    for chunk in (CHUNK, 1):
+        renders = {}
+        for d in (dev, "cpu"):
+            kt.reset_randomness_seeds()
+            opts = kt.AudioProcessorOptions(block_size=BLOCK, render_chunk_blocks=chunk)
+            g, proc = kt.AudioProcessor.new(0, 2, opts, device=d)
+            g.edit(lambda gg: galactic_chain(kt, gg))
+            proc._ensure_compiled()
+            reset_all_counts()
+            t0 = time.perf_counter()
+            renders[str(d)] = np.asarray(proc.render(frames=GALACTIC_FRAMES))
+            secs = time.perf_counter() - t0
+            if d == dev:
+                expect_counts(read_all_counts(), {}, "galactic_chain")
+                out[chunk] = GALACTIC_FRAMES / SR / secs
+        a, b = renders[str(dev)], renders["cpu"]
+        gap = float(np.abs(a - b).max())
+        if gap > 1e-6 or not np.isfinite(a).all() or np.abs(a).max() < 1e-3:
+            fail(f"galactic_chain chunk={chunk}: card vs CPU differ by {gap}")
+        print(f"slice galactic_chain ({'superblocks' if chunk > 1 else 'per block'}) on "
+              f"{card}: realtime x {out[chunk]:.4g}; card vs CPU {gap:.3e}; no port kernel on "
+              "its path")
+    return out
+
+
+def phase_noise_delay_slices(torch, kt, dev, card):
+    """The noise chain, the echo chain and the SampleDelay cascade through
+    ``chain_slice``, the first two against the scan executor. Returns
+    {path: chain kernel launches}."""
+    paths = noise_delay_paths(kt)
+    return {name: chain_slice(torch, kt, dev, card, name, paths[name],
+                              against_scan=name != "sample_delay_cascade")
+            for name in ("noise_chain", "echo_chain", "sample_delay_cascade")}
 
 
 def param_sweep(kt, g):
@@ -1188,36 +1594,8 @@ def phase_subtractive_slices(torch, np, kt, dev, card):
           f"{0.4 / card_secs:.4g}) equals the CPU render to {gap:.3e} (peak {peak:.4g}); "
           "no kernel on its path")
 
-    n_blocks = int(GRAPH_SECONDS * SR) // BLOCK
     for name in ("polyblep_cascade", "graphic_eq_31"):
-        build = chain_paths(kt)[name]
-        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
-                                        device=dev)
-        g.edit(lambda gg: build(kt, gg))
-        # the blocks that carry the graph's initial param sets (eventful:
-        # the scan executor), then every block is event-free
-        proc.render(frames=WARM_BLOCKS * BLOCK, fetch=False)
-        reset_all_counts()
-        audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
-        counts = read_all_counts()
-        expect_counts(counts, {"chain_kernel": event_free_pieces(proc, n_blocks)}, name)
-        launches[name] = counts["chain_kernel"]
-        if [k for k, _ in proc.compiled.plan].count("chain") != 1:
-            fail(f"{name}: the graph did not collapse into one chain")
-        peak = float(audio.abs().max())
-        if not bool(torch.isfinite(audio).all()) or peak == 0.0:
-            fail(f"{name}: output not finite or silent")
-        _, secs2 = render_timed(torch, proc, GRAPH_SECONDS)
-        ref, t_scan = kernel_vs_scan(torch, kt, dev, build, 64, WARM_BLOCKS)
-        head = audio[:, :64 * BLOCK].contiguous()
-        if not torch.equal(bits(head), bits(ref)):
-            fail(f"{name}: the kernel path differs from the scan executor by "
-                 f"{float((head - ref).abs().max())}")
-        print(f"slice {name}: {n_blocks} blocks of {BLOCK} in {secs:.4f} s, realtime x "
-              f"{GRAPH_SECONDS / secs:.4g} (again: {GRAPH_SECONDS / secs2:.4g}) on {card}; "
-              f"chain kernel launches {counts['chain_kernel']} (one per superblock); "
-              f"peak {peak:.4g}; its first 64 blocks bit-equal to the scan "
-              f"executor's ({t_scan:.2f} s for them)")
+        launches[name] = chain_slice(torch, kt, dev, card, name, chain_paths(kt)[name])
 
     # the test shapes at B = 16: restart, then release; kernel path against
     # the scan executor, and the FREE_PARENT chain zeroes the output from
@@ -1260,6 +1638,44 @@ def phase_subtractive_slices(torch, np, kt, dev, card):
         print(f"slice {name} (B=16): {counts['chain_kernel']} chain kernel launches, "
               f"384 samples equal to the scan executor's{note}")
     return launches
+
+
+def chain_slice(torch, kt, dev, card, name, build, against_scan=True):
+    """One chain path through AudioProcessor.render on the card (B = 64, 2 s
+    after the blocks that carry the graph's initial param sets, then again):
+    the chain kernel once per event-free superblock, and (``against_scan``)
+    the first 64 blocks bit-equal to the scan executor's. Returns the chain
+    kernel's launches."""
+    n_blocks = int(GRAPH_SECONDS * SR) // BLOCK
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                    device=dev)
+    g.edit(lambda gg: build(kt, gg))
+    # the blocks that carry the initial param sets (eventful: the scan
+    # executor), then every block is event-free
+    proc.render(frames=WARM_BLOCKS * BLOCK, fetch=False)
+    reset_all_counts()
+    audio, secs = render_timed(torch, proc, GRAPH_SECONDS)
+    counts = read_all_counts()
+    expect_counts(counts, {"chain_kernel": event_free_pieces(proc, n_blocks)}, name)
+    if [k for k, _ in proc.compiled.plan].count("chain") != 1:
+        fail(f"{name}: the graph did not collapse into one chain")
+    peak = float(audio.abs().max())
+    if not bool(torch.isfinite(audio).all()) or peak == 0.0:
+        fail(f"{name}: output not finite or silent")
+    _, secs2 = render_timed(torch, proc, GRAPH_SECONDS)
+    note = ""
+    if against_scan:
+        ref, t_scan = kernel_vs_scan(torch, kt, dev, build, 64, WARM_BLOCKS)
+        head = audio[:, :64 * BLOCK].contiguous()
+        if not torch.equal(bits(head), bits(ref)):
+            fail(f"{name}: the kernel path differs from the scan executor by "
+                 f"{float((head - ref).abs().max())}")
+        note = f"; its first 64 blocks bit-equal to the scan executor's ({t_scan:.2f} s)"
+    print(f"slice {name}: {n_blocks} blocks of {BLOCK} in {secs:.4f} s, realtime x "
+          f"{GRAPH_SECONDS / secs:.4g} (again: {GRAPH_SECONDS / secs2:.4g}) on {card}; "
+          f"chain kernel launches {counts['chain_kernel']} (one per superblock); "
+          f"peak {peak:.4g}{note}")
+    return counts["chain_kernel"]
 
 
 def render_timed(torch, proc, seconds):
@@ -1550,7 +1966,11 @@ def count_kernels(torch, run):
     return n or None
 
 
-PROFILE_BLOCKS = CHUNK  # the window whose launches are counted: one render chunk
+# the windows whose launches are counted: one render chunk superblocked;
+# 16 blocks block by block, whose launches repeat every block and whose
+# hundreds of thousands of profiler events take minutes to collect
+PROFILE_BLOCKS = CHUNK
+PROFILE_BLOCKS_PER_BLOCK = 16
 
 
 def phase_partitions(torch, np, kt, dev, card):
@@ -1558,7 +1978,8 @@ def phase_partitions(torch, np, kt, dev, card):
     with superblocks (the default) and block by block
     (``render_chunk_blocks=1``). Each pair compared as ``partition_slices``
     says; each render's realtime x (unprofiled) and its kernel launches per
-    rendered second (the profiler's count over up to PROFILE_BLOCKS blocks
+    rendered second (the profiler's count over up to PROFILE_BLOCKS blocks,
+    PROFILE_BLOCKS_PER_BLOCK block by block,
     of a third and fourth render) printed beside the card. Returns {slice:
     (realtime x, launches/s) superblocked and per block, the port's own
     kernel launches of the superblocked render}."""
@@ -1585,7 +2006,8 @@ def phase_partitions(torch, np, kt, dev, card):
                     kernel: event_free_pieces(runs[0], frames // bs) if free
                     else max(1, counts.get(kernel, 0))}
                 expect_counts(counts, want, f"partition {name}")
-            n_prof = min(frames, PROFILE_BLOCKS * bs)
+            n_prof = min(frames, (PROFILE_BLOCKS if chunk == CHUNK
+                                  else PROFILE_BLOCKS_PER_BLOCK) * bs)
             n_k = count_kernels(torch, lambda: runs[1].render(frames=n_prof, fetch=False))
             res[chunk] = (audio, frames / SR / secs,
                           None if n_k is None else n_k / (n_prof / SR), counts)
@@ -1672,6 +2094,10 @@ def phase_stage_timings(torch, np, kt, dev, card):
             line += (f" ({100 * (ch_ms / REF_FM_CHAIN_MS - 1):+.2f}% against the recorded "
                      f"{REF_FM_CHAIN_MS} ms)")
         if B == sb:
+            # the same launch with its rows in the global workspace
+            gl_ms = time_call(
+                torch, lambda: kck.launch(outs, program, global_rows=True, **cops), 50)
+            line += f", with global rows {gl_ms:.4f} ms"
             fm_dev = device_ms(torch, lambda: kfc.launch(buf, **ops), "fm_cascade")
             ch_dev = device_ms(torch, lambda: kck.launch(outs, program, **cops),
                                "chain_kernel")
@@ -1694,13 +2120,18 @@ def phase_stage_timings(torch, np, kt, dev, card):
 # bodies add their log2(B) Hillis-Steele steps; SinNumeric and Phasor count
 # the increment's multiply, ~10 adds of the base-16 scan (8.5 in-row adds
 # on average, the row total, the rows-before add), the phase add and sin's
-# add, multiply and call, or floor and subtract
+# add, multiply and call, or floor and subtract; WhiteNoise two Threefry
+# evaluations (2 + 20 x 5 + 5 x 3 integer operations each) and 7 more,
+# counted at the FP32 rate (the card's integer lanes are no faster, so the
+# bound stays a lower bound); SampleDelay the delay's multiply, clamp,
+# convert and index arithmetic per sample, its ring copy not counted
 def body_ops(name, B, channels):
     steps = max(1, math.ceil(math.log2(B)))
     return {"constant": 0, "math": channels, "math1": channels, "sinwt": 5,
             "polyblep": 24, "svf": 57 + 18 * steps, "onepole_lpf": 11 + 3 * steps,
             "onepole_hpf": 12 + 3 * steps, "env_asr": 16 + 2 * steps,
-            "env_ar": 24 + 2 * steps, "pan2": 7, "sin_numeric": 15, "phasor": 14}[name]
+            "env_ar": 24 + 2 * steps, "pan2": 7, "sin_numeric": 15, "phasor": 14,
+            "white_noise": 241, "sample_delay": 8}[name]
 
 
 def chain_bound(program, ops):
@@ -1808,6 +2239,11 @@ def main():
     path_errs = phase_subtractive_vs_plain(torch, np, ktt, dev)
     osc_errs, _ = phase_float_osc_vs_plain(torch, np, ktt, dev)
     path_errs.update(osc_errs)
+    path_errs.update(phase_subtractive_vs_plain(torch, np, ktt, dev,
+                                                paths=noise_delay_paths(ktt)))
+    global_errs = phase_global_rows_vs_plain(torch, np, ktt, dev, card)
+    errs["chain_kernel"] = max([errs["chain_kernel"], *global_errs.values(),
+                                *path_errs.values()])
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
@@ -1840,6 +2276,10 @@ def main():
     partitions = phase_partitions(torch, np, ktt, dev, card)
     for path in float_osc_paths(ktt):
         path_launches[path] = partitions[path][4]["chain_kernel"]
+    phase_float_osc_card_vs_cpu(torch, np, ktt, dev, card)
+    path_launches.update(phase_noise_delay_slices(torch, ktt, dev, card))
+    phase_fdn_galactic(torch, np, ktt, dev, card)
+    phase_galactic_chain(torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -1868,6 +2308,7 @@ def main():
     # its program's measured error
     paths = {n: b for n, b in chain_paths(ktt).items() if n in path_launches}
     paths.update(float_osc_paths(ktt))
+    paths.update({n: b for n, b in noise_delay_paths(ktt).items() if n in path_launches})
     for path, row in phase_chain_path_timings(torch, ktt, dev, card, paths).items():
         table.append(kernel_row("chain_kernel", path_launches[path], path_errs[path],
                                 *row, label=f"chain_kernel:{path}"))

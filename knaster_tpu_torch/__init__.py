@@ -6,8 +6,8 @@ NVIDIA Hopper. It imports no JAX. Ported so far: the graph (edit, compile,
 render, event-free runs as superblocks) with the UGens of the README
 example and of the param sweep (``SinNumeric``, ``Phasor``), the
 subtractive voice's (``PolyBlep``, ``SvfFilter``, the one-poles,
-``EnvAsr``/``EnvAr``, ``Pan2``) and the FM cascade, and the fused voice
-banks. The README example::
+``EnvAsr``/``EnvAr``, ``Pan2``), the FDN reverb's (the noises, the delays,
+``Galactic``) and the FM cascade, and the fused voice banks. The README example::
 
     import knaster_tpu_torch as kt
 
@@ -37,6 +37,7 @@ caller passes ``device="cpu"``, and raise where there is no card; a bank's
 state lies on the device its ``init`` is given.
 """
 
+from .airwindows.galactic import Galactic
 from .core.ugen import AudioCtx, UGen
 from .graph.graph import CircularConnection, Done, Graph, GraphError, NodeFreed
 from .graph.handles import Handle, Parameter, Source
@@ -71,9 +72,12 @@ from .primitives import (
     ptrigger,
     set_default_dtype,
 )
+from .ugens.delay import AllpassDelay, AllpassFeedbackDelay, SampleDelay, StaticSampleDelay
 from .ugens.envelopes import EnvAr, EnvAsr
 from .ugens.filters import OnePoleHpf, OnePoleLpf, SvfFilter, SvfFilterType
 from .ugens.math import Math1UGen, MathUGen
+from .ugens.noise import (BrownNoise, PinkNoise, RandomLin, WhiteNoise,
+                          next_randomness_seed, reset_randomness_seeds)
 from .ugens.osc import Phasor, SinNumeric, SinWt
 from .ugens.pan import Pan2
 from .ugens.polyblep import PolyBlep, Waveform
@@ -111,6 +115,17 @@ __all__ = [
     "EnvAsr",
     "EnvAr",
     "Pan2",
+    "WhiteNoise",
+    "PinkNoise",
+    "BrownNoise",
+    "RandomLin",
+    "next_randomness_seed",
+    "reset_randomness_seeds",
+    "SampleDelay",
+    "AllpassDelay",
+    "AllpassFeedbackDelay",
+    "StaticSampleDelay",
+    "Galactic",
     "FMCascade",
     "Beats",
     "Seconds",

@@ -25,6 +25,7 @@ the kernels' IEEE division (``const`` below).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # degree-9 odd minimax polynomial for sin(u) on [-pi/2, pi/2] (the JAX
@@ -37,6 +38,15 @@ def const(x: float, like: torch.Tensor) -> torch.Tensor:
     """``x`` as a 0-d tensor of ``like``'s dtype on its device: divide by
     this, not by the Python number (see the module docstring)."""
     return torch.full((), x, dtype=like.dtype, device=like.device)
+
+
+def recip(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``1 / x`` rounded to ``like``'s dtype, as a 0-d tensor on its device:
+    XLA rewrites a division by a constant into a multiply by this
+    reciprocal, so the port multiplies by it where the JAX package divides
+    by a constant that is not a power of two."""
+    dt = np.float64 if like.dtype == torch.float64 else np.float32
+    return const(float(dt(1.0) / dt(x)), like)
 
 
 def sin_poly_quadrant(u):

@@ -34,9 +34,14 @@
 //
 // Design. One CTA per chain, one thread per sample. The rows of the stage
 // being computed (one slot per output channel), the carry rows and the
-// scan scratch live in shared memory. Each thread reads and writes only its
-// own samples of the slots and carry rows; the cross-thread steps are the
-// block scans: SinWt's and PolyBlep's u32 phase sums (stage_scan.cuh), and
+// scan scratch live in shared memory, or, where they do not fit there (a
+// long superblock: the host decides from the program's row count), in a
+// global-memory workspace the host allocates for the launch: the same
+// stage loop, instantiated on that pointer, so that a chain runs its
+// kernel at every superblock length the graph takes. Each thread reads and
+// writes only its own samples of the slots and carry rows, but for
+// SampleDelay, which reads its input at t - d between two barriers; the
+// other cross-thread steps are the block scans: SinWt's and PolyBlep's u32 phase sums (stage_scan.cuh), and
 // the Hillis-Steele doubling of the filters' affine maps and the
 // envelopes' rate cumsums, log2(B) steps over ping-pong scratch rows with
 // one __syncthreads() a step, with the identity fills and the multiply-add
@@ -52,6 +57,11 @@
 // plane value per stage, so every warp takes the same branch. A stage's
 // done row is written after its output.
 //
+// WhiteNoise restates jax.random's Threefry-2x32 (fold_in, then one 32-bit
+// draw on the partitionable path) in u32 arithmetic, so its stream is the
+// JAX package's bit for bit. SampleDelay's ring is L state words of its
+// stage, read from `state` and rewritten whole to `state_out`.
+//
 // Two kernels from one stage loop, a template on whether the program uses a
 // body past Math1 (the host reads that from the program's opcodes): a
 // program of Constant, SinWt, Math and Math1 bodies only runs
@@ -65,11 +75,16 @@
 // per sample plus, for the scan bodies, log2(B) barrier-separated steps;
 // one SM of 132 does the work, which is what a serial 256-deep chain at
 // B = 64 is. Running several chains or graphs per launch is later work.
+// WhiteNoise is ~240 integer operations a sample with no barrier;
+// SampleDelay copies its whole ring from `state` to `state_out` each
+// launch (8 L bytes a stage), strided by K words, between two barriers.
 //
-// B is a superblock's length in the graph's event-free runs (thousands of
-// samples): every per-sample loop strides by blockDim (at most 1024), and
-// the host caps the superblock so that the shared rows fit
-// (knaster_tpu_torch/graph/chain_kernel.py max_block).
+// B is a superblock's length in the graph's event-free runs (up to 128
+// blocks: 131,072 samples at B = 1024): every per-sample loop strides by
+// blockDim (at most 1024). Each of the two kernels has a shared-row and a
+// global-row instantiation; the global rows cost L2 and HBM latency where
+// shared memory would not, and only launches too long for shared memory
+// take them.
 
 #include "stage_scan.cuh"
 
@@ -80,7 +95,8 @@ using namespace ktt;
 // body opcodes (knaster_tpu_torch/kernels/chain_kernel.py BODIES)
 constexpr int kOpConstant = 0, kOpSinWt = 1, kOpMath = 2, kOpMath1 = 3, kOpPolyBlep = 4,
               kOpSvf = 5, kOpLpf = 6, kOpHpf = 7, kOpEnvAsr = 8, kOpEnvAr = 9,
-              kOpPan2 = 10, kOpSinNumeric = 11, kOpPhasor = 12;
+              kOpPan2 = 10, kOpSinNumeric = 11, kOpPhasor = 12, kOpWhiteNoise = 13,
+              kOpSampleDelay = 14;
 // Math args (ugens/math.py KERNEL_BINOPS) and Math1 args (KERNEL_UNOPS)
 constexpr int kAdd = 0, kSub = 1, kMul = 2, kDiv = 3;
 constexpr int kCeil = 0, kFloor = 1, kSqrt = 2, kExp = 3, kAbs = 4, kNeg = 5,
@@ -761,9 +777,96 @@ __device__ void body_float_osc(const Frame& f, const Io& io, const Rec& rc, bool
   }
 }
 
-// The stage loop of the two kernels below. kAllBodies: the program may use
-// a body past Math1.
-template <bool kAllBodies>
+// Threefry-2x32, 20 rounds, of the counter (x0, x1) under the key (k0, k1),
+// in place (jax.random's threefry2x32; knaster_tpu_torch/ugens/noise.py).
+constexpr uint32_t kThreefryParity = 0x1BD11BDAu;
+
+__device__ __forceinline__ void threefry_mix(uint32_t& x0, uint32_t& x1, int r) {
+  x0 += x1;
+  x1 = (x1 << r) | (x1 >> (32 - r));
+  x1 ^= x0;
+}
+
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
+                                             uint32_t& x1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ kThreefryParity};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    if (i % 2 == 0) {
+      threefry_mix(x0, x1, 13); threefry_mix(x0, x1, 15);
+      threefry_mix(x0, x1, 26); threefry_mix(x0, x1, 6);
+    } else {
+      threefry_mix(x0, x1, 17); threefry_mix(x0, x1, 29);
+      threefry_mix(x0, x1, 16); threefry_mix(x0, x1, 24);
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+}
+
+// WhiteNoise (ugens/noise.py): words frame, seed (the sorted state names).
+// Sample t: the key fold_in(PRNGKey(seed), frame + t) = Threefry of the
+// counter (0, frame + t) under (0, seed); one 32-bit draw = the XOR of the
+// key's Threefry of the counter (0, 0); its top 23 bits under 1.0's
+// exponent, minus 1, mapped to (-1, 1).
+__device__ void body_white_noise(const Frame& f, const Io& io, const Rec& rc) {
+  const int K = f.K, k = f.k;
+  const uint32_t frame0 = io.state[rc.srow * K + k];
+  const uint32_t seed = io.state[(rc.srow + 1) * K + k];
+  for (int t = threadIdx.x; t < f.B; t += blockDim.x) {
+    uint32_t a = 0u, b = frame0 + static_cast<uint32_t>(t);
+    threefry2x32(0u, seed, a, b);
+    uint32_t b0 = 0u, b1 = 0u;
+    threefry2x32(a, b, b0, b1);
+    const float u = sub(__uint_as_float(((b0 ^ b1) >> 9) | 0x3F800000u), 1.0f);
+    emit(f, io.prog, rc.out_tab, 0, t, sub(mul(u, 2.0f), 1.0f), io.out);
+  }
+  if (threadIdx.x == 0) {
+    io.state_out[rc.srow * K + k] = frame0 + static_cast<uint32_t>(f.B);
+    io.state_out[(rc.srow + 1) * K + k] = seed;
+  }
+}
+
+// SampleDelay (ugens/delay.py sample_delay_block): words the ring buf[0, L)
+// and pos; arg = L. Write before read: sample t reads hist[L + t - d], hist
+// = [the ring oldest-first from pos | this block's input], d = clip(trunc(
+// delay_time * sr), 0, L - 1); at index >= L that is the input at t - d,
+// another thread's sample, hence the barrier before. The old ring is read
+// from `state` and the new one written whole to `state_out` (slot s takes
+// hist[B + (s - pos') mod L], pos' = (pos + B) mod L), so no read sees a
+// write; the barrier after keeps the input rows until every thread has
+// read them.
+__device__ void body_sample_delay(const Frame& f, const Io& io, const Rec& rc) {
+  const int K = f.K, B = f.B, k = f.k, L = rc.arg, tid = threadIdx.x;
+  const uint32_t* ring = io.state + static_cast<size_t>(rc.srow) * K + k;
+  uint32_t* ring_out = io.state_out + static_cast<size_t>(rc.srow) * K + k;
+  const int pos = static_cast<int>(ring[static_cast<size_t>(L) * K]);
+  const float top = static_cast<float>(L - 1);
+  __syncthreads();  // the input rows of every sample are written
+  for (int t = tid; t < B; t += blockDim.x) {
+    const float x = mul(param(f, io.prog, rc.par_tab, 0, t), io.sr);
+    const int m = t - (x > 0.0f ? static_cast<int>(fminf(x, top)) : 0);
+    const float v = m >= 0 ? input(f, io.prog, rc.in_tab, 0, m)
+                           : word_f(ring[static_cast<size_t>((pos + L + m) % L) * K]);
+    emit(f, io.prog, rc.out_tab, 0, t, v, io.out);
+  }
+  const int new_pos = (pos + B % L) % L;
+  for (int s = tid; s < L; s += blockDim.x) {
+    const int m = B + (s - new_pos + L) % L;
+    ring_out[static_cast<size_t>(s) * K] =
+        m >= L ? f_word(input(f, io.prog, rc.in_tab, 0, m - L))
+               : ring[static_cast<size_t>((pos + m) % L) * K];
+  }
+  if (tid == 0) ring_out[static_cast<size_t>(L) * K] = static_cast<uint32_t>(new_pos);
+  __syncthreads();
+}
+
+// The stage loop of the kernels below. kAllBodies: the program may use a
+// body past Math1. kGlobalRows: the slot, carry and scratch rows live in
+// the global workspace `ws`, else in dynamic shared memory.
+template <bool kAllBodies, bool kGlobalRows>
 __device__ __forceinline__ void run_chain(const int* __restrict__ prog,
                                           const float* __restrict__ planes,
                                           const uint32_t* __restrict__ state,
@@ -771,11 +874,12 @@ __device__ __forceinline__ void run_chain(const int* __restrict__ prog,
                                           float* __restrict__ out,
                                           uint32_t* __restrict__ state_out,
                                           uint8_t* __restrict__ done_out, int K, int B,
-                                          float f2pi, float scale, float sr) {
+                                          float f2pi, float scale, float sr, float* ws) {
   __shared__ uint32_t scratch[32];
   __shared__ float red[32];
   const int p = prog[0], n_carry = prog[1], n_slots = prog[2], n_ext = prog[3];
-  extern __shared__ float smem[];
+  extern __shared__ float dyn_smem[];
+  float* smem = kGlobalRows ? ws : dyn_smem;
   float* carry = smem + static_cast<size_t>(n_slots) * B;
   Frame f{planes, rows, smem, carry, carry + static_cast<size_t>(n_carry) * B, K, B, 0};
   const Io io{prog, state, state_out, out, scratch, red, f2pi, scale, sr};
@@ -854,6 +958,8 @@ __device__ __forceinline__ void run_chain(const int* __restrict__ prog,
               case kOpPan2: body_pan2(f, io, rc); break;
               case kOpSinNumeric: body_float_osc(f, io, rc, false); break;
               case kOpPhasor: body_float_osc(f, io, rc, true); break;
+              case kOpWhiteNoise: body_white_noise(f, io, rc); break;
+              case kOpSampleDelay: body_sample_delay(f, io, rc); break;
               default: break;
             }
           }
@@ -869,18 +975,21 @@ __device__ __forceinline__ void run_chain(const int* __restrict__ prog,
 // Constant, SinWt, Math and Math1 bodies only. No launch bound: with
 // __launch_bounds__(1024) this loop ran slower on an H100, and it needs no
 // more than 64 registers a thread without one.
+template <bool kGlobalRows>
 __global__ void chain_kernel_small(const int* __restrict__ prog,
                                    const float* __restrict__ planes,
                                    const uint32_t* __restrict__ state,
                                    const float* __restrict__ rows, float* __restrict__ out,
                                    uint32_t* __restrict__ state_out,
                                    uint8_t* __restrict__ done_out, int K, int B, float f2pi,
-                                   float scale, float sr) {
-  run_chain<false>(prog, planes, state, rows, out, state_out, done_out, K, B, f2pi, scale, sr);
+                                   float scale, float sr, float* ws) {
+  run_chain<false, kGlobalRows>(prog, planes, state, rows, out, state_out, done_out, K, B,
+                                f2pi, scale, sr, ws);
 }
 
 // Every body. Up to 1024 threads a block (one per sample) allow at most 64
 // registers each, which the inlined bodies exceed unbounded.
+template <bool kGlobalRows>
 __global__ void __launch_bounds__(1024) chain_kernel_all(const int* __restrict__ prog,
                                                          const float* __restrict__ planes,
                                                          const uint32_t* __restrict__ state,
@@ -889,8 +998,9 @@ __global__ void __launch_bounds__(1024) chain_kernel_all(const int* __restrict__
                                                          uint32_t* __restrict__ state_out,
                                                          uint8_t* __restrict__ done_out,
                                                          int K, int B, float f2pi,
-                                                         float scale, float sr) {
-  run_chain<true>(prog, planes, state, rows, out, state_out, done_out, K, B, f2pi, scale, sr);
+                                                         float scale, float sr, float* ws) {
+  run_chain<true, kGlobalRows>(prog, planes, state, rows, out, state_out, done_out, K, B,
+                               f2pi, scale, sr, ws);
 }
 
 }  // namespace
@@ -898,22 +1008,31 @@ __global__ void __launch_bounds__(1024) chain_kernel_all(const int* __restrict__
 extern "C" {
 
 // Runs one chain over one block on `stream`; returns cudaGetLastError().
-// smem_floats = (n_slots + n_carry + n_scratch) * B, from the program's
-// header; all_bodies: nonzero when the program uses a body past Math1.
+// row_floats = (n_slots + n_carry + n_scratch) * B, from the program's
+// header; all_bodies: nonzero when the program uses a body past Math1;
+// workspace: null to keep the rows in dynamic shared memory, else a global
+// buffer of row_floats floats that holds them instead.
 int ktt_chain_kernel(const int* prog, const float* planes, const uint32_t* state,
                      const float* rows, float* out, uint32_t* state_out, uint8_t* done,
-                     int K, int B, int smem_floats, int all_bodies, float f2pi, float scale,
-                     float sr, void* stream) {
-  if (K < 1 || B < 1 || smem_floats < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = all_bodies ? chain_kernel_all : chain_kernel_small;
-  const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
+                     int K, int B, int row_floats, int all_bodies, float f2pi, float scale,
+                     float sr, float* workspace, void* stream) {
+  if (K < 1 || B < 1 || row_floats < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (workspace != nullptr) {
+    const auto kernel = all_bodies ? chain_kernel_all<true> : chain_kernel_small<true>;
+    kernel<<<1, stage_threads(B), 0, s>>>(prog, planes, state, rows, out, state_out, done,
+                                          K, B, f2pi, scale, sr, workspace);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const auto kernel = all_bodies ? chain_kernel_all<false> : chain_kernel_small<false>;
+  const size_t smem = static_cast<size_t>(row_floats) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<1, stage_threads(B), smem, static_cast<cudaStream_t>(stream)>>>(
-      prog, planes, state, rows, out, state_out, done, K, B, f2pi, scale, sr);
+  kernel<<<1, stage_threads(B), smem, s>>>(prog, planes, state, rows, out, state_out, done,
+                                           K, B, f2pi, scale, sr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,12 +12,14 @@ and ``run`` launches it per block. Done-capable units (the envelopes) write
 a done row per stage, which ``run`` hands back as the JAX package's does.
 
 UGens opt in with ``UGen.kernel_stage``. Only the event-free fast program
-uses this path, at the native block and at every superblock length up to
-``max_block``; eventful blocks keep the scan executor, as in the JAX
-package. ``run`` returns None, and the scan executor runs, exactly where
-the JAX package's does: f64 graphs, a unit with no body (``SinWt(lookup=
-True)``, Math ``pow``, Math1 ``trunc``/``fract``), and state leaves that are
-not [K] or [K, n] tensors of 32-bit words. The Mosaic validation valve, the
+uses this path, at the native block and at every superblock length the
+graph's partition takes (rows beyond shared memory go to a global
+workspace: ``kernels/chain_kernel.py``); eventful blocks keep the scan
+executor, as in the JAX package. ``run`` returns None, and the scan
+executor runs, exactly where the JAX package's does: f64 graphs, a unit
+with no body (``SinWt(lookup=True)``, Math ``pow``, Math1
+``trunc``/``fract``), and state leaves that are not [K] or [K, n] tensors
+of 32-bit words. The Mosaic validation valve, the
 VMEM budget and the unroll knob exist only for Mosaic and are not ported.
 
 Selection: ``_MODE`` None (the default) runs the kernel on a card and the
@@ -92,21 +94,6 @@ def needed_outputs(cg, cp) -> set:
     return needed
 
 
-def max_block(cp, reps, ctx) -> Optional[int]:
-    """The longest block, in samples, the chain kernel runs this plan at:
-    its shared rows (one slot per output channel of the unit, the carry
-    rows and the bodies' scan scratch) hold 4 bytes a sample within
-    ``SMEM_LIMIT``. None when a unit has no kernel body (the plan takes the
-    scan executor at any length). ``compile.superblock_eligible`` caps the
-    graph's superblocks by it."""
-    stages = [rep.kernel_stage(ctx) for rep in reps]
-    if any(s is None for s in stages):
-        return None
-    rows = (sum(rep.outputs for rep in reps) + len(cp.carry_keys)
-            + max(body.scratch for body, _arg in stages))
-    return kck.SMEM_LIMIT // (4 * rows)
-
-
 def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):
     """The chain kernel's program for a plan (layout in csrc/chain_kernel.cu),
     or None when a unit has no kernel body or its state does not match it.
@@ -145,10 +132,10 @@ def lower(cp, reps, ctx, plane_index, exts, needed, state_leaves):
     out_map, state_rows, done_map, n_state, n_out, n_planes = [], [], [], 0, 0, 0
     records = []
     for j, (rep, (body, arg)) in enumerate(zip(reps, stages)):
-        if sum(n for _name, n in state_leaves[j]) != body.n_words:
+        if sum(n for _name, n in state_leaves[j]) != body.words(arg):
             return None
         state_rows.append(n_state)
-        n_state += body.n_words
+        n_state += body.words(arg)
         ins = [[source(d) for d in ch_descs] for ch_descs in cp.in_pattern[j]]
         edges = {rep.params[pidx].name: d for pidx, d in cp.pe_pattern[j]}
         pars = []

@@ -479,13 +479,10 @@ def superblock_eligible(cg: CompiledGraph) -> bool:
     least 2B (set in ``init`` or on the class), and every node's state
     shapes equal at B and 2B (compared on CPU inits).
 
-    ``cg.superblock_max`` becomes the least cap, in samples. Unlike the JAX
-    package, it also holds each collapsed chain to the chain kernel's
-    shared memory where the kernel path runs (``chain_kernel.max_block``):
-    there, a chain whose rows outgrow the kernel at a superblock's length
-    falls to the scan executor inside the superblock (graph/chain_kernel.py
-    :249-254); here the superblock is shortened, so a superblock never
-    pushes a chain off its kernel."""
+    ``cg.superblock_max`` becomes the least cap, in samples, so the card
+    and the CPU take the JAX bounce's partition: a collapsed chain runs its
+    kernel at any superblock length (``kernels/chain_kernel.py`` keeps rows
+    that outgrow shared memory in a global workspace)."""
     if cg.superblock_ok is not None:
         return cg.superblock_ok
     B = cg.ctx.block_size
@@ -502,14 +499,6 @@ def superblock_eligible(cg: CompiledGraph) -> bool:
             break
         if cap is not None:
             max_len = min(max_len, int(cap))
-    if ok and chain_kernel.enabled(cg.device) and cg.ctx.dtype == torch.float32:
-        for kind, cp in cg.plan:
-            if kind != "chain":
-                continue
-            reps = [cg.entries[cp.stages[0][j]].ugen for j in range(cp.period)]
-            cap = chain_kernel.max_block(cp, reps, cg.ctx)
-            if cap is not None:
-                max_len = min(max_len, cap)
     cg.superblock_ok = ok and max_len >= 2 * B
     cg.superblock_max = max_len if cg.superblock_ok else 0
     return cg.superblock_ok

@@ -312,6 +312,7 @@ class Graph:
         WrArParams/set_ar_param_buffer, wrappers_core/audio_rate.rs:11-85)."""
         src_nid = src.node_id if isinstance(src, Handle) else int(src)
         dst_nid = dst.node_id if isinstance(dst, Handle) else int(dst)
+        self._node(src_nid)  # a freed source raises NodeFreed here
         entry = self._node(dst_nid)
         pidx = entry.ugen.param_index(param)
         if entry.ugen.params[pidx].ptype != "float":

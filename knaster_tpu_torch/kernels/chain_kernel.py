@@ -16,22 +16,27 @@ trunc and fract), ``polyblep`` (PolyBlep), ``svf`` (SvfFilter),
 event-free closed forms, with a done row), ``pan2`` (Pan2, two output
 channels), ``sin_numeric`` and ``phasor`` (SinNumeric's no-reset path and
 Phasor: an f32 phase summed in ``core/dsp.cumsum_base16``'s association
-over the whole block). Each plain version calls the block function its UGen's
-``process`` calls, so the kernel path and the scan executor share one
-arithmetic. A new body is one more case in the kernel and one more entry
+over the whole block), ``white_noise`` (WhiteNoise: jax.random's Threefry
+restated, bit-identical) and ``sample_delay`` (SampleDelay: a ring of L
+state words, ``arg`` = L). Each plain version calls the block function its
+UGen's ``process`` calls, so the kernel path and the scan executor share
+one arithmetic. A new body is one more case in the kernel and one more entry
 here; the program and the harness stay as they are.
 
 State words are 32-bit: u32 phases, f32 values (the SVF's two ``ic``, the
 one-pole's ``last``, the envelopes' ``t`` and ``release_scale``, the float
-oscillators' ``phase``) and the
-envelopes' int32 ``stage``, each as its bit pattern. Integer params (the
-PolyBlep waveform, the SVF filter type) reach the kernel in the f32 param
-planes: a whole number below 2^24 is exact there, and larger ones still
+oscillators' ``phase``), the envelopes' int32 ``stage``, WhiteNoise's u32
+frame and seed, SampleDelay's ring of L f32 words and its int32 write
+position, each as its bit pattern. Integer params (the PolyBlep waveform,
+the SVF filter type) reach the kernel in the f32 param planes: a whole number below 2^24 is exact there, and larger ones still
 select as the int would (clamped to the last waveform, equal to no filter
 type).
 
 What bounds it on an H100: K*p dependent bodies on one SM; see the kernel
-source.
+source. The slot, carry and scan-scratch rows live in shared memory when
+they fit in ``SMEM_LIMIT`` and in a global workspace the wrapper allocates
+when they do not (``rows_in_shared``), so every superblock length runs the
+kernel.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run ``chain_kernel_plain``. Nothing falls back.
@@ -54,22 +59,25 @@ KERNEL = "chain_kernel"
 LAUNCHES = 0
 
 ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
-    + [ctypes.c_void_p]
+    + [ctypes.c_void_p] * 2
 
 HEADER = 8
 RECORD = 10
 SRC_SLOT, SRC_CARRY, SRC_ROW, SRC_PLANE = 0, 1, 2, 3
-# shared memory a block can hold, less the kernel's static 64 words
+# shared memory a block can hold, less the kernel's static 64 words: rows
+# beyond it go to a global workspace
 SMEM_LIMIT = 227 * 1024 - 256
 
 
 @dataclass(frozen=True)
 class Body:
     """A stage body of the kernel: its opcode, the param names it reads (in
-    order), its state words, the [B] rows of shared scratch its scans use,
-    and its plain torch version ``plain(arg, ins, pars, words, consts) ->
-    (outs, new_words[, done])`` over [B] rows (``words`` are int64 u32
-    values, ``consts`` = (f2pi, scale, sample_rate), ``done`` a bool row)."""
+    order), its state words (``n_words``, plus ``arg`` more for a ring), the
+    [B] rows of scratch its scans use, and its plain torch version
+    ``plain(arg, ins, pars, words, consts) -> (outs, new_words[, done])``
+    over [B] rows (``words`` a 1-D int64 tensor of u32 values, ``consts`` =
+    (f2pi, scale, sample_rate, B), ``new_words`` 0-d or 1-D int64 u32
+    tensors in word order, ``done`` a bool row)."""
 
     name: str
     op: int
@@ -77,6 +85,11 @@ class Body:
     n_words: int
     plain: Callable
     scratch: int = 0
+    ring: bool = False
+
+    def words(self, arg: int) -> int:
+        """The state words of a stage of this body with ``arg``."""
+        return self.n_words + (arg if self.ring else 0)
 
 
 def _f32(word):
@@ -99,7 +112,7 @@ def _sinwt_plain(arg, ins, pars, words, consts):
     """SinWt.process without resets (osc.py), on one [B] row."""
     from ..ugens.osc import U32_MASK, _f32_to_u32
 
-    f2pi, scale, _sr = consts
+    f2pi, scale = consts[:2]
     freq, poff = pars
     (ph0,) = words
     inc = _f32_to_u32(freq * f2pi)
@@ -182,6 +195,25 @@ def _float_osc_plain(phasor):
     return plain
 
 
+def _white_noise_plain(arg, ins, pars, words, consts):
+    from ..ugens.noise import advance_frame, white_noise_block
+
+    # the words in the sorted order of the state's names: frame, seed
+    frame, seed = bc.i32_of(words[0]), bc.i32_of(words[1])
+    out = white_noise_block(seed, frame, consts[3], torch.float32)
+    return [out], [bc.u32_of(advance_frame(frame, consts[3])), words[1]]
+
+
+def _sample_delay_plain(arg, ins, pars, words, consts):
+    from ..ugens.delay import delay_samples, sample_delay_block
+
+    L = arg
+    buf = bc.i32_of(words[:L]).view(torch.float32)
+    d = delay_samples(pars[0], consts[2], L)
+    buf, pos, out = sample_delay_block(buf, bc.i32_of(words[L]), ins[0], d)
+    return [out], [bc.u32_of(buf.view(torch.int32)), bc.u32_of(pos)]
+
+
 BODIES: Dict[str, Body] = {
     b.name: b for b in (
         Body("constant", 0, ("value",), 0, _constant_plain),
@@ -203,6 +235,10 @@ BODIES: Dict[str, Body] = {
         # upper levels (core/dsp.py cumsum_base16)
         Body("sin_numeric", 11, ("freq", "phase_offset"), 1, _float_osc_plain(False), 3),
         Body("phasor", 12, ("freq",), 1, _float_osc_plain(True), 3),
+        # words: frame, seed
+        Body("white_noise", 13, (), 2, _white_noise_plain),
+        # words: the ring (arg = L of them), then pos
+        Body("sample_delay", 14, ("delay_time",), 1, _sample_delay_plain, ring=True),
     )
 }
 _BY_OP = {b.op: b for b in BODIES.values()}
@@ -342,11 +378,26 @@ def empty_outputs(program, device, K, block_size):
             torch.empty((program.n_done, K, B), dtype=torch.bool, device=device))
 
 
+def row_floats(program, block_size) -> int:
+    """The floats of the kernel's rows at ``block_size``: a slot per output
+    channel, the carry rows and the bodies' scan scratch, B each."""
+    return (program.n_slots + program.n_carry + program.n_scratch) * int(block_size)
+
+
+def rows_in_shared(program, block_size) -> bool:
+    """Whether a launch at ``block_size`` keeps its rows in shared memory
+    (else in a global workspace)."""
+    return 4 * row_floats(program, block_size) <= SMEM_LIMIT
+
+
 def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
-           sample_rate):
+           sample_rate, global_rows=None):
     """Launch the CUDA kernel on the current stream, writing ``outs`` (from
-    ``empty_outputs``). Raises for anything but CUDA tensors of the layout the
-    program needs, and if the launch fails."""
+    ``empty_outputs``). The rows live in shared memory where they fit
+    (``rows_in_shared``), else in a global workspace allocated here;
+    ``global_rows=True`` takes the workspace at any length. Raises for
+    anything but CUDA tensors of the layout the program needs, and if the
+    launch fails."""
     global LAUNCHES
     K, B = _validate(program, planes, state, rows, K, block_size)
     device = state.device
@@ -355,11 +406,11 @@ def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
     bc.check(KERNEL, "out", out, torch.float32, (program.n_out, K, B), device)
     bc.check(KERNEL, "state_out", state_out, torch.int32, (program.n_state, K), device)
     bc.check(KERNEL, "done", done, torch.bool, (program.n_done, K, B), device)
-    n_rows = program.n_slots + program.n_carry + program.n_scratch
-    if n_rows * B * 4 > SMEM_LIMIT:
-        raise ValueError(
-            f"{KERNEL}: {n_rows} shared rows of {B} samples (slots, carry and "
-            "scan scratch) exceed the 227 KB of shared memory a block can hold")
+    n_floats = row_floats(program, B)
+    if global_rows is None:
+        global_rows = not rows_in_shared(program, B)
+    workspace = (torch.empty((max(1, n_floats),), dtype=torch.float32, device=device)
+                 if global_rows else None)
 
     from .build import load_library
 
@@ -369,9 +420,9 @@ def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ktt_chain_kernel(
             bc.ptr(prog), bc.ptr(planes), bc.ptr(state), bc.ptr(rows), bc.ptr(out),
-            bc.ptr(state_out), bc.ptr(done), K, B, n_rows * B, int(program.all_bodies),
+            bc.ptr(state_out), bc.ptr(done), K, B, n_floats, int(program.all_bodies),
             ctypes.c_float(f2pi), ctypes.c_float(scale), ctypes.c_float(sample_rate),
-            ctypes.c_void_p(stream))
+            bc.ptr(workspace), ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
 
@@ -382,13 +433,13 @@ def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, sca
     the K stages and p offsets with [B]-wide ops, each body's plain version
     in the kernel's order, on whatever device the tensors are on."""
     K, B = _validate(program, planes, state, rows, K, block_size)
-    consts = tuple(float(np.float32(c)) for c in (f2pi, scale, sample_rate))
+    consts = tuple(float(np.float32(c)) for c in (f2pi, scale, sample_rate)) + (B,)
     recs = program.records()
     n_ext = program.n_ext
     carry_src = program.words[HEADER:HEADER + program.n_carry]
     carry = [rows[n_ext + i] for i in range(program.n_carry)]
     words = bc.u32_of(state)
-    new_words = [[None] * K for _ in range(program.n_state)]
+    new_words = torch.zeros_like(words)
     dev = state.device
     out = torch.zeros((program.n_out, K, B), dtype=torch.float32, device=dev)
     done_out = torch.zeros((program.n_done, K, B), dtype=torch.bool, device=dev)
@@ -414,11 +465,11 @@ def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, sca
                 for s in srcs[1:]:
                     acc = acc + fetch(*s)
                 in_rows.append(acc)
-            st = [words[srow + i, k] for i in range(body.n_words)]
-            vals, new, *done = body.plain(arg, in_rows, [fetch(*s) for s in pars], st,
-                                          consts)
-            for i, w in enumerate(new):
-                new_words[srow + i][k] = w
+            n = body.words(arg)
+            vals, new, *done = body.plain(arg, in_rows, [fetch(*s) for s in pars],
+                                          words[srow:srow + n, k], consts)
+            if n:
+                new_words[srow:srow + n, k] = torch.cat([w.reshape(-1) for w in new])
             for (slot, plane), v in zip(outs, vals):
                 slots[slot] = v
                 if plane >= 0:
@@ -426,6 +477,4 @@ def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, sca
             if done_plane >= 0:
                 done_out[done_plane, k] = done[0]
         carry = [slots[s] for s in carry_src]
-    state_out = (bc.i32_of(torch.stack([torch.stack(r) for r in new_words]))
-                 if program.n_state else torch.empty_like(state))
-    return out, state_out, done_out
+    return out, bc.i32_of(new_words), done_out

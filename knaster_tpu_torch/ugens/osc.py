@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.dsp import const, cumsum_base16
+from ..core.dsp import cumsum_base16, recip
 from ..core.ugen import AudioCtx, UGen
 from ..kernels.bank_common import i32_of, u32_of
 from ..primitives.params import ParameterKind, pfloat, ptrigger
@@ -91,8 +91,7 @@ def recip_sample_rate(sample_rate, like: torch.Tensor) -> torch.Tensor:
     """``1 / sample_rate`` rounded to ``like``'s dtype, as a 0-d tensor on
     its device: what the JAX package's division by the sample rate
     multiplies by (module docstring)."""
-    dt = np.float64 if like.dtype == torch.float64 else np.float32
-    return const(float(dt(1.0) / dt(sample_rate)), like)
+    return recip(sample_rate, like)
 
 
 def _segmented_cumsum_f(inc, reset_mask, phase0, block_size: int, no_resets: bool = False):

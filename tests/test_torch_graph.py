@@ -318,6 +318,25 @@ def test_cycles_and_freed_nodes_raise():
         a.param(0).set(1.0)
 
 
+def test_param_edge_from_freed_node_raises_and_graph_renders():
+    """Repaired: ``connect_param`` resolves its source as ``connect`` does.
+    A param edge from a freed node raises NodeFreed, adds no edge, and the
+    graph goes on rendering (before, the edge was accepted and every later
+    render raised KeyError)."""
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                    device="cpu")
+    lfo, sine = g.push(kt.Phasor(3.0)), g.push(kt.SinWt(440.0))
+    (sine * 0.2).to_graph_out()
+    before = proc.render(frames=32)
+    g.free_node(lfo)
+    with pytest.raises(kt.NodeFreed):
+        g.connect_param(lfo, 0, sine, "freq")
+    assert not g.param_edges
+    after = proc.render(frames=32)
+    assert np.isfinite(after).all() and np.abs(after).max() > 0.1
+    assert np.abs(before).max() > 0.1
+
+
 def smoothing(m, Num, Plus, rate):
     """A linear ramp 0 -> 1 over 50 samples from frame 7, then one back to
     0.25 over 40 samples set mid-ramp (frame 30), at audio or block rate."""

@@ -11,8 +11,8 @@ package's. Tolerances are the JAX tests': the superblock's longer scans
 reassociate the SVF's float sums (2e-5), ramps are exact in one rounding
 but compared at 1e-5 and 1e-6 as there. Then: the port's render takes the
 JAX render's sequence of (program, length) for golden ``param_sweep``'s
-schedule, a chain's superblocks stay within the chain kernel's
-shared-memory cap, and a done-action free in mid-chunk leaves the chunk's
+schedule, a chain keeps that partition on the kernel path (its rows in a
+global workspace where shared memory is too small), and a done-action free in mid-chunk leaves the chunk's
 event slots as they were resolved (a repaired fault).
 """
 
@@ -292,11 +292,12 @@ def test_render_takes_the_jax_partition(monkeypatch):
 
 
 def test_chain_superblocks_stay_on_the_kernel(monkeypatch):
-    """With the kernel path on, a chain caps the graph's superblocks at the
-    longest block whose shared rows fit (the Phasor cascade: 5 slots, a
-    carry and 3 scan rows); a longer event-free run becomes a loop of
-    capped superblocks, every one on the kernel and within its shared
-    memory. Off the kernel path the cap does not apply."""
+    """The kernel path takes the JAX bounce's partition: a chain no longer
+    caps the graph's superblocks, so the Phasor cascade renders its 128
+    event-free blocks as one superblock of 8192 samples, on the kernel,
+    whose 9 rows (5 slots, a carry and 3 scan rows) then outgrow shared
+    memory and go to the global workspace. Off the kernel path the
+    partition is the same."""
     calls = {"B": [], "ok": []}
     real = tck.run
 
@@ -308,15 +309,48 @@ def test_chain_superblocks_stay_on_the_kernel(monkeypatch):
 
     monkeypatch.setattr(tck, "run", spy)
     _, proc = _render_cascade(monkeypatch, "1", 64, 128)
-    cap = kck.SMEM_LIMIT // (4 * 9)
-    assert proc.compiled.superblock_max == cap
-    assert tck.max_block(*_chain_of(proc)) == cap
-    assert calls["B"] == [64 * 64, 64 * 64] and all(calls["ok"])
-    assert all(9 * b * 4 <= kck.SMEM_LIMIT for b in calls["B"])
+    assert proc.compiled.superblock_max == float("inf")
+    assert calls["B"] == [128 * 64] and all(calls["ok"])
+    cp = _chain_of(proc)[0]
+    program = cp.lowered["cpu"][0]
+    assert kck.row_floats(program, 128 * 64) == 9 * 128 * 64
+    assert not kck.rows_in_shared(program, 128 * 64) and kck.rows_in_shared(program, 64)
     calls["B"].clear()
     _, proc = _render_cascade(monkeypatch, "0", 64, 128)
     assert proc.compiled.superblock_max == float("inf")
     assert sorted(proc.compiled.super_fns) == [128] and not calls["B"]
+
+
+def test_forced_row_limit_keeps_the_jax_partition(monkeypatch):
+    """With the shared-row limit forced down to 64 bytes, every launch of
+    the cascade would take the global workspace: the render still takes
+    the JAX bounce's (program, length) sequence and the same samples as
+    with the limit as it is, and as the JAX render's within its chain
+    tolerance."""
+    seqs, audio, full = {}, {}, kck.SMEM_LIMIT
+    get_super_fn = tP.get_super_fn
+    for limit in (full, 64):
+        monkeypatch.setattr(tP, "get_super_fn", get_super_fn)  # one spy at a time
+        monkeypatch.setattr(kck, "SMEM_LIMIT", limit)
+        monkeypatch.setattr(tck, "_MODE", "1")
+        g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                        device="cpu")
+        g.edit(lambda gg: phasor_cascade(kt, gg))
+        seqs[limit] = spy_programs(monkeypatch, kt, proc)
+        audio[limit] = proc.render(frames=16 * 200)
+        program = _chain_of(proc)[0].lowered["cpu"][0]
+        assert kck.rows_in_shared(program, 16) == (limit == full)
+    monkeypatch.setattr(tck, "_MODE", None)
+    jC.clear_program_cache()
+    g, jproc = jk.AudioProcessor.new(0, 1, jk.AudioProcessorOptions(block_size=16))
+    g.edit(lambda gg: phasor_cascade(jk, gg))
+    jseq = spy_programs(monkeypatch, jk, jproc)
+    j = np.asarray(jproc.render(frames=16 * 200))
+    (a, b) = audio.values()
+    assert seqs[64] == seqs[full] == jseq
+    assert ("super", 128) in jseq
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, j, rtol=0, atol=2e-6)
 
 
 def _render_cascade(monkeypatch, mode, bs, n_blocks):
