@@ -43,17 +43,29 @@ result line):
    the seed 2^32 - 1; rings written up to L - 1, delays 0, L - 1, beyond L
    and a per-sample ramp). Then the chain kernel with its rows in the
    global workspace on the FM, Phasor and SinNumeric cascades at 128 x 64
-   and 128 x 1024 samples. All bit-equal;
+   and 128 x 1024 samples. All bit-equal. Then the generic harness's
+   Envelope body (a four-shape table, looping and not, V in {1000,
+   131072}) and Modal body (the bell, bar and string presets, M = 12, 6
+   and 16, V in {1000, 65536}) at B = 64 over four blocks and at B = 1024
+   (the Modal body at 65,536 voices) over two: restarts, t_stops in curved
+   segments, time_scale and freq ramps, segments ending mid-block, strikes
+   mid-block, decays where the polynomial exp underflows, modes past pi,
+   a depth-3 burst. Carries bit-equal but the envelope's frozen value,
+   within EFROM_ULPS ulps (the kernel's cosf/expf/logf against torch's);
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
-   FM, generic-FM, subtractive and wavetable banks through 32 staged
+   FM, subtractive and wavetable banks and the generic harness with its
+   Sine, FM, Subtractive and Additive bodies through 32 staged
    trigger blocks of 4096 events (``benchmarks/suite.py``'s
    event_capacity); then 750 event-free blocks (1 s of audio). Checks that
    every block launched the bank's kernel (its launch counter, reset just
    before), that every voice sounded, that the mix is finite and not
    silent, that the generic FM bank matches the hand FM bank, and prints
    voice-samples/s (and two more renders' rates, for the host's spread).
+   Then ``envelope_bank`` (131,072 voices of the suite's looping 4-segment
+   program, 4096 restarts in block 0) and ``modal_bank`` (65,536 bell
+   voices, 4096 strikes) the same way, with their idle latches checked.
    Then the graph slices through ``AudioProcessor.render`` on the card:
    ``readme_sine`` (0.5 s, against the port's CPU render) and the README
    example with smoothing and a scheduled set (2 s); ``fm_cascade`` (256
@@ -84,10 +96,19 @@ result line):
    blocks); golden ``fdn_galactic`` (1 s, block by block behind its
    feedback edges) against the CPU render and the f32 fixture, read by the
    repository's own FLAC decoder; ``galactic_chain`` superblocked and per
-   block against the CPU;
-5. timings and profile — per bank kernel at V=131072, B=64: kernel ms (CUDA
+   block against the CPU. Then ``pool_envelope_bank``: a 131,072-voice
+   ``FusedVoiceBank(EnvelopeVoice())`` graph node under a ``VoicePool``
+   taking every voice in 1,024 sample-accurate note-ons a block for 128
+   blocks, rendered to 2 s with superblocks and block by block (the generic
+   kernel once per eventful block and per superblock), every voice
+   released by ``refresh()``, the first 32 blocks against the CPU render;
+   and ``modal_bells`` (examples/modal_bells.py's four bells, 4 s, no
+   kernel) against the CPU within 1e-6;
+5. timings and profile — per bank kernel and generic body at V=131072
+   (the Modal body at 65,536), B=64: kernel ms (CUDA
    events over back-to-back ``launch()`` calls into preallocated outputs),
-   wrapper ms and plain ms, event-free and eventful; then torch.profiler's
+   wrapper ms and plain ms, event-free and eventful (the Envelope and Modal
+   bodies event-free, also at B = 1024); then torch.profiler's
    device time by kernel over 100 event-free blocks of each bank and one
    render chunk of each graph slice; and the stage-loop kernels at B in
    {16, 64, 1024} and at the longest superblock their renders take
@@ -149,7 +170,10 @@ FP32_OPS_S = 67e12
 # add, multiply, divide, compare-select and transcendental call as one
 # operation: a lower bound on the work
 OPS_PER_SAMPLE = {"sine_bank": 40, "fm_bank": 60, "sub_bank": 70, "wt_bank": 110,
-                  "generic_bank": 60, "fm_cascade": 8}
+                  "generic_bank": 60, "fm_cascade": 8,
+                  # the generic harness's bodies repeat their hand banks' math
+                  "generic-sine": 40, "generic-fm": 60, "generic-subtractive": 70,
+                  "generic-additive": 110}
 
 
 def fail(msg):
@@ -318,19 +342,27 @@ def plain_of(mod):
     return getattr(mod, mod.KERNEL + "_plain")
 
 
-def compare_block(torch, kind, bank, operands, label):
+def compare_block(torch, kind, bank, operands, label, loose=()):
     """Run the kernel and the plain version on the same operands; require
-    bit-equal state and the mix within tolerance. Returns (kernel outputs,
-    max |mix difference|)."""
+    bit-equal state and the mix within tolerance. ``loose`` names rows of
+    the generic kernel's packed carry that may differ: their largest
+    difference in ulps is returned. Returns (kernel outputs, max |mix
+    difference|, ulps)."""
     mod = kernel_module(kind)
     k = bank.kernel(**operands)
     p = plain_of(mod)(**operands)
     torch.cuda.synchronize()
+    ulps = 0
     for n, (a, b) in enumerate(zip(k[1:], p[1:])):
-        if not torch.equal(bits(a), bits(b)):
-            diff = int((bits(a) != bits(b)).sum())
-            fail(f"{label}: state output {n} differs from the plain version "
-                 f"in {diff} words")
+        if torch.equal(bits(a), bits(b)):
+            continue
+        if loose and all(r in loose for r in range(a.shape[0])
+                         if not torch.equal(a[r], b[r])):
+            ulps = max(ulps, int((a.long() - b.long()).abs().max()))
+            continue
+        diff = int((bits(a) != bits(b)).sum())
+        fail(f"{label}: state output {n} differs from the plain version "
+             f"in {diff} words")
     if not bool(torch.isfinite(k[0]).all()):
         fail(f"{label}: non-finite mix")
     err = float((k[0] - p[0]).abs().max())
@@ -339,7 +371,7 @@ def compare_block(torch, kind, bank, operands, label):
     if err > mix_tolerance(V, peak):
         fail(f"{label}: mix differs by {err} (peak {peak}, tolerance "
              f"{mix_tolerance(V, peak)})")
-    return k, err
+    return k, err, ulps
 
 
 def phase_kernel_vs_plain(torch, np, ktt, dev, kind, Vs=(1000, N_VOICES),
@@ -363,7 +395,7 @@ def phase_kernel_vs_plain(torch, np, ktt, dev, kind, Vs=(1000, N_VOICES),
             for blk, evs in enumerate(schedule(bank, V, B)):
                 events = None if evs is None else bank.node_events_from_lists(evs)
                 operands, carry = bank.kernel_operands(ctx, state, events)
-                k, err = compare_block(torch, kind, bank, operands,
+                k, err, _ = compare_block(torch, kind, bank, operands,
                                        f"{kind} V={V} B={B} block {blk}")
                 max_err = max(max_err, err)
                 peak = max(peak, float(k[0].abs().max()))
@@ -563,8 +595,8 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     ev_ms = time_call(torch, lambda: mod.launch(outs, **ev_ops), 100)
     ev_wrapper_ms = time_call(torch, lambda: bank.kernel(**ev_ops), 100)
     ev_plain_ms = time_call(torch, lambda: plain(**ev_ops), 3)
-    bound_ms, bound_by = bound(tensor_bytes(ops, outs),
-                               OPS_PER_SAMPLE[mod.KERNEL] * N_VOICES * BLOCK)
+    per_sample = OPS_PER_SAMPLE.get(kind, OPS_PER_SAMPLE[mod.KERNEL])
+    bound_ms, bound_by = bound(tensor_bytes(ops, outs), per_sample * N_VOICES * BLOCK)
     print(f"timing {kind} V={N_VOICES} B={BLOCK} on {card}: event-free kernel "
           f"{ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; "
           f"eventful kernel {ev_ms:.4f} ms, wrapper {ev_wrapper_ms:.4f} ms, "
@@ -2188,6 +2220,425 @@ def profile_render(torch, kt, dev, label, build, block_size, n=CHUNK):
                    n)
 
 
+# --------------------------------------------------------------------------
+# the envelope and modal voice families: the generic harness's Envelope and
+# Modal bodies, their bank slices, and a bank as a graph node under VoicePool
+# --------------------------------------------------------------------------
+
+MODAL_VOICES = 65536  # benchmarks/suite.py bench_modal_bank
+MODAL_PRESETS = ("bell", "bar", "string")  # M = 12, 6 and 16 modes
+# every shape, segments of 19 to 43 samples at time_scale 1: they end
+# mid-block at every block size, and a t_stop lands in a curved one
+ENV_TABLE = [(0.0004, 1.0, "exponential"), (0.0007, 0.3, "sinusoidal"),
+             (0.0005, 0.6, "step"), (0.0009, 0.05)]
+# benchmarks/suite.py:1092-1111: the envelope bank's looping program
+SUITE_ENV = [(0.05, 1.0), (0.4, 0.5), (0.8, 0.75, "sinusoidal"), (1.5, 0.0)]
+# the carried envelope value may differ from the plain version's by this
+# many ulps where t_stop freezes a curved segment (the kernel's cosf, expf
+# and logf against torch's)
+EFROM_ULPS = 4
+POOL_BLOCKS = 128  # blocks of note-ons in the pool slice
+POOL_PER_BLOCK = N_VOICES // POOL_BLOCKS  # 1024 note-ons a block: every voice taken
+POOL_HEAD = 32  # blocks of the pool slice held against the CPU render
+PEAL = (220.0, 277.18, 329.63, 440.0)  # examples/modal_bells.py:25
+BELLS_SECONDS = 4.0
+
+# f32 operations a voice-sample of the two bodies does, counted from
+# csrc/generic_bank.cu as OPS_PER_SAMPLE is (every add, multiply, divide,
+# compare-select, conversion and libm call as one): the harness's 4 float
+# params (5 each) and stereo mix (the active gain and a 5-step warp sum per
+# channel) 32; the Envelope body's dt 1, S - 1 selects of 5, frac 3, each
+# present shape's formula (linear 3, exponential 18, sinusoidal 7, step 0)
+# with 2 to select each after the first, the transitions 20, the table sine
+# 17, the amp 2, the phase increment 5 and the pan 28; the Modal body's
+# EnvAr 15, drive and 1/decay 3, pan 28, and per mode theta 2, the
+# polynomial exp 20, the Nyquist mask 2, the polynomial sin and cos 24, the
+# rotation 11
+SHAPE_OPS = {0: 3, 1: 18, 2: 7, 3: 0}
+
+
+def envelope_ops(envelope):
+    shapes = list(dict.fromkeys(s.shape for s in envelope.segments))  # present, in order
+    return (32 + 1 + 5 * (len(envelope.segments) - 1) + 3
+            + sum(SHAPE_OPS[c] for c in shapes) + 2 * (len(shapes) - 1) + 20 + 17 + 2 + 5 + 28)
+
+
+def modal_ops(n_modes):
+    return 32 + 15 + 3 + 28 + 59 * n_modes
+
+
+def envelope_bank(ktt, np, V, capacity, looping, seed=0):
+    """An EnvelopeVoice bank on ENV_TABLE with the suite's seeded defaults
+    (benchmarks/suite.py:1098-1103; amp 0.01)."""
+    rng = np.random.default_rng(seed)
+    d = {"freq": (220.0 * 2 ** rng.uniform(-1, 1, V)).astype(np.float32),
+         "amp": np.full(V, 0.01, np.float32),
+         "pan": rng.uniform(-1, 1, V).astype(np.float32),
+         "time_scale": rng.uniform(0.5, 2.0, V).astype(np.float32)}
+    voice = ktt.EnvelopeVoice(ktt.Envelope(0.1, ENV_TABLE, looping=looping))
+    return ktt.FusedVoiceBank(voice, V, voice_defaults=d, event_capacity=capacity)
+
+
+def modal_defaults(np, V, seed=0):
+    """benchmarks/suite.py:980-985 (bench_modal_bank)."""
+    rng = np.random.default_rng(seed)
+    return {"freq": (330.0 * 2 ** rng.uniform(-1.5, 1.5, V)).astype(np.float32),
+            "decay": rng.uniform(0.5, 6.0, V).astype(np.float32),
+            "pan": rng.uniform(-1, 1, V).astype(np.float32),
+            "amp": np.full(V, 0.01, np.float32)}
+
+
+def modal_bank(ktt, np, V, capacity, preset, seed=0):
+    res = getattr(ktt.ModalResonator, preset)(330.0)
+    return ktt.FusedVoiceBank(ktt.ModalVoice(res), V, voice_defaults=modal_defaults(np, V, seed),
+                              event_capacity=capacity)
+
+
+def body_schedule(bank, V, B):
+    """Per-block event lists for the Envelope and Modal bodies: an eventful
+    block, an event-free one, an eventful one, an event-free one.
+
+    Both: a freq ramp in flight for 3 blocks (voice 9), a depth-3 burst
+    (set, freeze, set; voice 12), active and note-on flags (13, 14).
+    Envelope: restarts mid-block (every 4th voice); restarts followed 20-49
+    samples later by a t_stop, which lands in the exponential or the
+    sinusoidal segment at these time_scales (voices 1 and 3 mod 4); a
+    time_scale ramp over 2 blocks (voice 4).
+    Modal: strikes mid-block (every 3rd voice, then the others); a decay of
+    1e-6 s while ringing, where the polynomial exp underflows (voice 3); a
+    freq that puts every mode past pi (voice 6)."""
+    fi, ai = bank.float_index("freq"), bank.float_index("amp")
+    common = [(0, 9, fi, 4, float(3 * B)), (2, 9, fi, 0, 2500.0),
+              (B // 4, 12, fi, 0, 700.0), (B // 2, 12, fi, 4, 0.0),
+              (3 * B // 4, 12, fi, 0, 300.0), (0, 13, ai, 3, 0.0), (0, 14, ai, 5, 0.0)]
+    if "t_strike" in bank._trig_names:
+        ts, di = bank.trig_index("t_strike"), bank.float_index("decay")
+        ev0 = [(v % B, v, ts, 1, 0.0) for v in range(0, V, 3)]
+        ev0 += common + [(B // 3, 3, di, 0, 1e-6), (B // 2, 6, fi, 0, 30000.0)]
+        ev2 = [(v % B, v, ts, 1, 0.0) for v in range(1, V, 3)] + [(0, 13, ai, 3, 1.0)]
+        return [ev0, None, ev2, None]
+    tr, tq = bank.trig_index("t_restart"), bank.trig_index("t_stop")
+    ti = bank.float_index("time_scale")
+    span = max(1, B - 64)
+
+    def restart_then_stop(first):
+        out = []
+        for v in range(first, V, 4):
+            r = (13 * v) % span
+            out += [(r, v, tr, 1, 0.0), (r + 20 + v % 30, v, tq, 1, 0.0)]
+        return out
+
+    ev0 = [(v % B, v, tr, 1, 0.0) for v in range(0, V, 4)]
+    ev0 += restart_then_stop(1) + common + [(0, 4, ti, 4, float(2 * B)), (1, 4, ti, 0, 0.5)]
+    ev2 = restart_then_stop(3) + [(v % B, v, tr, 1, 0.0) for v in range(2, V, 4)]
+    return [ev0, None, ev2, None]
+
+
+def run_generic_vs_plain(torch, ktt, bank, dev, B, blocks, label, loose=()):
+    """``compare_block`` block by block over ``blocks`` from the bank's
+    initial state, going on from the kernel's state; returns (max mix
+    difference, max ulps, peak, final state)."""
+    ctx = ktt.AudioCtx(SR, B, torch.float32)
+    state = bank.init(ctx, device=dev)
+    err = ulps = peak = 0.0
+    for blk, evs in enumerate(blocks):
+        events = None if evs is None else bank.node_events_from_lists(evs)
+        operands, carry = bank.kernel_operands(ctx, state, events)
+        k, e, u = compare_block(torch, "generic", bank, operands, f"{label} block {blk}",
+                                loose)
+        err, ulps, peak = max(err, e), max(ulps, u), max(peak, float(k[0].abs().max()))
+        state, _ = bank.finish(ctx, carry, k)
+    if peak == 0.0:
+        fail(f"{label}: silent mix")
+    return err, ulps, peak, state
+
+
+def phase_family_vs_plain(torch, np, ktt, dev):
+    """The generic kernel's Envelope and Modal bodies against their plain
+    versions on the card, over ``body_schedule``'s four blocks at B = 64:
+    the Envelope body at V in {1000, 131072}, looping and not; the Modal
+    body with the bell, bar and string presets at V in {1000, 65536}. Then
+    B = 1024, the superblock a graph with a bank takes: the Envelope body at
+    131,072 voices over the schedule's first two blocks, looping and not;
+    the bell at 65,536 voices, one event-free block from its B = 64 state
+    (the plain version there takes seconds a block). Carries bit-equal but
+    the envelope's efrom within EFROM_ULPS; mixes within mix_tolerance.
+    Returns ({body: max mix difference}, efrom ulps)."""
+    errs, ulps = {"envelope": 0.0, "modal": 0.0}, 0
+    t0 = time.perf_counter()
+    for V, Bs in ((1000, ((BLOCK, 4),)), (N_VOICES, ((BLOCK, 4), (1024, 2)))):
+        for looping in (False, True):
+            for B, n in Bs:
+                bank = envelope_bank(ktt, np, V, V * 3, looping, seed=V + B)
+                label = f"envelope looping={looping} V={V} B={B}"
+                e, u, _, st = run_generic_vs_plain(torch, ktt, bank, dev, B,
+                                                   body_schedule(bank, V, B)[:n], label,
+                                                   loose=(3,))
+                if u > EFROM_ULPS:
+                    fail(f"{label}: efrom differs by {u} ulps (> {EFROM_ULPS})")
+                if not bool((st["eseg"] == -2.0).any()):
+                    fail(f"{label}: no t_stop froze a voice")
+                errs["envelope"], ulps = max(errs["envelope"], e), max(ulps, u)
+    print(f"kernel vs plain generic envelope V in (1000, {N_VOICES}), looping and not, "
+          f"B in ({BLOCK}, 1024): carries bit-equal, efrom within {ulps} ulps, max "
+          f"|mix diff| {errs['envelope']:.3e} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    for preset in MODAL_PRESETS:
+        for V in (1000, MODAL_VOICES):
+            bank = modal_bank(ktt, np, V, V * 2, preset, seed=V)
+            label = f"modal {preset} V={V}"
+            e, _, _, st = run_generic_vs_plain(
+                torch, ktt, bank, dev, BLOCK, body_schedule(bank, V, BLOCK), f"{label} B={BLOCK}")
+            errs["modal"] = max(errs["modal"], e)
+            if preset == "bell" and V == MODAL_VOICES:
+                ctx = ktt.AudioCtx(SR, 1024, torch.float32)
+                operands, _ = bank.kernel_operands(ctx, st, None)
+                _, e, _ = compare_block(torch, "generic", bank, operands, f"{label} B=1024")
+                errs["modal"] = max(errs["modal"], e)
+    print(f"kernel vs plain generic modal {MODAL_PRESETS} (M = 12, 6, 16) V in (1000, "
+          f"{MODAL_VOICES}), B = {BLOCK}, and the bell at B = 1024: carries bit-equal, max "
+          f"|mix diff| {errs['modal']:.3e} ({time.perf_counter() - t0:.1f} s)")
+    return errs, ulps
+
+
+def timed_blocks(torch, bank, ctx, state, n):
+    """``n`` event-free blocks of ``bank`` from ``state``; returns (state,
+    mix [n, C, B], seconds)."""
+    outs = torch.empty((n, bank.voice.outputs, ctx.block_size), dtype=torch.float32,
+                       device=state["fvals"].device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(n):
+        state, out = bank.process(ctx, state)
+        outs[b].copy_(out)
+    torch.cuda.synchronize()
+    return state, outs, time.perf_counter() - t0
+
+
+def phase_family_slice(torch, np, ktt, dev, kind, card):
+    """``envelope_bank`` (benchmarks/suite.py:1077-1136: 131,072 voices of the
+    4-segment looping program, 4096 restarts in block 0) or ``modal_bank``
+    (:962-1023: 65,536 bell voices, 4096 strikes in block 0) through the
+    public API at B = 64, then 750 event-free blocks: every block launches
+    the generic kernel, the mix is finite and not silent, and the idle
+    latch is right (looping voices never idle; a struck modal voice is idle
+    exactly where its ring is below the threshold, and not while it rings).
+    Returns (bank, state, launches)."""
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    if kind == "envelope":
+        rng = np.random.default_rng(0)
+        V = N_VOICES
+        d = {"freq": (220.0 * 2 ** rng.uniform(-1, 1, V)).astype(np.float32),
+             "amp": np.full(V, 0.002, np.float32),
+             "pan": rng.uniform(-1, 1, V).astype(np.float32),
+             "time_scale": rng.uniform(0.5, 2.0, V).astype(np.float32)}
+        bank = ktt.FusedVoiceBank(
+            ktt.EnvelopeVoice(ktt.Envelope(0.0, SUITE_ENV, looping=True)), V,
+            voice_defaults=d, event_capacity=SUITE_CAPACITY)
+        started = torch.arange(0, V, V // SUITE_CAPACITY, device=dev)
+        trig = bank.trig_index("t_restart")
+    else:
+        V = MODAL_VOICES
+        bank = modal_bank(ktt, np, V, SUITE_CAPACITY, "bell")
+        started = torch.arange(SUITE_CAPACITY, device=dev)
+        trig = bank.trig_index("t_strike")
+    ev = bank.node_events_from_lists([(0, int(v), trig, 1, 0.0) for v in started.tolist()])
+    state = bank.init(ctx, device=dev)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    state, _ = bank.process(ctx, state, events=ev)
+    state, outs, secs = timed_blocks(torch, bank, ctx, state, N_BLOCKS)
+    counts = read_all_counts()
+    expect_counts(counts, {"generic_bank": 1 + N_BLOCKS}, f"{kind}_bank")
+    peak = float(outs.abs().max())
+    if not bool(torch.isfinite(outs).all()) or peak == 0.0:
+        fail(f"{kind}_bank: the rendered mix is not finite or silent")
+    idle = state["idle"]
+    if kind == "envelope":
+        if bool(idle[started].any()) or not bool((state["eseg"][started] >= 0).all()):
+            fail("envelope_bank: a looping voice went idle or finished")
+        latch = "no restarted (looping) voice idle or finished"
+    else:
+        spec = bank.spec(ctx)
+        quiet = spec.idle_of(state)
+        struck = torch.zeros(V, dtype=torch.bool, device=dev)
+        struck[started] = True
+        long_ring = struck & (state["fvals"][bank.float_index("decay")] >= 3.0)
+        if not torch.equal(idle, quiet & struck) or bool(idle[long_ring].any()):
+            fail(f"modal_bank: the idle latch is not the ring-out rule "
+                 f"({int(idle.sum())} idle, {int((quiet & struck).sum())} quiet)")
+        latch = (f"{int(idle.sum())} of {SUITE_CAPACITY} struck voices idle, exactly the "
+                 f"quiet ones; none of the {int(long_ring.sum())} with decay >= 3 s")
+    renders = [secs]
+    for _ in range(2):
+        state, _, s = timed_blocks(torch, bank, ctx, state, N_BLOCKS)
+        renders.append(s)
+    rates = [V * N_BLOCKS * BLOCK / t for t in renders]
+    print(f"slice {kind}_bank: {V} voices, {SUITE_CAPACITY} "
+          f"{'restarts' if kind == 'envelope' else 'strikes'} in block 0, {N_BLOCKS} "
+          f"event-free blocks in {secs:.4f} s, mix peak {peak:.4g}, generic_bank launches "
+          f"{counts['generic_bank']}; {latch}")
+    print(f"slice {kind}_bank: {rates[0]:.6g} voice-samples/s event-free on {card}; two "
+          f"more renders: {rates[1]:.6g}, {rates[2]:.6g}")
+    return bank, state, counts["generic_bank"]
+
+
+def pool_processor(torch, np, ktt, dev, chunk, n_blocks=None):
+    """``pool_envelope_bank``: a FusedVoiceBank(EnvelopeVoice()) of 131,072
+    voices (the default 0.56 s program, event_capacity 4096) to the graph
+    out, and a VoicePool making POOL_PER_BLOCK note-ons a block at
+    sample-accurate frames, each with its own freq, for the first
+    ``n_blocks`` blocks (POOL_BLOCKS). Returns (processor, pool, seconds to
+    queue them)."""
+    g, proc = ktt.AudioProcessor.new(0, 2, ktt.AudioProcessorOptions(
+        block_size=BLOCK, render_chunk_blocks=chunk), device=dev)
+    bank = ktt.FusedVoiceBank(ktt.EnvelopeVoice(), N_VOICES, event_capacity=SUITE_CAPACITY)
+    h = g.edit(lambda gg: gg.push(bank))
+    h.to_graph_out()
+    g.commit()
+    pool = ktt.VoicePool(proc, h)
+    freqs = (220.0 * 2 ** np.random.default_rng(0).uniform(-1, 1, N_VOICES)).tolist()
+    t0 = time.perf_counter()
+    for blk in range(POOL_BLOCKS if n_blocks is None else n_blocks):
+        for k in range(POOL_PER_BLOCK):
+            at = ktt.Seconds.from_samples(blk * BLOCK + k % BLOCK, SR)
+            if pool.note_on({"freq": freqs[blk * POOL_PER_BLOCK + k]}, at=at) is None:
+                fail("pool_envelope_bank: the pool ran out of voices")
+    return proc, pool, time.perf_counter() - t0
+
+
+def phase_pool_envelope_bank(torch, np, ktt, dev, card):
+    """``pool_envelope_bank`` rendered to 2 s on the card with superblocks
+    and block by block: the generic kernel once per eventful block and per
+    event-free superblock (or block), every voice released by
+    ``pool.refresh()`` at the end; the first POOL_HEAD blocks held against
+    the port's CPU render within mix_tolerance. Returns (launches of the
+    superblocked render, realtime x of each)."""
+    frames = int(GRAPH_SECONDS * SR)
+    n_blocks = frames // BLOCK
+    res = {}
+    for chunk in (CHUNK, 1):
+        proc, pool, t_queue = pool_processor(torch, np, ktt, dev, chunk)
+        proc._ensure_compiled()
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        audio = proc.render(frames=frames, fetch=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_all_counts()
+        want = POOL_BLOCKS + (event_free_pieces(proc, n_blocks - POOL_BLOCKS)
+                              if chunk == CHUNK else n_blocks - POOL_BLOCKS)
+        expect_counts(counts, {"generic_bank": want}, f"pool_envelope_bank chunk={chunk}")
+        released = pool.refresh()
+        if released != N_VOICES or pool.free_count != pool.n_voices:
+            fail(f"pool_envelope_bank: refresh released {released} voices, "
+                 f"{pool.free_count} free of {pool.n_voices}")
+        res[chunk] = (audio, frames / SR / secs, counts["generic_bank"], t_queue)
+    (a, rt_sb, launches, t_queue), (b, rt_pb, launches_pb, _) = res[CHUNK], res[1]
+    peak = float(a.abs().max())
+    if not bool(torch.isfinite(a).all()) or peak == 0.0:
+        fail("pool_envelope_bank: output not finite or silent")
+    # the state is partition-invariant (anchored ramps, per-sample bodies);
+    # the mix's sum over warp partials may take another order at another
+    # superblock length
+    part = float((a - b).abs().max())
+    if part > mix_tolerance(N_VOICES, peak):
+        fail(f"pool_envelope_bank: superblocked and per-block renders differ by {part}")
+    t0 = time.perf_counter()
+    proc, _, _ = pool_processor(torch, np, ktt, "cpu", CHUNK, n_blocks=POOL_HEAD)
+    ref = proc.render(frames=POOL_HEAD * BLOCK, fetch=False)
+    t_cpu = time.perf_counter() - t0
+    head = a[:, :POOL_HEAD * BLOCK].cpu()
+    gap, peak = float((head - ref).abs().max()), float(ref.abs().max())
+    if gap > mix_tolerance(N_VOICES, peak) or peak == 0.0:
+        fail(f"pool_envelope_bank: card vs CPU over {POOL_HEAD} blocks differ by {gap} "
+             f"(peak {peak}, tolerance {mix_tolerance(N_VOICES, peak)})")
+    print(f"slice pool_envelope_bank: {N_VOICES} voices, {POOL_PER_BLOCK} note-ons a block "
+          f"for {POOL_BLOCKS} blocks (queued in {t_queue:.2f} s), {GRAPH_SECONDS:g} s on {card}: "
+          f"superblocks realtime x {rt_sb:.4g} ({launches} generic_bank launches), per block "
+          f"realtime x {rt_pb:.4g} ({launches_pb}), the two within {part:.3e}; refresh "
+          f"released all "
+          f"{N_VOICES}; first {POOL_HEAD} blocks card vs CPU {gap:.3e} (peak {peak:.4g}, "
+          f"CPU {t_cpu:.1f} s)")
+    return launches, rt_sb, rt_pb
+
+
+def modal_bells(kt, g):
+    """examples/modal_bells.py:28-53: four struck bells (an EnvAr mallet into
+    a 12-mode bell into Pan2), a descending peal twice."""
+    def build(gg):
+        strikes = []
+        for i, f in enumerate(PEAL):
+            mallet = gg.push(kt.EnvAr(0.001, 0.002))
+            bell = gg.push(kt.ModalResonator.bell(f, decay=3.0))
+            (mallet * 0.005).to(bell)
+            pan = gg.push(kt.Pan2((i - 1.5) / 2.0))
+            bell.to(pan)
+            pan.to_graph_out()
+            strikes.append(mallet.param("t_restart"))
+        return strikes
+
+    strikes = g.edit(build)
+    for t0 in (0.05, 2.1):
+        for i, trig in enumerate(reversed(strikes)):
+            trig.trig_at(kt.Seconds.from_secs_f64(t0 + 0.35 * i))
+
+
+def phase_modal_bells(torch, np, ktt, dev, card):
+    """``modal_bells`` (no kernel on its path) 4 s on the card against the
+    port's CPU render, within 1e-6."""
+    got = {}
+    for d in (dev, "cpu"):
+        g, proc = ktt.AudioProcessor.new(0, 2, ktt.AudioProcessorOptions(block_size=BLOCK),
+                                         dtype=torch.float32, device=d)
+        modal_bells(ktt, g)
+        proc._ensure_compiled()
+        reset_all_counts()
+        t0 = time.perf_counter()
+        got[str(d)] = (np.asarray(proc.render(seconds=BELLS_SECONDS)),
+                       time.perf_counter() - t0)
+        if d == dev:
+            expect_counts(read_all_counts(), {}, "modal_bells")
+    (a, secs), (b, _) = got[str(dev)], got["cpu"]
+    gap, peak = float(np.abs(a - b).max()), float(np.abs(b).max())
+    if gap > 1e-6 or not np.isfinite(a).all() or peak < 1e-3:
+        fail(f"modal_bells: card vs CPU differ by {gap} (peak {peak})")
+    print(f"slice modal_bells: 4 bells, {BELLS_SECONDS:g} s on {card} in {secs:.3f} s "
+          f"(realtime x {BELLS_SECONDS / secs:.4g}); card vs CPU {gap:.3e}, peak {peak:.4g}; "
+          f"no kernel on its path")
+
+
+def phase_family_timings(torch, ktt, kind, bank, state, card):
+    """The generic kernel with the Envelope or Modal body, event-free from
+    the slice's state, at B in {64, 1024} (CUDA events over back-to-back
+    launches into preallocated outputs), the plain version's ms at B = 64,
+    the bound at each B. Returns (ms, plain_ms, bound_ms, bound_by) at
+    B = 64."""
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    spec = bank.spec(ktt.AudioCtx(SR, BLOCK, torch.float32))
+    per_sample = (envelope_ops(bank.voice.env) if kind == "envelope"
+                  else modal_ops(bank.voice.res.n_modes))
+    line, row = [], None
+    for B in (BLOCK, 1024):
+        ctx = ktt.AudioCtx(SR, B, torch.float32)
+        ops, _ = bank.kernel_operands(ctx, state, None)
+        outs = gk.empty_outputs(ops["carry"], bank.voice.outputs, B)
+        ms = time_call(torch, lambda: gk.launch(outs, **ops), 100 if B == BLOCK else 20)
+        b_ms, b_by = bound(tensor_bytes(ops, outs), per_sample * bank.n_voices * B)
+        line.append(f"B={B} kernel {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})")
+        if B == BLOCK:
+            plain_ms = time_call(torch, lambda: gk.generic_bank_plain(**ops), 2)
+            row = (ms, plain_ms, b_ms, b_by)
+            line.append(f"plain {plain_ms:.3f} ms")
+    print(f"timing generic_bank:{kind} ({spec.cuda_body}, {per_sample} f32 operations a "
+          f"voice-sample) V={bank.n_voices} on {card}: " + "; ".join(line))
+    return row
+
+
 def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, label=None):
     """One entry of the kernels line. No single PyTorch call computes any of
     these DSP kernels' functions, so ``library_ms`` is null."""
@@ -2195,6 +2646,14 @@ def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, label=None
             "source": f"knaster_tpu_torch/csrc/{name}.cu", "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def lap(phase, *args):
+    """``phase(*args)``, printing its wall time (the run's time budget)."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
+    return out
 
 
 def main():
@@ -2225,14 +2684,18 @@ def main():
 
     # -- kernel vs plain --------------------------------------------------
     t0 = time.perf_counter()
-    errs = {}
+    errs, errs_by_body = {}, {}
     for kind in ("sine", "fm", "sub", "wt", "generic-sine", "generic-fm",
                  "generic-subtractive", "generic-additive"):
         name = kernel_module(kind).KERNEL
         # B = 64 only, the slices' block, to keep the whole run within its
         # time limit
-        errs[name] = max(errs.get(name, 0.0),
-                         phase_kernel_vs_plain(torch, np, ktt, dev, kind, Bs=(BLOCK,)))
+        t1 = time.perf_counter()
+        err = phase_kernel_vs_plain(torch, np, ktt, dev, kind, Bs=(BLOCK,))
+        print(f"  ({kind}: {time.perf_counter() - t1:.1f} s)")
+        errs[name] = max(errs.get(name, 0.0), err)
+        if kind.startswith("generic"):
+            errs_by_body[kind[8:]] = err
     errs["fm_cascade"] = phase_fm_cascade_vs_plain(torch, np, dev)
     errs["chain_kernel"] = max(phase_chain_vs_plain(torch, np, ktt, dev),
                                phase_bodies_vs_plain(torch, ktt, dev))
@@ -2244,23 +2707,38 @@ def main():
     global_errs = phase_global_rows_vs_plain(torch, np, ktt, dev, card)
     errs["chain_kernel"] = max([errs["chain_kernel"], *global_errs.values(),
                                 *path_errs.values()])
+    family_errs, efrom_ulps = phase_family_vs_plain(torch, np, ktt, dev)
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
     t0 = time.perf_counter()
     ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
     results = {}
+    body_errs = {}  # the generic harness's bodies: max |mix diff| each
     for kind, sustains in (("sine", True), ("fm", False), ("generic-fm", False),
-                           ("sub", True), ("wt", True)):
+                           ("sub", True), ("wt", True), ("generic-sine", True),
+                           ("generic-subtractive", True), ("generic-additive", True)):
         bank, state, launches, outs, _, _ = phase_slice(
             torch, np, ktt, dev, kind, card, sustains)
         # the slice's final state, one more block, kernel against plain
         operands, _ = bank.kernel_operands(ctx, state, None)
-        _, err = compare_block(torch, kind, bank, operands,
+        _, err, _ = compare_block(torch, kind, bank, operands,
                                f"slice {kind} final block")
         name = kernel_module(kind).KERNEL
         errs[name] = max(errs[name], err)
+        if kind.startswith("generic"):
+            body_errs[kind[8:]] = err
         results[kind] = (bank, state, launches, outs)
+    for body in ("sine", "fm", "subtractive", "additive"):
+        body_errs[body] = max(body_errs[body], errs_by_body[body])
+    for kind in ("envelope", "modal"):
+        bank, state, launches = phase_family_slice(torch, np, ktt, dev, kind, card)
+        operands, _ = bank.kernel_operands(ctx, state, None)
+        _, err, _ = compare_block(torch, "generic", bank, operands,
+                                  f"slice {kind}_bank final block",
+                                  loose=(3,) if kind == "envelope" else ())
+        body_errs[kind] = max(err, family_errs[kind])
+        results[f"generic-{kind}"] = (bank, state, launches, None)
     # the generic harness with the FM body against the hand FM bank
     (_, s_hand, _, o_hand), (_, s_gen, _, o_gen) = results["fm"], results["generic-fm"]
     for key in ("phm", "phc", "stage", "t", "idle"):
@@ -2270,28 +2748,43 @@ def main():
     if gap > 5e-7 * math.sqrt(N_VOICES / 512):
         fail(f"generic FM slice: mix differs from the hand FM bank by {gap}")
     print(f"slice generic-fm vs fm: state equal, max |mix diff| {gap:.3e}")
-    stage_launches = phase_graph_slices(torch, np, ktt, dev, card)
-    path_launches = phase_subtractive_slices(torch, np, ktt, dev, card)
-    phase_param_sweep(torch, np, ktt, dev, card)
-    partitions = phase_partitions(torch, np, ktt, dev, card)
+    print(f"  (bank slices: {time.perf_counter() - t0:.1f} s)")
+    stage_launches = lap(phase_graph_slices, torch, np, ktt, dev, card)
+    path_launches = lap(phase_subtractive_slices, torch, np, ktt, dev, card)
+    lap(phase_param_sweep, torch, np, ktt, dev, card)
+    partitions = lap(phase_partitions, torch, np, ktt, dev, card)
     for path in float_osc_paths(ktt):
         path_launches[path] = partitions[path][4]["chain_kernel"]
-    phase_float_osc_card_vs_cpu(torch, np, ktt, dev, card)
-    path_launches.update(phase_noise_delay_slices(torch, ktt, dev, card))
-    phase_fdn_galactic(torch, np, ktt, dev, card)
-    phase_galactic_chain(torch, np, ktt, dev, card)
+    lap(phase_float_osc_card_vs_cpu, torch, np, ktt, dev, card)
+    path_launches.update(lap(phase_noise_delay_slices, torch, ktt, dev, card))
+    lap(phase_fdn_galactic, torch, np, ktt, dev, card)
+    lap(phase_galactic_chain, torch, np, ktt, dev, card)
+    lap(phase_pool_envelope_bank, torch, np, ktt, dev, card)
+    lap(phase_modal_bells, torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
     t0 = time.perf_counter()
     table = []
-    for kind in ("sine", "fm", "sub", "wt", "generic-fm"):
+    for kind in ("sine", "fm", "sub", "wt"):
         bank, state, launches, _ = results[kind]
         ms, plain_ms, bound_ms, bound_by = phase_timings(torch, ktt, kind, bank, state, card)
         profile_blocks(torch, kind, bank, ctx, state)
         name = kernel_module(kind).KERNEL
         table.append(kernel_row(name, launches, errs[name], ms, plain_ms, bound_ms,
                                 bound_by))
+    # the generic harness: one row per body, each with its slice's launches
+    for body in ("sine", "fm", "subtractive", "additive", "envelope", "modal"):
+        kind = f"generic-{body}"
+        bank, state, launches, _ = results[kind]
+        if body in ("envelope", "modal"):
+            row = phase_family_timings(torch, ktt, body, bank, state, card)
+        else:
+            row = phase_timings(torch, ktt, kind, bank, state, card)
+        if body in ("fm", "modal"):
+            profile_blocks(torch, kind, bank, ctx, state)
+        table.append(kernel_row("generic_bank", launches, body_errs[body], *row,
+                                label=f"generic_bank:{body}"))
     profile_render(torch, ktt, dev, "fm_cascade graph",
                    lambda gg: build_cascade(ktt, gg, CASCADE), BLOCK)
     profile_render(torch, ktt, dev, "fm_cascade_model",

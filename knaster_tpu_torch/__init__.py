@@ -7,7 +7,10 @@ render, event-free runs as superblocks) with the UGens of the README
 example and of the param sweep (``SinNumeric``, ``Phasor``), the
 subtractive voice's (``PolyBlep``, ``SvfFilter``, the one-poles,
 ``EnvAsr``/``EnvAr``, ``Pan2``), the FDN reverb's (the noises, the delays,
-``Galactic``) and the FM cascade, and the fused voice banks. The README example::
+``Galactic``) and the FM cascade, the multi-segment ``Envelope`` and
+``ModalResonator``, and the fused voice banks, which are graph nodes too
+(per-voice control through ``Handle.voice_param``, allocation through
+``VoicePool``). The README example::
 
     import knaster_tpu_torch as kt
 
@@ -30,7 +33,8 @@ The banks run through their own API::
     state, out = bank.process(ctx, state)               # event-free block
 
 (also ``FusedFMVoiceBank``, ``FusedSubtractiveVoiceBank``,
-``FusedWavetableVoiceBank(V, table=...)``, ``FusedVoiceBank(FMVoice(), V)``).
+``FusedWavetableVoiceBank(V, table=...)``, ``FusedVoiceBank(FMVoice(), V)``,
+``FusedVoiceBank(EnvelopeVoice(), V)``, ``FusedVoiceBank(ModalVoice(), V)``).
 Kernels run on CUDA tensors (built with nvcc at first use); CPU tensors take
 each kernel's plain torch version. Graphs render on the card unless the
 caller passes ``device="cpu"``, and raise where there is no card; a bank's
@@ -40,11 +44,11 @@ state lies on the device its ``init`` is given.
 from .airwindows.galactic import Galactic
 from .core.ugen import AudioCtx, UGen
 from .graph.graph import CircularConnection, Done, Graph, GraphError, NodeFreed
-from .graph.handles import Handle, Parameter, Source
+from .graph.handles import Handle, Parameter, Source, VoiceParameter
 from .graph.processor import AudioProcessor, AudioProcessorOptions
 from .graph.scheduling import SchedulingToken, Time
-from .models.voices import (AdditiveVoice, FMCascade, FMVoice, SineVoice,
-                            SubtractiveVoice)
+from .models.voices import (AdditiveVoice, EnvelopeVoice, FMCascade, FMVoice,
+                            ModalVoice, SineVoice, SubtractiveVoice)
 from .parallel.fused_bank import (
     FusedBank,
     FusedFMVoiceBank,
@@ -53,6 +57,7 @@ from .parallel.fused_bank import (
     FusedWavetableVoiceBank,
 )
 from .parallel.generic_bank import FusedVoiceBank, KernelVoiceSpec
+from .parallel.pool import VoicePool
 from .parallel.voicebank import VoiceBank
 from .primitives import (
     NYQUIST,
@@ -73,9 +78,10 @@ from .primitives import (
     set_default_dtype,
 )
 from .ugens.delay import AllpassDelay, AllpassFeedbackDelay, SampleDelay, StaticSampleDelay
-from .ugens.envelopes import EnvAr, EnvAsr
+from .ugens.envelopes import EnvAr, EnvAsr, Envelope, EnvelopeSegment, EnvelopeShape
 from .ugens.filters import OnePoleHpf, OnePoleLpf, SvfFilter, SvfFilterType
 from .ugens.math import Math1UGen, MathUGen
+from .ugens.modal import ModalResonator
 from .ugens.noise import (BrownNoise, PinkNoise, RandomLin, WhiteNoise,
                           next_randomness_seed, reset_randomness_seeds)
 from .ugens.osc import Phasor, SinNumeric, SinWt
@@ -97,6 +103,7 @@ __all__ = [
     "Done",
     "Handle",
     "Parameter",
+    "VoiceParameter",
     "Source",
     "SchedulingToken",
     "Time",
@@ -114,6 +121,10 @@ __all__ = [
     "OnePoleHpf",
     "EnvAsr",
     "EnvAr",
+    "Envelope",
+    "EnvelopeSegment",
+    "EnvelopeShape",
+    "ModalResonator",
     "Pan2",
     "WhiteNoise",
     "PinkNoise",
@@ -134,6 +145,9 @@ __all__ = [
     "FMVoice",
     "SubtractiveVoice",
     "AdditiveVoice",
+    "EnvelopeVoice",
+    "ModalVoice",
+    "VoicePool",
     "FusedBank",
     "FusedSineVoiceBank",
     "FusedFMVoiceBank",

@@ -23,7 +23,12 @@ chain key, is the JAX package's), so it crosses leaf by leaf: batched
 groups and chain stacks keep their leading axes, uint32 leaves (oscillator
 and PolyBlep phases) become int32 bit patterns, everything else keeps its
 dtype (the SVF's ``ic`` [..., 2] and the one-poles' ``last`` as f32, the
-envelopes' ``stage`` as int32 beside their f32 ``t`` and ``release_scale``).
+envelopes' ``stage`` as int32 beside their f32 ``t`` and ``release_scale``,
+the multi-segment ``Envelope``'s ``running`` bool, ``seg`` and
+``last_jump`` int32, ``time`` and ``from_value``, and a
+``ModalResonator``'s ``s0``/``s1`` [..., M]). A kernel bank node's state
+crosses as a bank's does: its ``[R, 128]`` tiles (the generic bank's
+carries, the Envelope and Modal bodies' included) flat in voice order.
 """
 
 from __future__ import annotations
@@ -74,10 +79,18 @@ def bank_state_to_numpy(state):
     return out
 
 
+def _is_bank_state(tree):
+    return isinstance(tree, dict) and "fvals" in tree and "active" in tree
+
+
 def graph_state_from_jax(np_state, device):
     """The port's graph state on ``device`` from a JAX ``CompiledGraph``
     state given as numpy arrays (``jax.tree_util.tree_map(np.asarray,
-    proc.state)``), for the same graph compiled by the port."""
+    proc.state)``), for the same graph compiled by the port. A kernel
+    bank's node state crosses as ``bank_state_from_jax`` has it (its tiles
+    flat in voice order)."""
+    if _is_bank_state(np_state):
+        return bank_state_from_jax(np_state, device)
     if isinstance(np_state, dict):
         return {k: graph_state_from_jax(v, device) for k, v in np_state.items()}
     v = np.array(np_state)  # a writable copy: arrays from JAX are read-only
@@ -89,7 +102,10 @@ def graph_state_from_jax(np_state, device):
 def graph_state_to_numpy(state, like=None):
     """The inverse of ``graph_state_from_jax``: numpy arrays, int32 leaves
     viewed as uint32 where ``like`` (a JAX state of the same graph) holds
-    uint32, kept as int32 without it."""
+    uint32, kept as int32 without it; a bank's node state as
+    ``bank_state_to_numpy`` has it."""
+    if _is_bank_state(state):
+        return bank_state_to_numpy(state)
     if isinstance(state, dict):
         return {k: graph_state_to_numpy(v, None if like is None else like[k])
                 for k, v in state.items()}

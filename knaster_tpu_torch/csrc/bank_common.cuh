@@ -212,6 +212,136 @@ __device__ __forceinline__ float blep(float t, float dt) {
   return t < dt ? -(a * a) : (t > 1.0f - dt ? b * b : 0.0f);
 }
 
+constexpr float kPi = 0x1.921fb6p+1f;  // np.float32(np.pi)
+
+// degree-5 fit of 2^f on [-0.5, 0.5] (pallas_bank _EXP2_C)
+constexpr float kExp2C0 = 0x1.5f48c8p-10f;  // 0.0013400433
+constexpr float kExp2C1 = 0x1.3d107cp-7f;   // 0.009676037
+constexpr float kExp2C2 = 0x1.c6aeccp-5f;   // 0.05550327
+constexpr float kExp2C3 = 0x1.ebf906p-3f;   // 0.24022107
+constexpr float kExp2C4 = 0x1.62e430p-1f;   // 0.6931472
+constexpr float kExp2C5 = 0x1.000002p+0f;   // 1.0000001
+constexpr float kLog2E = 0x1.715476p+0f;    // np.float32(log2(e))
+constexpr float kTiny = 0x1.197998p-40f;    // np.float32(1e-12)
+
+// exp(x) for x <= 0 (pallas_bank _exp_poly): x*log2(e) = n + f, n rounded
+// half to even, 2^n in the exponent field with n clamped to [-126, 0], 2^f
+// by the polynomial. The max keeps jnp.maximum's NaN.
+__device__ __forceinline__ float exp_poly(float x) {
+  float z = x * kLog2E;
+  z = z < -126.0f ? -126.0f : z;
+  const float n = rintf(z);
+  const float f = z - n;
+  float p = kExp2C0;
+  p = p * f + kExp2C1;
+  p = p * f + kExp2C2;
+  p = p * f + kExp2C3;
+  p = p * f + kExp2C4;
+  p = p * f + kExp2C5;
+  const int n_i = static_cast<int>(fminf(fmaxf(n, -126.0f), 0.0f));
+  return __int_as_float((n_i + 127) << 23) * p;
+}
+
+// (sin, cos) of theta in [0, pi] (pallas_bank _sincos_halfturn)
+__device__ __forceinline__ void sincos_halfturn(float theta, float& s, float& c) {
+  const float folded = kPi - theta;
+  s = sin_poly(theta < folded ? theta : folded);
+  c = sin_poly(kHalfPi - theta);
+}
+
+// the multi-segment Envelope (pallas_bank _make_env_multiseg), its running
+// flag folded into seg as these sentinels
+constexpr float kEnvSegFinished = -1.0f;  // a non-looping program ran out
+constexpr float kEnvSegStopped = -2.0f;   // t_stop froze the value
+
+enum EnvShape { kLinear = 0, kExponential = 1, kSinusoidal = 2, kStep = 3 };
+
+// _segment_value's formula for one shape over the selected constants
+__device__ __forceinline__ float env_shape_eval(int shape, float from_v, float val,
+                                                float frac) {
+  switch (shape) {
+    case kLinear:
+      return from_v + frac * (val - from_v);
+    case kSinusoidal:
+      return from_v + (val - from_v) * (1.0f - cosf(kPi * frac)) * 0.5f;
+    case kStep:
+      return val;
+    default: {  // kExponential: geometric for same signs, else linear
+      const float lin = from_v + frac * (val - from_v);
+      const float fa = fmaxf(fabsf(from_v), kTiny);
+      const float ta = fmaxf(fabsf(val), kTiny);
+      const float sgn = from_v > 0.0f ? 1.0f : (from_v < 0.0f ? -1.0f : 0.0f);
+      const float geo = sgn * fa * expf(frac * logf(ta / fa));
+      return from_v * val > 0.0f ? geo : lin;
+    }
+  }
+}
+
+// An envelope program in the body constants: S segments as recip[S],
+// dur[S], val[S], shape[S] (codes as floats), the distinct shapes present
+// in first-segment order, the start value and the looping flag.
+struct EnvProgram {
+  const float* __restrict__ recip;
+  const float* __restrict__ dur;
+  const float* __restrict__ val;
+  const float* __restrict__ shape;
+  const float* __restrict__ present;
+  int S, n_present;
+  float start_v;
+  bool looping;
+
+  // One sample: the triggers, the segment-constant selects (a loop over
+  // S), each present shape once, t_stop's freeze, then the transitions.
+  // Updates seg, t and from_v; returns the envelope value.
+  __device__ __forceinline__ float step(float& seg, float& t, float& from_v, float dt,
+                                        bool restart, bool stop) const {
+    if (restart) {
+      seg = 0.0f;
+      t = 0.0f;
+      from_v = start_v;
+    }
+    float r = __ldg(recip), d = __ldg(dur), v = __ldg(val);
+    int sh = static_cast<int>(__ldg(shape));
+    for (int s = 1; s < S; ++s) {
+      if (seg == static_cast<float>(s)) {
+        r = __ldg(recip + s);
+        d = __ldg(dur + s);
+        v = __ldg(val + s);
+        sh = static_cast<int>(__ldg(shape + s));
+      }
+    }
+    const float frac = fminf(fmaxf(t * r, 0.0f), 1.0f);
+    float cur = env_shape_eval(static_cast<int>(__ldg(present)), from_v, v, frac);
+    for (int j = 1; j < n_present; ++j) {
+      const int pj = static_cast<int>(__ldg(present + j));
+      const float e = env_shape_eval(pj, from_v, v, frac);
+      if (sh == pj) cur = e;
+    }
+    if (stop && seg >= 0.0f) {
+      from_v = cur;
+      seg = kEnvSegStopped;
+    }
+    const bool is_run = seg >= 0.0f;
+    const bool in_seg = t < d;
+    const bool has_next = seg + 1.0f < static_cast<float>(S);
+    const float out = is_run ? (in_seg ? cur : v) : from_v;
+    const bool adv = is_run && !in_seg && has_next;
+    const bool fin = is_run && !in_seg && !has_next;
+    if (adv || fin) from_v = v;
+    t = (is_run && in_seg) ? t + dt : (adv ? t - d + dt : t);
+    if (adv) seg = seg + 1.0f;
+    if (fin) {
+      if (looping) {
+        seg = 0.0f;
+        t = 0.0f;
+      } else {
+        seg = kEnvSegFinished;
+      }
+    }
+    return out;
+  }
+};
+
 }  // namespace ktt
 
 extern "C" const char* ktt_error_string(int err) {

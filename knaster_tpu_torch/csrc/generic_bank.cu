@@ -3,8 +3,8 @@
 //
 // Replaces knaster_tpu/parallel/generic_bank.py::_generic_kernel, with the
 // library voices' mosaic_voice bodies (knaster_tpu/models/voices.py
-// SineVoice :87, FMVoice :353, SubtractiveVoice :477, AdditiveVoice :833)
-// as device bodies. The harness does what the Pallas harness does: per
+// SineVoice :87, EnvelopeVoice :221, FMVoice :353, SubtractiveVoice :477,
+// AdditiveVoice :833, ModalVoice :1625) as device bodies. The harness does what the Pallas harness does: per
 // voice it materializes every float param per sample from its anchored ramp
 // group (plus D breakpoint rounds in eventful blocks), reads each trigger's
 // bit from its packed words (eventful blocks; event-free blocks have none),
@@ -29,7 +29,14 @@
 // Numerics. --fmad=false and no fast math, so the carried state is
 // bit-equal to the plain harness running the voice's torch body; bodies
 // that take cosf/sinf (Sine and Additive pan, the Additive fundamental) may
-// differ from torch's by an ulp in the mix only.
+// differ from torch's by an ulp in the mix only. The Envelope body's
+// SINUSOIDAL and EXPONENTIAL shapes take cosf, expf and logf, whose value
+// reaches the carried efrom where t_stop freezes a curved segment: there
+// the state may differ from torch's by an ulp. The Modal body takes no
+// libm call (polynomial exp, sin and cos).
+//
+// The Modal body's carry is 3 + 2M registers; ModalBody<M> is instantiated
+// for M = 1 ... 16 (ptxas -v reports each one's registers and spills).
 
 #include "bank_common.cuh"
 
@@ -178,6 +185,104 @@ struct AdditiveBody {
   }
 };
 
+// EnvelopeVoice.mosaic_voice: SinWt phase, the multi-segment envelope
+// (EnvProgram, the segment table in the constants), polynomial Pan2 gains.
+// The carry keeps the running flag folded into eseg (kEnvSegFinished /
+// kEnvSegStopped).
+struct EnvelopeBody {
+  // freq, amp, pan, time_scale; t_restart, t_stop; phase, eseg, et, efrom
+  static constexpr int NF = 4, NT = 2, NC = 4, C = 2;
+  static constexpr int kHead = 10;  // constants before the segment table
+  float f2pi, base_scale;
+  EnvProgram prog;
+  // k: f2pi, 1/sr, start value, looping, S, n_present, present[4], then
+  // recip[S], dur[S], val[S], shape[S]
+  __device__ EnvelopeBody(const float* __restrict__ k, int)
+      : f2pi(k[0]), base_scale(k[1]) {
+    const int S = static_cast<int>(k[4]);
+    prog.start_v = k[2];
+    prog.looping = k[3] != 0.0f;
+    prog.S = S;
+    prog.n_present = static_cast<int>(k[5]);
+    prog.present = k + 6;
+    prog.recip = k + kHead;
+    prog.dur = k + kHead + S;
+    prog.val = k + kHead + 2 * S;
+    prog.shape = k + kHead + 3 * S;
+  }
+  template <class P>
+  __device__ __forceinline__ void step(float, uint32_t* c, const P& p,
+                                       const bool* trig, float* out) const {
+    const float dt = p(3) * base_scale;
+    float eseg = as_f(c[1]), et = as_f(c[2]), efrom = as_f(c[3]);
+    const float env = prog.step(eseg, et, efrom, dt, trig[0], trig[1]);
+    const float sig = sin_quant(c[0]) * (env * p(1));
+    c[0] += to_inc(p(0) * f2pi);
+    const float angle = (p(2) * 0.5f + 0.5f) * kHalfPi;
+    out[0] = sig * sin_poly(kHalfPi - angle);
+    out[1] = sig * sin_poly(angle);
+    c[1] = as_u(eseg);
+    c[2] = as_u(et);
+    c[3] = as_u(efrom);
+  }
+};
+
+// ModalVoice.mosaic_voice with M modes: an EnvAr mallet into M
+// rotation-decay modes s' = R(theta) s + (x, 0), per-mode decay from
+// exp_poly with 1/decay taken once per sample, the rotation from
+// sincos_halfturn, dead modes (theta >= pi) at r = 0, polynomial Pan2.
+// The carry: stage, t, struck, then s{m}a, s{m}b per mode.
+template <int M>
+struct ModalBody {
+  // freq, amp, pan, decay; t_strike
+  static constexpr int NF = 4, NT = 1, NC = 3 + 2 * M, C = 2;
+  static constexpr int kHead = 6;  // atk, rel, 1/area, 2pi/sr, thr^2, M
+  float atk, rel, inv_area, c2pi;
+  const float* __restrict__ ratio;
+  const float* __restrict__ k_exp;
+  const float* __restrict__ gain;
+  __device__ ModalBody(const float* __restrict__ k, int)
+      : atk(k[0]), rel(k[1]), inv_area(k[2]), c2pi(k[3]), ratio(k + kHead),
+        k_exp(k + kHead + M), gain(k + kHead + 2 * M) {}
+  template <class P>
+  __device__ __forceinline__ void step(float, uint32_t* c, const P& p,
+                                       const bool* trig, float* out) const {
+    float stage = as_f(c[0]), t = as_f(c[1]), struck = as_f(c[2]);
+    const float pulse = env_ar(stage, t, trig[0], atk, rel);
+    if (trig[0]) struck = fmaxf(struck, 1.0f);
+    const float x = pulse * (p(1) * inv_area);
+    const float inv_decay = 1.0f / p(3);
+    const float freq = p(0);
+    float acc = 0.0f;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const float theta = c2pi * (freq * __ldg(ratio + m));
+      float r = exp_poly(__ldg(k_exp + m) * inv_decay);
+      r = theta < kPi ? r : 0.0f;
+      float sth_u, cth_u;
+      sincos_halfturn(theta, sth_u, cth_u);
+      const float cth = r * cth_u;
+      const float sth = r * sth_u;
+      const float s0 = as_f(c[3 + 2 * m]), s1 = as_f(c[4 + 2 * m]);
+      const float s0n = cth * s0 - sth * s1 + x;
+      const float s1n = sth * s0 + cth * s1;
+      c[3 + 2 * m] = as_u(s0n);
+      c[4 + 2 * m] = as_u(s1n);
+      acc = acc + __ldg(gain + m) * s1n;
+    }
+    const float angle = (p(2) * 0.5f + 0.5f) * kHalfPi;
+    out[0] = acc * sin_poly(kHalfPi - angle);
+    out[1] = acc * sin_poly(angle);
+    c[0] = as_u(stage);
+    c[1] = as_u(t);
+    c[2] = as_u(struck);
+  }
+};
+
+constexpr int kEnvelopeId = 4;
+constexpr int kModalId0 = 4;  // ModalBody<M> is body kModalId0 + M
+constexpr int kMaxModes = 16;
+
 template <class Body, bool EVENTFUL>
 __global__ void __launch_bounds__(kThreads)
 generic_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ rounds,
@@ -250,12 +355,31 @@ cudaError_t launch_body(const float* ramps, const float* rounds, const float* ac
   return cudaGetLastError();
 }
 
+// ModalBody<m> for the run-time mode count m in [M, kMaxModes]
+template <int M>
+cudaError_t launch_modal(int m, const float* ramps, const float* rounds, const float* act,
+                         const uint32_t* words, const uint32_t* carry_in,
+                         const float* consts, float* partial, uint32_t* carry_out, int V,
+                         int B, int D, int eventful, int n_consts, cudaStream_t s) {
+  if constexpr (M > kMaxModes) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (m != M) {
+      return launch_modal<M + 1>(m, ramps, rounds, act, words, carry_in, consts, partial,
+                                 carry_out, V, B, D, eventful, n_consts, s);
+    }
+    return launch_body<ModalBody<M>>(ramps, rounds, act, words, carry_in, consts, partial,
+                                     carry_out, V, B, D, eventful, n_consts, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches one block of the bank with device body `body` (0 Sine, 1 FM,
-// 2 Subtractive, 3 Additive) on `stream`; returns cudaGetLastError().
+// 2 Subtractive, 3 Additive, 4 Envelope, 4 + M Modal with M = 1 ... 16
+// modes) on `stream`; returns cudaGetLastError().
 // rounds/words are read only when `eventful` is non-zero; carry_in/out are
 // [NC][V] 32-bit words, partial is [ceil(V/32)][C][B].
 int ktt_generic_bank(int body, const float* ramps, const float* rounds,
@@ -288,8 +412,23 @@ int ktt_generic_bank(int body, const float* ramps, const float* rounds,
       err = launch_body<AdditiveBody>(ramps, rounds, act, words, carry_in, consts,
                                       partial, carry_out, V, B, D, eventful, n_consts, s);
       break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case kEnvelopeId: {
+      const int S = n_consts > EnvelopeBody::kHead ? (n_consts - EnvelopeBody::kHead) / 4 : 0;
+      if (S < 1 || n_consts != EnvelopeBody::kHead + 4 * S) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      err = launch_body<EnvelopeBody>(ramps, rounds, act, words, carry_in, consts,
+                                      partial, carry_out, V, B, D, eventful, n_consts, s);
+      break;
+    }
+    default: {
+      const int M = body - kModalId0;
+      if (M < 1 || M > kMaxModes || n_consts != 6 + 4 * M) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      err = launch_modal<1>(M, ramps, rounds, act, words, carry_in, consts, partial,
+                            carry_out, V, B, D, eventful, n_consts, s);
+    }
   }
   return static_cast<int>(err);
 }

@@ -27,6 +27,8 @@ The plan (``_plan_batches``) follows the JAX package exactly, so state keys
   the JAX package runs it: eventful blocks, f64, a unit with no body.
 
 * Additive connects: summed by the renderer.
+* A node with its own event channel (a fused voice bank) gets its events
+  under ``event_key`` in eventful blocks, None in the event-free renderers.
 * Feedback edges: read previous-block outputs carried in ``state["fb"]``.
 * Node state survives recompiles: ``init_state(prev, prev_compiled)``
   re-keys the state by stable node ids (UGenEnum::TakeFromTask parity,
@@ -45,7 +47,7 @@ from ..core.ugen import AudioCtx, normalize_process_result
 from . import chain_kernel
 from .graph import Done, Graph, GraphError, NodeEntry
 from .handles import K_GRAPH_IN
-from .param_engine import ParamLayout, PEngine
+from .param_engine import ParamLayout, PEngine, _np_dtype, events_from_lists
 from .param_engine import init_state as pe_init_state
 
 # chain collapse: a run of at least MIN_CHAIN_STAGES units of at most
@@ -138,6 +140,26 @@ class CompiledGraph:
 
     def chain_key(self, cp: "ChainPlan") -> str:
         return f"c{self.canon[cp.stages[0][0]]}"
+
+    def event_key(self, nid: int) -> str:
+        """The key of a node's own events (a voice bank's) in a block's
+        event dict."""
+        return f"n{self.canon[nid]}"
+
+    def events_from_lists(self, fl, tl, il, nd) -> dict:
+        """A block's event dict (numpy): the param engine's float, trigger
+        and int events, and under ``event_key`` the events of every node
+        with an event channel (``event_capacity > 0``) from ``nd`` {node
+        id: [(frame, voice, param, kind, value)]}, empty for a node that
+        has none."""
+        dtype = _np_dtype(self.ctx.dtype)
+        ev = events_from_lists(self.event_capacity, fl, tl, il, dtype=dtype)
+        for nid in self.order:
+            ugen = self.entries[nid].ugen
+            if ugen.event_capacity > 0:
+                ev[self.event_key(nid)] = ugen.node_events_from_lists(nd.get(nid, []),
+                                                                     dtype=dtype)
+        return ev
 
     # ------------------------------------------------------------------
     def _node_loc(self, nid: int):
@@ -490,7 +512,12 @@ def superblock_eligible(cg: CompiledGraph) -> bool:
     ok, max_len = not cg.fb_sources, math.inf
     for e in cg.entries.values() if ok else ():
         u = e.ugen
-        # init first: a node may set its cap there
+        # a cap known before init that 2B exceeds rules the graph out (the
+        # banks' init refuses a block past their cap); else init first: a
+        # node may set its cap there
+        if u.superblock_cap is not None and u.superblock_cap < 2 * B:
+            ok = False
+            break
         same = _shapes(u.init(cg.ctx, "cpu")) == _shapes(u.init(ctx2, "cpu"))
         cap = u.superblock_cap
         if not same or (cap is None and not u.block_invariant) or (
@@ -1095,9 +1122,16 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
             kind = step[0]
             if kind == "single":
                 _, nid, ugen, specs = step
-                st, out, done = normalize_process_result(
-                    ugen.process(ctx, state["nodes"][cg.state_key(nid)],
-                                 node_inputs(nid), params_of(specs, [nid])), ctx)
+                args = (ctx, state["nodes"][cg.state_key(nid)], node_inputs(nid),
+                        params_of(specs, [nid]))
+                if ugen.event_capacity > 0:
+                    # a node with its own event channel (a voice bank): none
+                    # in the event-free renderers, so it skips its scatters
+                    result = ugen.process(
+                        *args, events=None if fast else events[cg.event_key(nid)])
+                else:
+                    result = ugen.process(*args)
+                st, out, done = normalize_process_result(result, ctx)
                 outs[nid] = out
                 new_nodes[cg.state_key(nid)] = st
                 if track_done:

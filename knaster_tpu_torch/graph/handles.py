@@ -14,6 +14,8 @@ connection sugar:
 * ``a * 2.0``, ``a + b`` … — desugar into Constant/Math nodes exactly like the
   reference's operator overloads (graph_edit.rs:1040-1207)
 * ``a.param("freq")``    — a :class:`Parameter` for scheduling changes
+* ``bank.voice_param("freq")`` — a :class:`VoiceParameter`: per-voice
+  control of a voice-bank node, riding the node's own event channel
 
 Since Python has no borrow checker, handles stay valid across edits; using a
 handle whose node was freed raises ``GraphError`` (parity with the reference's
@@ -186,6 +188,17 @@ class Handle(Source):
             out[p.name] = h
         return out
 
+    def voice_param(self, name: str) -> "VoiceParameter":
+        """Per-voice control of a voice-bank node."""
+        entry = self.graph._node(self.node_id)
+        return VoiceParameter(self.graph, self.node_id, entry.ugen, name)
+
+    def set_voice_active(self, voice: int, active: bool, t: Optional[Time] = None):
+        self.graph._queue_event(
+            self.node_id, 0, ("voice_active", int(voice), bool(active)),
+            t or Time.asap(),
+        )
+
     def disconnect_output(self, source_channel: int = 0) -> None:
         self.graph.disconnect_output_from_source(self.node_id, source_channel)
 
@@ -289,6 +302,71 @@ class Parameter:
             raise TypeError(f"parameter {self.name!r} is not a trigger")
         self.graph._queue_event(self.node_id, self.param_idx, ("trig",), t,
                                 token=token)
+
+
+class VoiceParameter:
+    """Per-voice parameter of a voice bank: ``vp.set(voice, value)`` /
+    ``vp.trig(voice)``, each schedulable with the usual Time forms and
+    groupable into atomic batches with ``token=`` (SchedulingToken). Float
+    sets, triggers and smoothing-ramp starts are sample-accurate per voice
+    (``parallel/voicebank.py``)."""
+
+    def __init__(self, graph, node_id: int, bank, name: str):
+        self.graph = graph
+        self.node_id = node_id
+        self.bank = bank
+        self.name = name
+        spec = next((p for p in bank.voice.params if p.name == name), None)
+        if spec is None:
+            raise KeyError(f"voice has no parameter {name!r}")
+        self.ptype = spec.ptype
+        if self.ptype == "float":
+            self.index = bank.float_index(name)
+        elif self.ptype == "trigger":
+            self.index = bank.trig_index(name)
+        else:
+            raise NotImplementedError(
+                f"voice parameter {name!r} is an int: the port's banks take float "
+                "and trigger params only")
+
+    def set(self, voice: int, value, t: Optional[Time] = None, token=None) -> None:
+        t = t or Time.asap()
+        if self.ptype == "float":
+            payload = ("voice_float", int(voice), self.index, float(value))
+        else:
+            payload = ("voice_trig", int(voice), self.index)
+        self.graph._queue_event(self.node_id, self.index, payload, t, token=token)
+
+    def set_at(self, voice: int, value, at, token=None) -> None:
+        self.set(voice, value, Time.at(at), token=token)
+
+    def set_after(self, voice: int, value, after, token=None) -> None:
+        self.set(voice, value, Time.after(after), token=token)
+
+    def smooth(self, voice: int, time_seconds: float, t: Optional[Time] = None,
+               token=None) -> None:
+        """Per-voice linear smoothing: later ``set``s of this (param, voice)
+        ramp linearly over ``time_seconds`` (0 turns it off), anchored at the
+        set's exact frame."""
+        if self.ptype != "float":
+            raise TypeError("smoothing only applies to float voice parameters")
+        dur = int(round(time_seconds * self.graph.sample_rate))
+        self.graph._queue_event(
+            self.node_id, self.index, ("voice_smooth", int(voice), self.index, dur),
+            t or Time.asap(), token=token)
+
+    def trig(self, voice: int, t: Optional[Time] = None, token=None) -> None:
+        if self.ptype != "trigger":
+            raise TypeError(f"voice parameter {self.name!r} is not a trigger")
+        self.graph._queue_event(
+            self.node_id, self.index, ("voice_trig", int(voice), self.index),
+            t or Time.asap(), token=token)
+
+    def trig_at(self, voice: int, at, token=None) -> None:
+        self.trig(voice, Time.at(at), token=token)
+
+    def trig_after(self, voice: int, after, token=None) -> None:
+        self.trig(voice, Time.after(after), token=token)
 
 
 def _as_channel_list(chs) -> List[int]:

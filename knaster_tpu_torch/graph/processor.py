@@ -40,13 +40,18 @@ import torch
 from .compile import (CompiledGraph, compile_graph, get_super_fn, get_super_scan_fn,
                       resolve_device, superblock_eligible)
 from .graph import Done, Graph
-from .param_engine import events_from_lists
 from .scheduling import ScheduledEvent
 
 # run pieces of at least this many blocks render with one done-flag check
 # (the JAX package's one-dispatch scans); shorter eventful pieces, and short
 # event-free pieces without a superblock, go one block at a time
 MIN_SCAN = 16
+
+# the voice_* payloads of a node's own event channel -> the bank's event
+# kinds (parallel/voicebank.py): 0 float set, 1 trigger, 2 int set,
+# 3 set-active, 4 smoothing config, 5 note-on (clears the idle latch)
+_VOICE_KINDS = {"voice_float": 0, "voice_trig": 1, "voice_int": 2, "voice_active": 3,
+                "voice_smooth": 4, "voice_idle_clear": 5}
 
 
 @dataclass
@@ -122,6 +127,12 @@ class AudioProcessor:
         block — floats/ints clamp to frame 0 of the next block, triggers keep
         their intra-block frame — and past the horizon it is re-queued for the
         next collection.
+
+        Each block's lists are (float, trigger, int, {node id: node events}):
+        the ``voice_*`` payloads ride the addressed node's own event channel
+        (a voice bank's per-voice control) as (frame, voice, param, kind,
+        value) with the bank's kinds 0-5, up to the node's
+        ``event_capacity`` a block.
         """
         B = self.graph.block_size
         clock = self.graph.clock.frames
@@ -139,18 +150,20 @@ class AudioProcessor:
             with self.graph.event_lock:
                 self.graph.event_queue.extend(keep)
 
-        per_block: List[Tuple[list, list, list]] = [
-            ([], [], []) for _ in range(horizon_blocks)
+        per_block: List[Tuple[list, list, list, dict]] = [
+            ([], [], [], {}) for _ in range(horizon_blocks)
         ]
         cap = self.compiled.event_capacity
         layout = self.compiled.layout
 
-        def place(ev, bi, frame, which, item, keep_frame):
-            """Append ``item`` to bucket ``bi``; cascade to later blocks when
-            full; re-queue past the horizon."""
+        def place(ev, bi, frame, which, item, capacity, keep_frame):
+            """Append ``item`` to bucket ``bi`` (list ``which``, or the node's
+            list for 3); cascade to later blocks when full; re-queue past the
+            horizon."""
             while bi < horizon_blocks:
-                lst = per_block[bi][which]
-                if len(lst) < cap:
+                bucket = per_block[bi]
+                lst = bucket[which] if which < 3 else bucket[3].setdefault(ev.node_id, [])
+                if len(lst) < capacity:
                     lst.append(item)
                     return
                 bi += 1
@@ -166,25 +179,39 @@ class AudioProcessor:
             bi = (frame_abs - clock) // B
             frame = frame_abs - clock - bi * B
             p = ev.payload
+            if p[0] in _VOICE_KINDS:
+                # the node's own event channel; a freed node's expire
+                entry = self.compiled.entries.get(ev.node_id)
+                if entry is None:
+                    continue
+                kind = _VOICE_KINDS[p[0]]
+                if kind in (3, 5):  # set-active / note-on: (voice, [flag])
+                    value = 0.0 if kind == 5 else (1.0 if p[2] else 0.0)
+                    item = (frame, p[1], 0, kind, value)
+                else:
+                    value = 0.0 if kind == 1 else float(p[3])
+                    item = (frame, p[1], p[2], kind, value)
+                place(ev, bi, frame, 3, item, entry.ugen.event_capacity,
+                      keep_frame=kind == 1)
+                continue
             # events for freed nodes expire silently (graph_gen.rs:122-126)
             key = layout.slots.get((ev.node_id, ev.param_idx))
             if key is None:
                 continue
             typ, slot = key
             if p[0] == "set_float" and typ == "float":
-                place(ev, bi, frame, 0, (frame, slot, p[1], 0, 0, 0, 0), False)
+                place(ev, bi, frame, 0, (frame, slot, p[1], 0, 0, 0, 0), cap, False)
             elif p[0] == "smooth_cfg" and typ == "float":
-                place(ev, bi, frame, 0, (frame, slot, 0.0, 1, p[1], p[2], p[3]), False)
+                place(ev, bi, frame, 0, (frame, slot, 0.0, 1, p[1], p[2], p[3]), cap,
+                      False)
             elif p[0] == "trig" and typ == "trigger":
-                place(ev, bi, frame, 1, (frame, slot), True)
+                place(ev, bi, frame, 1, (frame, slot), cap, True)
             elif p[0] == "set_int" and typ == "int":
-                place(ev, bi, frame, 2, (frame, slot, p[1]), False)
+                place(ev, bi, frame, 2, (frame, slot, p[1]), cap, False)
         return per_block
 
     def _events(self, lists):
-        fl, tl, il = lists
-        return events_from_lists(self.compiled.event_capacity, fl, tl, il,
-                                 dtype=self.graph.dtype)
+        return self.compiled.events_from_lists(*lists)
 
     def _zero_inputs(self, frames=None):
         """Zero inputs of ``frames`` samples (one block by default), one

@@ -7,7 +7,11 @@ breakpoint rounds), ``_trig_bit`` (packed trigger words), ``_to_inc``
 (saturating u32 phase increment), ``_sin_poly``/``_sin_quant`` (the
 table-quantized sine), ``_theta_full`` (the full-resolution phase angle),
 ``_env_asr`` and ``_env_ar`` (the envelope state machines; a ``None``
-trigger is the event-free variant), ``_pan_gains`` and ``_svf_low_coeffs``.
+trigger is the event-free variant, the JAX package's ``_env_asr_free`` and
+``_env_ar_free``), ``_pan_gains``, ``_svf_low_coeffs``,
+``_make_env_multiseg`` (the multi-segment Envelope fold), ``_exp_poly``
+(exp by a base-2 range reduction and a degree-5 fit) and
+``_sincos_halfturn``.
 
 u32 phases are carried by the plain versions as int64 in [0, 2^32) (torch
 has no uint32 arithmetic) and stored in bank state as their int32 bit
@@ -276,6 +280,142 @@ def _svf_low_coeffs(x, q):
     sc = s * c
     d = q / (q + sc)
     return d * (c * c), d * sc, d * (s * s)
+
+
+ENV_SEG_FINISHED = -1.0  # a non-looping program ran out: the idle latch
+ENV_SEG_STOPPED = -2.0   # t_stop froze the value: still audible, NOT idle
+
+# ugens/envelopes.py EnvelopeShape codes (kept here so that the helpers do
+# not import the UGen layer)
+_LINEAR, _EXPONENTIAL, _SINUSOIDAL, _STEP = 0, 1, 2, 3
+_PI_F32 = np.float32(np.pi)
+
+
+def env_shape_eval(shape, from_v, val, frac):
+    """``_segment_value``'s formula for one shape code over the selected
+    segment constants (``val`` is the segment's target)."""
+    one, half = np.float32(1.0), np.float32(0.5)
+    if shape == _LINEAR:
+        return from_v + frac * (val - from_v)
+    if shape == _SINUSOIDAL:
+        return from_v + (val - from_v) * (one - torch.cos(_PI_F32 * frac)) * half
+    if shape == _STEP:
+        return val
+    # EXPONENTIAL: same-sign geometric, linear across zero; exp(frac*log())
+    # is the pow identity
+    lin = from_v + frac * (val - from_v)
+    tiny = np.float32(1e-12)
+    fa = torch.clamp(torch.abs(from_v), min=tiny)
+    ta = torch.clamp(torch.abs(val), min=tiny)
+    geo = torch.sign(from_v) * fa * torch.exp(frac * torch.log(ta / fa))
+    return torch.where(from_v * val > 0, geo, lin)
+
+
+def env_present_shapes(shapes):
+    """The distinct shape codes of a segment table, in first-segment order."""
+    present = []
+    for sh in shapes:
+        if sh not in present:
+            present.append(int(sh))
+    return present
+
+
+def _make_env_multiseg(segments, looping, start_value, shapes=None):
+    """The multi-segment Envelope evaluated per sample over ``[V]`` tensors
+    (``pallas_bank._make_env_multiseg``): ``segments`` is the [S, 3]
+    (recip, duration, value) table and ``shapes`` the per-segment shape
+    codes, both constants. The segment constants are selected first (a fold
+    over S), then each distinct shape present is evaluated once over them.
+    The running flag lives in ``seg`` as the sentinels ``ENV_SEG_FINISHED``
+    and ``ENV_SEG_STOPPED``.
+
+    Returns ``step(seg, t, from_v, dt, restart, stop) -> (out, seg', t',
+    from_v', fin)``; ``restart``/``stop`` None is the event-free variant.
+    ``fin`` is the envelope-finished bit: a stopped voice keeps emitting its
+    frozen value and is not finished."""
+    segs = np.asarray(segments, np.float32)
+    S = segs.shape[0]
+    shapes = [_LINEAR] * S if shapes is None else [int(s) for s in shapes]
+    present = env_present_shapes(shapes)
+    one, zero = np.float32(1.0), np.float32(0.0)
+    start_v = np.float32(start_value)
+    fin_s, stop_s = np.float32(ENV_SEG_FINISHED), np.float32(ENV_SEG_STOPPED)
+
+    def step(seg, t, from_v, dt, restart, stop):
+        if restart is not None:
+            seg = torch.where(restart, zero, seg)
+            t = torch.where(restart, zero, t)
+            from_v = torch.where(restart, start_v, from_v)
+        masks = [seg == np.float32(s) for s in range(S)]
+        recip = torch.full_like(from_v, segs[0, 0])
+        dur = torch.full_like(from_v, segs[0, 1])
+        val = torch.full_like(from_v, segs[0, 2])
+        for s in range(1, S):
+            recip = torch.where(masks[s], segs[s, 0], recip)
+            dur = torch.where(masks[s], segs[s, 1], dur)
+            val = torch.where(masks[s], segs[s, 2], val)
+        frac = torch.clamp(t * recip, 0.0, 1.0)
+        cur = env_shape_eval(present[0], from_v, val, frac)
+        for sh in present[1:]:
+            m_sh = None
+            for s in range(S):
+                if shapes[s] == sh:
+                    m_sh = masks[s] if m_sh is None else (m_sh | masks[s])
+            cur = torch.where(m_sh, env_shape_eval(sh, from_v, val, frac), cur)
+        if stop is not None:
+            frozen = stop & (seg >= zero)
+            from_v = torch.where(frozen, cur, from_v)
+            seg = torch.where(frozen, stop_s, seg)
+        is_run = seg >= zero
+        in_seg = t < dur
+        has_next = seg + one < np.float32(S)
+        out = torch.where(is_run, torch.where(in_seg, cur, val), from_v)
+        adv = is_run & ~in_seg & has_next
+        fin = is_run & ~in_seg & ~has_next
+        from_v = torch.where(adv | fin, val, from_v)
+        t = torch.where(is_run & in_seg, t + dt, torch.where(adv, t - dur + dt, t))
+        seg = torch.where(adv, seg + one, seg)
+        if looping:
+            seg = torch.where(fin, zero, seg)
+            t = torch.where(fin, zero, t)
+            fin = torch.zeros_like(fin)
+        else:
+            seg = torch.where(fin, fin_s, seg)
+        return out, seg, t, from_v, fin
+
+    return step
+
+
+# degree-5 fit of 2^f on [-0.5, 0.5] (rel err <= 1.8e-7): the mantissa half
+# of the range-reduced polynomial exp
+_EXP2_C = (np.float32(0.0013400433), np.float32(0.009676037),
+           np.float32(0.05550327), np.float32(0.24022107),
+           np.float32(0.6931472), np.float32(1.0000001))
+_LOG2E = np.float32(1.4426950408889634)
+
+
+def _exp_poly(x):
+    """exp(x) for x <= 0: x*log2(e) = n + f with n = round(.) half to even
+    (f in [-0.5, 0.5]), 2^n built in the exponent field with n clamped to
+    [-126, 0] (the result underflows to ~0 where exp does), 2^f by the
+    degree-5 polynomial."""
+    z = torch.clamp(x * _LOG2E, min=np.float32(-126.0))
+    n = torch.round(z)
+    f = z - n
+    p = torch.full_like(f, _EXP2_C[0])
+    for c in _EXP2_C[1:]:
+        p = p * f + c
+    n_i = n.clamp(-126.0, 0.0).to(torch.int32)
+    pow2n = ((n_i + 127) << 23).view(torch.float32)
+    return pow2n * p
+
+
+def _sincos_halfturn(theta):
+    """(sin, cos) of theta in [0, pi] by the odd polynomial: sin folded
+    about pi/2 (sin(pi - t) = sin t), cos as sin(pi/2 - t)."""
+    s = _sin_poly(torch.minimum(theta, _PI_F32 - theta))
+    c = _sin_poly(_HALF_PI - theta)
+    return s, c
 
 
 def _blep(t, dt):

@@ -19,8 +19,13 @@ hand-written banks; the mix is a per-sample warp reduction into
 
 The carry crosses the kernel as one ``[NC, V]`` int32 tensor: u32 carries
 as their bit pattern, f32 carries bit-cast. The body constants (envelope
-rates, phase units per Hz, the additive body's A/B/thresholds) cross as a
-small f32 tensor on the device.
+rates, phase units per Hz, the additive body's A/B/thresholds, the
+envelope body's segment table, the modal body's per-mode ratios, decay
+factors and gains) cross as a small f32 tensor on the device.
+
+The bodies: Sine, FM, Subtractive, Additive, Envelope and Modal (one
+instantiation per mode count, M = 1 ... 16: the carry is a register array
+whose length the compiler must know).
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise, also for a voice with no CUDA body), CPU tensors run
@@ -41,12 +46,16 @@ KERNEL = "generic_bank"
 LAUNCHES = 0
 
 # CUDA body name -> (id in csrc/generic_bank.cu, float params, triggers,
-# carry words, outputs)
+# carry words, outputs). The modal body is one instantiation per mode count
+# M = 1 ... 16 ("modal<M>", id 4 + M, 3 + 2M carry words); a ModalVoice of
+# more modes has no CUDA body.
 BODIES = {
     "sine": (0, 3, 2, 4, 2),
     "fm": (1, 4, 1, 4, 1),
     "subtractive": (2, 4, 2, 6, 1),
     "additive": (3, 3, 2, 4, 2),
+    "envelope": (4, 4, 2, 4, 2),
+    **{f"modal{m}": (4 + m, 4, 1, 3 + 2 * m, 2) for m in range(1, 17)},
 }
 ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
     + [ctypes.c_void_p]

@@ -5,6 +5,8 @@
 * ``FMVoice`` — 2-operator FM with an AR envelope (the fm_bench family).
 * ``SubtractiveVoice`` — polyBLEP saw -> SVF lowpass -> ASR envelope.
 * ``AdditiveVoice`` — a wavetable cycle re-synthesized from its harmonics.
+* ``EnvelopeVoice`` — a sine gated by a multi-segment ``Envelope``.
+* ``ModalVoice`` — a struck ``ModalResonator`` (EnvAr mallet, Pan2).
 * ``FMCascade`` — an N-stage FM cascade as one graph node, with its own
   kernel (``kernels/fm_cascade.py``).
 
@@ -23,10 +25,14 @@ import torch
 
 from ..core.ugen import AudioCtx, UGen
 from ..kernels.bank_common import (
-    _HALF_PI, _blep, _env_ar, _env_asr, _sin_quant, _svf_low_coeffs,
-    _theta_full, _to_inc, i32_of, u32_add, u32_of,
+    _HALF_PI, ENV_SEG_FINISHED, _blep, _env_ar, _env_asr, _exp_poly,
+    _make_env_multiseg, _sin_poly, _sin_quant, _sincos_halfturn,
+    _svf_low_coeffs, _theta_full, _to_inc, env_present_shapes, i32_of, u32_add,
+    u32_of,
 )
 from ..primitives.params import ParameterKind, pfloat, ptrigger
+from ..ugens.envelopes import EnvAr, Envelope
+from ..ugens.modal import _LN10_M3, ModalResonator
 from ..ugens.wavetable import FRACTIONAL_PART, TABLE_SIZE, harmonics_from_table
 
 
@@ -279,6 +285,181 @@ class AdditiveVoice(UGen):
             consts=np.concatenate([np.array([f2pi, atk, rel], np.float32),
                                    coefs.reshape(-1)]),
             voice_name=self.name())
+
+
+class EnvelopeVoice(UGen):
+    """A sine gated by a multi-segment :class:`Envelope` with per-segment
+    shapes, looping and live ``time_scale`` (reference envelopes.rs:322-528),
+    with exact equal-power pan. Its body folds the segment table per
+    sample (``bank_common._make_env_multiseg``); the envelope-finished bit
+    is the idle latch, and a voice frozen by ``t_stop`` is not idle."""
+
+    inputs = 0
+    outputs = 2
+    params = (
+        pfloat("freq", 440.0, kind=ParameterKind.FREQUENCY),
+        pfloat("amp", 0.0125),
+        pfloat("pan", 0.0),
+        pfloat("time_scale", 1.0, range=(0.0, 20.0), logarithmic=True),
+        ptrigger("t_restart"),
+        ptrigger("t_stop"),
+    )
+
+    def __init__(self, envelope=None, freq: float = 440.0, amp: float = 0.0125,
+                 pan: float = 0.0, time_scale: float = 1.0):
+        if envelope is None:
+            # the default 4-segment pluck-ish program: rise, drop, sag, fade
+            envelope = Envelope(0.0, [(0.01, 1.0), (0.05, 0.6),
+                                      (0.2, 0.4, "sinusoidal"), (0.3, 0.0)])
+        if not isinstance(envelope, Envelope):
+            raise ValueError("envelope must be an Envelope instance")
+        self.env = envelope
+        self.pdefaults = {"freq": float(freq), "amp": float(amp), "pan": float(pan),
+                          "time_scale": float(time_scale)}
+
+    def kernel_voice(self, ctx: AudioCtx):
+        """SinWt's phase, the segment-table envelope, polynomial Pan2 gains.
+        Constants: f2pi, 1/sr, the start value, looping, S, the distinct
+        shapes present (4 slots), then recip[S], dur[S], val[S], shape[S]."""
+        from ..parallel.generic_bank import KernelVoiceSpec
+
+        f2pi = _f2pi(ctx)
+        segs, shapes = self.env.segment_table()
+        estep = _make_env_multiseg(segs, self.env.looping, self.env.start_value, shapes)
+        base_scale = np.float32(1.0 / ctx.sample_rate)
+        half = np.float32(0.5)
+        present = env_present_shapes(shapes)
+
+        def body(i_f, c, P, T):
+            dt = P["time_scale"] * base_scale
+            env, eseg, et, efrom, _fin = estep(c["eseg"], c["et"], c["efrom"], dt,
+                                               T["t_restart"], T["t_stop"])
+            sig = _sin_quant(c["phase"]) * (env * P["amp"])
+            phase = u32_add(c["phase"], _to_inc(P["freq"] * f2pi))
+            angle = (P["pan"] * half + half) * _HALF_PI
+            new = {"phase": phase, "eseg": eseg, "et": et, "efrom": efrom}
+            return new, (sig * _sin_poly(_HALF_PI - angle), sig * _sin_poly(angle))
+
+        consts = np.concatenate([
+            np.array([f2pi, base_scale, self.env.start_value, self.env.looping,
+                      len(segs), len(present)], np.float32),
+            np.array(present + [0] * (4 - len(present)), np.float32),
+            segs.T.reshape(-1), shapes.astype(np.float32)])
+        return KernelVoiceSpec(
+            carry={"phase": ("u32", 0), "eseg": ("f32", ENV_SEG_FINISHED),
+                   "et": ("f32", 0.0), "efrom": ("f32", self.env.start_value)},
+            body=body, idle_of=lambda c: c["eseg"] == ENV_SEG_FINISHED,
+            cuda_body="envelope", consts=consts.astype(np.float32),
+            voice_name=self.name())
+
+
+class ModalVoice(UGen):
+    """Struck modal voice: an EnvAr mallet pulse of ``strike_ms``
+    milliseconds retriggered by ``t_strike``, scaled by ``amp`` and
+    normalized by the pulse's area, rings a :class:`ModalResonator` of M
+    modes; Pan2 to stereo.
+
+    Idle (the pool's latch): struck since it was last reclaimed, the
+    mallet done, and the gain-weighted ring energy below
+    ``done_threshold``. A never-struck voice is not idle."""
+
+    inputs = 0
+    outputs = 2
+    may_set_done = True
+    params = (
+        pfloat("freq", 440.0, kind=ParameterKind.FREQUENCY),
+        pfloat("amp", 0.25),
+        pfloat("pan", 0.0, range=(-1.0, 1.0)),
+        pfloat("decay", 1.0, range=(0.0, 100.0), kind=ParameterKind.SECONDS),
+        ptrigger("t_strike"),
+    )
+
+    def __init__(self, resonator=None, freq: float = 440.0, amp: float = 0.25,
+                 pan: float = 0.0, strike_ms: float = 2.0,
+                 done_threshold: float = 1e-5):
+        self.res = resonator if resonator is not None else ModalResonator.bell(freq)
+        half = max(float(strike_ms), 0.05) * 5e-4  # attack + release = strike_ms
+        self.exciter = EnvAr(half, half)
+        # a pulse drives a slow mode nearly coherently, so the ring scales
+        # with the pulse's area (half*sr samples): normalized by it
+        self._half = half
+        self.done_threshold = float(done_threshold)
+        self.pdefaults = {"freq": float(freq), "amp": float(amp), "pan": float(pan),
+                          "decay": float(self.res.pdefaults["decay"])}
+
+    def batch_key(self):
+        return (type(self), self.res.batch_key(), self.done_threshold,
+                self.exciter.pdefaults["attack_time"])
+
+    def kernel_voice(self, ctx: AudioCtx):
+        """M rotation-decay modes per voice, EnvAr mallet, polynomial Pan2.
+        As in the JAX body, 1/decay is taken once per sample and each mode's
+        exp argument is ``(K/(rel_m*sr)) * (1/decay)``; decays come from
+        ``_exp_poly`` and the rotation from ``_sincos_halfturn``, and a mode
+        at or above pi is dead (r = 0). Constants: atk, rel, 1/area, 2pi/sr,
+        thr^2, M, then ratios[M], k_exp[M], gains[M], gains^2[M]. The CUDA
+        body takes M <= 16 (``modal1`` ... ``modal16``)."""
+        from ..parallel.generic_bank import KernelVoiceSpec
+
+        res = self.res
+        M = res.n_modes
+        sr = np.float32(ctx.sample_rate)
+        exc = self.exciter.pdefaults
+        atk = _rate(exc["attack_time"], ctx.sample_rate)
+        rel = _rate(exc["release_time"], ctx.sample_rate)
+        inv_area = np.float32(1.0 / max(self._half * ctx.sample_rate, 1.0))
+        c2pi = np.float32(2.0 * np.pi) / sr
+        pi_f, half = np.float32(np.pi), np.float32(0.5)
+        zero, one = np.float32(0.0), np.float32(1.0)
+        ratios = np.asarray([np.float32(res.ratios[m]) for m in range(M)], np.float32)
+        k_exp = np.asarray([np.float32(np.float32(_LN10_M3) / (np.float32(res.decays[m]) * sr))
+                            for m in range(M)], np.float32)
+        gains = np.asarray([np.float32(res.gains[m]) for m in range(M)], np.float32)
+        g2 = np.asarray([np.float32(float(res.gains[m]) ** 2) for m in range(M)], np.float32)
+        thr2 = np.float32(self.done_threshold ** 2)
+
+        def body(i_f, c, P, T):
+            strike = T["t_strike"]
+            pulse, stage, t = _env_ar(c["stage"], c["t"], strike, atk, rel)
+            struck = c["struck"]
+            if strike is not None:
+                struck = torch.maximum(struck, strike.to(torch.float32))
+            x = pulse * (P["amp"] * inv_area)
+            inv_decay = one / P["decay"]
+            freq = P["freq"]
+            new = {"stage": stage, "t": t, "struck": struck}
+            acc = zero
+            for m in range(M):
+                # the f32 grouping of ModalResonator: (2pi/sr) * (freq*ratio)
+                theta = c2pi * (freq * ratios[m])
+                r = _exp_poly(k_exp[m] * inv_decay)
+                r = torch.where(theta < pi_f, r, zero)
+                sth_u, cth_u = _sincos_halfturn(theta)
+                cth = r * cth_u
+                sth = r * sth_u
+                s0, s1 = c[f"s{m}a"], c[f"s{m}b"]
+                s0n = cth * s0 - sth * s1 + x
+                s1n = sth * s0 + cth * s1
+                new[f"s{m}a"], new[f"s{m}b"] = s0n, s1n
+                acc = acc + gains[m] * s1n
+            angle = (P["pan"] * half + half) * _HALF_PI
+            return new, (acc * _sin_poly(_HALF_PI - angle), acc * _sin_poly(angle))
+
+        def idle_of(c):
+            e2 = zero
+            for m in range(M):
+                e2 = e2 + g2[m] * (c[f"s{m}a"] * c[f"s{m}a"] + c[f"s{m}b"] * c[f"s{m}b"])
+            return (c["struck"] > zero) & (e2 < thr2) & (c["stage"] == zero)
+
+        carry = {"stage": ("f32", 0.0), "t": ("f32", 0.0), "struck": ("f32", 0.0)}
+        for m in range(M):
+            carry[f"s{m}a"] = ("f32", 0.0)
+            carry[f"s{m}b"] = ("f32", 0.0)
+        consts = np.concatenate([np.array([atk, rel, inv_area, c2pi, thr2, M], np.float32),
+                                 ratios, k_exp, gains, g2])
+        return KernelVoiceSpec(carry=carry, body=body, idle_of=idle_of,
+                               cuda_body=f"modal{M}", consts=consts,
+                               voice_name=self.name())
 
 
 class FMCascade(UGen):

@@ -118,6 +118,9 @@ class FusedBank(VoiceBank):
     # slot; deeper bursts keep their last kernel_burst_depth events and the
     # bank warns once
     kernel_burst_depth = 3
+    # in a graph, the longest superblock a bank renders: the kernels' block
+    # limit (the JAX package's PallasVoiceBank.superblock_cap)
+    superblock_cap = MAX_BLOCK
 
     def __init__(self, voice, n_voices: int, voice_defaults=None,
                  event_capacity=256, kernel_burst_depth: int = 3):

@@ -9,7 +9,10 @@ anchored-ramp / burst-breakpoint event machinery, packed trigger words, the
 per-sample active mask on every output, the carry across blocks and the
 mix. It is the counterpart of ``PallasVoiceBank``; the library voices
 (``SineVoice``, ``FMVoice``, ``SubtractiveVoice``, ``AdditiveVoice``) carry
-bodies that are the math of the hand-written banks' kernels.
+bodies that are the math of the hand-written banks' kernels, and
+``EnvelopeVoice`` and ``ModalVoice`` (up to 16 modes on the card) bodies of
+their own. In a graph the bank is a node like any other (its superblocks
+capped at 1024 samples) under per-voice handles and ``VoicePool``.
 
 On CUDA tensors a voice whose ``cuda_body`` is None (or unknown to the
 harness) raises a ``ValueError`` that names it; on CPU tensors the torch

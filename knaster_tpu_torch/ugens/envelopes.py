@@ -12,17 +12,24 @@ trajectories are monotone): the JAX package's chain-kernel form, which
 ``csrc/chain_kernel.cu`` repeats op for op. ``asr_closed_form`` and
 ``ar_closed_form`` serve ``process`` and the kernel's plain bodies alike.
 
-Both envelopes may set done: the frame the release ends. The multi-segment
-``Envelope`` is not ported yet.
+Both envelopes may set done: the frame the release ends.
+
+``Envelope`` is the multi-segment envelope (envelopes.rs:322-528) with the
+four shapes of ``EnvelopeShape``, looping, ``time_scale`` and the retrigger
+int ``jump_to_segment``; it runs sample by sample, as the JAX package's
+scan does, and sets done where a non-looping program ends.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..core.dsp import const, cumsum, shift1
 from ..core.ugen import AudioCtx, UGen
-from ..primitives.params import ParameterKind, pfloat, ptrigger
+from ..primitives.params import ParameterKind, pfloat, pinteger, ptrigger
 
 # EnvAsr stages (envelopes.rs AsrState)
 STOPPED, ATTACKING, SUSTAINING, RELEASING = 0, 1, 2, 3
@@ -244,3 +251,165 @@ class EnvAr(_EnvBase):
         from ..kernels.chain_kernel import BODIES
 
         return BODIES["env_ar"], 0
+
+
+class EnvelopeShape:
+    """Per-segment interpolation shape (envelopes.rs:339-348 EnvelopeShape).
+    The reference declares the enum and evaluates every segment linearly;
+    the JAX package implements all four, and so does the port:
+
+    * LINEAR      — a straight line from the previous value to the target;
+    * EXPONENTIAL — the geometric curve ``from·(to/from)^frac``, linear when
+      the endpoints differ in sign or either is 0;
+    * SINUSOIDAL  — a raised-cosine ease-in/out;
+    * STEP        — the target from the segment's first sample.
+    """
+
+    LINEAR = 0
+    EXPONENTIAL = 1
+    SINUSOIDAL = 2
+    STEP = 3
+
+    _NAMES = {"linear": LINEAR, "exponential": EXPONENTIAL,
+              "sinusoidal": SINUSOIDAL, "step": STEP}
+
+    @classmethod
+    def code(cls, shape) -> int:
+        if isinstance(shape, str):
+            return cls._NAMES[shape.lower()]
+        return int(shape)
+
+
+class EnvelopeSegment:
+    """(duration seconds, target value, shape) — envelopes.rs EnvelopeSegment."""
+
+    def __init__(self, duration: float, value: float, shape=EnvelopeShape.LINEAR):
+        self.duration = float(duration)
+        self.value = float(value)
+        self.shape = EnvelopeShape.code(shape)
+
+
+def _segment_value(shape, from_v, to_v, frac):
+    """One segment at normalized position ``frac`` (clipped to [0, 1]), the
+    shape selected per element from the shape codes ``shape``."""
+    frac = frac.clamp(0.0, 1.0)
+    lin = from_v + frac * (to_v - from_v)
+    sinu = from_v + (to_v - from_v) * (1.0 - torch.cos(math.pi * frac)) * 0.5
+    same_sign = from_v * to_v > 0
+    tiny = const(1e-12, from_v)
+    fa = torch.maximum(from_v.abs(), tiny)
+    ta = torch.maximum(to_v.abs(), tiny)
+    geo = torch.sign(from_v) * fa * (ta / fa) ** frac
+    expo = torch.where(same_sign, geo, lin)
+    return torch.where(
+        shape == EnvelopeShape.LINEAR, lin,
+        torch.where(shape == EnvelopeShape.EXPONENTIAL, expo,
+                    torch.where(shape == EnvelopeShape.SINUSOIDAL, sinu, to_v)))
+
+
+class Envelope(UGen):
+    """Multi-segment envelope with per-segment shapes, looping and time
+    scaling (envelopes.rs:322-528 Envelope). Params: time_scale,
+    jump_to_segment, t_restart, t_stop.
+
+    ``jump_to_segment`` is a retrigger int: every set re-jumps, even to the
+    current segment. The graph passes its per-sample set mask as
+    ``jump_to_segment_set``; without it (a host that has none) a change of
+    value counts as a set."""
+
+    may_set_done = True
+    inputs = 0
+    outputs = 1
+    params = (
+        # hint parity: envelopes.rs:469 (logarithmic, 0..=20)
+        pfloat("time_scale", 1.0, range=(0.0, 20.0), logarithmic=True),
+        pinteger("jump_to_segment", 0, retrigger=True),
+        ptrigger("t_restart"),
+        ptrigger("t_stop"),
+    )
+
+    def __init__(self, start_value: float, segments, looping: bool = False,
+                 time_scale: float = 1.0):
+        self.start_value = float(start_value)
+        self.segments = [s if isinstance(s, EnvelopeSegment) else EnvelopeSegment(*s)
+                         for s in segments]
+        if not self.segments:
+            raise ValueError("Envelope needs at least one segment")
+        self.looping = bool(looping)
+        self.pdefaults = {"time_scale": float(time_scale)}
+
+    def segment_table(self, dtype=np.float32):
+        """[S, 3] (recip, duration, value) and the [S] shape codes."""
+        segs = np.asarray([[1.0 / s.duration, s.duration, s.value]
+                           for s in self.segments], dtype)
+        return segs, np.asarray([s.shape for s in self.segments], np.int64)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {
+            "running": torch.zeros((), dtype=torch.bool, device=device),
+            "seg": torch.zeros((), dtype=torch.int32, device=device),
+            "time": torch.zeros((), dtype=ctx.dtype, device=device),
+            "from_value": torch.full((), self.start_value, dtype=ctx.dtype, device=device),
+            # the last jump_to_segment value: the set detection without a mask
+            "last_jump": torch.zeros((), dtype=torch.int32, device=device),
+        }
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        dtype = ctx.dtype
+        device = state["time"].device
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        segs_np, shapes_np = self.segment_table(np_dtype)
+        segs = torch.from_numpy(segs_np).to(device)
+        shapes = torch.from_numpy(shapes_np).to(device)
+        n_seg = segs.shape[0]
+        base_scale = torch.tensor(np_dtype(1.0 / ctx.sample_rate), device=device)
+        start = const(self.start_value, state["time"])
+        zero = const(0.0, state["time"])
+        jump_set = params.get("jump_to_segment_set")
+        running, seg_i, t = state["running"], state["seg"], state["time"]
+        from_v, last_jump = state["from_value"], state["last_jump"]
+        outs, dones = [], []
+        for i in range(ctx.block_size):
+            jump_in = params["jump_to_segment"][..., i]
+            jump = jump_in.clamp(0, n_seg - 1)
+            do_jump = jump_in != last_jump if jump_set is None else jump_set[..., i]
+            last_jump = jump_in
+            seg_i = torch.where(do_jump, jump, seg_i)
+            t = torch.where(do_jump, zero, t)
+            running = running | do_jump
+            restart = params["t_restart"][..., i]
+            seg_i = torch.where(restart, 0, seg_i).to(torch.int32)
+            t = torch.where(restart, zero, t)
+            from_v = torch.where(restart, start, from_v)
+            running = running | restart
+            # t_stop freezes at the current value
+            idx = seg_i.long()
+            recip, dur, val = segs[idx, 0], segs[idx, 1], segs[idx, 2]
+            shape = shapes[idx]
+            cur = _segment_value(shape, from_v, val, t * recip)
+            stop = params["t_stop"][..., i]
+            from_v = torch.where(stop & running, cur, from_v)
+            running = running & ~stop
+            # the sample (envelopes.rs Envelope::process); a stop leaves the
+            # output at from_v, so cur is the running value
+            dt = params["time_scale"][..., i] * base_scale
+            in_seg = t < dur
+            has_next = seg_i + 1 < n_seg
+            outs.append(torch.where(running, torch.where(in_seg, cur, val), from_v))
+            adv = running & ~in_seg & has_next
+            fin = running & ~in_seg & ~has_next
+            from_v = torch.where(adv | fin, val, from_v)
+            t = torch.where(running & in_seg, t + dt, torch.where(adv, t - dur + dt, t))
+            seg_i = torch.where(adv, seg_i + 1, seg_i)
+            if self.looping:
+                seg_i = torch.where(fin, 0, seg_i)
+                t = torch.where(fin, zero, t)
+                dones.append(torch.zeros_like(fin))
+            else:
+                running = running & ~fin
+                dones.append(fin)
+            seg_i = seg_i.to(torch.int32)
+        new_state = {"running": running, "seg": seg_i, "time": t, "from_value": from_v,
+                     "last_jump": last_jump.to(torch.int32)}
+        out = torch.stack(outs, dim=-1)
+        return new_state, out.unsqueeze(-2), torch.stack(dones, dim=-1)

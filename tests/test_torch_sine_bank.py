@@ -72,11 +72,13 @@ def assert_state(sj, st, label):
             np.testing.assert_array_equal(b[k], a[k], err_msg=f"{label}: {k}")
 
 
-def lockstep(pb, fb, B, blocks, patch_state=None, mix_atol=MIX_ATOL):
+def lockstep(pb, fb, B, blocks, patch_state=None, mix_atol=MIX_ATOL,
+             compiler_options=NO_FMA):
     """Run a JAX bank ``pb`` and the port's ``fb`` over ``blocks`` (each an
     event list, ``"empty"`` for an empty event tensor, or None for an
-    event-free block), asserting mix and state parity per block. Returns
-    the port's mixes and state."""
+    event-free block), asserting mix and state parity per block, the JAX
+    side jitted with ``compiler_options``. Returns the port's mixes and
+    state."""
     ctx, tctx = AudioCtx(SR, B, np.float32), ktt.AudioCtx(SR, B)
     sj = {k: np.asarray(v) for k, v in pb.init(ctx).items()}
     if patch_state is not None:
@@ -85,7 +87,7 @@ def lockstep(pb, fb, B, blocks, patch_state=None, mix_atol=MIX_ATOL):
     no_in = np.zeros((0, B), np.float32)
     jax_process = jax.jit(
         lambda s, e: pb.process(ctx, s, no_in, {}, events=e)[:2],
-        compiler_options=NO_FMA)
+        compiler_options=compiler_options)
     mixes = []
     for blk, evs in enumerate(blocks):
         if evs is None:
