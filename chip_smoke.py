@@ -41,9 +41,16 @@ result line):
    cascade, at B in {16, 64, 1024} and at the longest superblock, from the
    graph's state and from edge states (frames within 2^10 of 2^32 under
    the seed 2^32 - 1; rings written up to L - 1, delays 0, L - 1, beyond L
-   and a per-sample ramp). Then the chain kernel with its rows in the
-   global workspace on the FM, Phasor and SinNumeric cascades at 128 x 64
-   and 128 x 1024 samples. All bit-equal. Then the generic harness's
+   and a per-sample ramp). Every chain path is held in the layout
+   ``launch_plan`` picks (one CTA, a thread-block cluster, the global
+   workspace), at the longest superblock also under every cluster size
+   the card can take, and at NPOT_LEN = 6144 samples, whose cluster chunks
+   are not a power of two. Then the chain kernel with its rows forced into
+   the global workspace, and in its planned and forced layouts, on the FM,
+   Phasor and SinNumeric cascades at 128 x 64 and 128 x 1024 samples, and
+   on the FM cascade at 61 and 8191 samples (rows no bulk copy takes); a
+   cluster of 32 CTAs must be refused by name. All bit-equal. Then the
+   generic harness's
    Envelope body (a four-shape table, looping and not, V in {1000,
    131072}) and Modal body (the bell, bar and string presets, M = 12, 6
    and 16, V in {1000, 65536}) at B = 64 over four blocks and at B = 1024
@@ -115,12 +122,13 @@ result line):
    (fm_cascade at N = 256, the chain kernel on the FM cascade,
    ``polyblep_cascade``, ``graphic_eq_31``, ``phasor_cascade`` and
    ``sin_numeric_cascade``, the noise chain, the echo chain and the
-   SampleDelay cascade): kernel ms (the FM cascade's at B = 64 against its
-   recorded time, and at the superblock length with its rows in shared
-   memory and in the global workspace), and at the superblock length the
+   SampleDelay cascade): kernel ms and the layout each launch took, beside
+   the parent design's ms from one call on the card (PARENT_CHAIN_MS; the
+   FM cascade's at the superblock length also with its rows in the global
+   workspace), and at the superblock length the
    profiler's device time and plain ms. Every kernel row carries its bound (the larger of its bytes
-   over HBM bandwidth and its f32 operations over the FP32 peak), at the
-   superblock length.
+   over HBM bandwidth and its f32 operations over the unfused f32 peak),
+   at the superblock length.
 
 The last lines are the kernel table (JSON), the card's ``name,
 power.limit`` and ``{"ok": true, "device": {...}}``.
@@ -159,12 +167,17 @@ STAGE_BLOCKS = (16, 64, 1024)  # the block sizes the chain kernel is held and ti
 CHUNK = 128  # AudioProcessorOptions.render_chunk_blocks: the longest superblock, in blocks
 WARM_BLOCKS = 4  # blocks rendered before a timed graph render: they carry the param sets
 
-# The card's peaks for the bound (NVIDIA's H100 SXM data sheet): HBM bytes/s and FP32 operations/s outside
-# the tensor cores. A bound is the larger of bytes over the one and
+# The card's peaks for the bound: HBM bytes/s (NVIDIA's H100 SXM data
+# sheet) and the f32 operations/s these kernels can reach. The data sheet's
+# 67 TFLOP/s outside the tensor cores counts a fused multiply-add as two
+# operations; every kernel here is built with --fmad=false (each product
+# and sum rounds on its own, as the plain versions do), so its operations
+# issue one at a time: 132 SMs x 128 f32 lanes x 1.98 GHz = 33.5e12 a
+# second at most. A bound is the larger of bytes over the one and
 # operations over the other, each input byte read once and each output
 # written once.
 HBM_BYTES_S = 3.35e12
-FP32_OPS_S = 67e12
+FP32_OPS_S = 33.5e12
 # f32 operations a kernel does per voice-sample (banks) or per stage-sample
 # (fm_cascade), counted from each kernel's per-sample arithmetic with every
 # add, multiply, divide, compare-select and transcendental call as one
@@ -1029,15 +1042,19 @@ def edge_operands(torch, np, kck, program, ops, B, seed):
     return dict(ops, state=state, planes=planes)
 
 
-def compare_chain(torch, kck, program, run, where, global_rows=None):
+def compare_chain(torch, kck, program, run, where, global_rows=False, cluster=None,
+                  plain=None):
     """Kernel against plain on one set of operands: outputs, state words and
     done rows bit-equal. ``global_rows=True`` launches the kernel with its
-    rows in the global workspace whatever their length. Returns (max
+    rows in the global workspace whatever their length, ``cluster`` with
+    that cluster size (``kck.launch_plan``); ``plain`` is the plain
+    version's result on ``run`` when the caller has it. Returns (max
     |output difference|, the kernel's done rows)."""
     outs = kck.empty_outputs(program, run["state"].device, run["K"], run["block_size"])
-    kck.launch(outs, program, global_rows=global_rows, **run)
+    plan = kck.launch(outs, program, global_rows=global_rows, cluster=cluster, **run)
+    where = f"{where} ({plan.layout}, cluster {plan.cluster})"
     ok, sk, dk = outs
-    op, sp, dp = kck.chain_kernel_plain(program, **run)
+    op, sp, dp = plain if plain is not None else kck.chain_kernel_plain(program, **run)
     torch.cuda.synchronize()
     err = float((ok - op).abs().max()) if ok.numel() else 0.0
     if not torch.equal(sk, sp):
@@ -1054,6 +1071,38 @@ def compare_chain(torch, kck, program, run, where, global_rows=None):
     return err, dk
 
 
+# 96 blocks of 64: a launch whose cluster chunks (768 samples at C = 8) are
+# not a power of two
+NPOT_LEN = 96 * BLOCK
+
+
+def forced_clusters(kck, program, B, device):
+    """Every cluster size ``kck.launch_plan`` can take at B on the card: 1
+    (one CTA, shared rows) where the rows fit one CTA, then
+    ``kck.cluster_sizes`` up to the card's largest cluster."""
+    one = [1] if kck.smem_bytes(program, B, 0) <= kck.SMEM_LIMIT else []
+    return one + kck.cluster_sizes(program, B, kck.card_max_cluster(kck._load(), device))
+
+
+def compare_layouts(torch, kck, program, run, where, forced=False):
+    """``compare_chain`` under the layout ``kck.launch_plan`` picks and,
+    with ``forced``, under every cluster size it can pick (one plain run
+    for all). Returns (max |output difference|, the plan's done rows, the
+    layouts compared)."""
+    plain = kck.chain_kernel_plain(program, **run)
+    err, dk = compare_chain(torch, kck, program, run, where, plain=plain)
+    B, device = run["block_size"], run["state"].device
+    plan = kck.launch_plan(program, B, run["K"],
+                           max_cluster=kck.card_max_cluster(kck._load(), device))
+    seen = [f"{plan.layout} {plan.cluster}"]
+    if forced:
+        for C in forced_clusters(kck, program, B, device):
+            err = max(err, compare_chain(torch, kck, program, run, f"{where} forced",
+                                         cluster=C, plain=plain)[0])
+            seen.append(f"C={C}")
+    return err, dk, seen
+
+
 def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS, paths=None):
     """The chain kernel against its plain version on the lowered programs of
     the subtractive slice's chains (or of ``paths``), at every B and at the
@@ -1066,9 +1115,11 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS, 
     for name, build in (paths or chain_paths(kt)).items():
         if names is not None and name not in names:
             continue
-        dones, errs[name] = 0, 0.0
-        # and at the longest superblock the path's render takes
-        for B in Bs + (superblock_len(kt, dev, build)[0],):
+        dones, errs[name], layouts = 0, 0.0, set()
+        # and at the longest superblock the path's render takes (under
+        # every cluster size too) and at NPOT_LEN
+        sb = superblock_len(kt, dev, build)[0]
+        for B in Bs + (sb, NPOT_LEN):
             g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
                                             device=dev)
             g.edit(lambda gg: build(kt, gg))
@@ -1078,14 +1129,17 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS, 
             for label, run in (("graph state", ops),
                                ("edge state", edge_operands(torch, np, kck, program, ops, B,
                                                             B + program.n_state))):
-                err, dk = compare_chain(torch, kck, program, run,
-                                        f"chain_kernel {name} B={B} {label}")
+                err, dk, seen = compare_layouts(torch, kck, program, run,
+                                                f"chain_kernel {name} B={B} {label}",
+                                                forced=B == sb)
                 errs[name] = max(errs[name], err)
                 dones += int(dk.sum())
+                layouts.update(seen)
         bodies = sorted({r[0].name for r in program.records()})
         print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
-              f"bodies {bodies}, {program.n_done} done planes) B={Bs} and {B}: state, "
-              f"outputs and done rows bit-equal; {dones} done samples compared set")
+              f"bodies {bodies}, {program.n_done} done planes) B={Bs}, {sb} and {NPOT_LEN} "
+              f"(layouts {sorted(layouts)}): state, outputs and done rows bit-equal; "
+              f"{dones} done samples compared set")
         if program.n_done and not dones:
             fail(f"chain_kernel {name}: no done row was set in any compared block")
     return errs
@@ -1121,8 +1175,8 @@ def phase_float_osc_vs_plain(torch, np, kt, dev):
     errs, lengths = {}, {}
     for name, build in float_osc_paths(kt).items():
         sb, _cap = superblock_len(kt, dev, build)
-        lengths[name], errs[name] = sb, 0.0
-        Bs = STAGE_BLOCKS + (sb,)
+        lengths[name], errs[name], layouts = sb, 0.0, set()
+        Bs = STAGE_BLOCKS + (sb, NPOT_LEN)
         for B in Bs:
             g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
                                             device=dev)
@@ -1132,12 +1186,15 @@ def phase_float_osc_vs_plain(torch, np, kt, dev):
             for label, run in (("graph state", ops),
                                ("phases at the wrap",
                                 edge_operands(torch, np, kck, program, ops, B, B + 1))):
-                err, _ = compare_chain(torch, kck, program, run,
-                                       f"chain_kernel {name} B={B} {label}")
+                err, _, seen = compare_layouts(torch, kck, program, run,
+                                               f"chain_kernel {name} B={B} {label}",
+                                               forced=B == sb)
                 errs[name] = max(errs[name], err)
+                layouts.update(seen)
         print(f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}, "
               f"bodies {sorted({r[0].name for r in program.records()})}) B={Bs} (the "
-              f"longest superblock {sb}): state and outputs bit-equal")
+              f"longest superblock {sb}; layouts {sorted(layouts)}): state and outputs "
+              "bit-equal")
     return errs, lengths
 
 
@@ -1314,14 +1371,28 @@ def tile_operands(torch, ops, n):
 GLOBAL_ROW_LENGTHS = (CHUNK * BLOCK, CHUNK * 1024)
 
 
+def slice_operands(ops, n):
+    """A captured chain block's operands cut to its first ``n`` samples."""
+    return dict(ops, planes=ops["planes"][..., :n].contiguous(),
+                rows=ops["rows"][:, :n].contiguous(), block_size=n)
+
+
+# a cluster no card schedules: past the non-portable 16
+REFUSED_CLUSTER = 32
+
+
 def phase_global_rows_vs_plain(torch, np, kt, dev, card):
-    """The chain kernel's global-row path against the plain version on the
-    256-stage FM cascade and on the Phasor and SinNumeric cascades, their
-    programs captured at B = 64 and their operands stretched to 128 x 64 and
-    128 x 1024 samples, from the graph's state and from phases near the
-    wrap: state words and outputs bit-equal. Prints which lengths keep
-    their rows in shared memory, and the FM cascade's time at the longer
-    one. Returns {path: max |output difference|}."""
+    """The chain kernel's layouts against the plain version on the 256-stage
+    FM cascade and on the Phasor and SinNumeric cascades, their programs
+    captured at B = 64 and their operands stretched to 128 x 64 and 128 x
+    1024 samples, from the graph's state and from phases near the wrap:
+    with its rows forced into the global workspace, under the layout
+    ``launch_plan`` picks and, at 128 x 64, under every cluster size; the
+    FM cascade also at 61 and 8191 samples (rows a bulk copy cannot take,
+    and no cluster at 8191). State words and outputs bit-equal. A cluster
+    of REFUSED_CLUSTER CTAs must raise by name. Prints each length's plan
+    and the FM cascade's time at the longer one. Returns {path: max |output
+    difference|}."""
     kck = stage_module("chain_kernel")
     paths = {"fm_cascade": lambda kt_, gg: build_cascade(kt_, gg, CASCADE),
              **float_osc_paths(kt)}
@@ -1335,16 +1406,38 @@ def phase_global_rows_vs_plain(torch, np, kt, dev, card):
         edge = edge_operands(torch, np, kck, program, ops, BLOCK, 3)
         errs[name], placed = 0.0, []
         for n in GLOBAL_ROW_LENGTHS:
+            layouts = set()
             for label, run in (("graph state", ops), ("edge state", edge)):
                 run = tile_operands(torch, run, n // BLOCK)
+                where = f"chain_kernel {name} {n} samples {label}"
+                plain = kck.chain_kernel_plain(program, **run)
                 errs[name] = max(errs[name], compare_chain(
-                    torch, kck, program, run, f"chain_kernel {name} {n} samples {label}",
-                    global_rows=True)[0])
-            placed.append(f"{n}: {'shared' if kck.rows_in_shared(program, n) else 'global'}")
-        line = (f"kernel vs plain chain_kernel global rows {name} (K={ops['K']}, "
-                f"p={program.period}) at {GLOBAL_ROW_LENGTHS}: state and outputs bit-equal; "
-                f"the default placement {', '.join(placed)}")
+                    torch, kck, program, run, where, global_rows=True, plain=plain)[0])
+                err, _, seen = compare_layouts(torch, kck, program, run, where,
+                                               forced=n == CHUNK * BLOCK)
+                errs[name] = max(errs[name], err)
+                layouts.update(seen)
+            placed.append(f"{n}: {sorted(layouts)}")
+        line = (f"kernel vs plain chain_kernel {name} (K={ops['K']}, p={program.period}) at "
+                f"{GLOBAL_ROW_LENGTHS}, global rows and {'; '.join(placed)}: state and "
+                "outputs bit-equal")
         if name == "fm_cascade":
+            for n in (61, CHUNK * BLOCK - 1):
+                for label, run in (("graph state", ops), ("edge state", edge)):
+                    run = slice_operands(tile_operands(torch, run, CHUNK), n)
+                    errs[name] = max(errs[name], compare_layouts(
+                        torch, kck, program, run, f"chain_kernel {name} {n} samples {label}")[0])
+            line += "; at 61 and 8191 samples too"
+            run = tile_operands(torch, ops, CHUNK)
+            outs = kck.empty_outputs(program, dev, run["K"], run["block_size"])
+            try:
+                kck.launch(outs, program, cluster=REFUSED_CLUSTER, **run)
+                torch.cuda.synchronize()
+                fail(f"chain_kernel: a cluster of {REFUSED_CLUSTER} launched")
+            except RuntimeError as e:
+                if "cudaError" not in str(e):
+                    fail(f"chain_kernel: a refused cluster raised without its name: {e}")
+                line += f"; a cluster of {REFUSED_CLUSTER} refused: {str(e)[:160]}"
             run = tile_operands(torch, ops, GLOBAL_ROW_LENGTHS[1] // BLOCK)
             outs = kck.empty_outputs(program, dev, run["K"], run["block_size"])
             ms = time_call(torch, lambda: kck.launch(outs, program, **run), 5)
@@ -2088,10 +2181,29 @@ def device_ms(torch, fn, name, n=50):
     return us / n / 1000.0 if us else None
 
 
-# the FM cascade's chain_kernel_small at B = 64 on an H100 at 700 W before
-# the SinNumeric and Phasor bodies joined chain_kernel_all (PERF.md §6):
-# those bodies are to leave it unchanged
-REF_FM_CHAIN_MS = 0.6820
+# The parent design's chain kernel (one CTA interpreting the program from
+# device memory, rows in shared memory or the global workspace): CUDA events
+# over back-to-back launch() calls of the parent commit's tree on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, {path: {B: ms}} (PERF.md §6; a comparison of
+# the two trees in one call is tools/time_chain_kernel.py's)
+PARENT_CHAIN_MS = {
+    "fm_cascade": {16: 0.6992, 64: 0.6818, 1024: 1.0189, 8192: 5.0978},
+    "polyblep_cascade": {16: 0.8814, 64: 0.8472, 1024: 1.2922, 8192: 6.0843},
+    "sin_numeric_cascade": {16: 0.8286, 64: 0.9218, 1024: 1.7715, 8192: 7.2922},
+    "graphic_eq_31": {16: 0.1098, 64: 0.1122, 1024: 0.2954, 8192: 2.9573},
+    "sample_delay_cascade": {16: 1.1738, 64: 0.7513, 1024: 0.622, 8192: 1.5952},
+    "phasor_cascade": {16: 0.044, 64: 0.0436, 1024: 0.0758, 8192: 0.2625},
+    "noise_chain": {16: 0.0423, 64: 0.0357, 1024: 0.0811, 8192: 0.5397},
+    "echo_chain": {16: 0.0303, 64: 0.043, 1024: 0.0427, 8192: 0.1101},
+    "env_ar_chain": {16: 0.0309, 64: 0.0318, 1024: 0.0559, 8192: 0.2458},
+    "onepole_chain": {16: 0.0414, 64: 0.0473, 1024: 0.0773, 8192: 0.3963},
+}
+
+
+def against_parent(path, B, ms):
+    """`` (x.xx the parent's y ms)`` where the parent was timed at B."""
+    ref = PARENT_CHAIN_MS.get(path, {}).get(B)
+    return f" ({ms / ref:.3f}x the parent's {ref:.4f} ms)" if ref else ""
 
 
 def phase_stage_timings(torch, np, kt, dev, card):
@@ -2100,7 +2212,7 @@ def phase_stage_timings(torch, np, kt, dev, card):
     longest superblock of a B = 64 render (CHUNK * BLOCK), there with the
     profiler's device ms, the plain ms and the bound; the 256-stage graph
     cascade gives the chain kernel K = 255 (its first sine heads the
-    chain). Prints the chain kernel's B = 64 time against REF_FM_CHAIN_MS. Returns
+    chain). Prints the chain kernel's time against the parent's (PARENT_CHAIN_MS). Returns
     {kernel: (ms, plain_ms, bound_ms, bound_by)} at the superblock length,
     the length the slices' renders launch them at."""
     f2pi, scale = stage_consts(np)
@@ -2122,9 +2234,7 @@ def phase_stage_timings(torch, np, kt, dev, card):
         ch_ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
         line = (f"timing B={B} on {card}: fm_cascade N={CASCADE} kernel {fm_ms:.4f} ms, "
                 f"chain_kernel K={cops['K']} p={program.period} kernel {ch_ms:.4f} ms")
-        if B == BLOCK:
-            line += (f" ({100 * (ch_ms / REF_FM_CHAIN_MS - 1):+.2f}% against the recorded "
-                     f"{REF_FM_CHAIN_MS} ms)")
+        line += against_parent("fm_cascade", B, ch_ms)
         if B == sb:
             # the same launch with its rows in the global workspace
             gl_ms = time_call(
@@ -2193,9 +2303,11 @@ def phase_chain_path_timings(torch, kt, dev, card, paths):
             g.edit(lambda gg: build(kt, gg))
             program, cops = capture_chain(torch, proc)
             outs = kck.empty_outputs(program, dev, cops["K"], B)
+            plan = kck.launch(outs, program, **cops)
             ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
             b_ms, b_by = chain_bound(program, cops)
-            line.append(f"B={B} {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})")
+            line.append(f"B={B} {plan.layout} {plan.cluster} {ms:.4f} ms"
+                        + against_parent(name, B, ms) + f" (bound {b_ms:.5f} ms, {b_by})")
             if B == sb:
                 dev_ms = device_ms(torch, lambda: kck.launch(outs, program, **cops),
                                    "chain_kernel")

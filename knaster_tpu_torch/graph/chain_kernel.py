@@ -2,10 +2,13 @@
 
 The chain-collapse pass (compile._find_chains) runs K isomorphic units as a
 loop over the stage axis. On a card that loop runs as one launch of the CUDA
-kernel in ``csrc/chain_kernel.cu``: the carried block rows stay in shared
-memory across the stages, per-stage params are rows of the stacked [K, B]
-planes, and per-stage state (phases, filter and envelope state) is read and
-written by stage index, one 32-bit word per value. The kernel is generic:
+kernel in ``csrc/chain_kernel.cu``: the carried block rows stay on chip
+across the stages (one CTA's shared memory for short blocks, a
+thread-block cluster's for superblocks, a global workspace only past
+that: ``kernels/chain_kernel.py launch_plan``), per-stage params are rows
+of the stacked [K, B] planes, staged into shared memory a stage ahead, and
+per-stage state (phases, filter and envelope state) is read and written by
+stage index, one 32-bit word per value. The kernel is generic:
 ``lower`` turns a ``ChainPlan`` into a small int32 program once per compile
 (no code is generated per graph, so an edit never waits for a compiler),
 and ``run`` launches it per block. Done-capable units (the envelopes) write
@@ -13,8 +16,8 @@ a done row per stage, which ``run`` hands back as the JAX package's does.
 
 UGens opt in with ``UGen.kernel_stage``. Only the event-free fast program
 uses this path, at the native block and at every superblock length the
-graph's partition takes (rows beyond shared memory go to a global
-workspace: ``kernels/chain_kernel.py``); eventful blocks keep the scan
+graph's partition takes (rows beyond a cluster's shared memory go to a
+global workspace: ``kernels/chain_kernel.py``); eventful blocks keep the scan
 executor, as in the JAX package. ``run`` returns None, and the scan
 executor runs, exactly where the JAX package's does: f64 graphs, a unit
 with no body (``SinWt(lookup=True)``, Math ``pow``, Math1

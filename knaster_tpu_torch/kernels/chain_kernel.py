@@ -32,11 +32,19 @@ the SVF filter type) reach the kernel in the f32 param planes: a whole number be
 select as the int would (clamped to the last waveform, equal to no filter
 type).
 
-What bounds it on an H100: K*p dependent bodies on one SM; see the kernel
-source. The slot, carry and scan-scratch rows live in shared memory when
-they fit in ``SMEM_LIMIT`` and in a global workspace the wrapper allocates
-when they do not (``rows_in_shared``), so every superblock length runs the
-kernel.
+What bounds it on an H100: K*p dependent bodies, each a few instructions
+a sample plus, for the scan bodies, log2(B) barrier-separated steps; see
+the kernel source. ``launch_plan`` chooses, before each launch, where the
+slot, carry and scan-scratch rows live: in one CTA's shared memory for
+short blocks (``layout`` "shared"); over a thread-block cluster of up to
+16 CTAs on neighbouring SMs, each holding a contiguous chunk of the
+samples in its own shared memory, for superblock lengths ("cluster", up to
+C * ``SMEM_LIMIT`` bytes of rows); and in a global workspace the wrapper
+allocates only for rows past what a cluster holds ("global"). It also
+chooses how the param planes and the state words reach the stage loop
+(``staging``): one CTA copies every stage's into shared memory before the
+loop where they fit, a cluster running a long chain copies stage k + 1's
+during stage k, and the rest read them from device memory each stage.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run ``chain_kernel_plain``. Nothing falls back.
@@ -58,16 +66,29 @@ KERNEL = "chain_kernel"
 # kernel launches since import (or since a caller reset it)
 LAUNCHES = 0
 
-ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
+ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 \
     + [ctypes.c_void_p] * 2
 
 HEADER = 8
 RECORD = 10
 SRC_SLOT, SRC_CARRY, SRC_ROW, SRC_PLANE = 0, 1, 2, 3
-# shared memory a block can hold, less the kernel's static 64 words: rows
-# beyond it go to a global workspace
+# dynamic shared memory a block can take on an H100 (232,448 bytes), less
+# the kernel's static 64 words
 SMEM_LIMIT = 227 * 1024 - 256
-
+LAYOUTS = ("shared", "cluster", "global")  # csrc/chain_kernel.cu kLayout*
+STAGINGS = ("ring", "whole", "direct")    # csrc/chain_kernel.cu kStage*
+PORTABLE_CLUSTER = 8  # the largest cluster every Hopper card schedules
+MAX_CLUSTER = 16      # the largest, where the card allows a non-portable one
+# Chosen on an H100 from forced layouts (PERF.md §6): one CTA up to
+# SHARED_SAMPLES samples (at 1024 it beat every cluster but on the FM and
+# PolyBlep cascades, by under 5% there), and past that a cluster of CTAs of
+# at most CLUSTER_CHUNK samples (a cluster of 16 was the fastest at 8192)
+SHARED_SAMPLES = 1024
+CLUSTER_CHUNK = 512
+# a cluster stages params two stages ahead only for chains this long: there
+# the ring beat reading them from device memory by 1-2% at 8192 samples, and
+# lost 1-5% on the chains of 8-11 stages (PERF.md §6)
+RING_STAGES = 128
 
 @dataclass(frozen=True)
 class Body:
@@ -255,6 +276,7 @@ class ChainProgram:
     words: Tuple[int, ...]
     n_planes: int  # planes the program reads (1 + the largest plane index)
     _device: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
+    _plans: Dict[Tuple, "LaunchPlan"] = field(default_factory=dict, repr=False)
 
     @property
     def period(self):
@@ -287,6 +309,12 @@ class ChainProgram:
     @property
     def n_scratch(self):
         return self.words[7]
+
+    @cached_property
+    def has_ring(self) -> bool:
+        """Whether a body of the program keeps a ring of state words
+        (SampleDelay)."""
+        return any(rec[0].ring for rec in self.records())
 
     @cached_property
     def all_bodies(self) -> bool:
@@ -379,25 +407,213 @@ def empty_outputs(program, device, K, block_size):
 
 
 def row_floats(program, block_size) -> int:
-    """The floats of the kernel's rows at ``block_size``: a slot per output
-    channel, the carry rows and the bodies' scan scratch, B each."""
+    """The floats of the kernel's rows at ``block_size``: a row per slot
+    (two for a carried slot, one per stage parity) and the bodies' scan
+    scratch, B each."""
     return (program.n_slots + program.n_carry + program.n_scratch) * int(block_size)
 
 
-def rows_in_shared(program, block_size) -> bool:
-    """Whether a launch at ``block_size`` keeps its rows in shared memory
-    (else in a global workspace)."""
-    return 4 * row_floats(program, block_size) <= SMEM_LIMIT
+def _round4(n):
+    return (n + 3) // 4 * 4
+
+
+def scalar_words(program) -> int:
+    """The state words a stage of the program reads besides SampleDelay's
+    rings: what the kernel prefetches for each stage."""
+    return sum(rec[0].n_words for rec in program.records())
+
+
+def smem_bytes(program, chunk, staged, global_rows=False, depth=2) -> int:
+    """The dynamic shared memory a CTA of the kernel takes for ``chunk``
+    samples with ``staged`` param planes staged ahead, ``depth`` stages at
+    a time (2, or K when every stage is staged before the loop; the layout
+    at the head of ``run_chain`` in csrc/chain_kernel.cu): the descriptors,
+    the program, two mbarriers, the exchange slots, the rows (none with
+    ``global_rows``), the staged rows, the scalar words of ``depth`` stages,
+    the record headers, the words' state rows, the list of records the
+    stage loop runs, the slots' forwarded sources and the records' word
+    counts and skip flags."""
+    n_prog, cs, n_words = len(program.words), _round4(int(chunk)), scalar_words(program)
+    rows = 0 if global_rows else 4 * (row_floats(program, 1)) * cs
+    return (16 * n_prog + 4 * _round4(n_prog) + 16 + 256 + rows + 4 * staged * depth * cs
+            + 4 * _round4(depth * n_words) + 48 * program.period + 4 * _round4(n_words)
+            + 4 * _round4(program.period) + 4 * _round4(2 * program.n_slots)
+            + 4 * _round4(2 * program.period))
+
+
+def stage_threads(n) -> int:
+    """Threads of a CTA for ``n`` samples: whole warps, at most 1024
+    (csrc/stage_scan.cuh stage_threads)."""
+    return min(1024, (int(n) + 31) // 32 * 32)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """Where a launch keeps its rows (``layout``, one of ``LAYOUTS``), the
+    CTAs of its cluster (1 but for "cluster"), the samples of each (``chunk``
+    = B / cluster), its threads a CTA, its dynamic shared memory a CTA, the
+    param planes it stages, and how (``staging``, one of ``STAGINGS``):
+    every stage's planes and words before the stage loop ("whole"), two
+    stages at a time ("ring"), or none, each stage reading its words and
+    planes from device memory ("direct")."""
+
+    layout: str
+    cluster: int
+    chunk: int
+    threads: int
+    smem_bytes: int
+    staged: int
+    staging: str
+
+
+def _plan(program, B, K, layout, C):
+    """The staging of a layout, as measured fastest on an H100 (PERF.md §6):
+    one CTA stages every stage's words and as many planes' every stage as
+    fit beside the rows, before the stage loop, where at least one plane
+    fits (or the program has none); a cluster stages as many planes as fit
+    two stages at a time for chains of RING_STAGES or more; everything else,
+    and any program with a SampleDelay ring (whose long cascade ran 15-37%
+    slower staged), reads its words and planes from device memory."""
+    chunk, on_global = B // C, layout == "global"
+    threads = stage_threads(chunk)
+    fixed = smem_bytes(program, chunk, 0, on_global)
+    direct = LaunchPlan(layout, C, chunk, threads, fixed, 0, "direct")
+    if program.has_ring:
+        return direct
+    if C == 1:
+        words = smem_bytes(program, chunk, 0, on_global, depth=K)
+        per_plane = 4 * K * _round4(chunk)
+        staged = min(program.n_planes, max(0, SMEM_LIMIT - words) // per_plane)
+        if words <= SMEM_LIMIT and (staged or not program.n_planes):
+            return LaunchPlan(layout, C, chunk, threads, words + per_plane * staged, staged,
+                              "whole")
+        return direct
+    if K < RING_STAGES:
+        return direct
+    per_plane = 8 * _round4(chunk)
+    staged = min(program.n_planes, max(0, SMEM_LIMIT - fixed) // per_plane)
+    return LaunchPlan(layout, C, chunk, threads, fixed + per_plane * staged, staged, "ring")
+
+
+def cluster_sizes(program, block_size, max_cluster=MAX_CLUSTER):
+    """The cluster sizes a launch at ``block_size`` can take, smallest
+    first: C up to ``max_cluster`` (2 or more) that split B into chunks of a
+    multiple of 32 samples whose rows fit a CTA's shared memory."""
+    B = int(block_size)
+    return [C for C in range(2, max_cluster + 1)
+            if B % C == 0 and (B // C) % 32 == 0
+            and smem_bytes(program, B // C, 0) <= SMEM_LIMIT]
+
+
+def launch_plan(program, block_size, K, *, cluster=None, global_rows=False,
+                max_cluster=MAX_CLUSTER) -> LaunchPlan:
+    """The layout of a launch of K stages at ``block_size``, chosen before
+    it.
+
+    One CTA with its rows in shared memory where B is at most
+    ``SHARED_SAMPLES`` and the rows fit; else a cluster: the smallest power
+    of two C (up to ``max_cluster``) with B / C at most ``CLUSTER_CHUNK``, or
+    past that the smallest C of ``cluster_sizes`` whose rows fit; else, only
+    when no cluster holds the rows, one CTA with its rows in the global
+    workspace. ``cluster`` forces a cluster size (1: one CTA with shared
+    rows) and ``global_rows`` the workspace; a forced layout that cannot
+    hold the rows raises ValueError. The layout does not depend on K; the
+    staging does (``_plan``)."""
+    B, K = int(block_size), int(K)
+    key = (B, K, cluster, bool(global_rows), max_cluster)
+    plan = program._plans.get(key)
+    if plan is None:
+        plan = program._plans[key] = _choose(program, B, K, cluster, global_rows,
+                                             max_cluster)
+    return plan
+
+
+def _choose(program, B, K, cluster, global_rows, max_cluster):
+    if B < 1:
+        raise ValueError(f"{KERNEL}: block_size must be at least 1, got {B}")
+    if global_rows:
+        if cluster not in (None, 1):
+            raise ValueError(f"{KERNEL}: global rows take one CTA, not a cluster of {cluster}")
+        return _plan(program, B, K, "global", 1)
+    if cluster is not None:
+        C = int(cluster)
+        if C == 1 and smem_bytes(program, B, 0) <= SMEM_LIMIT:
+            return _plan(program, B, K, "shared", 1)
+        if C > 1 and C in cluster_sizes(program, B, max(C, max_cluster)):
+            return _plan(program, B, K, "cluster", C)
+        raise ValueError(f"{KERNEL}: a cluster of {C} cannot hold the rows of "
+                         f"{B} samples ({row_floats(program, B)} floats)")
+    if B <= SHARED_SAMPLES and smem_bytes(program, B, 0) <= SMEM_LIMIT:
+        return _plan(program, B, K, "shared", 1)
+    sizes = cluster_sizes(program, B, max_cluster)
+    want = 2
+    while B // want > CLUSTER_CHUNK and want < max_cluster:
+        want *= 2
+    if sizes:
+        # the smallest power of two from `want` on, else the smallest that fits
+        C = min(sizes, key=lambda c: (c < want or c & (c - 1) != 0, c))
+        return _plan(program, B, K, "cluster", C)
+    return _plan(program, B, K, "global", 1)
+
+
+def rows_in_shared(program, block_size, max_cluster=MAX_CLUSTER) -> bool:
+    """Whether a launch at ``block_size`` keeps its rows in shared memory,
+    one CTA's or a cluster's (else in a global workspace)."""
+    return launch_plan(program, block_size, 1, max_cluster=max_cluster).layout != "global"
+
+
+_MAX_CLUSTER = {}
+
+
+def card_max_cluster(lib, device) -> int:
+    """The largest cluster ``launch_plan`` may take on ``device``'s card:
+    ``MAX_CLUSTER`` where the card can hold a non-portable cluster that
+    large, else ``PORTABLE_CLUSTER`` (asked once per device)."""
+    key = device.index
+    if key not in _MAX_CLUSTER:
+        got = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.ktt_chain_max_cluster(SMEM_LIMIT, ctypes.byref(got))
+        bc.raise_on_error(KERNEL, lib, err)
+        _MAX_CLUSTER[key] = got.value
+    return _MAX_CLUSTER[key]
+
+
+_LIB = []
+
+
+def _load():
+    """The kernel library, its extra entry points declared (once)."""
+    if not _LIB:
+        from .build import load_library
+
+        lib = load_library(KERNEL)
+        lib.ktt_chain_max_cluster.restype = ctypes.c_int
+        lib.ktt_chain_max_cluster.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.ktt_chain_error_name.restype = ctypes.c_char_p
+        lib.ktt_chain_error_name.argtypes = [ctypes.c_int]
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def launch_error(lib, err, plan) -> RuntimeError:
+    """The error a failed launch raises: the CUDA error by name, and the
+    plan the card refused."""
+    return RuntimeError(
+        f"{KERNEL}: the {plan.layout} launch (cluster {plan.cluster}, {plan.threads} "
+        f"threads, {plan.smem_bytes} bytes of shared memory a CTA) failed with CUDA error "
+        f"{err} {lib.ktt_chain_error_name(err).decode()} "
+        f"({lib.ktt_error_string(err).decode()})")
 
 
 def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
-           sample_rate, global_rows=None):
+           sample_rate, global_rows=False, cluster=None):
     """Launch the CUDA kernel on the current stream, writing ``outs`` (from
-    ``empty_outputs``). The rows live in shared memory where they fit
-    (``rows_in_shared``), else in a global workspace allocated here;
-    ``global_rows=True`` takes the workspace at any length. Raises for
-    anything but CUDA tensors of the layout the program needs, and if the
-    launch fails."""
+    ``empty_outputs``), in the layout ``launch_plan`` picks for the card
+    (``cluster`` and ``global_rows`` force one, as there); the workspace of
+    the global layout is allocated here. Raises for anything but CUDA
+    tensors of the layout the program needs, and, with the CUDA error's
+    name, if the card refuses the launch. Returns the plan."""
     global LAUNCHES
     K, B = _validate(program, planes, state, rows, K, block_size)
     device = state.device
@@ -406,25 +622,27 @@ def launch(outs, program, *, planes, state, rows, K, block_size, f2pi, scale,
     bc.check(KERNEL, "out", out, torch.float32, (program.n_out, K, B), device)
     bc.check(KERNEL, "state_out", state_out, torch.int32, (program.n_state, K), device)
     bc.check(KERNEL, "done", done, torch.bool, (program.n_done, K, B), device)
-    n_floats = row_floats(program, B)
-    if global_rows is None:
-        global_rows = not rows_in_shared(program, B)
-    workspace = (torch.empty((max(1, n_floats),), dtype=torch.float32, device=device)
-                 if global_rows else None)
-
-    from .build import load_library
-
-    lib = load_library(KERNEL)
+    lib = _load()
+    plan = launch_plan(program, B, K, cluster=cluster, global_rows=global_rows,
+                       max_cluster=card_max_cluster(lib, device))
+    workspace = (torch.empty((max(1, row_floats(program, 1) * _round4(B)),),
+                             dtype=torch.float32, device=device)
+                 if plan.layout == "global" else None)
     prog = program.on(device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ktt_chain_kernel(
             bc.ptr(prog), bc.ptr(planes), bc.ptr(state), bc.ptr(rows), bc.ptr(out),
-            bc.ptr(state_out), bc.ptr(done), K, B, n_floats, int(program.all_bodies),
-            ctypes.c_float(f2pi), ctypes.c_float(scale), ctypes.c_float(sample_rate),
-            bc.ptr(workspace), ctypes.c_void_p(stream))
-    bc.raise_on_error(KERNEL, lib, err)
+            bc.ptr(state_out), bc.ptr(done), K, B, len(program.words),
+            LAYOUTS.index(plan.layout), plan.cluster, plan.threads, plan.smem_bytes,
+            plan.staged, STAGINGS.index(plan.staging), int(program.all_bodies),
+            ctypes.c_float(f2pi),
+            ctypes.c_float(scale), ctypes.c_float(sample_rate), bc.ptr(workspace),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise launch_error(lib, err, plan)
     LAUNCHES += 1
+    return plan
 
 
 def chain_kernel_plain(program, *, planes, state, rows, K, block_size, f2pi, scale,

@@ -259,3 +259,169 @@ def test_lowered_program_of_the_cascade(monkeypatch):
     assert out.shape == (1, 15, 16) and state.shape == (1, 15) and done.shape == (0, 15, 16)
     with pytest.raises(ValueError):
         kck.chain_kernel_plain(program, **dict(ops, rows=ops["rows"][:, :8]))
+
+
+# --------------------------------------------------------------------------
+# launch_plan: the layout of every launch, chosen on the host before it
+# --------------------------------------------------------------------------
+
+import chip_smoke  # noqa: E402  (the graphs chip_smoke.py drives the kernel with)
+
+
+def _smoke_paths():
+    paths = {"fm_cascade": lambda m, gg: chip_smoke.build_cascade(m, gg, chip_smoke.CASCADE)}
+    paths.update(chip_smoke.chain_paths(kt))
+    paths.update(chip_smoke.float_osc_paths(kt))
+    paths.update(chip_smoke.noise_delay_paths(kt))
+    return paths
+
+
+SMOKE_PATHS = _smoke_paths()
+PLAN_BLOCKS = (16, 64, 1024, 8192, 131072)
+# the paths whose rows a cluster of 16 CTAs cannot hold at 131,072 samples
+# (rows x 8192 x 4 bytes past a CTA's shared memory): the workspace there
+GLOBAL_AT_131072 = {"graphic_eq_31", "phasor_cascade", "sin_numeric_cascade", "noise_chain"}
+
+
+def smoke_program(name, monkeypatch):
+    """The lowered program of a chip_smoke.py path, captured on the CPU."""
+    monkeypatch.setattr(tck, "_MODE", "1")
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=64),
+                                    device="cpu")
+    g.edit(lambda gg: SMOKE_PATHS[name](kt, gg))
+    program, ops = chip_smoke.capture_chain(torch, proc)
+    return program, ops["K"]
+
+
+@pytest.mark.parametrize("name", list(SMOKE_PATHS))
+def test_launch_plan_of_every_smoke_path(name, monkeypatch):
+    """For the program of every path chip_smoke.py builds, at B in
+    PLAN_BLOCKS: one CTA with shared rows up to 1024 samples, a cluster of
+    8 at 8192 and of 16 (or the workspace) at 131,072; the shared bytes are
+    the kernel's layout and fit a CTA; the rows fit where a layout says
+    they do; the workspace is taken only where no cluster holds the rows."""
+    program, K = smoke_program(name, monkeypatch)
+    n_rows = kck.row_floats(program, 1)
+    for max_cluster in (kck.MAX_CLUSTER, kck.PORTABLE_CLUSTER):
+        for B in PLAN_BLOCKS:
+            plan = kck.launch_plan(program, B, K, max_cluster=max_cluster)
+            assert plan.layout in kck.LAYOUTS
+            assert plan.chunk * plan.cluster == B
+            assert plan.threads == min(1024, (plan.chunk + 31) // 32 * 32)
+            assert plan.smem_bytes == kck.smem_bytes(
+                program, plan.chunk, plan.staged, plan.layout == "global",
+                K if plan.staging == "whole" else 2)
+            assert plan.staging in kck.STAGINGS
+            # every stage staged before the loop only in one CTA, two stages
+            # at a time only in a cluster of a long chain; a ring stages none
+            assert plan.staging != "whole" or plan.cluster == 1
+            assert plan.staging != "ring" or (plan.cluster > 1 and K >= kck.RING_STAGES)
+            assert not (program.has_ring or plan.staging == "direct") or (
+                plan.staging == "direct" and plan.staged == 0)
+            assert plan.smem_bytes <= kck.SMEM_LIMIT
+            assert 0 <= plan.staged <= program.n_planes
+            rows_bytes = 4 * n_rows * ((plan.chunk + 3) // 4 * 4)
+            if plan.layout == "shared":
+                assert plan.cluster == 1 and B <= kck.SHARED_SAMPLES
+                assert rows_bytes <= plan.smem_bytes
+            elif plan.layout == "cluster":
+                assert 2 <= plan.cluster <= max_cluster and plan.chunk % 32 == 0
+                assert rows_bytes <= plan.smem_bytes
+                assert plan.cluster in kck.cluster_sizes(program, B, max_cluster)
+            else:
+                # past every cluster's shared memory
+                assert plan.cluster == 1
+                assert not kck.cluster_sizes(program, B, max_cluster)
+                assert kck.smem_bytes(program, B, 0) > kck.SMEM_LIMIT
+            assert kck.rows_in_shared(program, B, max_cluster) == (plan.layout != "global")
+        for B in (16, 64, 1024):
+            plan = kck.launch_plan(program, B, K, max_cluster=max_cluster)
+            assert (plan.layout, plan.cluster) == ("shared", 1)
+            if K * B * 4 * program.n_planes <= kck.SMEM_LIMIT // 2 and not program.has_ring:
+                assert (plan.staging, plan.staged) == ("whole", program.n_planes)
+        plan = kck.launch_plan(program, 8192, K, max_cluster=max_cluster)
+        C = min(max_cluster, 8192 // kck.CLUSTER_CHUNK)
+        assert (plan.layout, plan.cluster, plan.chunk) == ("cluster", C, 8192 // C)
+    plan = kck.launch_plan(program, 131072, K)
+    if name in GLOBAL_AT_131072:
+        assert plan.layout == "global"
+    else:
+        assert (plan.layout, plan.cluster, plan.chunk) == ("cluster", 16, 8192)
+
+
+def test_launch_plan_of_forced_layouts(monkeypatch):
+    """A forced cluster size or the forced workspace is taken as asked, or
+    refused (ValueError) where it cannot hold the rows; the FM cascade's
+    6144 samples (96 blocks of 64) split into chunks of 768."""
+    program, K = smoke_program("fm_cascade", monkeypatch)
+    for C in (2, 4, 8, 16):
+        plan = kck.launch_plan(program, 8192, K, cluster=C)
+        assert (plan.layout, plan.cluster, plan.chunk) == ("cluster", C, 8192 // C)
+    assert kck.launch_plan(program, 8192, K, cluster=1).layout == "shared"
+    plan = kck.launch_plan(program, 8192, K, global_rows=True)
+    assert (plan.layout, plan.cluster, plan.chunk) == ("global", 1, 8192)
+    plan = kck.launch_plan(program, 6144, K)
+    assert (plan.layout, plan.chunk) == ("cluster", 6144 // plan.cluster)
+    assert plan.chunk & (plan.chunk - 1)  # not a power of two
+    for kw in (dict(cluster=1), dict(cluster=3), dict(global_rows=True, cluster=2)):
+        with pytest.raises(ValueError):
+            kck.launch_plan(program, 131072 if kw.get("cluster") == 1 else 8192, K, **kw)
+    # an odd length takes no cluster (no chunk of whole warps)
+    assert kck.launch_plan(program, 8191, K).layout == "global"
+    plan = kck.launch_plan(program, 61, K)
+    assert (plan.layout, plan.staging) == ("shared", "whole")
+    assert kck.launch_plan(program, 8192, K).staging == "ring"  # K = 255
+    assert kck.launch_plan(program, 1024, K).staging == "direct"  # no plane fits whole
+
+
+def test_cpu_tensors_run_the_plain_version(monkeypatch):
+    """A chain kernel call on CPU tensors runs chain_kernel_plain and never
+    the launch path; the launch itself refuses CPU tensors before it loads
+    any library."""
+    got = []
+    monkeypatch.setattr(tck, "_MODE", "1")
+    real = kck.chain_kernel
+
+    def spy(program, **ops):
+        got.append((program, ops))
+        return real(program, **ops)
+
+    monkeypatch.setattr(kck, "chain_kernel", spy)
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
+                                    device="cpu")
+    g.edit(lambda gg: build_cascade(kt, gg, 16))
+    proc.render(frames=16)
+    program, ops = got[0]
+
+    def refuse(*a, **k):
+        raise AssertionError("the launch path ran on CPU tensors")
+
+    monkeypatch.setattr(kck, "launch", refuse)
+    monkeypatch.setattr(kck, "_load", refuse)
+    out, state, done = real(program, **ops)
+    want = kck.chain_kernel_plain(program, **ops)
+    for a, b in zip((out, state, done), want):
+        assert torch.equal(a, b)
+    monkeypatch.undo()
+    monkeypatch.setattr(kck, "_load", refuse)
+    outs = kck.empty_outputs(program, "cpu", ops["K"], ops["block_size"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        kck.launch(outs, program, **ops)
+
+
+def test_refused_launch_raises_by_name():
+    """A launch the card refuses raises with the CUDA error's name and the
+    plan it refused."""
+    class Lib:
+        @staticmethod
+        def ktt_chain_error_name(err):
+            return b"cudaErrorClusterOutOfResources"
+
+        @staticmethod
+        def ktt_error_string(err):
+            return b"too many resources requested for launch"
+
+    plan = kck.LaunchPlan("cluster", 16, 8192, 1024, 198896, 0, "direct")
+    err = kck.launch_error(Lib, 721, plan)
+    assert isinstance(err, RuntimeError)
+    assert "cudaErrorClusterOutOfResources" in str(err) and "cluster 16" in str(err)

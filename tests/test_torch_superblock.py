@@ -295,9 +295,9 @@ def test_chain_superblocks_stay_on_the_kernel(monkeypatch):
     """The kernel path takes the JAX bounce's partition: a chain no longer
     caps the graph's superblocks, so the Phasor cascade renders its 128
     event-free blocks as one superblock of 8192 samples, on the kernel,
-    whose 9 rows (5 slots, a carry and 3 scan rows) then outgrow shared
-    memory and go to the global workspace. Off the kernel path the
-    partition is the same."""
+    whose 9 rows (5 slots, a carry and 3 scan rows) then outgrow one CTA's
+    shared memory and spread over a cluster of 16 CTAs, 512 samples each.
+    Off the kernel path the partition is the same."""
     calls = {"B": [], "ok": []}
     real = tck.run
 
@@ -314,7 +314,9 @@ def test_chain_superblocks_stay_on_the_kernel(monkeypatch):
     cp = _chain_of(proc)[0]
     program = cp.lowered["cpu"][0]
     assert kck.row_floats(program, 128 * 64) == 9 * 128 * 64
-    assert not kck.rows_in_shared(program, 128 * 64) and kck.rows_in_shared(program, 64)
+    assert kck.launch_plan(program, 64, 11).layout == "shared"
+    plan = kck.launch_plan(program, 128 * 64, 11)
+    assert (plan.layout, plan.cluster, plan.chunk) == ("cluster", 16, 512)
     calls["B"].clear()
     _, proc = _render_cascade(monkeypatch, "0", 64, 128)
     assert proc.compiled.superblock_max == float("inf")
