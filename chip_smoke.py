@@ -58,7 +58,19 @@ result line):
    segments, time_scale and freq ramps, segments ending mid-block, strikes
    mid-block, decays where the polynomial exp underflows, modes past pi,
    a depth-3 burst. Carries bit-equal but the envelope's frozen value,
-   within EFROM_ULPS ulps (the kernel's cosf/expf/logf against torch's);
+   within EFROM_ULPS ulps (the kernel's cosf/expf/logf against torch's).
+   Then the matrix of the generic and wavetable kernels' Hopper design:
+   the wavetable kernel and every generic body (the Envelope body on the
+   four-shape table, looping and one-shot; the Modal body on the bar) at V
+   in {1000, 131055, 131072} (131055: a last CTA with whole warps past the
+   bank and a ragged one) and B in {64, 1024}, an eventful block and then
+   an event-free one whose pan, cutoff and q ramps meet the flat-ramp
+   rule's edge cases (a glide, a ramp ended exactly at sample 0, a zero
+   step ending inside the block at another target, a signed zero); the
+   wavetable kernel and the Additive body also at H in {1, 17, 64}; at
+   V = 131055, B = 64 two launches on the same buffers must give
+   bit-identical mixes (the in-kernel sum's tickets reset). Carries
+   bit-equal, mixes within the tolerance;
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
@@ -112,10 +124,12 @@ result line):
    and ``modal_bells`` (examples/modal_bells.py's four bells, 4 s, no
    kernel) against the CPU within 1e-6;
 5. timings and profile — per bank kernel and generic body at V=131072
-   (the Modal body at 65,536), B=64: kernel ms (CUDA
-   events over back-to-back ``launch()`` calls into preallocated outputs),
+   (the Modal body at 65,536), B=64: kernel ms (device time: the
+   ``launch()`` calls into preallocated outputs captured in a CUDA graph and
+   replayed between CUDA events, and beside it the eager time over
+   back-to-back calls, which a short kernel's host launch rate can set),
    wrapper ms and plain ms, event-free and eventful (the Envelope and Modal
-   bodies event-free, also at B = 1024); then torch.profiler's
+   bodies also at B = 1024 event-free); then torch.profiler's
    device time by kernel over 100 event-free blocks of each bank and one
    render chunk of each graph slice; and the stage-loop kernels at B in
    {16, 64, 1024} and at the longest superblock their renders take
@@ -205,12 +219,15 @@ def card_name_and_limit():
 
 
 def mix_tolerance(V, peak):
-    # the kernel sums each sample's mix as a warp tree plus a torch.sum over
-    # warp partials, the plain version as one torch.sum over V: the same
-    # terms in another order, so the f32 rounding differs and grows with
-    # the number of terms (~sqrt(V)) and the magnitude of the sum. Kernels
-    # that take sinf/cosf (wavetable, generic Sine/Additive) may differ from
-    # torch's by an ulp per term, far below this bound at these amplitudes
+    # the kernels sum each sample's mix in their own fixed order (a warp
+    # tree and a torch.sum over warp partials in the hand kernels; CTA
+    # tiles or warp rows and then CTA and group rows in the generic and
+    # wavetable kernels), the plain version as one torch.sum over V: the
+    # same terms in another order, so the f32 rounding differs and grows
+    # with the number of terms (~sqrt(V)) and the magnitude of the sum.
+    # Kernels that take sinf/cosf/sincosf (wavetable, generic Sine/Additive)
+    # may differ from torch's by an ulp per term, far below this bound at
+    # these amplitudes
     return 1e-5 * math.sqrt(V / 1024.0) * max(1.0, peak)
 
 
@@ -258,16 +275,17 @@ def wt_defaults(np, V, seed=0, amp=1e-4):
             "pan": rng.uniform(-1, 1, V).astype(np.float32)}
 
 
-def saw_table(ktt):
+def saw_table(ktt, n_harmonics=H):
     """bench_wavetable_bank's table: a saw of H harmonics."""
     nb = ktt.NonAaWavetable()
-    nb.add_saw(1, H + 1, 1.0)
+    nb.add_saw(1, n_harmonics + 1, 1.0)
     return nb.buffer
 
 
-def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None):
+def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None, n_harmonics=H):
     """A bank of one kind with its benchmark's seeded defaults. Kinds:
-    sine, fm, sub, wt (the hand banks) and generic-<body>."""
+    sine, fm, sub, wt (the hand banks) and generic-<body>; the wavetable
+    and Additive banks of ``n_harmonics`` partials."""
     amp_kw = {} if amp is None else {"amp": amp}
     if kind == "sine":
         return ktt.FusedSineVoiceBank(
@@ -283,7 +301,7 @@ def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None):
             event_capacity=capacity)
     if kind == "wt":
         return ktt.FusedWavetableVoiceBank(
-            V, table=saw_table(ktt), n_harmonics=H,
+            V, table=saw_table(ktt, n_harmonics), n_harmonics=n_harmonics,
             voice_defaults=wt_defaults(np, V, seed, **amp_kw),
             event_capacity=capacity)
     body = kind.split("-", 1)[1]
@@ -291,7 +309,8 @@ def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None):
         "sine": (ktt.SineVoice(), sine_defaults),
         "fm": (ktt.FMVoice(), fm_defaults),
         "subtractive": (ktt.SubtractiveVoice(), sub_defaults),
-        "additive": (ktt.AdditiveVoice(table=saw_table(ktt), n_harmonics=H),
+        "additive": (ktt.AdditiveVoice(table=saw_table(ktt, n_harmonics),
+                                       n_harmonics=n_harmonics),
                      wt_defaults),
     }[body]
     return ktt.FusedVoiceBank(voice, V, voice_defaults=defaults(np, V, seed, **amp_kw),
@@ -355,15 +374,24 @@ def plain_of(mod):
     return getattr(mod, mod.KERNEL + "_plain")
 
 
-def compare_block(torch, kind, bank, operands, label, loose=()):
+def compare_block(torch, kind, bank, operands, label, loose=(), plain_on_cpu=False):
     """Run the kernel and the plain version on the same operands; require
     bit-equal state and the mix within tolerance. ``loose`` names rows of
     the generic kernel's packed carry that may differ: their largest
-    difference in ulps is returned. Returns (kernel outputs, max |mix
-    difference|, ulps)."""
+    difference in ulps is returned. ``plain_on_cpu`` runs the plain version
+    on a CPU copy of the operands, for a small bank whose plain version's
+    per-sample ops cost less there than as launches on the card: the same
+    f32 arithmetic (where torch's CPU and CUDA libm differ, the value
+    reaches only the mix or a ``loose`` row). Returns (kernel outputs, max
+    |mix difference|, ulps)."""
     mod = kernel_module(kind)
     k = bank.kernel(**operands)
-    p = plain_of(mod)(**operands)
+    if plain_on_cpu:
+        cpu_ops = {n: x.cpu() if isinstance(x, torch.Tensor) else x
+                   for n, x in operands.items()}
+        p = tuple(x.to(k[0].device) for x in plain_of(mod)(**cpu_ops))
+    else:
+        p = plain_of(mod)(**operands)
     torch.cuda.synchronize()
     ulps = 0
     for n, (a, b) in enumerate(zip(k[1:], p[1:])):
@@ -563,6 +591,33 @@ def time_call(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_graph(torch, fn, reps):
+    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA graph
+    on a side stream (after a warm-up call there), the graph replayed once,
+    then timed with CUDA events over one more replay. Unlike ``time_call``
+    it leaves the host's launch rate out: the bank wrappers check their
+    operands in Python, tens of microseconds a call, as long as a short
+    kernel runs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def tensor_bytes(*objs):
     """The bytes of every tensor in ``objs`` (dicts, tuples and lists
     walked)."""
@@ -585,6 +640,15 @@ def bound(nbytes, nops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def written(mod, outs):
+    """A bank kernel's outputs without the generic and wavetable kernels'
+    mix scratch (their second buffer, ``bank_common.empty_mix``): what the
+    bound counts as written once."""
+    if mod.KERNEL in ("generic_bank", "wt_bank"):
+        return (outs[0], *outs[2:])
+    return outs
+
+
 def empty_outputs(mod, bank, operands):
     if mod.KERNEL == "generic_bank":
         return mod.empty_outputs(operands["carry"], bank.voice.outputs, BLOCK)
@@ -599,21 +663,23 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     plain = plain_of(mod)
     ops, _ = bank.kernel_operands(ctx, state, None)
     outs = empty_outputs(mod, bank, ops)
-    ms = time_call(torch, lambda: mod.launch(outs, **ops), 200)
+    ms = time_graph(torch, lambda: mod.launch(outs, **ops), 200)
+    eager_ms = time_call(torch, lambda: mod.launch(outs, **ops), 200)
     wrapper_ms = time_call(torch, lambda: bank.kernel(**ops), 200)
     plain_ms = time_call(torch, lambda: plain(**ops), 3)
     cap = bank.event_capacity
     ev = bank.node_events_from_lists(schedule(bank, N_VOICES, BLOCK)[0][:cap])
     ev_ops, _ = bank.kernel_operands(ctx, state, ev)
-    ev_ms = time_call(torch, lambda: mod.launch(outs, **ev_ops), 100)
+    ev_ms = time_graph(torch, lambda: mod.launch(outs, **ev_ops), 100)
     ev_wrapper_ms = time_call(torch, lambda: bank.kernel(**ev_ops), 100)
     ev_plain_ms = time_call(torch, lambda: plain(**ev_ops), 3)
     per_sample = OPS_PER_SAMPLE.get(kind, OPS_PER_SAMPLE[mod.KERNEL])
-    bound_ms, bound_by = bound(tensor_bytes(ops, outs), per_sample * N_VOICES * BLOCK)
+    bound_ms, bound_by = bound(tensor_bytes(ops, written(mod, outs)),
+                               per_sample * N_VOICES * BLOCK)
     print(f"timing {kind} V={N_VOICES} B={BLOCK} on {card}: event-free kernel "
-          f"{ms:.4f} ms, wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; "
-          f"eventful kernel {ev_ms:.4f} ms, wrapper {ev_wrapper_ms:.4f} ms, "
-          f"plain {ev_plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+          f"{ms:.4f} ms (eager {eager_ms:.4f} ms), wrapper {wrapper_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; eventful kernel {ev_ms:.4f} ms, wrapper {ev_wrapper_ms:.4f} "
+          f"ms, plain {ev_plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
     return ms, plain_ms, bound_ms, bound_by
 
 
@@ -2358,25 +2424,34 @@ BELLS_SECONDS = 4.0
 # f32 operations a voice-sample of the two bodies does, counted from
 # csrc/generic_bank.cu as OPS_PER_SAMPLE is (every add, multiply, divide,
 # compare-select, conversion and libm call as one): the harness's 4 float
-# params (5 each) and stereo mix (the active gain and a 5-step warp sum per
-# channel) 32; the Envelope body's dt 1, S - 1 selects of 5, frac 3, each
-# present shape's formula (linear 3, exponential 18, sinusoidal 7, step 0)
-# with 2 to select each after the first, the transitions 20, the table sine
-# 17, the amp 2, the phase increment 5 and the pan 28; the Modal body's
-# EnvAr 15, drive and 1/decay 3, pan 28, and per mode theta 2, the
-# polynomial exp 20, the Nyquist mask 2, the polynomial sin and cos 24, the
-# rotation 11
+# params (5 each) and stereo mix (the active gain and the sum's one add per
+# channel) 24; the polynomial pan 28, for the share of voices whose pan ramp
+# is not flat over the block (the others take theirs once a block); the
+# Envelope body's dt 1, the segment index 5, frac 3, each present shape's
+# formula (linear 3, exponential 18, sinusoidal 7, step 0) with 2 to select
+# each after the first, the transitions 20, the table sine 17, the amp 2 and
+# the phase increment 5; the Modal body's EnvAr 15, drive and 1/decay 3, and
+# per mode theta 2, the polynomial exp 20, the Nyquist mask 2, the
+# polynomial sin and cos 24, the rotation 11
 SHAPE_OPS = {0: 3, 1: 18, 2: 7, 3: 0}
 
 
-def envelope_ops(envelope):
+def envelope_ops(envelope, moving_pans=1.0):
     shapes = list(dict.fromkeys(s.shape for s in envelope.segments))  # present, in order
-    return (32 + 1 + 5 * (len(envelope.segments) - 1) + 3
-            + sum(SHAPE_OPS[c] for c in shapes) + 2 * (len(shapes) - 1) + 20 + 17 + 2 + 5 + 28)
+    return (24 + 28 * moving_pans + 1 + 5 + 3 + sum(SHAPE_OPS[c] for c in shapes)
+            + 2 * (len(shapes) - 1) + 20 + 17 + 2 + 5)
 
 
-def modal_ops(n_modes):
-    return 32 + 15 + 3 + 28 + 59 * n_modes
+def modal_ops(n_modes, moving_pans=1.0):
+    return 24 + 28 * moving_pans + 15 + 3 + 59 * n_modes
+
+
+def moving_pans(torch, bank, operands, B):
+    """The share of the block's voices whose pan ramp is not flat over it."""
+    from knaster_tpu_torch.kernels.bank_common import ramp_flat_over_block
+
+    g = operands["ramps"][bank.float_index("pan")]
+    return 1.0 - float(ramp_flat_over_block(g, B).float().mean())
 
 
 def envelope_bank(ktt, np, V, capacity, looping, seed=0):
@@ -2511,6 +2586,135 @@ def phase_family_vs_plain(torch, np, ktt, dev):
           f"{MODAL_VOICES}), B = {BLOCK}, and the bell at B = 1024: carries bit-equal, max "
           f"|mix diff| {errs['modal']:.3e} ({time.perf_counter() - t0:.1f} s)")
     return errs, ulps
+
+
+# The redesigned generic and wavetable kernels against their plain versions
+# over the shapes their design turns on: V = 1000, a last CTA of 239 voices
+# (131,072 - 17: whole warps past the bank and a ragged one) and 131,072;
+# B = 64 and 1024 (tiles of 8 or 16 samples, the eventful warp rows);
+# an eventful block, then an event-free one whose flat-ramp hoists meet
+# their edge cases (EDGE_PARAMS); the harmonic instantiations
+MATRIX_VS = (1000, N_VOICES - 17, N_VOICES)
+MATRIX_BS = (BLOCK, 1024)
+MATRIX_KINDS = ("wt", "generic-sine", "generic-fm", "generic-subtractive",
+                "generic-additive", "generic-envelope", "generic-modal")
+H_SWEEP = (1, 17, 64)  # with the matrix's 16: 1, 16, 17 and the largest (64)
+# the params whose flat ramps the generic kernel hoists work on: the pan
+# gains (Sine, Additive, Envelope, Modal) and the SVF coefficients
+# (Subtractive)
+EDGE_PARAMS = ("pan", "cutoff", "q")
+
+
+def matrix_bank(ktt, np, kind, V, B, looping=False, n_harmonics=H):
+    """The bank of one matrix cell: chip_smoke's seeded defaults at amp
+    0.01; the Envelope body on ENV_TABLE (all four shapes), the Modal body
+    on the bar (M = 6)."""
+    if kind == "generic-envelope":
+        return envelope_bank(ktt, np, V, V * 3, looping, seed=V + B)
+    if kind == "generic-modal":
+        return modal_bank(ktt, np, V, V * 2, "bar", seed=V + B)
+    return make_bank(ktt, np, kind, V, capacity=V, seed=V + B, amp=0.01,
+                     n_harmonics=n_harmonics)
+
+
+def flat_edge_cases(torch, bank, operands, B):
+    """Event-free operands whose EDGE_PARAMS ramps take, by voice v mod 5: a
+    glide across the block; a ramp that ended exactly at sample 0 (el ==
+    dur); a zero step that ends inside the block at a target other than v0;
+    a flat ramp of a signed zero (pan at v0 = -0.0 with step +0.0, which
+    materializes as +0.0; cutoff and q at step -0.0); the bank's own."""
+    ramps = operands["ramps"].clone()
+    v = torch.arange(ramps.shape[2], device=ramps.device) % 5
+    for name in EDGE_PARAMS:
+        if name not in bank._float_names:
+            continue
+        g = ramps[bank.float_index(name)]
+        base = g[0].clone()
+        cases = (
+            (v == 0, (base, 0.25 * base / B + 1e-3, 0.0, 2.0 * B, 1.5 * base)),
+            (v == 1, (base, 0.01, 7.0, 7.0, 0.75 * base)),
+            (v == 2, (base, 0.0, 0.0, float(B // 2), 0.5 * base + 0.1)),
+            (v == 3, ((-0.0, 0.0, 0.0, 4.0 * B, 0.3) if name == "pan"
+                      else (base, -0.0, 0.0, 4.0 * B, base))),
+        )
+        for m, vals in cases:
+            for k, x in enumerate(vals):
+                g[k] = torch.where(m, x if isinstance(x, torch.Tensor)
+                                   else torch.full_like(base, x), g[k])
+    return dict(operands, ramps=ramps)
+
+
+def back_to_back(torch, mod, bank, operands, B, label):
+    """Two launches into the same buffers must give bit-identical mixes:
+    the in-kernel sum's order is fixed and its tickets reset."""
+    if mod.KERNEL == "generic_bank":
+        outs = mod.empty_outputs(operands["carry"], bank.voice.outputs, B)
+    else:
+        outs = mod.empty_outputs(operands["phase"], B)
+    mod.launch(outs, **operands)
+    first = outs[0].clone()
+    mod.launch(outs, **operands)
+    torch.cuda.synchronize()
+    if not torch.equal(first.view(torch.int32), outs[0].view(torch.int32)):
+        fail(f"{label}: two launches on the same buffers gave different mixes")
+
+
+def matrix_cell(torch, ktt, np, dev, kind, V, B, looping=False, n_harmonics=H):
+    """One eventful and one event-free block (with the flat-ramp edge
+    cases) of ``kind`` at (V, B), kernel against plain; the event-free block
+    also back to back. Returns (max |mix diff|, efrom ulps)."""
+    bank = matrix_bank(ktt, np, kind, V, B, looping, n_harmonics)
+    ctx = ktt.AudioCtx(SR, B, torch.float32)
+    state = bank.init(ctx, device=dev)
+    body = kind in ("generic-envelope", "generic-modal")
+    loose = (3,) if kind == "generic-envelope" else ()
+    label = f"{kind} V={V} B={B}" + (f" H={n_harmonics}" if n_harmonics != H else "") + (
+        f" looping={looping}" if kind == "generic-envelope" else "")
+    cpu = V == MATRIX_VS[0]
+    evs = (body_schedule if body else schedule)(bank, V, B)[0]
+    operands, carry = bank.kernel_operands(ctx, state, bank.node_events_from_lists(evs))
+    k, err, ulps = compare_block(torch, kind, bank, operands, f"{label} eventful", loose, cpu)
+    state, _ = bank.finish(ctx, carry, k)
+    if kind == "generic-envelope" and not bool((state["eseg"] == -2.0).any()):
+        fail(f"{label}: no t_stop froze a voice")
+    operands, carry = bank.kernel_operands(ctx, state, None)
+    if kind != "wt":
+        operands = flat_edge_cases(torch, bank, operands, B)
+    k, e, u = compare_block(torch, kind, bank, operands, f"{label} event-free", loose, cpu)
+    if float(k[0].abs().max()) == 0.0:
+        fail(f"{label}: silent mix")
+    if V == N_VOICES - 17 and B == BLOCK:
+        back_to_back(torch, kernel_module(kind), bank, operands, B, label)
+    return max(err, e), max(ulps, u)
+
+
+def phase_bank_matrix_vs_plain(torch, np, ktt, dev):
+    """Every generic body and the wavetable kernel over MATRIX_VS x
+    MATRIX_BS (the Envelope body looping and one-shot; the 1000-voice
+    cells' plain version on the CPU), then the wavetable kernel and the
+    Additive body at H in H_SWEEP, B = 64, V = 131,055: carries bit-equal
+    (the envelope's efrom within EFROM_ULPS), mixes within mix_tolerance,
+    and at V = 131,055, B = 64 two launches on the same buffers
+    bit-identical. Returns {kind: max |mix diff|}."""
+    errs, ulps = {}, 0
+    for kind in MATRIX_KINDS:
+        t0 = time.perf_counter()
+        for V in MATRIX_VS:
+            for B in MATRIX_BS:
+                for looping in ((False, True) if kind == "generic-envelope" else (False,)):
+                    e, u = matrix_cell(torch, ktt, np, dev, kind, V, B, looping)
+                    errs[kind], ulps = max(errs.get(kind, 0.0), e), max(ulps, u)
+        if kind in ("wt", "generic-additive"):
+            for n in H_SWEEP:
+                e, _ = matrix_cell(torch, ktt, np, dev, kind, MATRIX_VS[1], BLOCK, n_harmonics=n)
+                errs[kind] = max(errs[kind], e)
+        print(f"kernel vs plain matrix {kind}: V in {MATRIX_VS}, B in {MATRIX_BS}"
+              + (f", H in {(H,) + H_SWEEP}" if kind in ("wt", "generic-additive") else "")
+              + f": carries bit-equal, max |mix diff| {errs[kind]:.3e}, back to back "
+              f"bit-identical ({time.perf_counter() - t0:.1f} s)")
+    if ulps > EFROM_ULPS:
+        fail(f"envelope matrix: efrom differs by {ulps} ulps (> {EFROM_ULPS})")
+    return errs
 
 
 def timed_blocks(torch, bank, ctx, state, n):
@@ -2654,8 +2858,8 @@ def phase_pool_envelope_bank(torch, np, ktt, dev, card):
     if not bool(torch.isfinite(a).all()) or peak == 0.0:
         fail("pool_envelope_bank: output not finite or silent")
     # the state is partition-invariant (anchored ramps, per-sample bodies);
-    # the mix's sum over warp partials may take another order at another
-    # superblock length
+    # the kernel's mix sums in another order at another block length and in
+    # eventful blocks (warp rows) than in event-free ones (CTA tiles)
     part = float((a - b).abs().max())
     if part > mix_tolerance(N_VOICES, peak):
         fail(f"pool_envelope_bank: superblocked and per-block renders differ by {part}")
@@ -2732,22 +2936,30 @@ def phase_family_timings(torch, ktt, kind, bank, state, card):
     from knaster_tpu_torch.kernels import generic_bank as gk
 
     spec = bank.spec(ktt.AudioCtx(SR, BLOCK, torch.float32))
-    per_sample = (envelope_ops(bank.voice.env) if kind == "envelope"
-                  else modal_ops(bank.voice.res.n_modes))
     line, row = [], None
     for B in (BLOCK, 1024):
         ctx = ktt.AudioCtx(SR, B, torch.float32)
         ops, _ = bank.kernel_operands(ctx, state, None)
+        moving = moving_pans(torch, bank, ops, B)
+        per_sample = (envelope_ops(bank.voice.env, moving) if kind == "envelope"
+                      else modal_ops(bank.voice.res.n_modes, moving))
         outs = gk.empty_outputs(ops["carry"], bank.voice.outputs, B)
-        ms = time_call(torch, lambda: gk.launch(outs, **ops), 100 if B == BLOCK else 20)
-        b_ms, b_by = bound(tensor_bytes(ops, outs), per_sample * bank.n_voices * B)
-        line.append(f"B={B} kernel {ms:.4f} ms (bound {b_ms:.5f} ms, {b_by})")
+        reps = 100 if B == BLOCK else 20
+        ms = time_graph(torch, lambda: gk.launch(outs, **ops), reps)
+        eager_ms = time_call(torch, lambda: gk.launch(outs, **ops), reps)
+        b_ms, b_by = bound(tensor_bytes(ops, written(gk, outs)), per_sample * bank.n_voices * B)
+        line.append(f"B={B} kernel {ms:.4f} ms (eager {eager_ms:.4f}; bound {b_ms:.5f} ms, "
+                    f"{b_by}, {per_sample:.0f} f32 operations a voice-sample)")
         if B == BLOCK:
+            ev = bank.node_events_from_lists(
+                body_schedule(bank, bank.n_voices, B)[0][:bank.event_capacity])
+            ev_ops, _ = bank.kernel_operands(ctx, state, ev)
+            ev_ms = time_graph(torch, lambda: gk.launch(outs, **ev_ops), reps)
             plain_ms = time_call(torch, lambda: gk.generic_bank_plain(**ops), 2)
             row = (ms, plain_ms, b_ms, b_by)
-            line.append(f"plain {plain_ms:.3f} ms")
-    print(f"timing generic_bank:{kind} ({spec.cuda_body}, {per_sample} f32 operations a "
-          f"voice-sample) V={bank.n_voices} on {card}: " + "; ".join(line))
+            line.append(f"eventful kernel {ev_ms:.4f} ms; plain {plain_ms:.3f} ms")
+    print(f"timing generic_bank:{kind} ({spec.cuda_body}) V={bank.n_voices} on {card}: "
+          + "; ".join(line))
     return row
 
 
@@ -2758,6 +2970,34 @@ def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, label=None
             "source": f"knaster_tpu_torch/csrc/{name}.cu", "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def print_ptxas(paths):
+    """Each kernel instantiation's registers and spills from the ``ptxas
+    -v`` log beside each library, one line an instantiation, named as
+    ``c++filt`` demangles it where the toolchain has one."""
+    import re
+
+    for name, so in paths.items():
+        entries, cur = [], None
+        for line in so.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = [m.group(1), "", ""]
+                entries.append(cur)
+            elif cur is not None and "spill" in line:
+                cur[1] = line.strip()
+            elif cur is not None and "registers" in line:
+                cur[2] = line.split(":", 1)[-1].strip()
+        try:
+            names = subprocess.run(["c++filt"], input="\n".join(e[0] for e in entries),
+                                   capture_output=True, text=True, timeout=60).stdout.split("\n")
+        except OSError:
+            names = []
+        for k, (mangled, spill, regs) in enumerate(entries):
+            full = names[k] if k < len(names) and names[k] else mangled
+            short = full.replace("(anonymous namespace)::", "").split("(")[0]
+            print(f"  ptxas {name}: {short.removeprefix('void ')}: {regs}; {spill}")
 
 
 def lap(phase, *args):
@@ -2789,10 +3029,7 @@ def main():
     for name in paths:
         build.load_library(name)
     print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
-    for name, so in paths.items():
-        for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    print_ptxas(paths)
 
     # -- kernel vs plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -2820,6 +3057,12 @@ def main():
     errs["chain_kernel"] = max([errs["chain_kernel"], *global_errs.values(),
                                 *path_errs.values()])
     family_errs, efrom_ulps = phase_family_vs_plain(torch, np, ktt, dev)
+    matrix_errs = lap(phase_bank_matrix_vs_plain, torch, np, ktt, dev)
+    errs["wt_bank"] = max(errs["wt_bank"], matrix_errs["wt"])
+    for body in ("sine", "fm", "subtractive", "additive"):
+        errs_by_body[body] = max(errs_by_body[body], matrix_errs[f"generic-{body}"])
+    for body in ("envelope", "modal"):
+        family_errs[body] = max(family_errs[body], matrix_errs[f"generic-{body}"])
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------

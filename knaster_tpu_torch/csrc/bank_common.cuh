@@ -6,8 +6,10 @@
 // as anchored ramp groups ramps[n_float][5][V] (v0, step, el, dur, tgt);
 // eventful blocks add D breakpoint rounds rounds[n_float][5][D][V] (v0,
 // step, dur, tgt, frame) and packed trigger words words[n_trig][W][V], W =
-// ceil(B/32). The mix leaves as warp partials partial[ceil(V/32)][C][B],
-// summed by the wrapper.
+// ceil(B/32). The hand sine, FM and subtractive kernels leave their mix as
+// warp partials partial[ceil(V/32)][C][B], summed by the wrapper; the
+// generic and wavetable kernels sum it themselves through the CTA mix below
+// (CtaMix, mix_combine_warps, mix_finish) into mix[C][B].
 //
 // Numerics. Every library is built with --fmad=false and no fast math: each
 // multiply and add rounds on its own and divides are IEEE divides, as in the
@@ -134,6 +136,244 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
   return x;
+}
+
+// True where mat_base gives one bit pattern at every sample of an
+// event-free block of B samples (kernels/bank_common.py
+// ramp_flat_over_block states and tests the rule): the ramp has ended
+// (every progress >= el >= dur: tgt), or its step is zero and it does not
+// end inside the block, where v0 + step*prog keeps one sign of zero (prog
+// never negative, or v0 not zero). The value to hoist is mat_base at i = 0,
+// never v0 itself (v0 = -0.0 with step = +0.0 gives +0.0).
+__device__ __forceinline__ bool ramp_flat(const Ramp& g, int B) {
+  return g.el >= g.dur || (g.step == 0.0f && g.el + static_cast<float>(B - 1) < g.dur &&
+                           (g.el >= 0.0f || g.v0 != 0.0f));
+}
+
+// --------------------------------------------------------------------------
+// The mix of the generic and wavetable kernels. Each CTA of 256 voices sums
+// its voices' values into one partial row of work[cta][C][B], and
+// mix_finish sums the rows. The scratch work holds, in order, the CTA rows,
+// one row per group of kMixGroup CTAs, and (eventful blocks) one row per
+// warp.
+//
+// Event-free blocks (CtaMix): a tile of T samples, C*T = 16 (channel,
+// sample) columns, column ch*T + t. Each thread stores its value of each
+// column into shared memory at [col][tid] (consecutive threads on
+// consecutive banks); after one barrier the CTA sums each column of 256
+// values, 16 threads a column, each over four float4 reads in a fixed
+// interleave (a quarter warp reads 128 contiguous bytes), then a shuffle
+// tree over the 16 lanes: a store a value and a quarter of a 16-byte load,
+// where a warp shuffle sum takes five shuffles and five adds. Two tile
+// buffers alternate, so the barrier of tile k + 1 also orders tile k's
+// reads before tile k + 2's writes: one barrier a tile.
+//
+// Eventful blocks: a warp shuffle sum a sample and channel into the warp's
+// row, as the hand kernels do, and one barrier at the end, after which the
+// CTA sums its live warps' rows in warp order (mix_combine_warps). These
+// blocks re-read their breakpoint rounds every sample from the SM's L1
+// cache, which shares its 256 KB with shared memory, and have no register
+// to spare under the 64 that keep four CTAs an SM: a tile and its barriers
+// cost them more than the shuffles.
+//
+// mix_finish sums the CTA rows in a fixed order: the last CTA of each group
+// (an atomic ticket after a __threadfence) sums its group's rows, the last
+// group the group rows, into mix[C][B] (mix_sum_rows); each resets its
+// ticket. No float atomics, and the order is the same in every launch.
+// --------------------------------------------------------------------------
+
+constexpr int kMixThreads = 256;
+constexpr int kMixWarps = kMixThreads / 32;
+constexpr int kMixCols = 16;
+constexpr int kMixGroup = 32;
+
+template <int C>
+struct CtaMix {
+  static constexpr int T = kMixCols / C;  // samples a tile
+  static constexpr int kParts = kMixThreads / kMixCols;  // threads that sum one column
+  float v[2][kMixCols * kMixThreads];
+
+  // a warp past the bank: its values stay zero
+  __device__ __forceinline__ void clear() {
+    for (int col = 0; col < kMixCols; ++col) {
+      v[0][col * kMixThreads + threadIdx.x] = 0.0f;
+      v[1][col * kMixThreads + threadIdx.x] = 0.0f;
+    }
+  }
+  // this thread's value x of column col in tile buffer b
+  __device__ __forceinline__ void put(int b, int col, float x) {
+    v[b][col * kMixThreads + threadIdx.x] = x;
+  }
+  // every thread: the barrier, then the column sums of buffer b into
+  // row[ch*B + i0 + t] for the tile's first nt samples
+  __device__ __forceinline__ void flush(int b, float* __restrict__ row, int B, int i0,
+                                        int nt) const {
+    __syncthreads();
+    const int col = threadIdx.x / kParts;
+    const int part = threadIdx.x % kParts;
+    const float4* src = reinterpret_cast<const float4*>(v[b] + col * kMixThreads);
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kMixThreads / (4 * kParts); ++j) {
+      const float4 q = src[j * kParts + part];
+      s = j == 0 ? q.x : s + q.x;
+      s = s + q.y;
+      s = s + q.z;
+      s = s + q.w;
+    }
+#pragma unroll
+    for (int off = kParts / 2; off > 0; off >>= 1) {
+      s = s + __shfl_down_sync(0xffffffffu, s, off, kParts);
+    }
+    const int t = col % T;
+    if (part == 0 && t < nt) row[static_cast<size_t>(col / T) * B + i0 + t] = s;
+  }
+};
+
+// rows before the warp rows in work: the CTA rows and the group rows
+__device__ __forceinline__ size_t mix_head_rows() {
+  return gridDim.x + (gridDim.x + kMixGroup - 1) / kMixGroup;
+}
+
+// the warp's row of n_cols floats (eventful blocks)
+__device__ __forceinline__ float* mix_warp_row(float* work, int n_cols) {
+  return work + (mix_head_rows() + blockIdx.x * kMixWarps + (threadIdx.x >> 5)) * n_cols;
+}
+
+// Every thread of the CTA, after the eventful sample loop: the barrier,
+// then the CTA row = the rows of its warps that hold voices, in warp order.
+__device__ __forceinline__ void mix_combine_warps(float* work, int V, int n_cols) {
+  const float* warps = work + (mix_head_rows() + blockIdx.x * kMixWarps) * n_cols;
+  const int n_live = min(kMixWarps, (V - static_cast<int>(blockIdx.x) * kMixThreads + 31) / 32);
+  float* row = work + static_cast<size_t>(blockIdx.x) * n_cols;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_cols; j += kMixThreads) {
+    float s = warps[j];
+    for (int w = 1; w < n_live; ++w) s = s + warps[static_cast<size_t>(w) * n_cols + j];
+    row[j] = s;
+  }
+}
+
+// dst[j] = the n rows of src[n][n_cols] summed, for every column j, in a
+// fixed order: tp threads a column (4 where the columns are few), thread q
+// adding rows q, q + tp, ... in order, kSumBatch loads issued together, then
+// a shuffle tree over the tp threads. Wide rows (n_cols a multiple of 4 past
+// the CTA) are read as float4s of four columns, each summed the same way.
+constexpr int kSumBatch = 8;
+
+__device__ __forceinline__ float4 operator+(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <class F>
+__device__ __forceinline__ F mix_sum_column(const F* src, int n, int n_cols, int j, int q,
+                                            int tp) {
+  F s{};
+  for (int r0 = q; r0 < n; r0 += kSumBatch * tp) {
+    F x[kSumBatch];
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k) {
+      const int r = r0 + k * tp;
+      x[k] = r < n ? __ldcg(src + static_cast<size_t>(r) * n_cols + j) : F{};
+    }
+#pragma unroll
+    for (int k = 0; k < kSumBatch; ++k) {
+      if (r0 + k * tp < n) s = r0 + k * tp == q ? x[k] : s + x[k];
+    }
+  }
+  return s;
+}
+
+__device__ __forceinline__ void mix_sum_rows(const float* src, int n, int n_cols,
+                                             float* __restrict__ dst) {
+  if (n_cols % 4 == 0 && n_cols > kMixThreads) {
+    const int n4 = n_cols / 4;
+    for (int j = threadIdx.x; j < n4; j += kMixThreads) {
+      reinterpret_cast<float4*>(dst)[j] =
+          mix_sum_column(reinterpret_cast<const float4*>(src), n, n4, j, 0, 1);
+    }
+    return;
+  }
+  const int tp = n_cols <= kMixThreads / 4 ? 4 : (n_cols <= kMixThreads / 2 ? 2 : 1);
+  const int q = threadIdx.x % tp;
+  for (int j0 = 0; j0 < n_cols; j0 += kMixThreads / tp) {
+    const int j = j0 + static_cast<int>(threadIdx.x) / tp;
+    float s = j < n_cols ? mix_sum_column(src, n, n_cols, j, q, tp) : 0.0f;
+    for (int off = tp / 2; off > 0; off >>= 1) {
+      s = s + __shfl_down_sync(0xffffffffu, s, off, tp);
+    }
+    if (q == 0 && j < n_cols) dst[j] = s;
+  }
+}
+
+// The kernel's last statement, every thread of every CTA: work holds the
+// gridDim.x CTA rows of n_cols = C*B floats, then one row per group;
+// tickets[0] counts groups, tickets[1 + g] the CTAs of group g. All zero
+// before the launch and after it.
+__device__ __forceinline__ void mix_finish(float* work, float* __restrict__ mix,
+                                           unsigned* tickets, int n_cols) {
+  __shared__ bool last;
+  const int n_cta = static_cast<int>(gridDim.x);
+  const int n_groups = (n_cta + kMixGroup - 1) / kMixGroup;
+  const int g = static_cast<int>(blockIdx.x) / kMixGroup;
+  const int first = g * kMixGroup;
+  const int n = min(kMixGroup, n_cta - first);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets + 1 + g, 1u) == static_cast<unsigned>(n - 1);
+    if (last) atomicExch(tickets + 1 + g, 0u);
+  }
+  __syncthreads();
+  if (!last) return;
+  float* level2 = work + static_cast<size_t>(n_cta) * n_cols;
+  mix_sum_rows(work + static_cast<size_t>(first) * n_cols, n, n_cols,
+               n_groups == 1 ? mix : level2 + static_cast<size_t>(g) * n_cols);
+  if (n_groups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(tickets, 1u) == static_cast<unsigned>(n_groups - 1);
+    if (last) atomicExch(tickets, 0u);
+  }
+  __syncthreads();
+  if (!last) return;
+  mix_sum_rows(level2, n_groups, n_cols, mix);
+}
+
+// --------------------------------------------------------------------------
+// The additive partials (the wavetable kernel and the generic Additive
+// body): per-harmonic constants as a kernel parameter, so that the fully
+// unrolled loop reads them as constant-bank operands, not through the load
+// path. HMAX is the instantiation (8, 16, 32 or 64); harmonics from H on are
+// padding (A = B = 0, thr = -inf) and the loop stops at H.
+// --------------------------------------------------------------------------
+
+template <int HMAX>
+struct Harmonics {
+  float a[HMAX], b[HMAX], thr[HMAX];
+};
+
+// H partials of the fundamental angle theta by phasor recurrence, each
+// masked by freq <= thr[h], accumulated in h order; sincosf once
+template <int HMAX>
+__device__ __forceinline__ float additive_partials(float freq, float theta,
+                                                   const Harmonics<HMAX>& k, int H) {
+  float s1, c1;
+  sincosf(theta, &s1, &c1);
+  float s = s1, c = c1;
+  float acc = freq <= k.thr[0] ? k.a[0] * s + k.b[0] * c : 0.0f;
+#pragma unroll
+  for (int h = 1; h < HMAX; ++h) {
+    if (h >= H) break;
+    const float sn = s * c1 + c * s1;
+    const float cn = c * c1 - s * s1;
+    s = sn;
+    c = cn;
+    const float part = k.a[h] * s + k.b[h] * c;
+    acc = acc + (freq <= k.thr[h] ? part : 0.0f);
+  }
+  return acc;
 }
 
 // EnvAsr state machine (stages: 0 stop, 1 atk, 2 sus, 3 rel). With restart
@@ -277,22 +517,31 @@ __device__ __forceinline__ float env_shape_eval(int shape, float from_v, float v
   }
 }
 
-// An envelope program in the body constants: S segments as recip[S],
-// dur[S], val[S], shape[S] (codes as floats), the distinct shapes present
-// in first-segment order, the start value and the looping flag.
+// An envelope program: S segments staged once per CTA into shared memory as
+// table[s] = (recip, dur, val, shape code), the present shape codes as a
+// bit mask, the start value and the looping flag.
 struct EnvProgram {
-  const float* __restrict__ recip;
-  const float* __restrict__ dur;
-  const float* __restrict__ val;
-  const float* __restrict__ shape;
-  const float* __restrict__ present;
-  int S, n_present;
+  const float4* table;
+  int S;
+  unsigned present;  // bit c set where shape code c occurs in the table
   float start_v;
   bool looping;
 
-  // One sample: the triggers, the segment-constant selects (a loop over
-  // S), each present shape once, t_stop's freeze, then the transitions.
-  // Updates seg, t and from_v; returns the envelope value.
+  // The segment a lane's seg selects: seg itself where it is one of 1 ...
+  // S - 1, else 0 (segment 0 and the negative finished / stopped codes), as
+  // the select loop over S of kernels/bank_common.py _make_env_multiseg
+  // picks it (env_segment_index there).
+  __device__ __forceinline__ int index(float seg) const {
+    const int idx = static_cast<int>(seg);
+    return static_cast<float>(idx) == seg && idx >= 1 && idx < S ? idx : 0;
+  }
+
+  // One sample: the triggers, the selected segment's constants (one
+  // 16-byte shared-memory read), its shape's formula (each shape present
+  // evaluated only where some lane of the warp selects it; a lane's value
+  // is its own shape's either way), t_stop's freeze, then the transitions.
+  // Updates seg, t and from_v; returns the envelope value. Every lane of
+  // the warp calls it (the shape votes are warp-wide).
   __device__ __forceinline__ float step(float& seg, float& t, float& from_v, float dt,
                                         bool restart, bool stop) const {
     if (restart) {
@@ -300,22 +549,17 @@ struct EnvProgram {
       t = 0.0f;
       from_v = start_v;
     }
-    float r = __ldg(recip), d = __ldg(dur), v = __ldg(val);
-    int sh = static_cast<int>(__ldg(shape));
-    for (int s = 1; s < S; ++s) {
-      if (seg == static_cast<float>(s)) {
-        r = __ldg(recip + s);
-        d = __ldg(dur + s);
-        v = __ldg(val + s);
-        sh = static_cast<int>(__ldg(shape + s));
-      }
-    }
+    const float4 q = table[index(seg)];
+    const float r = q.x, d = q.y, v = q.z;
+    const int sh = static_cast<int>(q.w);
     const float frac = fminf(fmaxf(t * r, 0.0f), 1.0f);
-    float cur = env_shape_eval(static_cast<int>(__ldg(present)), from_v, v, frac);
-    for (int j = 1; j < n_present; ++j) {
-      const int pj = static_cast<int>(__ldg(present + j));
-      const float e = env_shape_eval(pj, from_v, v, frac);
-      if (sh == pj) cur = e;
+    float cur = 0.0f;
+#pragma unroll
+    for (int code = kLinear; code <= kStep; ++code) {
+      if ((present >> code & 1u) && __any_sync(0xffffffffu, sh == code)) {
+        const float e = env_shape_eval(code, from_v, v, frac);
+        if (sh == code) cur = e;
+      }
     }
     if (stop && seg >= 0.0f) {
       from_v = cur;

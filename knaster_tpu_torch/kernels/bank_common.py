@@ -121,9 +121,85 @@ def raise_on_error(kernel, lib, err):
 
 
 def empty_partial(V, n_out, B, device):
-    """The warp-partial mix buffer a kernel writes: [ceil(V/32), n_out, B]."""
+    """The warp-partial mix buffer a hand sine, FM or subtractive kernel
+    writes: [ceil(V/32), n_out, B]."""
     return torch.empty(((V + 31) // 32, n_out, int(B)), dtype=torch.float32,
                        device=device)
+
+
+# The mix of the generic and wavetable kernels (csrc/bank_common.cuh): one
+# partial row per CTA of MIX_THREADS voices (event-free blocks sum them in
+# shared memory; eventful blocks write a row per warp first, MIX_WARPS a
+# CTA, and sum those), the rows summed in the kernel by the last CTA of each
+# group of MIX_GROUP, then the group rows by the last group, each group and
+# the groups counted by a ticket word.
+MIX_THREADS = 256
+MIX_WARPS = MIX_THREADS // 32
+MIX_GROUP = 32
+
+
+def mix_rows(V):
+    """(CTA rows, group rows) of a V-voice bank's mix."""
+    n_cta = -(-V // MIX_THREADS)
+    return n_cta, -(-n_cta // MIX_GROUP)
+
+
+def mix_scratch_rows(V):
+    """Rows of the mix scratch: the CTA rows, the group rows, the warp rows."""
+    n_cta, n_groups = mix_rows(V)
+    return n_cta + n_groups + MIX_WARPS * n_cta
+
+
+def empty_mix(V, n_out, B, device):
+    """(mix [n_out, B], scratch [mix_scratch_rows(V), n_out, B]): what a
+    generic or wavetable kernel writes."""
+    return (torch.empty((n_out, int(B)), dtype=torch.float32, device=device),
+            torch.empty((mix_scratch_rows(V), n_out, int(B)), dtype=torch.float32,
+                        device=device))
+
+
+_TICKETS = {}  # (device, stream) -> int32 words, zero between launches
+
+
+def mix_tickets(V, device, stream):
+    """The ticket words of the launches on ``stream``: 1 + group rows of
+    them, zero before a launch and reset to zero by it. Launches on one
+    stream run one after another and share them."""
+    n = 1 + mix_rows(V)[1]
+    key = (device, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+    return buf
+
+
+# the harmonic counts the additive partials are instantiated for on the card
+# (csrc/bank_common.cuh Harmonics<HMAX>); a table of more harmonics has no
+# CUDA kernel
+HARMONIC_SLOTS = (8, 16, 32, 64)
+
+
+def harmonic_slots(H, kernel, who):
+    """The smallest instantiation that holds H harmonics; raises naming
+    ``who`` where none does."""
+    for hmax in HARMONIC_SLOTS:
+        if H <= hmax:
+            return hmax
+    raise ValueError(
+        f"{kernel}: {who} has {H} harmonics; the CUDA kernel takes at most "
+        f"{HARMONIC_SLOTS[-1]}")
+
+
+def padded_harmonics(coefs, hmax):
+    """f32 [3, hmax]: the [3, H] A / B / threshold table with the harmonics
+    from H on as padding that contributes nothing (A = B = 0, thr = -inf,
+    which no frequency is at or below)."""
+    coefs = np.asarray(coefs, np.float32)
+    H = coefs.shape[1]
+    out = np.zeros((3, hmax), np.float32)
+    out[:, :H] = coefs
+    out[2, H:] = -np.inf
+    return out
 
 
 def scalar(x, device):
@@ -148,6 +224,20 @@ def u32_add(a, b):
 # --------------------------------------------------------------------------
 # plain torch helpers: the same arithmetic, op for op, over [V] per sample
 # --------------------------------------------------------------------------
+
+def ramp_flat_over_block(g, B):
+    """bool [V]: where ``_mat`` of the ramp group ``g`` [5, V] gives one bit
+    pattern at every sample of an event-free block of B samples (the rule
+    the generic kernel hoists its pan gains by, csrc/bank_common.cuh
+    ramp_flat). Either the ramp has ended (``el >= dur``: every progress
+    ``i + el`` is at or past dur, so tgt), or its step is zero and it does
+    not end inside the block (``el + (B-1) < dur``) where ``v0 +
+    step*prog`` keeps one sign of zero: prog never negative (``el >= 0``)
+    or v0 not zero. The value is ``_mat`` at sample 0, never v0 itself."""
+    v0, step, el, dur = g[0], g[1], g[2], g[3]
+    last = el + np.float32(B - 1)
+    return (el >= dur) | ((step == 0) & (last < dur) & ((el >= 0) | (v0 != 0)))
+
 
 def _mat(i_f, g, rg=None):
     """The float param at sample ``i_f`` from its ramp group ``g`` [5, V]
@@ -309,6 +399,17 @@ def env_shape_eval(shape, from_v, val, frac):
     ta = torch.clamp(torch.abs(val), min=tiny)
     geo = torch.sign(from_v) * fa * torch.exp(frac * torch.log(ta / fa))
     return torch.where(from_v * val > 0, geo, lin)
+
+
+def env_segment_index(seg, S):
+    """int64 [V]: the segment the kernel reads for each ``seg`` (the
+    Envelope body's index select, csrc/bank_common.cuh EnvProgram.index):
+    seg itself where it is one of 1 ... S-1, else 0 (segment 0 and the
+    negative finished / stopped codes), the segment the select loop of
+    ``_make_env_multiseg`` picks."""
+    idx = seg.to(torch.int64)
+    ok = (idx.to(seg.dtype) == seg) & (idx >= 1) & (idx < S)
+    return torch.where(ok, idx, torch.zeros_like(idx))
 
 
 def env_present_shapes(shapes):

@@ -14,18 +14,33 @@ body on the carry, multiply each output by the 0/1 active gain per sample,
 and mix the C channels.
 
 What bounds it on an H100: the body's FP32/SFU issue, as in the
-hand-written banks; the mix is a per-sample warp reduction into
-``[ceil(V/32), C, B]`` partials summed by ``torch.sum``.
+hand-written banks. The kernel sums the mix itself: in an event-free block
+each CTA of 256 voices sums a tile of 16 (channel, sample) columns in
+shared memory after one barrier; in an eventful block each warp sums by
+shuffles into a row of its own and the CTA adds its warp rows at the end;
+the CTA rows are summed in the kernel in a fixed order (``bank_common``
+``mix_rows``, ``mix_tickets``), so a launch returns the ``[C, B]`` mix and
+no reduction launch follows. The body constants reach the kernel by value,
+as a parameter packed here on the host (``const_image``): the Additive
+body's A/B/thresholds padded to its instantiation (8, 16, 32 or 64
+harmonics) and the Modal body's per-mode constants are read by unrolled
+loops as constant operands; the Envelope body's segment table is staged once
+per CTA into shared memory from the device constants and selected by index
+(``bank_common.env_segment_index``). In an event-free block what reads only
+params that are flat over it is taken once (``bank_common``
+``ramp_flat_over_block``): a stereo body's pan gains, the Subtractive
+body's SVF coefficients.
 
 The carry crosses the kernel as one ``[NC, V]`` int32 tensor: u32 carries
 as their bit pattern, f32 carries bit-cast. The body constants (envelope
 rates, phase units per Hz, the additive body's A/B/thresholds, the
 envelope body's segment table, the modal body's per-mode ratios, decay
-factors and gains) cross as a small f32 tensor on the device.
+factors and gains) cross as a small f32 tensor on the device and as the
+host image of the kernel parameter.
 
-The bodies: Sine, FM, Subtractive, Additive, Envelope and Modal (one
-instantiation per mode count, M = 1 ... 16: the carry is a register array
-whose length the compiler must know).
+The bodies: Sine, FM, Subtractive, Additive (up to 64 harmonics on the
+card), Envelope and Modal (one instantiation per mode count, M = 1 ... 16:
+the carry is a register array whose length the compiler must know).
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise, also for a voice with no CUDA body), CPU tensors run
@@ -36,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import bank_common as bc
@@ -57,8 +73,41 @@ BODIES = {
     "envelope": (4, 4, 2, 4, 2),
     **{f"modal{m}": (4 + m, 4, 1, 3 + 2 * m, 2) for m in range(1, 17)},
 }
-ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 \
     + [ctypes.c_void_p]
+ENVELOPE_HEAD = 10  # the envelope constants before its segment table
+
+
+def const_image(spec):
+    """The host image of the CUDA body's kernel parameter (its ``Consts``
+    struct in ``csrc/generic_bank.cu``), f32, from ``spec.consts``; built
+    once per spec. Sine, FM, Subtractive: the constants as they are.
+    Additive (f2pi, atk, rel, A[H], B[H], thr[H]): f2pi, atk, rel, H, then
+    A, B and thr each padded to the instantiation's harmonic count
+    (``bank_common.padded_harmonics``). Envelope: the 10-float head (its
+    segment table stays on the device). Modal (atk, rel, 1/area, 2pi/sr,
+    thr^2, M, ratio[M], k_exp[M], gain[M], gain^2[M]): atk, rel, 1/area,
+    2pi/sr, ratio, k_exp, gain. Raises for an Additive voice of more
+    harmonics than the largest instantiation."""
+    image = getattr(spec, "_cuda_image", None)
+    if image is not None:
+        return image
+    body = spec.cuda_body
+    k = np.asarray(spec.consts, np.float32)
+    if body in ("sine", "fm", "subtractive"):
+        image = k
+    elif body == "additive":
+        H = (k.shape[0] - 3) // 3
+        hmax = bc.harmonic_slots(H, KERNEL, f"voice {spec.voice_name}")
+        table = bc.padded_harmonics(k[3:].reshape(3, H), hmax)
+        image = np.concatenate([k[:3], [np.float32(H)], table.reshape(-1)])
+    elif body == "envelope":
+        image = k[:ENVELOPE_HEAD]
+    else:
+        M = int(k[5])
+        image = np.concatenate([k[:4], k[6:6 + 3 * M]])
+    spec._cuda_image = np.ascontiguousarray(image, np.float32)
+    return spec._cuda_image
 
 
 class ParamView:
@@ -119,14 +168,15 @@ def generic_bank(*, spec, float_names, trig_names, n_out, ramps, rounds, act,
         return generic_bank_plain(**operands)
     outs = empty_outputs(carry, n_out, block_size)
     launch(outs, **operands)
-    partial, carry_out = outs
-    return partial.sum(dim=0), carry_out
+    mix, _, carry_out = outs
+    return mix, carry_out
 
 
 def empty_outputs(carry, n_out, block_size):
-    """(partial mix [ceil(V/32), C, B], carry [NC, V]) buffers."""
-    return (bc.empty_partial(carry.shape[1], n_out, block_size, carry.device),
-            torch.empty_like(carry))
+    """(mix [C, B], mix scratch (``bank_common.empty_mix``), carry [NC, V])
+    buffers."""
+    mix, work = bc.empty_mix(carry.shape[1], n_out, block_size, carry.device)
+    return mix, work, torch.empty_like(carry)
 
 
 def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
@@ -152,9 +202,11 @@ def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
             f"{spec.voice_name} has {len(float_names)}, {len(trig_names)}, "
             f"{len(spec.carry)} and {n_out}")
     bc.require_cuda(KERNEL, device)
-    partial, carry_out = outs
-    bc.check(KERNEL, "partial", partial, torch.float32,
-             ((V + 31) // 32, n_out, B), device)
+    image = const_image(spec)
+    mix, work, carry_out = outs
+    bc.check(KERNEL, "mix", mix, torch.float32, (n_out, B), device)
+    bc.check(KERNEL, "work", work, torch.float32, (bc.mix_scratch_rows(V), n_out, B),
+             device)
     bc.check(KERNEL, "carry_out", carry_out, torch.int32, tuple(carry.shape),
              device)
 
@@ -164,10 +216,12 @@ def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
     ptr = bc.ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        tickets = bc.mix_tickets(V, device, stream)
         err = lib.ktt_generic_bank(
             body_id, ptr(ramps), ptr(rounds), ptr(act), ptr(words), ptr(carry),
-            ptr(consts), ptr(partial), ptr(carry_out), V, B, D,
-            int(rounds is not None), consts.shape[0], ctypes.c_void_p(stream))
+            ptr(consts), image.ctypes.data_as(ctypes.c_void_p), ptr(work), ptr(mix),
+            ptr(tickets), ptr(carry_out), V, B, D, int(rounds is not None),
+            consts.shape[0], image.shape[0], ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
 

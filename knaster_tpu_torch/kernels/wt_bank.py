@@ -11,16 +11,24 @@ full-resolution fundamental angle (``_theta_full``), H partials by phasor
 recurrence weighted by the table's A/B coefficients and masked per sample
 against the hoisted Nyquist thresholds, equal-power pan (``_pan_gains``)
 and the stereo mix. The A/B/threshold constants are computed on the host by
-``wt_coefs`` exactly as the JAX package does (f64, rounded to f32) and
-passed to the kernel as one small ``[3, H]`` tensor; H is a runtime value.
+``wt_coefs`` exactly as the JAX package does (f64, rounded to f32): the
+plain version reads them as a ``[3, H]`` tensor on the state's device, the
+kernel by value as a kernel parameter, the host image ``coef_image`` builds
+(H, then the table padded to 8, 16, 32 or 64 harmonics with entries that
+contribute nothing), read by a fully unrolled harmonic loop as constant
+operands. A table of more than 64 harmonics has no kernel and raises.
 
 What bounds it on an H100: FP32 issue, ~7 ops per harmonic per
-voice-sample plus one sinf/cosf pair.
+voice-sample plus one sincosf. The kernel sums the stereo mix itself: each
+CTA of 256 voices in a shared-memory tile after one barrier (event-free
+blocks) or by warp shuffles into warp rows added at the end (eventful
+blocks), the CTA rows in a fixed order (``bank_common.mix_rows``,
+``mix_tickets``), so no reduction launch follows.
 
 Tolerance: phase, stage, t and rscale are bit-equal to the plain version;
-the mix passes through the card's ``sinf``/``cosf``, which may differ from
-torch's by an ulp, carried through the recurrence, so it is compared within
-a stated tolerance.
+the mix passes through the card's ``sincosf``, which may differ from
+torch's sin/cos by an ulp, carried through the recurrence, and sums the
+terms in another order, so it is compared within a stated tolerance.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run ``wt_bank_plain``. Nothing falls back.
@@ -44,8 +52,8 @@ LAUNCHES = 0
 N_FLOAT = 3  # freq, amp, pan (AdditiveVoice's float params, in bank order)
 N_TRIG = 2  # t_restart, t_release
 FREQ, AMP, PAN = 0, 1, 2
-ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 \
-    + [ctypes.c_void_p]
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+    + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
 def wt_coefs(mags, offsets, sample_rate):
@@ -60,6 +68,18 @@ def wt_coefs(mags, offsets, sample_rate):
     thr = np.array([np.float32(np.float64(nyq) / (h + 1))
                     for h in range(len(mags))], np.float32)
     return np.stack([acoef, bcoef, thr])
+
+
+def coef_image(coefs):
+    """The host image of the kernel's parameter from the ``[3, H]`` table of
+    ``wt_coefs``: f32 [1 + 3*HMAX], H, then A, B and thr each padded to
+    HMAX, the smallest of ``bank_common.HARMONIC_SLOTS`` that holds H.
+    Raises past the largest."""
+    coefs = np.asarray(coefs, np.float32)
+    H = coefs.shape[1]
+    hmax = bc.harmonic_slots(H, KERNEL, "the table")
+    return np.concatenate([[np.float32(H)],
+                           bc.padded_harmonics(coefs, hmax).reshape(-1)]).astype(np.float32)
 
 
 def _validate(ramps, rounds, act, words, phase, stage, t, rscale, coefs,
@@ -78,7 +98,7 @@ def _validate(ramps, rounds, act, words, phase, stage, t, rscale, coefs,
 
 
 def wt_bank(*, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
-            block_size, atk, rel, f2pi):
+            block_size, atk, rel, f2pi, image=None):
     """One block of the fused additive wavetable bank.
 
     ramps:  f32 [3, 5, V] anchored ramp groups of freq, amp, pan. Event-free
@@ -92,42 +112,53 @@ def wt_bank(*, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
     stage, t, rscale: f32 [V] EnvAsr state.
     coefs:  f32 [3, H] from ``wt_coefs``, on the state's device.
     atk, rel, f2pi: f32-representable floats.
+    image:  ``coef_image`` of the same table, a host array: the kernel's
+            parameter (the kernel needs it; the plain version does not
+            read it).
 
     Returns (mix f32 [2, B], phase, stage, t, rscale). CPU tensors run
     ``wt_bank_plain``; CUDA tensors launch the kernel."""
     operands = dict(ramps=ramps, rounds=rounds, act=act, words=words,
                     phase=phase, stage=stage, t=t, rscale=rscale, coefs=coefs,
-                    block_size=block_size, atk=atk, rel=rel, f2pi=f2pi)
+                    block_size=block_size, atk=atk, rel=rel, f2pi=f2pi, image=image)
     if phase.device.type == "cpu":
         return wt_bank_plain(**operands)
     outs = empty_outputs(phase, block_size)
     launch(outs, **operands)
-    partial, *state = outs
-    return (partial.sum(dim=0), *state)
+    mix, _, *state = outs
+    return (mix, *state)
 
 
 def empty_outputs(phase, block_size):
-    """(partial mix [ceil(V/32), 2, B], phase, stage, t, rscale)."""
+    """(mix [2, B], mix scratch (``bank_common.empty_mix``), phase, stage,
+    t, rscale)."""
     V = phase.shape[0]
-    return (bc.empty_partial(V, 2, block_size, phase.device),
+    return (*bc.empty_mix(V, 2, block_size, phase.device),
             torch.empty_like(phase),
             *(torch.empty((V,), dtype=torch.float32, device=phase.device)
               for _ in range(3)))
 
 
 def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
-           block_size, atk, rel, f2pi):
+           block_size, atk, rel, f2pi, image=None):
     """Launch the CUDA kernel on the current stream, writing ``outs`` (from
     ``empty_outputs``). Raises for anything but CUDA tensors of the
-    documented layout, and if the launch fails."""
+    documented layout, for a missing or mismatched ``image``, and if the
+    launch fails."""
     global LAUNCHES
     V, B, D, H = _validate(ramps, rounds, act, words, phase, stage, t, rscale,
                            coefs, block_size)
     device = phase.device
     bc.require_cuda(KERNEL, device)
-    partial, phase_out, stage_out, t_out, rscale_out = outs
-    bc.check(KERNEL, "partial", partial, torch.float32,
-             ((V + 31) // 32, 2, B), device)
+    hmax = bc.harmonic_slots(H, KERNEL, "the table")
+    if not (isinstance(image, np.ndarray) and image.dtype == np.float32
+            and image.shape == (1 + 3 * hmax,) and image.flags.c_contiguous
+            and image[0] == H):
+        raise ValueError(f"{KERNEL}: image must be coef_image(coefs) of the [3, {H}] "
+                         "table, a contiguous f32 host array")
+    mix, work, phase_out, stage_out, t_out, rscale_out = outs
+    bc.check(KERNEL, "mix", mix, torch.float32, (2, B), device)
+    bc.check(KERNEL, "work", work, torch.float32, (bc.mix_scratch_rows(V), 2, B), device)
     bc.check(KERNEL, "phase_out", phase_out, torch.int32, (V,), device)
     for name, x in (("stage_out", stage_out), ("t_out", t_out),
                     ("rscale_out", rscale_out)):
@@ -139,13 +170,14 @@ def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
     ptr = bc.ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        tickets = bc.mix_tickets(V, device, stream)
         err = lib.ktt_wt_bank(
             ptr(ramps), ptr(rounds), ptr(act), ptr(words), ptr(phase),
-            ptr(stage), ptr(t), ptr(rscale), ptr(coefs), ptr(partial),
-            ptr(phase_out), ptr(stage_out), ptr(t_out), ptr(rscale_out),
-            V, B, D, H, int(rounds is not None),
-            ctypes.c_float(atk), ctypes.c_float(rel), ctypes.c_float(f2pi),
-            ctypes.c_void_p(stream))
+            ptr(stage), ptr(t), ptr(rscale), image.ctypes.data_as(ctypes.c_void_p),
+            image.shape[0], ptr(work), ptr(mix), ptr(tickets), ptr(phase_out),
+            ptr(stage_out), ptr(t_out), ptr(rscale_out), V, B, D,
+            int(rounds is not None), ctypes.c_float(atk), ctypes.c_float(rel),
+            ctypes.c_float(f2pi), ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
 
@@ -166,10 +198,10 @@ def additive_partials(freq, theta, coefs):
 
 
 def wt_bank_plain(*, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
-                  block_size, atk, rel, f2pi):
+                  block_size, atk, rel, f2pi, image=None):
     """``wt_bank`` in plain torch: a Python loop over the B samples with
     [V]-wide ops in the kernel's order. The mix is one ``torch.sum`` per
-    sample and channel."""
+    sample and channel. ``image`` (the kernel's parameter) is not read."""
     V, B, _, _ = _validate(ramps, rounds, act, words, phase, stage, t, rscale,
                            coefs, block_size)
     dev = phase.device

@@ -329,7 +329,7 @@ class FusedWavetableVoiceBank(_HandBank):
                          kernel_burst_depth)
         self.mags = voice.mags
         self.offsets = voice.offsets
-        self._coefs = {}  # (sample rate, device) -> f32 [3, H]
+        self._coefs = {}  # (sample rate, device) -> (f32 [3, H], host image)
 
     def name(self):
         return f"FusedWavetableBank[{self.n_voices}x{len(self.mags)}h]"
@@ -339,7 +339,8 @@ class FusedWavetableVoiceBank(_HandBank):
         dev = state["phase"].device
         key = (ctx.sample_rate, dev)
         if key not in self._coefs:
-            self._coefs[key] = torch.from_numpy(
-                wt_bank.wt_coefs(self.mags, self.offsets, ctx.sample_rate)).to(dev)
-        operands["coefs"] = self._coefs[key]
+            coefs = wt_bank.wt_coefs(self.mags, self.offsets, ctx.sample_rate)
+            image = wt_bank.coef_image(coefs) if dev.type == "cuda" else None
+            self._coefs[key] = (torch.from_numpy(coefs).to(dev), image)
+        operands["coefs"], operands["image"] = self._coefs[key]
         return operands, carry

@@ -21,7 +21,7 @@ body runs.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -60,6 +60,9 @@ class KernelVoiceSpec:
     cuda_body: Optional[str] = None
     consts: np.ndarray = None
     voice_name: str = "voice"
+    # the kernel parameter's host image (kernels.generic_bank.const_image)
+    _cuda_image: Optional[np.ndarray] = field(default=None, init=False, repr=False,
+                                              compare=False)
 
 
 class FusedVoiceBank(FusedBank):
