@@ -59,16 +59,22 @@ result line):
    mid-block, decays where the polynomial exp underflows, modes past pi,
    a depth-3 burst. Carries bit-equal but the envelope's frozen value,
    within EFROM_ULPS ulps (the kernel's cosf/expf/logf against torch's).
-   Then the matrix of the generic and wavetable kernels' Hopper design:
-   the wavetable kernel and every generic body (the Envelope body on the
-   four-shape table, looping and one-shot; the Modal body on the bar) at V
-   in {1000, 131055, 131072} (131055: a last CTA with whole warps past the
-   bank and a ragged one) and B in {64, 1024}, an eventful block and then
-   an event-free one whose pan, cutoff and q ramps meet the flat-ramp
-   rule's edge cases (a glide, a ramp ended exactly at sample 0, a zero
-   step ending inside the block at another target, a signed zero); the
-   wavetable kernel and the Additive body also at H in {1, 17, 64}; at
-   V = 131055, B = 64 two launches on the same buffers must give
+   Then the matrix of the bank kernels' Hopper design: the hand sine and
+   subtractive kernels, the wavetable kernel and every generic body (the
+   Envelope body on the four-shape table, looping and one-shot; the Modal
+   body on the bar) at V in {1000, 131055, 131072} (131055: a last CTA
+   with whole warps past the bank and a ragged one) and B in {64, 1024},
+   an eventful block and then an event-free one whose pan, cutoff and q
+   ramps (and the hand kernels' freq and amp) meet the flat-ramp rules'
+   edge cases (a glide, a ramp ended exactly at sample 0, a zero step
+   ending inside the block at another target, a signed zero); for the hand
+   kernels those cases fill two warps of three and the third keeps flat
+   ramps with some freqs at 0, and the envelopes are set by warp
+   (sustained, stopped, alternating lanes, the eventful block's own), so
+   that both sides of every warp-uniform hoist run; the wavetable kernel
+   and the Additive body also at H in {1, 17, 64} and past the unrolled
+   instantiations at {65, 128, 1024} (the run-time variant); at V =
+   131055, B = 64 two launches on the same buffers must give
    bit-identical mixes (the in-kernel sum's tickets reset). Carries
    bit-equal, mixes within the tolerance;
 4. slices — each bank through its public API at 131,072 voices, B=64,
@@ -128,8 +134,13 @@ result line):
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
    replayed between CUDA events, and beside it the eager time over
    back-to-back calls, which a short kernel's host launch rate can set),
-   wrapper ms and plain ms, event-free and eventful (the Envelope and Modal
-   bodies also at B = 1024 event-free); then torch.profiler's
+   wrapper ms (the wrapper also captured in a CUDA graph: the hand FM
+   kernel's sum launch with it) and plain ms, event-free and eventful (the
+   Envelope and Modal bodies also at B = 1024 event-free), the hand sine
+   and subtractive kernels' bound counted on the path each warp of the
+   timed state takes (``hand_ops_per_sample``: the hoisted path's
+   FLAT_OPS_PER_SAMPLE, the general OPS_PER_SAMPLE printed beside it);
+   then torch.profiler's
    device time by kernel over 100 event-free blocks of each bank and one
    render chunk of each graph slice; and the stage-loop kernels at B in
    {16, 64, 1024} and at the longest superblock their renders take
@@ -201,6 +212,16 @@ OPS_PER_SAMPLE = {"sine_bank": 40, "fm_bank": 60, "sub_bank": 70, "wt_bank": 110
                   # the generic harness's bodies repeat their hand banks' math
                   "generic-sine": 40, "generic-fm": 60, "generic-subtractive": 70,
                   "generic-additive": 110}
+# the same count on the path the hand sine and subtractive kernels take for
+# a warp of sustained or stopped voices whose ramps are all flat over the
+# block (hand_ops_per_sample counts the warps that take it): what is taken
+# once a block (the envelope, amp, pan gains and increment; the SVF
+# coefficients and dt) leaves the sine's 9 (the quadrant fold's six integer
+# operations, the shared-memory table read and the sign), the phase add,
+# three multiplies and the mix's 2 a channel (the tile store and its add);
+# the saw, the BLEP's compares (its divide is rarely needed), the SVF step,
+# one multiply and the mix
+FLAT_OPS_PER_SAMPLE = {"sine_bank": 17, "sub_bank": 28}
 
 
 def fail(msg):
@@ -641,10 +662,10 @@ def bound(nbytes, nops):
 
 
 def written(mod, outs):
-    """A bank kernel's outputs without the generic and wavetable kernels'
-    mix scratch (their second buffer, ``bank_common.empty_mix``): what the
-    bound counts as written once."""
-    if mod.KERNEL in ("generic_bank", "wt_bank"):
+    """A bank kernel's outputs without the mix scratch of the kernels that
+    sum their own mix (their second buffer, ``bank_common.empty_mix``): what
+    the bound counts as written once."""
+    if mod.KERNEL != "fm_bank":
         return (outs[0], *outs[2:])
     return outs
 
@@ -674,13 +695,63 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     ev_wrapper_ms = time_call(torch, lambda: bank.kernel(**ev_ops), 100)
     ev_plain_ms = time_call(torch, lambda: plain(**ev_ops), 3)
     per_sample = OPS_PER_SAMPLE.get(kind, OPS_PER_SAMPLE[mod.KERNEL])
-    bound_ms, bound_by = bound(tensor_bytes(ops, written(mod, outs)),
-                               per_sample * N_VOICES * BLOCK)
+    nbytes = tensor_bytes(ops, written(mod, outs))
+    bound_ms, bound_by = bound(nbytes, per_sample * N_VOICES * BLOCK)
+    general = ""
+    if kind in HAND_KINDS:
+        # the bound is that of the path these inputs take; the general
+        # count's beside it
+        general = f"; at the general count ({per_sample}) {bound_ms:.4f} ms ({bound_by})"
+        per_sample, hoisted = hand_ops_per_sample(torch, mod, ops, BLOCK)
+        bound_ms, bound_by = bound(nbytes, per_sample * N_VOICES * BLOCK)
+        general = f", {hoisted:.4f} of the warps on the hoisted path" + general
+    graph_wrapper_ms = time_graph(torch, lambda: bank.kernel(**ops), 200)
     print(f"timing {kind} V={N_VOICES} B={BLOCK} on {card}: event-free kernel "
-          f"{ms:.4f} ms (eager {eager_ms:.4f} ms), wrapper {wrapper_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms; eventful kernel {ev_ms:.4f} ms, wrapper {ev_wrapper_ms:.4f} "
-          f"ms, plain {ev_plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+          f"{ms:.4f} ms (eager {eager_ms:.4f} ms), wrapper {graph_wrapper_ms:.4f} ms "
+          f"(eager {wrapper_ms:.4f} ms), plain {plain_ms:.3f} ms; eventful kernel "
+          f"{ev_ms:.4f} ms, wrapper {ev_wrapper_ms:.4f} ms, plain {ev_plain_ms:.3f} ms; "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {per_sample:g} f32 operations a "
+          f"voice-sample{general})")
     return ms, plain_ms, bound_ms, bound_by
+
+
+def hand_ops_per_sample(torch, mod, ops, B):
+    """(f32 operations a voice-sample, share of warps on the hoisted path)
+    of the hand sine or subtractive kernel on the event-free ``ops``, counted
+    from the data as the kernel decides by warp (its __all_sync over
+    ``bank_common``'s flat and steady rules): FLAT_OPS_PER_SAMPLE on a
+    warp whose every lane takes the hoisted path, none on a sine warp of
+    zero gains there (it advances its phases at once and sums nothing),
+    OPS_PER_SAMPLE on every other warp (one that takes some hoists is
+    counted at the general count)."""
+    from knaster_tpu_torch.kernels import bank_common as bc
+
+    ramps, stage = ops["ramps"], ops["stage"]
+    amp = ramps[mod.AMP].clone()
+    bc.fold_act(amp, ops["act"])
+    fast = bc.ramp_flat_over_block(amp, B) & bc.env_asr_steady(stage)
+    quiet = torch.zeros_like(fast)
+    if mod.KERNEL == "sine_bank":
+        pack = bc.pan_pack(ramps[mod.PAN])
+        fast &= bc.ramp_flat_over_block(ramps[mod.FREQ], B) & bc.pack_flat_over_block(pack, B)
+        hl, hr = bc._pan_gains(0.0, pack)
+        gain0 = torch.where(stage == 2, 1.0, 0.0) * bc._mat(0.0, amp)
+        quiet = (gain0 == 0) & torch.isfinite(hl) & torch.isfinite(hr)
+    else:
+        for p in (mod.FREQ, mod.CUT, mod.Q):
+            fast &= bc.ramp_flat_over_block(ramps[p], B)
+
+    def by_warp(x):  # ragged lanes take every path
+        pad = torch.ones((-x.numel()) % 32, dtype=torch.bool, device=x.device)
+        return torch.cat([x, pad]).view(-1, 32).all(dim=1)
+
+    fast = by_warp(fast)
+    quiet = fast & by_warp(quiet)
+    n = fast.numel()
+    flat, general = FLAT_OPS_PER_SAMPLE[mod.KERNEL], OPS_PER_SAMPLE[mod.KERNEL]
+    n_fast, n_quiet = int(fast.sum()), int(quiet.sum())
+    per_sample = ((n_fast - n_quiet) * flat + (n - n_fast) * general) / n
+    return per_sample, n_fast / n
 
 
 # --------------------------------------------------------------------------
@@ -2588,21 +2659,26 @@ def phase_family_vs_plain(torch, np, ktt, dev):
     return errs, ulps
 
 
-# The redesigned generic and wavetable kernels against their plain versions
-# over the shapes their design turns on: V = 1000, a last CTA of 239 voices
-# (131,072 - 17: whole warps past the bank and a ragged one) and 131,072;
-# B = 64 and 1024 (tiles of 8 or 16 samples, the eventful warp rows);
-# an eventful block, then an event-free one whose flat-ramp hoists meet
-# their edge cases (EDGE_PARAMS); the harmonic instantiations
+# The redesigned bank kernels against their plain versions over the shapes
+# their design turns on: V = 1000, a last CTA of 239 voices (131,072 - 17:
+# whole warps past the bank and a ragged one) and 131,072; B = 64 and 1024
+# (tiles of 8 or 16 samples, the eventful warp rows); an eventful block,
+# then an event-free one whose flat-ramp hoists meet their edge cases
+# (EDGE_PARAMS); the hand sine and subtractive kernels' warp-uniform fast
+# paths on both sides (HAND_KINDS); the harmonic instantiations and the
+# run-time variant past them
 MATRIX_VS = (1000, N_VOICES - 17, N_VOICES)
 MATRIX_BS = (BLOCK, 1024)
-MATRIX_KINDS = ("wt", "generic-sine", "generic-fm", "generic-subtractive",
-                "generic-additive", "generic-envelope", "generic-modal")
-H_SWEEP = (1, 17, 64)  # with the matrix's 16: 1, 16, 17 and the largest (64)
-# the params whose flat ramps the generic kernel hoists work on: the pan
-# gains (Sine, Additive, Envelope, Modal) and the SVF coefficients
-# (Subtractive)
-EDGE_PARAMS = ("pan", "cutoff", "q")
+HAND_KINDS = ("sine", "sub")
+MATRIX_KINDS = HAND_KINDS + ("wt", "generic-sine", "generic-fm", "generic-subtractive",
+                             "generic-additive", "generic-envelope", "generic-modal")
+# with the matrix's 16: 1, 16, 17, the largest unrolled (64) and the
+# run-time variant past it
+H_SWEEP = (1, 17, 64, 65, 128, 1024)
+# the params whose flat ramps the kernels hoist work on: the pan gains
+# (Sine, Additive, Envelope, Modal, the hand sine), the SVF coefficients
+# (Subtractive), and the hand kernels' freq and amp
+EDGE_PARAMS = ("pan", "cutoff", "q", "freq", "amp")
 
 
 def matrix_bank(ktt, np, kind, V, B, looping=False, n_harmonics=H):
@@ -2617,31 +2693,58 @@ def matrix_bank(ktt, np, kind, V, B, looping=False, n_harmonics=H):
                      n_harmonics=n_harmonics)
 
 
-def flat_edge_cases(torch, bank, operands, B):
+def flat_edge_cases(torch, bank, operands, B, by_warp=False):
     """Event-free operands whose EDGE_PARAMS ramps take, by voice v mod 5: a
     glide across the block; a ramp that ended exactly at sample 0 (el ==
     dur); a zero step that ends inside the block at a target other than v0;
     a flat ramp of a signed zero (pan at v0 = -0.0 with step +0.0, which
-    materializes as +0.0; cutoff and q at step -0.0); the bank's own."""
+    materializes as +0.0; the others at step -0.0); the bank's own. With
+    ``by_warp`` (the hand kernels, whose hoists a warp takes only where all
+    its lanes can) the cases fill two warps of three and every third warp
+    keeps the bank's own ramps, with freq 0 (dt at its floor) on every
+    seventh of its voices."""
     ramps = operands["ramps"].clone()
-    v = torch.arange(ramps.shape[2], device=ramps.device) % 5
+    lane = torch.arange(ramps.shape[2], device=ramps.device)
+    v = lane % 5
+    edged = (lane // 32) % 3 != 0 if by_warp else torch.ones_like(lane, dtype=torch.bool)
     for name in EDGE_PARAMS:
-        if name not in bank._float_names:
+        if name not in bank._float_names or (name in ("freq", "amp") and not by_warp):
             continue
         g = ramps[bank.float_index(name)]
         base = g[0].clone()
-        cases = (
+        cases = [
             (v == 0, (base, 0.25 * base / B + 1e-3, 0.0, 2.0 * B, 1.5 * base)),
             (v == 1, (base, 0.01, 7.0, 7.0, 0.75 * base)),
             (v == 2, (base, 0.0, 0.0, float(B // 2), 0.5 * base + 0.1)),
             (v == 3, ((-0.0, 0.0, 0.0, 4.0 * B, 0.3) if name == "pan"
                       else (base, -0.0, 0.0, 4.0 * B, base))),
-        )
+        ]
+        cases = [(m & edged, vals) for m, vals in cases]
+        if name == "freq":
+            cases.append((~edged & (lane % 7 == 6), (0.0, 0.0, 0.0, 0.0, 0.0)))
         for m, vals in cases:
             for k, x in enumerate(vals):
                 g[k] = torch.where(m, x if isinstance(x, torch.Tensor)
                                    else torch.full_like(base, x), g[k])
     return dict(operands, ramps=ramps)
+
+
+def steady_stages(torch, bank, state):
+    """The EnvAsr stages by warp, so that the hand kernels' steady-envelope
+    hoist runs on both sides: warps 0, 4, 8, ... sustained (stage 2, t = 1),
+    1, 5, ... stopped (stage 0, t = 0), 3, 7, ... alternate lanes sustained
+    and stopped; 2, 6, ... keep the eventful block's attacks, releases and
+    stops."""
+    n = state["stage"].shape[0]
+    lane = torch.arange(n, device=state["stage"].device)
+    w = (lane // 32) % 4
+    sus = (w == 0) | ((w == 3) & (lane % 2 == 0))
+    stop = (w == 1) | ((w == 3) & (lane % 2 == 1))
+    st = dict(state)
+    st["stage"] = torch.where(sus, 2.0, torch.where(stop, 0.0, state["stage"]))
+    t_name = "et" if "et" in state else "t"
+    st[t_name] = torch.where(sus, 1.0, torch.where(stop, 0.0, state[t_name]))
+    return st
 
 
 def back_to_back(torch, mod, bank, operands, B, label):
@@ -2650,7 +2753,7 @@ def back_to_back(torch, mod, bank, operands, B, label):
     if mod.KERNEL == "generic_bank":
         outs = mod.empty_outputs(operands["carry"], bank.voice.outputs, B)
     else:
-        outs = mod.empty_outputs(operands["phase"], B)
+        outs = mod.empty_outputs(next(operands[n] for n, _, _ in bank.STATE), B)
     mod.launch(outs, **operands)
     first = outs[0].clone()
     mod.launch(outs, **operands)
@@ -2661,8 +2764,9 @@ def back_to_back(torch, mod, bank, operands, B, label):
 
 def matrix_cell(torch, ktt, np, dev, kind, V, B, looping=False, n_harmonics=H):
     """One eventful and one event-free block (with the flat-ramp edge
-    cases) of ``kind`` at (V, B), kernel against plain; the event-free block
-    also back to back. Returns (max |mix diff|, efrom ulps)."""
+    cases; the hand kernels also with the stages by warp) of ``kind`` at
+    (V, B), kernel against plain; the event-free block also back to back.
+    Returns (max |mix diff|, efrom ulps)."""
     bank = matrix_bank(ktt, np, kind, V, B, looping, n_harmonics)
     ctx = ktt.AudioCtx(SR, B, torch.float32)
     state = bank.init(ctx, device=dev)
@@ -2677,9 +2781,12 @@ def matrix_cell(torch, ktt, np, dev, kind, V, B, looping=False, n_harmonics=H):
     state, _ = bank.finish(ctx, carry, k)
     if kind == "generic-envelope" and not bool((state["eseg"] == -2.0).any()):
         fail(f"{label}: no t_stop froze a voice")
+    hand = kind in HAND_KINDS
+    if hand:
+        state = steady_stages(torch, bank, state)
     operands, carry = bank.kernel_operands(ctx, state, None)
     if kind != "wt":
-        operands = flat_edge_cases(torch, bank, operands, B)
+        operands = flat_edge_cases(torch, bank, operands, B, by_warp=hand)
     k, e, u = compare_block(torch, kind, bank, operands, f"{label} event-free", loose, cpu)
     if float(k[0].abs().max()) == 0.0:
         fail(f"{label}: silent mix")
@@ -2689,10 +2796,11 @@ def matrix_cell(torch, ktt, np, dev, kind, V, B, looping=False, n_harmonics=H):
 
 
 def phase_bank_matrix_vs_plain(torch, np, ktt, dev):
-    """Every generic body and the wavetable kernel over MATRIX_VS x
-    MATRIX_BS (the Envelope body looping and one-shot; the 1000-voice
-    cells' plain version on the CPU), then the wavetable kernel and the
-    Additive body at H in H_SWEEP, B = 64, V = 131,055: carries bit-equal
+    """The hand sine and subtractive kernels, every generic body and the
+    wavetable kernel over MATRIX_VS x MATRIX_BS (the Envelope body looping
+    and one-shot; the 1000-voice cells' plain version on the CPU), then the
+    wavetable kernel and the Additive body at H in H_SWEEP, B = 64, V =
+    131,055: carries bit-equal
     (the envelope's efrom within EFROM_ULPS), mixes within mix_tolerance,
     and at V = 131,055, B = 64 two launches on the same buffers
     bit-identical. Returns {kind: max |mix diff|}."""
@@ -3058,7 +3166,9 @@ def main():
                                 *path_errs.values()])
     family_errs, efrom_ulps = phase_family_vs_plain(torch, np, ktt, dev)
     matrix_errs = lap(phase_bank_matrix_vs_plain, torch, np, ktt, dev)
-    errs["wt_bank"] = max(errs["wt_bank"], matrix_errs["wt"])
+    for kind in ("wt",) + HAND_KINDS:
+        name = kernel_module(kind).KERNEL
+        errs[name] = max(errs[name], matrix_errs[kind])
     for body in ("sine", "fm", "subtractive", "additive"):
         errs_by_body[body] = max(errs_by_body[body], matrix_errs[f"generic-{body}"])
     for body in ("envelope", "modal"):

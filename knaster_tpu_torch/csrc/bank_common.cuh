@@ -6,8 +6,8 @@
 // as anchored ramp groups ramps[n_float][5][V] (v0, step, el, dur, tgt);
 // eventful blocks add D breakpoint rounds rounds[n_float][5][D][V] (v0,
 // step, dur, tgt, frame) and packed trigger words words[n_trig][W][V], W =
-// ceil(B/32). The hand sine, FM and subtractive kernels leave their mix as
-// warp partials partial[ceil(V/32)][C][B], summed by the wrapper; the
+// ceil(B/32). The hand FM kernel leaves its mix as warp partials
+// partial[ceil(V/32)][C][B], summed by the wrapper; the sine, subtractive,
 // generic and wavetable kernels sum it themselves through the CTA mix below
 // (CtaMix, mix_combine_warps, mix_finish) into mix[C][B].
 //
@@ -37,6 +37,7 @@ constexpr uint32_t kCycle = 1u << 30;  // TABLE_SIZE * FRACTIONAL_PART phase uni
 constexpr float kIdxScale = 0x1.921fb6p-12f;  // 2*pi / 16384
 constexpr float kU2Rad = 0x1.921fb6p-28f;     // 2*pi / 2^30
 constexpr float kHalfPi = 0x1.921fb6p+0f;     // pi / 2
+constexpr float kQuarterPi = 0x1.921fb6p-1f;  // pi / 4
 constexpr float kToIncMax = 0x1.fffffep+30f;  // 2^31 - 128
 constexpr float kMinDt = 0x1.12e0bep-30f;     // np.float32(1e-9)
 constexpr float kC0 = 1.0f;
@@ -61,6 +62,27 @@ __device__ __forceinline__ float sin_quant(uint32_t phase) {
   const bool neg = idx >= kTableSize / 2u;
   const uint32_t m = half > kTableSize / 4u ? kTableSize / 2u - half : half;
   const float p = sin_poly(static_cast<float>(static_cast<int32_t>(m)) * kIdxScale);
+  return neg ? -p : p;
+}
+
+// sin_quant's 4097 first-quadrant values, sin_poly(m * kIdxScale) for m =
+// 0 ... 4096, in shared memory: filled by every thread of the CTA, then a
+// barrier; sin_quant_table(phase, tab) is sin_quant(phase) bit for bit
+constexpr int kSinTable = static_cast<int>(kTableSize / 4u) + 1;
+
+__device__ __forceinline__ void fill_sin_table(float* tab) {
+  for (int m = threadIdx.x; m < kSinTable; m += blockDim.x) {
+    tab[m] = sin_poly(static_cast<float>(m) * kIdxScale);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float sin_quant_table(uint32_t phase, const float* tab) {
+  const uint32_t idx = (phase >> 16) & kTableHighMask;
+  const uint32_t half = idx & (kTableSize / 2u - 1u);
+  const bool neg = idx >= kTableSize / 2u;
+  const uint32_t m = half > kTableSize / 4u ? kTableSize / 2u - half : half;
+  const float p = tab[m];
   return neg ? -p : p;
 }
 
@@ -148,6 +170,44 @@ __device__ __forceinline__ float warp_sum(float x) {
 __device__ __forceinline__ bool ramp_flat(const Ramp& g, int B) {
   return g.el >= g.dur || (g.step == 0.0f && g.el + static_cast<float>(B - 1) < g.dur &&
                            (g.el >= 0.0f || g.v0 != 0.0f));
+}
+
+// The linear-angle pan pack of an event-free block (kernels/bank_common.py
+// pan_pack, the JAX package's pallas_bank._pan_fast_operands), built from the raw
+// pan ramp group: the angle at sample 0, d(angle)/d(sample), the target's
+// gains and the ramp's remaining length. The same operations in the same
+// order as the host's; the target gains come from cosf/sinf, which may
+// differ from torch's cos/sin by an ulp, and reach the mix only. rem is
+// dur - el in f32, the host's (dur - el) rounded wherever |el|, |dur| <= 2^24.
+struct PanPack {
+  float a0, da, lt, rt, rem;
+};
+
+__device__ __forceinline__ PanPack pan_pack(const Ramp& g) {
+  const float v0 = g.el >= g.dur ? g.tgt : g.v0 + g.step * g.el;
+  const float at = (g.tgt * 0.5f + 0.5f) * kHalfPi;
+  return PanPack{(v0 * 0.5f + 0.5f) * kHalfPi, g.step * kQuarterPi, cosf(at), sinf(at),
+                 g.dur - g.el};
+}
+
+// the pack's gains at sample i_f (_pan_gains): the polynomial cos/sin of the
+// linear angle until the ramp ends, the target's gains after
+__device__ __forceinline__ void pack_gains(float i_f, const PanPack& p, float& l, float& r) {
+  const float angle = p.a0 + p.da * i_f;
+  const bool ended = i_f >= p.rem;
+  l = ended ? p.lt : sin_poly(kHalfPi - angle);
+  r = ended ? p.rt : sin_poly(angle);
+}
+
+// True where pack_gains gives one pair at every sample of an event-free
+// block of B samples (kernels/bank_common.py pack_flat_over_block states and
+// tests the rule): the ramp has ended (rem <= 0: every sample takes the
+// target's gains), or the angle's step is zero and the ramp does not end
+// inside the block (rem > B - 1), where a0 + da*i is a0 at every sample (a0
+// is never -0.0: x*0.5 + 0.5 rounds a zero sum to +0.0). The value to
+// hoist is pack_gains at sample 0.
+__device__ __forceinline__ bool pack_flat(const PanPack& p, int B) {
+  return p.rem <= 0.0f || (p.da == 0.0f && p.rem > static_cast<float>(B - 1));
 }
 
 // --------------------------------------------------------------------------
@@ -346,13 +406,18 @@ __device__ __forceinline__ void mix_finish(float* work, float* __restrict__ mix,
 // body): per-harmonic constants as a kernel parameter, so that the fully
 // unrolled loop reads them as constant-bank operands, not through the load
 // path. HMAX is the instantiation (8, 16, 32 or 64); harmonics from H on are
-// padding (A = B = 0, thr = -inf) and the loop stops at H.
+// padding (A = B = 0, thr = -inf) and the loop stops at H. A table of more
+// than 64 harmonics stays in global memory (additive_partials_rt).
 // --------------------------------------------------------------------------
 
 template <int HMAX>
 struct Harmonics {
   float a[HMAX], b[HMAX], thr[HMAX];
 };
+
+// the instantiation of tables past the largest HMAX: the table stays in
+// global memory and the harmonic count is known only at run time
+constexpr int kRuntimeH = 0;
 
 // H partials of the fundamental angle theta by phasor recurrence, each
 // masked by freq <= thr[h], accumulated in h order; sincosf once
@@ -372,6 +437,30 @@ __device__ __forceinline__ float additive_partials(float freq, float theta,
     c = cn;
     const float part = k.a[h] * s + k.b[h] * c;
     acc = acc + (freq <= k.thr[h] ? part : 0.0f);
+  }
+  return acc;
+}
+
+// additive_partials over a table in global memory, a[H], b[H] and thr[H]
+// (tables past the largest instantiation): the same recurrence, masks and
+// order; each constant is read with a warp-uniform index, one broadcast load
+// through L1 for the warp
+__device__ __forceinline__ float additive_partials_rt(float freq, float theta,
+                                                      const float* __restrict__ a,
+                                                      const float* __restrict__ b,
+                                                      const float* __restrict__ thr, int H) {
+  float s1, c1;
+  sincosf(theta, &s1, &c1);
+  float s = s1, c = c1;
+  float acc = freq <= __ldg(thr) ? __ldg(a) * s + __ldg(b) * c : 0.0f;
+#pragma unroll 4
+  for (int h = 1; h < H; ++h) {
+    const float sn = s * c1 + c * s1;
+    const float cn = c * c1 - s * s1;
+    s = sn;
+    c = cn;
+    const float part = __ldg(a + h) * s + __ldg(b + h) * c;
+    acc = acc + (freq <= __ldg(thr + h) ? part : 0.0f);
   }
   return acc;
 }
@@ -405,6 +494,14 @@ __device__ __forceinline__ float env_asr(float& stage, float& t, float& rscale,
   }
   t = t_next;
   return env;
+}
+
+// True where event-free EnvAsr (restart and release false) leaves (stage,
+// t, rscale) as they are at every sample and gives one value, 0 (stopped)
+// or 1 (sustain): stage 0 or 2 at block entry (kernels/bank_common.py
+// env_asr_steady states and tests the rule)
+__device__ __forceinline__ bool env_asr_steady(float stage) {
+  return stage == 0.0f || stage == 2.0f;
 }
 
 // EnvAr state machine (stages: 0 stopped, 1 attack, 2 release), no sustain.
@@ -450,6 +547,25 @@ __device__ __forceinline__ float blep(float t, float dt) {
   const float a = t / safe_dt - 1.0f;
   const float b = (t - 1.0f) / safe_dt + 1.0f;
   return t < dt ? -(a * a) : (t > 1.0f - dt ? b * b : 0.0f);
+}
+
+// blep with one IEEE divide (kernels/bank_common.py _blep_one_divide):
+// x = (t < dt ? t : t - 1) / safe_dt, then a = x - 1 and b = x + 1 are
+// blep's two expressions rounded the same way, and the quotient blep does
+// not select was never read. The divide is taken only where some lane of
+// the warp is within dt of an edge (t < dt or t > 1 - dt); every lane of
+// the warp calls it.
+__device__ __forceinline__ float blep_warp(float t, float dt) {
+  const bool lo = t < dt;
+  const bool hi = t > 1.0f - dt;
+  float r = 0.0f;
+  if (__any_sync(0xffffffffu, lo || hi)) {
+    const float x = (lo ? t : t - 1.0f) / fmaxf(dt, kMinDt);
+    const float a = x - 1.0f;
+    const float b = x + 1.0f;
+    r = lo ? -(a * a) : (hi ? b * b : 0.0f);
+  }
+  return r;
 }
 
 constexpr float kPi = 0x1.921fb6p+1f;  // np.float32(np.pi)

@@ -42,7 +42,9 @@
 // - the constants: the Additive body's A, B and thresholds (padded to its
 //   instantiation HMAX in 8, 16, 32, 64) and the Modal body's per-mode
 //   constants are kernel parameters read as constant-bank operands by fully
-//   unrolled loops; the Envelope body's segment table is staged once per
+//   unrolled loops (an Additive table of more than 64 harmonics takes
+//   AdditiveBodyRt, which reads it from the device constants with a
+//   warp-uniform index); the Envelope body's segment table is staged once per
 //   CTA into shared memory and selected by index (one 16-byte read a
 //   sample), each present shape evaluated only where a lane of the warp
 //   selects it;
@@ -64,9 +66,9 @@
 // same terms as the plain version's torch.sum in another, fixed, order.
 //
 // The Modal body's carry is 3 + 2M registers; ModalBody<M> is instantiated
-// for M = 1 ... 16, AdditiveBody<HMAX> for HMAX = 8, 16, 32, 64 (ptxas -v
-// reports each one's registers and spills; an AdditiveVoice of more than
-// 64 harmonics has no CUDA body).
+// for M = 1 ... 16, AdditiveBody<HMAX> for HMAX = 8, 16, 32, 64 and
+// AdditiveBodyRt past 64 harmonics (ptxas -v reports each one's registers
+// and spills).
 
 #include <cstring>
 
@@ -141,7 +143,7 @@ struct SineBody : ExactPan, NoTable, NoHoist, FourCtas {
   struct Consts {
     float f2pi, atk, rel;
   };
-  __device__ SineBody(const Consts&, const float4*) {}
+  __device__ SineBody(const Consts&, const float4*, const float*) {}
   template <class P>
   __device__ __forceinline__ void step(const Consts& k, uint32_t* c, const P& p,
                                        const bool* trig, float* out) const {
@@ -161,7 +163,7 @@ struct FMBody : NoTable, NoHoist, FourCtas {
   struct Consts {
     float f2pi, atk, rel;
   };
-  __device__ FMBody(const Consts&, const float4*) {}
+  __device__ FMBody(const Consts&, const float4*, const float*) {}
   template <class P>
   __device__ __forceinline__ void step(const Consts& k, uint32_t* c, const P& p,
                                        const bool* trig, float* out) const {
@@ -194,7 +196,7 @@ struct SubBody : NoTable, FourCtas {
   // flat (ramp_flat), from their values at sample 0
   bool coef_flat = false;
   float a1h = 0.0f, a2h = 0.0f, a3h = 0.0f;
-  __device__ SubBody(const Consts&, const float4*) {}
+  __device__ SubBody(const Consts&, const float4*, const float*) {}
   __device__ __forceinline__ void hoist(const Consts& k, const Ramp* g, int B) {
     coef_flat = ramp_flat(g[1], B) && ramp_flat(g[2], B);
     if (coef_flat) {
@@ -241,7 +243,8 @@ struct AdditiveBody : ExactPan, NoTable, NoHoist, FourCtas {
     Harmonics<HMAX> h;
   };
   int H;
-  __device__ AdditiveBody(const Consts& k, const float4*) : H(static_cast<int>(k.H)) {}
+  __device__ AdditiveBody(const Consts& k, const float4*, const float*)
+      : H(static_cast<int>(k.H)) {}
   template <class P>
   __device__ __forceinline__ void step(const Consts& k, uint32_t* c, const P& p,
                                        const bool* trig, float* out) const {
@@ -249,6 +252,33 @@ struct AdditiveBody : ExactPan, NoTable, NoHoist, FourCtas {
     const float env = env_asr(stage, t, rscale, trig[0], trig[1], k.atk, k.rel);
     const float freq = p(0);
     const float acc = additive_partials<HMAX>(freq, theta_full(c[0]), k.h, H);
+    c[0] += to_inc(freq * k.f2pi);
+    out[0] = acc * (env * p(1));
+    c[1] = as_u(stage);
+    c[2] = as_u(t);
+    c[3] = as_u(rscale);
+  }
+};
+
+// AdditiveVoice.mosaic_voice past the largest instantiation: the same
+// partials over the table in the device constants (f2pi, atk, rel, A[H],
+// B[H], thr[H]), read with a warp-uniform index (additive_partials_rt)
+struct AdditiveBodyRt : ExactPan, NoTable, NoHoist, FourCtas {
+  static constexpr int NF = 3, NT = 2, NC = 4, C = 2, kPan = 2;  // freq, amp, pan
+  struct Consts {
+    float f2pi, atk, rel, H;
+  };
+  int H;
+  const float* tab;  // A[H], B[H], thr[H]
+  __device__ AdditiveBodyRt(const Consts& k, const float4*, const float* consts)
+      : H(static_cast<int>(k.H)), tab(consts + 3) {}
+  template <class P>
+  __device__ __forceinline__ void step(const Consts& k, uint32_t* c, const P& p,
+                                       const bool* trig, float* out) const {
+    float stage = as_f(c[1]), t = as_f(c[2]), rscale = as_f(c[3]);
+    const float env = env_asr(stage, t, rscale, trig[0], trig[1], k.atk, k.rel);
+    const float freq = p(0);
+    const float acc = additive_partials_rt(freq, theta_full(c[0]), tab, tab + H, tab + 2 * H, H);
     c[0] += to_inc(freq * k.f2pi);
     out[0] = acc * (env * p(1));
     c[1] = as_u(stage);
@@ -283,7 +313,7 @@ struct EnvelopeBody : PolyPan, NoHoist, FourCtas {
     }
   }
   EnvProgram prog;
-  __device__ EnvelopeBody(const Consts& k, const float4* table) {
+  __device__ EnvelopeBody(const Consts& k, const float4* table, const float*) {
     prog.table = table;
     prog.S = static_cast<int>(k.S);
     prog.present = 0u;
@@ -321,7 +351,7 @@ struct ModalBody : PolyPan, NoTable, NoHoist {
   struct Consts {
     float atk, rel, inv_area, c2pi, ratio[M], k_exp[M], gain[M];
   };
-  __device__ ModalBody(const Consts&, const float4*) {}
+  __device__ ModalBody(const Consts&, const float4*, const float*) {}
   template <class P>
   __device__ __forceinline__ void step(const Consts& k, uint32_t* c, const P& p,
                                        const bool* trig, float* out) const {
@@ -390,7 +420,7 @@ generic_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ r
     for (int k = 0; k < NC; ++k) c[k] = carry_in[static_cast<size_t>(k) * V + vv];
     a = act[vv];
   }
-  Body body(kc, table);
+  Body body(kc, table, consts);
   // event-free: what is the same at every sample of the block once, where
   // the params it reads are flat over it (ramp_flat): the pan gains, and
   // whatever the body hoists
@@ -520,13 +550,21 @@ cudaError_t launch_modal(int m, const Launch& L) {
   }
 }
 
-// AdditiveBody<HMAX> for the image's HMAX (n_image = 4 + 3*HMAX), H in [1, HMAX]
+// AdditiveBody<HMAX> for the image's HMAX (n_image = 4 + 3*HMAX), H in [1,
+// HMAX]; AdditiveBodyRt for an image of the head alone (n_image = 4, any
+// H >= 1), its table read from the device constants (n_consts = 3 + 3H)
 cudaError_t launch_additive(const Launch& L) {
   const int hmax = (L.n_image - 4) / 3;
-  if (L.n_image < 4 || !(L.image[3] >= 1.0f) || L.image[3] > static_cast<float>(hmax)) {
+  if (L.n_image < 4 || !(L.image[3] >= 1.0f) ||
+      (hmax != kRuntimeH && L.image[3] > static_cast<float>(hmax))) {
     return cudaErrorInvalidValue;
   }
   switch (hmax) {
+    case kRuntimeH:
+      if (L.consts == nullptr || L.n_consts != 3 + 3 * static_cast<int>(L.image[3])) {
+        return cudaErrorInvalidValue;
+      }
+      return launch_body<AdditiveBodyRt>(L);
     case 8:
       return launch_body<AdditiveBody<8>>(L);
     case 16:

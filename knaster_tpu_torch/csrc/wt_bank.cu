@@ -21,7 +21,10 @@
 //   32, 64 (A = B = 0, thr = -inf), so that the fully unrolled harmonic loop
 //   (bank_common.cuh additive_partials, shared with the generic Additive
 //   body) reads them as constant-bank operands and stops at H; no load a
-//   harmonic;
+//   harmonic. A table of more than 64 harmonics takes the run-time variant
+//   (HMAX = kRuntimeH): the [3][H] table stays in global memory and the
+//   same recurrence reads it with a warp-uniform index
+//   (additive_partials_rt), one broadcast load a constant;
 // - the mix (bank_common.cuh): an event-free block sums each sample's
 //   stereo pair in a shared-memory tile (CtaMix), an eventful block by a
 //   warp shuffle into a row per warp, summed once at the end; the kernel
@@ -55,6 +58,12 @@ struct WtConsts {
   Harmonics<HMAX> h;
 };
 
+// the run-time variant: H alone; the table is the coefs operand
+template <>
+struct WtConsts<kRuntimeH> {
+  float H;
+};
+
 // at most 64 registers: four CTAs an SM, a 131,072-voice bank in one wave
 template <int HMAX, bool EVENTFUL>
 __global__ void __launch_bounds__(kThreads, 4)
@@ -62,7 +71,8 @@ wt_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ rounds
                const float* __restrict__ act, const uint32_t* __restrict__ words,
                const uint32_t* __restrict__ phase_in, const float* __restrict__ stage_in,
                const float* __restrict__ t_in, const float* __restrict__ rscale_in,
-               const __grid_constant__ WtConsts<HMAX> kc, float* work,
+               const __grid_constant__ WtConsts<HMAX> kc,
+               const float* __restrict__ coefs, float* work,
                float* __restrict__ mix, unsigned* tickets, uint32_t* __restrict__ phase_out,
                float* __restrict__ stage_out, float* __restrict__ t_out,
                float* __restrict__ rscale_out, int V, int B, int D, float atk, float rel,
@@ -105,7 +115,12 @@ wt_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ rounds
     const float env = env_asr(stage, t, rscale, restart, release, atk, rel);
 
     const float freq = mat<EVENTFUL>(i_f, freq_g, rounds, kFreq, D, V, vv);
-    const float acc = additive_partials<HMAX>(freq, theta_full(phase), kc.h, H);
+    float acc;
+    if constexpr (HMAX == kRuntimeH) {
+      acc = additive_partials_rt(freq, theta_full(phase), coefs, coefs + H, coefs + 2 * H, H);
+    } else {
+      acc = additive_partials<HMAX>(freq, theta_full(phase), kc.h, H);
+    }
     phase += to_inc(freq * f2pi);
 
     float gain = env * mat<EVENTFUL>(i_f, amp_g, rounds, kAmp, D, V, vv);
@@ -119,10 +134,8 @@ wt_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ rounds
       panr = sinf(angle);
     } else {
       // pan_g holds the linear-angle pack (a0, da, lt, rt, rem)
-      const float angle = pan_g.v0 + pan_g.step * i_f;
-      const bool ended = i_f >= pan_g.tgt;
-      panl = ended ? pan_g.el : sin_poly(kHalfPi - angle);
-      panr = ended ? pan_g.dur : sin_poly(angle);
+      pack_gains(i_f, PanPack{pan_g.v0, pan_g.step, pan_g.el, pan_g.dur, pan_g.tgt}, panl,
+                 panr);
     }
     l = valid ? sig * panl : 0.0f;
     r = valid ? sig * panr : 0.0f;
@@ -174,7 +187,7 @@ wt_bank_kernel(const float* __restrict__ ramps, const float* __restrict__ rounds
 struct Launch {
   const float *ramps, *rounds, *act;
   const uint32_t *words, *phase_in;
-  const float *stage_in, *t_in, *rscale_in, *image;
+  const float *stage_in, *t_in, *rscale_in, *image, *coefs;
   float *work, *mix;
   unsigned* tickets;
   uint32_t* phase_out;
@@ -188,16 +201,17 @@ template <int HMAX>
 cudaError_t launch_hmax(const Launch& L) {
   WtConsts<HMAX> kc;
   std::memcpy(&kc, L.image, sizeof(kc));
+  if (HMAX == kRuntimeH && L.coefs == nullptr) return cudaErrorInvalidValue;
   const dim3 grid((L.V + kThreads - 1) / kThreads);
   if (L.eventful) {
     wt_bank_kernel<HMAX, true><<<grid, kThreads, 0, L.s>>>(
         L.ramps, L.rounds, L.act, L.words, L.phase_in, L.stage_in, L.t_in, L.rscale_in, kc,
-        L.work, L.mix, L.tickets, L.phase_out, L.stage_out, L.t_out, L.rscale_out, L.V, L.B,
+        L.coefs, L.work, L.mix, L.tickets, L.phase_out, L.stage_out, L.t_out, L.rscale_out, L.V, L.B,
         L.D, L.atk, L.rel, L.f2pi);
   } else {
     wt_bank_kernel<HMAX, false><<<grid, kThreads, 0, L.s>>>(
         L.ramps, L.rounds, L.act, L.words, L.phase_in, L.stage_in, L.t_in, L.rscale_in, kc,
-        L.work, L.mix, L.tickets, L.phase_out, L.stage_out, L.t_out, L.rscale_out, L.V, L.B,
+        L.coefs, L.work, L.mix, L.tickets, L.phase_out, L.stage_out, L.t_out, L.rscale_out, L.V, L.B,
         L.D, L.atk, L.rel, L.f2pi);
   }
   return cudaGetLastError();
@@ -211,26 +225,31 @@ extern "C" {
 // rounds/act/words are read only when `eventful` is non-zero. image is the
 // host copy of the kernel parameter: H, then A, B and the Nyquist
 // thresholds each padded to HMAX (n_image = 1 + 3*HMAX, HMAX in 8, 16, 32,
-// 64). work is [9*ceil(V/256) + ceil(V/8192)][2][B] scratch, mix [2][B] the
-// bank's mix, tickets 1 + ceil(V/8192) words that are zero before the launch
-// and after it.
+// 64, H <= HMAX), or H alone (n_image = 1, any H >= 1: the run-time
+// variant, which reads the table from coefs, the [3][H] device table). work
+// is [9*ceil(V/256) + ceil(V/8192)][2][B] scratch, mix [2][B] the bank's
+// mix, tickets 1 + ceil(V/8192) words that are zero before the launch and
+// after it.
 int ktt_wt_bank(const float* ramps, const float* rounds, const float* act,
                 const uint32_t* words, const uint32_t* phase_in, const float* stage_in,
                 const float* t_in, const float* rscale_in, const float* image, int n_image,
-                float* work, float* mix, unsigned* tickets, uint32_t* phase_out,
-                float* stage_out, float* t_out, float* rscale_out, int V, int B, int D,
-                int eventful, float atk, float rel, float f2pi, void* stream) {
+                const float* coefs, float* work, float* mix, unsigned* tickets,
+                uint32_t* phase_out, float* stage_out, float* t_out, float* rscale_out,
+                int V, int B, int D, int eventful, float atk, float rel, float f2pi,
+                void* stream) {
   if (V < 1 || B < 1 || (eventful && D < 1) || image == nullptr || !(image[0] >= 1.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Launch L{ramps, rounds, act, words, phase_in, stage_in, t_in, rscale_in, image,
-                 work, mix, tickets, phase_out, stage_out, t_out, rscale_out, V, B, D,
+                 coefs, work, mix, tickets, phase_out, stage_out, t_out, rscale_out, V, B, D,
                  eventful, atk, rel, f2pi, static_cast<cudaStream_t>(stream)};
   const int hmax = (n_image - 1) / 3;
-  if (n_image != 1 + 3 * hmax || image[0] > static_cast<float>(hmax)) {
+  if (n_image != 1 + 3 * hmax || (hmax != kRuntimeH && image[0] > static_cast<float>(hmax))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (hmax) {
+    case kRuntimeH:
+      return static_cast<int>(launch_hmax<kRuntimeH>(L));
     case 8:
       return static_cast<int>(launch_hmax<8>(L));
     case 16:

@@ -121,13 +121,14 @@ def raise_on_error(kernel, lib, err):
 
 
 def empty_partial(V, n_out, B, device):
-    """The warp-partial mix buffer a hand sine, FM or subtractive kernel
-    writes: [ceil(V/32), n_out, B]."""
+    """The warp-partial mix buffer the hand FM kernel writes:
+    [ceil(V/32), n_out, B]."""
     return torch.empty(((V + 31) // 32, n_out, int(B)), dtype=torch.float32,
                        device=device)
 
 
-# The mix of the generic and wavetable kernels (csrc/bank_common.cuh): one
+# The mix of the sine, subtractive, generic and wavetable kernels
+# (csrc/bank_common.cuh): one
 # partial row per CTA of MIX_THREADS voices (event-free blocks sum them in
 # shared memory; eventful blocks write a row per warp first, MIX_WARPS a
 # CTA, and sum those), the rows summed in the kernel by the last CTA of each
@@ -152,7 +153,7 @@ def mix_scratch_rows(V):
 
 def empty_mix(V, n_out, B, device):
     """(mix [n_out, B], scratch [mix_scratch_rows(V), n_out, B]): what a
-    generic or wavetable kernel writes."""
+    sine, subtractive, generic or wavetable kernel writes."""
     return (torch.empty((n_out, int(B)), dtype=torch.float32, device=device),
             torch.empty((mix_scratch_rows(V), n_out, int(B)), dtype=torch.float32,
                         device=device))
@@ -174,20 +175,23 @@ def mix_tickets(V, device, stream):
 
 
 # the harmonic counts the additive partials are instantiated for on the card
-# (csrc/bank_common.cuh Harmonics<HMAX>); a table of more harmonics has no
-# CUDA kernel
+# (csrc/bank_common.cuh Harmonics<HMAX>), their table a kernel parameter; a
+# table of more harmonics takes the run-time variant (RUNTIME_H), which reads
+# it from device memory (additive_partials_rt)
 HARMONIC_SLOTS = (8, 16, 32, 64)
+RUNTIME_H = 0
 
 
-def harmonic_slots(H, kernel, who):
-    """The smallest instantiation that holds H harmonics; raises naming
-    ``who`` where none does."""
+def harmonic_slots(H):
+    """The instantiation a table of H >= 1 harmonics takes: the smallest of
+    ``HARMONIC_SLOTS`` that holds it, or ``RUNTIME_H`` past the largest (a
+    dispatch by size: both variants compute the same partials)."""
+    if H < 1:
+        raise ValueError(f"a harmonic table needs H >= 1, got {H}")
     for hmax in HARMONIC_SLOTS:
         if H <= hmax:
             return hmax
-    raise ValueError(
-        f"{kernel}: {who} has {H} harmonics; the CUDA kernel takes at most "
-        f"{HARMONIC_SLOTS[-1]}")
+    return RUNTIME_H
 
 
 def padded_harmonics(coefs, hmax):
@@ -237,6 +241,52 @@ def ramp_flat_over_block(g, B):
     v0, step, el, dur = g[0], g[1], g[2], g[3]
     last = el + np.float32(B - 1)
     return (el >= dur) | ((step == 0) & (last < dur) & ((el >= 0) | (v0 != 0)))
+
+
+def pack_flat_over_block(pack, B):
+    """bool [V]: where the event-free pan pack ``pack`` [5, V] (a0, da, lt,
+    rt, rem) gives one pair of ``_pan_gains`` at every sample of a block of
+    B samples (the rule the sine kernel hoists its pan gains by,
+    csrc/bank_common.cuh pack_flat): the ramp has ended (``rem <= 0``: every
+    sample takes the target's gains), or the angle's step is zero and the
+    ramp does not end inside the block (``rem > B - 1``), where ``a0 +
+    da*i`` is a0 at every sample (a0 is never -0.0). The value is
+    ``_pan_gains`` at sample 0."""
+    da, rem = pack[1], pack[4]
+    return (rem <= 0) | ((da == 0) & (rem > np.float32(B - 1)))
+
+
+def env_asr_steady(stage):
+    """bool [V]: where event-free ``_env_asr`` leaves (stage, t, rscale) as
+    they are at every sample and gives one value, 0 or 1: stage 0 (stopped)
+    or 2 (sustain) at block entry (csrc/bank_common.cuh env_asr_steady)."""
+    return (stage == 0) | (stage == 2)
+
+
+def pan_pack(g):
+    """The event-free pan pack [5, V] (a0, da, lt, rt, rem) from the raw pan
+    ramp group ``g`` [5, V] (v0, step, el, dur, tgt, el and dur in f32): the
+    operations of the JAX package's ``pallas_bank._pan_fast_operands`` in
+    its order, as the wavetable bank stages it on the host and the sine
+    kernel's prologue builds it (csrc/bank_common.cuh pan_pack); rem is
+    ``dur - el`` in f32, the integer difference rounded wherever |el|,
+    |dur| <= 2^24."""
+    v0, step, el, dur, tgt = g
+    start = torch.where(el >= dur, tgt, v0 + step * el)
+    a0 = (start * 0.5 + 0.5) * _HALF_PI
+    da = step * np.float32(np.pi / 4.0)
+    at = (tgt * 0.5 + 0.5) * _HALF_PI
+    return torch.stack([a0, da, torch.cos(at), torch.sin(at), dur - el])
+
+
+def fold_act(g, act):
+    """Fold the 0/1 active gain into the amp ramp group ``g`` [5, V] in
+    place, three launches: (v0, step, tgt) times act, never el/dur, so
+    ``_mat`` of it is ``amp * act`` bit for bit (the JAX package's
+    ``pallas_bank._fold_act``; the FM and wavetable banks stage it on the
+    host, the sine and subtractive kernels in their prologue)."""
+    for j in (0, 1, 4):
+        g[j].mul_(act)
 
 
 def _mat(i_f, g, rg=None):
@@ -517,6 +567,19 @@ def _sincos_halfturn(theta):
     s = _sin_poly(torch.minimum(theta, _PI_F32 - theta))
     c = _sin_poly(_HALF_PI - theta)
     return s, c
+
+
+def _blep_one_divide(t, dt):
+    """``_blep`` with one divide, as the subtractive kernel takes it
+    (csrc/bank_common.cuh blep_warp): the quotient ``_blep`` reads is ``x =
+    (t < dt ? t : t - 1) / safe_dt``, and ``x - 1``, ``x + 1`` round as its
+    two expressions do."""
+    one = np.float32(1.0)
+    lo = t < dt
+    x = torch.where(lo, t, t - one) / torch.clamp(dt, min=np.float32(1e-9))
+    a, b = x - one, x + one
+    return torch.where(lo, -(a * a),
+                       torch.where(t > one - dt, b * b, torch.zeros_like(t)))
 
 
 def _blep(t, dt):

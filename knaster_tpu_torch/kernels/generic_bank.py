@@ -24,7 +24,8 @@ no reduction launch follows. The body constants reach the kernel by value,
 as a parameter packed here on the host (``const_image``): the Additive
 body's A/B/thresholds padded to its instantiation (8, 16, 32 or 64
 harmonics) and the Modal body's per-mode constants are read by unrolled
-loops as constant operands; the Envelope body's segment table is staged once
+loops as constant operands (an Additive table of more harmonics is read
+from the device constants, one broadcast load a constant); the Envelope body's segment table is staged once
 per CTA into shared memory from the device constants and selected by index
 (``bank_common.env_segment_index``). In an event-free block what reads only
 params that are flat over it is taken once (``bank_common``
@@ -38,8 +39,8 @@ envelope body's segment table, the modal body's per-mode ratios, decay
 factors and gains) cross as a small f32 tensor on the device and as the
 host image of the kernel parameter.
 
-The bodies: Sine, FM, Subtractive, Additive (up to 64 harmonics on the
-card), Envelope and Modal (one instantiation per mode count, M = 1 ... 16:
+The bodies: Sine, FM, Subtractive, Additive (unrolled up to 64 harmonics,
+a run-time loop past), Envelope and Modal (one instantiation per mode count, M = 1 ... 16:
 the carry is a register array whose length the compiler must know).
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
@@ -84,11 +85,12 @@ def const_image(spec):
     once per spec. Sine, FM, Subtractive: the constants as they are.
     Additive (f2pi, atk, rel, A[H], B[H], thr[H]): f2pi, atk, rel, H, then
     A, B and thr each padded to the instantiation's harmonic count
-    (``bank_common.padded_harmonics``). Envelope: the 10-float head (its
+    (``bank_common.padded_harmonics``); past 64 harmonics f2pi, atk, rel, H
+    alone (``bank_common.RUNTIME_H``: the body reads the table from the
+    device constants). Envelope: the 10-float head (its
     segment table stays on the device). Modal (atk, rel, 1/area, 2pi/sr,
     thr^2, M, ratio[M], k_exp[M], gain[M], gain^2[M]): atk, rel, 1/area,
-    2pi/sr, ratio, k_exp, gain. Raises for an Additive voice of more
-    harmonics than the largest instantiation."""
+    2pi/sr, ratio, k_exp, gain."""
     image = getattr(spec, "_cuda_image", None)
     if image is not None:
         return image
@@ -98,9 +100,11 @@ def const_image(spec):
         image = k
     elif body == "additive":
         H = (k.shape[0] - 3) // 3
-        hmax = bc.harmonic_slots(H, KERNEL, f"voice {spec.voice_name}")
-        table = bc.padded_harmonics(k[3:].reshape(3, H), hmax)
-        image = np.concatenate([k[:3], [np.float32(H)], table.reshape(-1)])
+        hmax = bc.harmonic_slots(H)
+        image = np.concatenate([k[:3], [np.float32(H)]])
+        if hmax != bc.RUNTIME_H:
+            table = bc.padded_harmonics(k[3:].reshape(3, H), hmax)
+            image = np.concatenate([image, table.reshape(-1)])
     elif body == "envelope":
         image = k[:ENVELOPE_HEAD]
     else:

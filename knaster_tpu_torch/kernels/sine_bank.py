@@ -12,15 +12,20 @@ from the folded-quadrant degree-9 polynomial (``_sin_quant``), the EnvAsr
 state machine (``_env_asr`` / ``_env_asr_free``) and the equal-power pan
 gains (``_pan_gains``), and mixes the bank to stereo.
 
-What bounds it on an H100: FP32 and SFU issue. Each voice-sample costs
-roughly 60 float/integer ops event-free (the sine and pan polynomials are
-most of them; an eventful sample adds ``cosf``/``sinf`` and 15*D breakpoint
-selects), while memory traffic is a few tens of bytes per voice per block
-(15 ramp floats and 4 state words in, 4 out). The mix is a per-sample warp
-reduction (five ``__shfl_down_sync`` per channel) whose 2 floats per warp
-per sample are the only stores inside the loop; the warp partials
-``[ceil(V/32), 2, B]`` are summed by ``torch.sum`` afterwards, the split the
-JAX package makes between its tile partials and XLA.
+What bounds it on an H100: FP32 issue. Each voice-sample costs roughly 40
+float/integer ops where its ramps move or its envelope runs (the sine and
+pan polynomials most of them; an eventful sample adds ``cosf``/``sinf`` and
+15*D breakpoint selects), about 17 where the voice is sustained or stopped
+and its ramps are flat (the sine read from a shared-memory table of its
+first quadrant, the phase add, three multiplies and the mix); memory is a few tens of bytes per voice per block (15 ramp floats,
+act and 4 state words in, 4 out). An event-free block takes the raw ramp
+groups and ``act``: the kernel folds act into amp and builds the
+linear-angle pan pack itself (``bank_common.fold_act``, ``pan_pack``: what
+the wavetable bank stages on the host, op for op), then takes
+once what is the same at every sample (``bank_common``
+``pack_flat_over_block``, ``ramp_flat_over_block``, ``env_asr_steady``).
+The kernel sums the stereo mix itself (``bank_common.empty_mix``,
+``mix_tickets``): no reduction launch follows.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run ``sine_bank_plain``. Nothing falls back.
@@ -34,7 +39,7 @@ import torch
 
 from . import bank_common as bc
 from .bank_common import (_env_asr, _mat, _pan_gains, _sin_quant, _to_inc,
-                          _trig_bit)
+                          _trig_bit, fold_act, pan_pack)
 
 KERNEL = "sine_bank"
 # kernel launches since import (or since a caller reset it): a run shows
@@ -44,7 +49,7 @@ LAUNCHES = 0
 N_FLOAT = 3  # freq, amp, pan (SineVoice's float params, in bank order)
 N_TRIG = 2  # t_restart, t_release
 FREQ, AMP, PAN = 0, 1, 2
-ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
+ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 \
     + [ctypes.c_void_p]
 
 
@@ -56,7 +61,7 @@ def _validate(ramps, rounds, act, words, phase, stage, t, rscale, block_size):
         KERNEL, N_FLOAT, N_TRIG,
         [("phase", phase, torch.int32), ("stage", stage, f32), ("t", t, f32),
          ("rscale", rscale, f32)],
-        ramps, rounds, act, words, block_size)
+        ramps, rounds, act, words, block_size, act_always=True)
 
 
 def sine_bank(*, ramps, rounds, act, words, phase, stage, t, rscale,
@@ -64,12 +69,11 @@ def sine_bank(*, ramps, rounds, act, words, phase, stage, t, rscale,
     """One block of the fused sine bank.
 
     ramps:  f32 [3, 5, V] — per float param (freq, amp, pan) the anchored
-            ramp group (v0, step, el, dur, tgt). Event-free blocks carry amp
-            with ``act`` already folded in and pan as the linear-angle pack
-            (a0, da, lt, rt, rem).
+            ramp group (v0, step, el, dur, tgt), as the bank holds it.
     rounds: f32 [3, 5, D, V] breakpoints (v0, step, dur, tgt, frame), or
             None for an event-free block.
-    act:    f32 [V] 0/1 active gain (eventful only).
+    act:    f32 [V] 0/1 active gain, every block (event-free blocks fold it
+            into amp, ``bank_common.fold_act``).
     words:  int32 [2, ceil(B/32), V] restart and release trigger bits
             (eventful only).
     phase:  int32 [V] bit pattern of the u32 oscillator phase.
@@ -87,15 +91,16 @@ def sine_bank(*, ramps, rounds, act, words, phase, stage, t, rscale,
         return sine_bank_plain(**operands)
     outs = empty_outputs(phase, block_size)
     launch(outs, **operands)
-    partial, *state = outs
-    return (partial.sum(dim=0), *state)
+    mix, _, *state = outs
+    return (mix, *state)
 
 
 def empty_outputs(phase, block_size):
     """The kernel's output buffers for a bank of ``phase.shape[0]`` voices:
-    (partial mix [ceil(V/32), 2, B], phase, stage, t, rscale)."""
+    (mix [2, B], mix scratch (``bank_common.empty_mix``), phase, stage, t,
+    rscale)."""
     V = phase.shape[0]
-    return (bc.empty_partial(V, 2, block_size, phase.device),
+    return (*bc.empty_mix(V, 2, block_size, phase.device),
             torch.empty_like(phase),
             *(torch.empty((V,), dtype=torch.float32, device=phase.device)
               for _ in range(3)))
@@ -104,7 +109,7 @@ def empty_outputs(phase, block_size):
 def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale,
            block_size, atk, rel, f2pi):
     """Launch the CUDA kernel on the current stream, writing ``outs`` (from
-    ``empty_outputs``): the warp partials of the mix and the new state.
+    ``empty_outputs``): the mix and the new state.
     Raises for anything but CUDA tensors of the documented layout, and if
     the launch fails."""
     global LAUNCHES
@@ -112,9 +117,9 @@ def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale,
                         block_size)
     device = phase.device
     bc.require_cuda(KERNEL, device)
-    partial, phase_out, stage_out, t_out, rscale_out = outs
-    bc.check(KERNEL, "partial", partial, torch.float32,
-             ((V + 31) // 32, 2, B), device)
+    mix, work, phase_out, stage_out, t_out, rscale_out = outs
+    bc.check(KERNEL, "mix", mix, torch.float32, (2, B), device)
+    bc.check(KERNEL, "work", work, torch.float32, (bc.mix_scratch_rows(V), 2, B), device)
     bc.check(KERNEL, "phase_out", phase_out, torch.int32, (V,), device)
     for name, x in (("stage_out", stage_out), ("t_out", t_out),
                     ("rscale_out", rscale_out)):
@@ -126,11 +131,12 @@ def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale,
     ptr = bc.ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        tickets = bc.mix_tickets(V, device, stream)
         err = lib.ktt_sine_bank(
             ptr(ramps), ptr(rounds), ptr(act), ptr(words),
             ptr(phase), ptr(stage), ptr(t), ptr(rscale),
-            ptr(partial), ptr(phase_out), ptr(stage_out), ptr(t_out),
-            ptr(rscale_out),
+            ptr(work), ptr(mix), ptr(tickets), ptr(phase_out), ptr(stage_out),
+            ptr(t_out), ptr(rscale_out),
             V, B, D, int(rounds is not None),
             ctypes.c_float(atk), ctypes.c_float(rel), ctypes.c_float(f2pi),
             ctypes.c_void_p(stream),
@@ -147,16 +153,20 @@ def sine_bank_plain(*, ramps, rounds, act, words, phase, stage, t, rscale,
                     block_size, atk, rel, f2pi):
     """``sine_bank`` in plain torch: a Python loop over the B samples with
     [V]-wide ops in the kernel's order, on whatever device the tensors are
-    on. The u32 phase is carried as int64 in [0, 2^32) (torch has no uint32
-    arithmetic) and returned as its int32 bit pattern. The mix is one
-    ``torch.sum`` per sample and channel, so it differs from the kernel's
-    warp-tree sum by rounding only."""
+    on. An event-free block stages its operands first as the kernel's
+    prologue does (act folded into amp, the pan pack). The u32 phase is
+    carried as int64 in [0, 2^32) (torch has no uint32 arithmetic) and
+    returned as its int32 bit pattern. The mix is one ``torch.sum`` per
+    sample and channel, so it differs from the kernel's fixed-order sum by
+    rounding only."""
     V, B, _ = _validate(ramps, rounds, act, words, phase, stage, t, rscale,
                         block_size)
     dev = phase.device
     atk, rel, f2pi = (bc.scalar(x, dev) for x in (atk, rel, f2pi))
     eventful = rounds is not None
     rg = (lambda p: rounds[p]) if eventful else (lambda p: None)
+    if not eventful:
+        ramps = stage_event_free(ramps, act)
     ph = bc.u32_of(phase)
     outl, outr = [], []
     for i in range(B):
@@ -177,3 +187,13 @@ def sine_bank_plain(*, ramps, rounds, act, words, phase, stage, t, rscale,
         outr.append(torch.sum(sig * panr))
     mix = torch.stack([torch.stack(outl), torch.stack(outr)])
     return mix, bc.i32_of(ph), stage, t, rscale
+
+
+def stage_event_free(ramps, act):
+    """An event-free block's [3, 5, V] ramp groups as the kernel's prologue
+    stages them: act folded into amp, pan swapped for the linear-angle pack
+    (``bank_common.fold_act``, ``pan_pack``)."""
+    out = ramps.clone()
+    fold_act(out[AMP], act)
+    out[PAN] = pan_pack(ramps[PAN])
+    return out

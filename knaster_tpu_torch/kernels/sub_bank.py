@@ -11,9 +11,16 @@ release bits, the EnvAsr state machine (``_env_asr``), a polyBLEP sawtooth
 coefficients from the per-sample cutoff and q (``_svf_low_coeffs``), one SVF
 step, and the mono mix.
 
-What bounds it on an H100: FP32 issue, with three IEEE divides per
-voice-sample; the mix is a per-sample warp reduction into
-``[ceil(V/32), 1, B]`` partials summed by ``torch.sum``.
+What bounds it on an H100: FP32 issue, the IEEE divides the dearest part
+(the reference's form takes three a voice-sample). The kernel takes one in
+the BLEP (``bank_common._blep_one_divide``), only where a lane of the warp
+is near a saw edge, and in an event-free block takes once what is the same
+at every sample (``bank_common.ramp_flat_over_block``,
+``env_asr_steady``): the SVF coefficients, dt, amp and a stopped or
+sustained envelope. An event-free block takes ``act`` and the kernel folds
+it into amp (``bank_common.fold_act``, op for op). The kernel sums the mix
+itself (``bank_common.empty_mix``, ``mix_tickets``): no reduction launch
+follows.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run ``sub_bank_plain``. Nothing falls back.
@@ -27,7 +34,8 @@ import numpy as np
 import torch
 
 from . import bank_common as bc
-from .bank_common import _blep, _env_asr, _mat, _svf_low_coeffs, _trig_bit
+from .bank_common import (_blep, _env_asr, _mat, _svf_low_coeffs, _trig_bit,
+                          fold_act)
 
 KERNEL = "sub_bank"
 # kernel launches since import (or since a caller reset it)
@@ -37,7 +45,7 @@ N_FLOAT = 4  # freq, cutoff, q, amp (SubtractiveVoice's float params)
 N_TRIG = 2  # t_restart, t_release
 FREQ, CUT, Q, AMP = 0, 1, 2, 3
 STATE = ("t", "ic1", "ic2", "stage", "et", "rscale")  # all f32 [V]
-ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
+ARGTYPES = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 \
     + [ctypes.c_void_p]
 
 
@@ -45,17 +53,18 @@ def _validate(ramps, rounds, act, words, state, block_size):
     return bc.validate_block(
         KERNEL, N_FLOAT, N_TRIG,
         [(name, state[name], torch.float32) for name in STATE],
-        ramps, rounds, act, words, block_size)
+        ramps, rounds, act, words, block_size, act_always=True)
 
 
 def sub_bank(*, ramps, rounds, act, words, t, ic1, ic2, stage, et, rscale,
              block_size, atk, rel, inv_sr, pi_inv_sr):
     """One block of the fused subtractive bank.
 
-    ramps:  f32 [4, 5, V] anchored ramp groups of freq, cutoff, q, amp;
-            event-free blocks carry amp with ``act`` folded in.
+    ramps:  f32 [4, 5, V] anchored ramp groups of freq, cutoff, q, amp, as
+            the bank holds them.
     rounds: f32 [4, 5, D, V] breakpoints, or None for an event-free block.
-    act:    f32 [V] 0/1 active gain (eventful only).
+    act:    f32 [V] 0/1 active gain, every block (event-free blocks fold it
+            into amp).
     words:  int32 [2, ceil(B/32), V] restart and release trigger bits
             (eventful only).
     t:      f32 [V] saw phase in [0, 1); ic1, ic2: SVF integrator states;
@@ -72,14 +81,15 @@ def sub_bank(*, ramps, rounds, act, words, t, ic1, ic2, stage, et, rscale,
         return sub_bank_plain(**operands)
     outs = empty_outputs(t, block_size)
     launch(outs, **operands)
-    partial, *state = outs
-    return (partial.sum(dim=0), *state)
+    mix, _, *state = outs
+    return (mix, *state)
 
 
 def empty_outputs(t, block_size):
-    """(partial mix [ceil(V/32), 1, B], t, ic1, ic2, stage, et, rscale)."""
+    """(mix [1, B], mix scratch (``bank_common.empty_mix``), t, ic1, ic2,
+    stage, et, rscale)."""
     V = t.shape[0]
-    return (bc.empty_partial(V, 1, block_size, t.device),
+    return (*bc.empty_mix(V, 1, block_size, t.device),
             *(torch.empty_like(t) for _ in STATE))
 
 
@@ -93,9 +103,9 @@ def launch(outs, *, ramps, rounds, act, words, t, ic1, ic2, stage, et,
     V, B, D = _validate(ramps, rounds, act, words, state, block_size)
     device = t.device
     bc.require_cuda(KERNEL, device)
-    partial, *state_out = outs
-    bc.check(KERNEL, "partial", partial, torch.float32,
-             ((V + 31) // 32, 1, B), device)
+    mix, work, *state_out = outs
+    bc.check(KERNEL, "mix", mix, torch.float32, (1, B), device)
+    bc.check(KERNEL, "work", work, torch.float32, (bc.mix_scratch_rows(V), 1, B), device)
     for name, x in zip(STATE, state_out):
         bc.check(KERNEL, f"{name}_out", x, torch.float32, (V,), device)
 
@@ -105,9 +115,10 @@ def launch(outs, *, ramps, rounds, act, words, t, ic1, ic2, stage, et,
     ptr = bc.ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        tickets = bc.mix_tickets(V, device, stream)
         err = lib.ktt_sub_bank(
             ptr(ramps), ptr(rounds), ptr(act), ptr(words),
-            *(ptr(state[name]) for name in STATE), ptr(partial),
+            *(ptr(state[name]) for name in STATE), ptr(work), ptr(mix), ptr(tickets),
             *(ptr(x) for x in state_out), V, B, D, int(rounds is not None),
             ctypes.c_float(atk), ctypes.c_float(rel), ctypes.c_float(inv_sr),
             ctypes.c_float(pi_inv_sr), ctypes.c_void_p(stream))
@@ -118,8 +129,9 @@ def launch(outs, *, ramps, rounds, act, words, t, ic1, ic2, stage, et,
 def sub_bank_plain(*, ramps, rounds, act, words, t, ic1, ic2, stage, et,
                    rscale, block_size, atk, rel, inv_sr, pi_inv_sr):
     """``sub_bank`` in plain torch: a Python loop over the B samples with
-    [V]-wide ops in the kernel's order. The mix is one ``torch.sum`` per
-    sample, so it differs from the kernel's warp-tree sum by rounding
+    [V]-wide ops in the kernel's order; an event-free block folds act into
+    amp first, as the kernel's prologue does. The mix is one ``torch.sum``
+    per sample, so it differs from the kernel's fixed-order sum by rounding
     only."""
     state = dict(t=t, ic1=ic1, ic2=ic2, stage=stage, et=et, rscale=rscale)
     V, B, _ = _validate(ramps, rounds, act, words, state, block_size)
@@ -129,6 +141,9 @@ def sub_bank_plain(*, ramps, rounds, act, words, t, ic1, ic2, stage, et,
     one, two, half = np.float32(1.0), np.float32(2.0), np.float32(0.5)
     eventful = rounds is not None
     rg = (lambda p: rounds[p]) if eventful else (lambda p: None)
+    if not eventful:
+        ramps = ramps.clone()
+        fold_act(ramps[AMP], act)
     out = []
     for i in range(B):
         i_f = float(i)

@@ -16,7 +16,9 @@ plain version reads them as a ``[3, H]`` tensor on the state's device, the
 kernel by value as a kernel parameter, the host image ``coef_image`` builds
 (H, then the table padded to 8, 16, 32 or 64 harmonics with entries that
 contribute nothing), read by a fully unrolled harmonic loop as constant
-operands. A table of more than 64 harmonics has no kernel and raises.
+operands. A table of more than 64 harmonics takes the kernel's run-time
+variant (``bank_common.RUNTIME_H``): its image is H alone and the kernel
+reads the ``[3, H]`` tensor itself, one broadcast load a constant.
 
 What bounds it on an H100: FP32 issue, ~7 ops per harmonic per
 voice-sample plus one sincosf. The kernel sums the stereo mix itself: each
@@ -52,7 +54,7 @@ LAUNCHES = 0
 N_FLOAT = 3  # freq, amp, pan (AdditiveVoice's float params, in bank order)
 N_TRIG = 2  # t_restart, t_release
 FREQ, AMP, PAN = 0, 1, 2
-ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 7 \
+ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 8 \
     + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
 
 
@@ -73,11 +75,14 @@ def wt_coefs(mags, offsets, sample_rate):
 def coef_image(coefs):
     """The host image of the kernel's parameter from the ``[3, H]`` table of
     ``wt_coefs``: f32 [1 + 3*HMAX], H, then A, B and thr each padded to
-    HMAX, the smallest of ``bank_common.HARMONIC_SLOTS`` that holds H.
-    Raises past the largest."""
+    HMAX, the smallest of ``bank_common.HARMONIC_SLOTS`` that holds H; past
+    the largest, f32 [1], H alone (``bank_common.RUNTIME_H``: the kernel
+    reads the table from the ``coefs`` tensor)."""
     coefs = np.asarray(coefs, np.float32)
     H = coefs.shape[1]
-    hmax = bc.harmonic_slots(H, KERNEL, "the table")
+    hmax = bc.harmonic_slots(H)
+    if hmax == bc.RUNTIME_H:
+        return np.array([H], np.float32)
     return np.concatenate([[np.float32(H)],
                            bc.padded_harmonics(coefs, hmax).reshape(-1)]).astype(np.float32)
 
@@ -150,7 +155,7 @@ def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
                            coefs, block_size)
     device = phase.device
     bc.require_cuda(KERNEL, device)
-    hmax = bc.harmonic_slots(H, KERNEL, "the table")
+    hmax = bc.harmonic_slots(H)
     if not (isinstance(image, np.ndarray) and image.dtype == np.float32
             and image.shape == (1 + 3 * hmax,) and image.flags.c_contiguous
             and image[0] == H):
@@ -174,7 +179,7 @@ def launch(outs, *, ramps, rounds, act, words, phase, stage, t, rscale, coefs,
         err = lib.ktt_wt_bank(
             ptr(ramps), ptr(rounds), ptr(act), ptr(words), ptr(phase),
             ptr(stage), ptr(t), ptr(rscale), image.ctypes.data_as(ctypes.c_void_p),
-            image.shape[0], ptr(work), ptr(mix), ptr(tickets), ptr(phase_out),
+            image.shape[0], ptr(coefs), ptr(work), ptr(mix), ptr(tickets), ptr(phase_out),
             ptr(stage_out), ptr(t_out), ptr(rscale_out), V, B, D,
             int(rounds is not None), ctypes.c_float(atk), ctypes.c_float(rel),
             ctypes.c_float(f2pi), ctypes.c_void_p(stream))

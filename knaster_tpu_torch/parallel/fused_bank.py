@@ -36,7 +36,8 @@ import torch
 
 from ..core.ugen import AudioCtx
 from ..kernels import fm_bank, sine_bank, sub_bank, wt_bank
-from ..kernels.bank_common import _HALF_PI, MAX_BLOCK
+from ..kernels import bank_common as bc
+from ..kernels.bank_common import MAX_BLOCK
 from ..models.voices import AdditiveVoice, FMVoice, SineVoice, SubtractiveVoice
 from ..ugens.wavetable import FRACTIONAL_PART, TABLE_SIZE
 from .voicebank import VoiceBank
@@ -73,34 +74,6 @@ def _ramp_operands_bursts(pieces, dtype):
     stacked = torch.stack([bv0, bstep, bdur.to(dtype), btgt,
                            bframe.to(dtype)])  # [5, D, n_float, V]
     return stacked.permute(2, 0, 1, 3).contiguous()
-
-
-def _fold_act(bank, ramps, act):
-    """Event-free blocks fold the block-constant active gain into the amp
-    ramp group: ``act`` is exactly 0 or 1, so scaling (v0, step, tgt) —
-    never ``el``/``dur`` — makes the materialized amp equal ``amp * act``
-    bit-exactly. In place on the staged ``ramps``."""
-    amp = ramps[bank.float_index("amp")]
-    for j in (0, 1, 4):
-        amp[j].mul_(act)
-
-
-def _pan_fast_operands(bank, fstate, dtype):
-    """Event-free pan pack [5, V]: the pan ramp is linear, so its
-    equal-power angle is linear too and the kernel evaluates cos/sin of
-    the per-sample angle with its own odd polynomial until the ramp ends,
-    then the exact target gains. Rows: angle at sample 0,
-    d(angle)/d(sample), the post-ramp target gains (host cos/sin), and the
-    ramp's remaining length."""
-    i = bank.float_index("pan")
-    fvals, ftgt, fstep, fel, fdur, _ = fstate
-    v0 = torch.where(fel[i] >= fdur[i], ftgt[i],
-                     fvals[i] + fstep[i] * fel[i].to(dtype))
-    a0 = (v0 * 0.5 + 0.5) * _HALF_PI
-    da = fstep[i] * np.float32(np.pi / 4.0)  # d(angle)/d(sample)
-    at = (ftgt[i] * 0.5 + 0.5) * _HALF_PI
-    return torch.stack([a0, da, torch.cos(at), torch.sin(at),
-                        (fdur[i] - fel[i]).to(dtype)])
 
 
 class FusedBank(VoiceBank):
@@ -180,11 +153,14 @@ class FusedBank(VoiceBank):
 
 class _HandBank(FusedBank):
     """A bank whose voice has a hand-written kernel: the kernel's state is
-    ``STATE`` (name, "u32" | "f32", initial value) in the kernel's order;
-    event-free blocks fold act into amp (and, with ``PAN_PACK``, swap
-    pan's ramp group for the linear-angle pack)."""
+    ``STATE`` (name, "u32" | "f32", initial value) in the kernel's order.
+    With ``HOST_STAGING`` event-free blocks fold act into amp on the host
+    (and, with ``PAN_PACK``, swap pan's ramp group for the linear-angle
+    pack) and pass no act; without it the kernel takes the raw ramp groups
+    and act in every block and stages them itself."""
 
     STATE = ()
+    HOST_STAGING = True
     PAN_PACK = False
     kernel = None  # the kernel wrapper (staticmethod in subclasses)
 
@@ -218,13 +194,13 @@ class _HandBank(FusedBank):
         arguments of the bank's kernel wrapper; ``carry`` is what
         ``finish`` needs besides the kernel's outputs."""
         ramps, rounds, act, words, carry = self.stage_block(ctx, state, events)
-        if rounds is None:
+        if rounds is None and self.HOST_STAGING:
             # event-free block: fold active into amp (and swap pan's ramp
             # group for the linear-angle pack); no act or trigger words
-            _fold_act(self, ramps, act)
+            bc.fold_act(ramps[self.float_index("amp")], act)
             if self.PAN_PACK:
-                ramps[self.float_index("pan")] = _pan_fast_operands(
-                    self, carry[0], ctx.dtype)
+                pan = self.float_index("pan")
+                ramps[pan] = bc.pan_pack(ramps[pan])
             act = None
         operands = dict(ramps=ramps, rounds=rounds, act=act, words=words,
                         block_size=ctx.block_size, **self.scalars(ctx))
@@ -248,7 +224,7 @@ class FusedSineVoiceBank(_HandBank):
 
     STATE = (("phase", "u32", 0), ("stage", "f32", 0.0), ("t", "f32", 0.0),
              ("rscale", "f32", 1.0))
-    PAN_PACK = True
+    HOST_STAGING = False  # the kernel folds act and packs pan itself
     kernel = staticmethod(sine_bank.sine_bank)
 
     def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,
@@ -287,6 +263,7 @@ class FusedSubtractiveVoiceBank(_HandBank):
 
     STATE = (("t", "f32", 0.0), ("ic1", "f32", 0.0), ("ic2", "f32", 0.0),
              ("stage", "f32", 0.0), ("et", "f32", 0.0), ("rscale", "f32", 1.0))
+    HOST_STAGING = False  # the kernel folds act itself
     kernel = staticmethod(sub_bank.sub_bank)
 
     def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,

@@ -129,11 +129,27 @@ def test_additive_image_unpacks_to_the_constants(H, hmax):
 
 
 def test_additive_past_the_largest_instantiation_raises_by_name():
-    spec = _additive(65).kernel_voice(ktt.AudioCtx(SR, 64))
-    with pytest.raises(ValueError, match="AdditiveVoice.*65 harmonics.*at most 64"):
-        gk.const_image(spec)
-    with pytest.raises(ValueError, match="65 harmonics"):
-        wk.coef_image(wk.wt_coefs(np.ones(65, np.float32), np.zeros(65, np.uint32), SR))
+    """A table past the largest unrolled instantiation (64 harmonics) takes
+    the run-time variant, which reads the table from device memory: its
+    kernel-parameter image is the head alone (the generic body: f2pi, atk,
+    rel, H; the wavetable kernel: H), and the table it reads is the one the
+    plain versions read. What still raises, by name, is a table of no
+    harmonics."""
+    for H in (65, 128, 1024):
+        assert bc.harmonic_slots(H) == bc.RUNTIME_H
+        spec = _additive(H).kernel_voice(ktt.AudioCtx(SR, 64))
+        k = spec.consts
+        assert k.shape == (3 + 3 * H,)
+        image = gk.const_image(spec)
+        assert image.dtype == np.float32 and image.flags.c_contiguous
+        np.testing.assert_array_equal(image, np.concatenate([k[:3], [np.float32(H)]]))
+        coefs = wk.wt_coefs(np.linspace(1.0, 0.0, H, dtype=np.float32),
+                            np.arange(H, dtype=np.uint32) * 7919, SR)
+        assert coefs.shape == (3, H)
+        np.testing.assert_array_equal(wk.coef_image(coefs), np.float32([H]))
+    assert bc.harmonic_slots(64) == 64 and bc.harmonic_slots(17) == 32
+    with pytest.raises(ValueError, match="H >= 1"):
+        bc.harmonic_slots(0)
 
 
 @pytest.mark.parametrize("name", ["sine", "fm", "subtractive", "envelope", "bell", "bar",
@@ -183,7 +199,7 @@ class PaddedWavetableBank(ktt.FusedWavetableVoiceBank):
     def kernel_operands(self, ctx, state, events=None):
         operands, carry = super().kernel_operands(ctx, state, events)
         coefs = operands["coefs"]
-        hmax = bc.harmonic_slots(coefs.shape[1], "test", "table")
+        hmax = bc.harmonic_slots(coefs.shape[1])
         operands["coefs"] = torch.from_numpy(bc.padded_harmonics(coefs.numpy(), hmax))
         return operands, carry
 

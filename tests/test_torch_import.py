@@ -73,7 +73,8 @@ def test_sine_bank_dispatch_by_device():
 
 
 def test_sine_bank_rejects_bad_operands():
-    """The wrapper checks dtype, shape, contiguity and the eventful trio."""
+    """The wrapper checks dtype, shape, contiguity, the eventful pair and the
+    act it takes in every block."""
     from knaster_tpu_torch import AudioCtx, FusedSineVoiceBank
     from knaster_tpu_torch.kernels import sine_bank as sb
 
@@ -84,12 +85,15 @@ def test_sine_bank_rejects_bad_operands():
         dict(phase=ops["phase"].float()),
         dict(stage=ops["stage"][:-1]),
         dict(ramps=ops["ramps"].transpose(0, 1).contiguous().transpose(0, 1)),
-        dict(act=torch.ones(256)),
+        dict(act=torch.ones(255)),
+        dict(rounds=torch.zeros((3, 5, 1, 256))),  # rounds without words
         dict(block_size=2048),
     ]
     for change in bad:
         with pytest.raises(ValueError):
             sb.sine_bank(**{**ops, **change})
+    with pytest.raises(TypeError, match="act must be a tensor"):
+        sb.sine_bank(**{**ops, "act": None})
 
 
 def test_bank_rejects_f64_and_large_blocks():
@@ -163,7 +167,9 @@ def test_bank_kernel_rejects_bad_operands(kind):
     else:
         state = [k for k in ops if ops[k] is not None and k not in
                  ("ramps", "coefs", "block_size") and isinstance(ops[k], torch.Tensor)]
-        bad += [dict(act=torch.ones(40))]  # act without rounds
+        # act without rounds, or (a kernel that stages event-free blocks
+        # itself) no act
+        bad += [dict(act=torch.ones(40)) if bank.HOST_STAGING else dict(act=None)]
         bad += [{k: ops[k][:-1]} for k in state]
         bad += [{k: ops[k].double()} for k in state]
     if kind == "wt":

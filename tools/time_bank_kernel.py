@@ -19,8 +19,13 @@ launches are captured in a CUDA graph and replayed between CUDA events
 operands in Python, tens of microseconds a call) stays out of the device
 time of the short kernels; beside it, the eager time (CUDA events over
 back-to-back launches, ``chip_smoke.time_call``), which is what a render
-sees. It prints one line per (kernel, B, variant): each tree's faster run
-and the ratio this tree / parent, then the card's ``name, power.limit``.
+sees. For the hand kernels (sine, FM, subtractive, wavetable) it also
+captures the wrapper, ``bank.kernel(**operands)``, the same way: the
+kernel plus whatever the wrapper launches after it (a tree whose kernel
+leaves its mix as warp partials sums them there), so that two trees whose
+kernels split the work differently time the same work. It prints one line
+per (kernel, B, variant): each tree's faster run and the ratio this tree /
+parent, then the card's ``name, power.limit``.
 Needs a CUDA card.
 """
 
@@ -32,6 +37,7 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("sine", "fm", "sub", "wt", "generic-sine", "generic-fm", "generic-subtractive",
          "generic-additive", "generic-envelope", "generic-modal")
+HAND = ("sine", "fm", "sub", "wt")
 BLOCKS = (64, 1024)
 V = 131072
 CAPACITY = 4096  # benchmarks/suite.py's event_capacity for the banks
@@ -119,6 +125,9 @@ def child(tree):
                     torch, lambda: mod.launch(outs, **ops), reps)
                 got[kind][f"{B} {variant} eager"] = cs.time_call(
                     torch, lambda: mod.launch(outs, **ops), reps)
+                if kind in HAND:
+                    got[kind][f"{B} {variant} wrapper"] = time_graph(
+                        torch, lambda: bank.kernel(**ops), reps)
     print("TIMES " + json.dumps(got), flush=True)
 
 
@@ -150,6 +159,10 @@ def main():
                 pe, ce = best[(parent, kind, key + " eager")], best[(HERE, kind, key + " eager")]
                 print(f"bank {kind} V={V} B={B} {variant}: parent {p:.4f} ms, this tree "
                       f"{c:.4f} ms, ratio {c / p:.3f}; eager {pe:.4f} -> {ce:.4f} ms")
+                if kind in HAND:
+                    pw, cw = (best[(tree, kind, key + " wrapper")] for tree in (parent, HERE))
+                    print(f"bank {kind} V={V} B={B} {variant} wrapper: parent {pw:.4f} ms, "
+                          f"this tree {cw:.4f} ms, ratio {cw / pw:.3f}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi failed")

@@ -10,9 +10,10 @@ imports its own tree's package and ``chip_smoke.py`` and, at 131,072 voices
 (the modal bank 65,536), B = 64, 48 kHz, with ``chip_smoke.py``'s seeded
 defaults:
 
-- every bank on the generic or wavetable kernel (``wt``, ``generic-sine``,
-  ``-fm``, ``-subtractive``, ``-additive``, ``envelope_bank``,
-  ``modal_bank``): every voice triggered, then three renders of 750
+- the hand sine and subtractive banks and every bank on the generic or
+  wavetable kernel (``sine``, ``sub``, ``wt``, ``generic-sine``, ``-fm``,
+  ``-subtractive``, ``-additive``, ``envelope_bank``, ``modal_bank``):
+  every voice triggered, then three renders of 750
   event-free blocks (1 s of audio) through ``bank.process``, each timed
   between synchronizes: voice-samples/s; and torch.profiler's kernels a
   block over 100 more blocks;
@@ -34,7 +35,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANKS = ("wt", "generic-sine", "generic-fm", "generic-subtractive", "generic-additive",
+BANKS = ("sine", "sub", "wt", "generic-sine", "generic-fm", "generic-subtractive", "generic-additive",
          "envelope_bank", "modal_bank")
 RENDERS = 3
 
@@ -84,7 +85,7 @@ def child(tree):
     import knaster_tpu_torch as ktt
     from knaster_tpu_torch.kernels import build
 
-    build.build_all(("wt_bank", "generic_bank"))
+    build.build_all(("sine_bank", "sub_bank", "wt_bank", "generic_bank"))
     dev = torch.device("cuda", 0)
     ctx = ktt.AudioCtx(cs.SR, cs.BLOCK, torch.float32)
     got = {}
