@@ -20,7 +20,9 @@ result line):
    {16, 256} and ``chain_kernel`` on the lowered plans of the 256-stage
    graph cascade and of a 14-stage cascade with a mid-chain tap, each at B
    in {16, 64, 1024} (``fm_cascade`` also at 8,192, the longest superblock
-   of a B = 64 render, and at its own limit), with phases near the top of
+   of a B = 64 render, and at its own limit, in the layout its
+   ``launch_plan`` picks and forced to one CTA and to every cluster size
+   the card takes), with phases near the top of
    the u32 range, one stage frequency that saturates and one that is
    negative: state and outputs bit-equal. Then the chain kernel's PolyBlep,
    SvfFilter, one-pole, EnvAsr, EnvAr and Pan2 bodies on the lowered plans
@@ -59,18 +61,20 @@ result line):
    mid-block, decays where the polynomial exp underflows, modes past pi,
    a depth-3 burst. Carries bit-equal but the envelope's frozen value,
    within EFROM_ULPS ulps (the kernel's cosf/expf/logf against torch's).
-   Then the matrix of the bank kernels' Hopper design: the hand sine and
-   subtractive kernels, the wavetable kernel and every generic body (the
+   Then the matrix of the bank kernels' Hopper design: the hand sine,
+   subtractive and FM kernels, the wavetable kernel and every generic body (the
    Envelope body on the four-shape table, looping and one-shot; the Modal
    body on the bar) at V in {1000, 131055, 131072} (131055: a last CTA
    with whole warps past the bank and a ragged one) and B in {64, 1024},
    an eventful block and then an event-free one whose pan, cutoff and q
-   ramps (and the hand kernels' freq and amp) meet the flat-ramp rules'
+   ramps (and the hand kernels' freq and amp, the FM kernel's ratio and
+   index) meet the flat-ramp rules'
    edge cases (a glide, a ramp ended exactly at sample 0, a zero step
    ending inside the block at another target, a signed zero); for the hand
    kernels those cases fill two warps of three and the third keeps flat
    ramps with some freqs at 0, and the envelopes are set by warp
-   (sustained, stopped, alternating lanes, the eventful block's own), so
+   (sustained or, EnvAr, attacking; stopped; alternating lanes; the
+   eventful block's own), so
    that both sides of every warp-uniform hoist run; the wavetable kernel
    and the Additive body also at H in {1, 17, 64} and past the unrolled
    instantiations at {65, 128, 1024} (the run-time variant); at V =
@@ -108,7 +112,8 @@ result line):
    output zero from its done frame on). Each prints realtime x (samples/s
    / 48,000). Then golden ``param_sweep`` at f32 and f64 against the port's
    CPU render. Then every graph slice, the param sweep's two cascades
-   included, rendered twice from one schedule, with superblocks and block
+   included, rendered twice from one schedule (the 2 s slices for 1 s,
+   PARTITION_SECONDS), with superblocks and block
    by block (``render_chunk_blocks=1``): bit-equal where the phases are
    u32, within a stated tolerance where a float scan spans the superblock;
    each render's realtime x and kernel launches per rendered second, and
@@ -134,12 +139,14 @@ result line):
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
    replayed between CUDA events, and beside it the eager time over
    back-to-back calls, which a short kernel's host launch rate can set),
-   wrapper ms (the wrapper also captured in a CUDA graph: the hand FM
-   kernel's sum launch with it) and plain ms, event-free and eventful (the
-   Envelope and Modal bodies also at B = 1024 event-free), the hand sine
-   and subtractive kernels' bound counted on the path each warp of the
+   wrapper ms (the wrapper also captured in a CUDA graph) and plain ms,
+   event-free and eventful (the
+   Envelope and Modal bodies also at B = 1024 event-free), the hand sine,
+   subtractive and FM kernels' bound counted on the path each warp of the
    timed state takes (``hand_ops_per_sample``: the hoisted path's
-   FLAT_OPS_PER_SAMPLE, the general OPS_PER_SAMPLE printed beside it);
+   FLAT_OPS_PER_SAMPLE, a quiet warp's QUIET_OPS_PER_SAMPLE, the general
+   OPS_PER_SAMPLE printed beside it); the FM kernel, whose slice ends with
+   every voice stopped, also at a sounding state (``sounding_state``);
    then torch.profiler's
    device time by kernel over 100 event-free blocks of each bank and one
    render chunk of each graph slice; and the stage-loop kernels at B in
@@ -212,16 +219,25 @@ OPS_PER_SAMPLE = {"sine_bank": 40, "fm_bank": 60, "sub_bank": 70, "wt_bank": 110
                   # the generic harness's bodies repeat their hand banks' math
                   "generic-sine": 40, "generic-fm": 60, "generic-subtractive": 70,
                   "generic-additive": 110}
-# the same count on the path the hand sine and subtractive kernels take for
-# a warp of sustained or stopped voices whose ramps are all flat over the
-# block (hand_ops_per_sample counts the warps that take it): what is taken
-# once a block (the envelope, amp, pan gains and increment; the SVF
-# coefficients and dt) leaves the sine's 9 (the quadrant fold's six integer
-# operations, the shared-memory table read and the sign), the phase add,
-# three multiplies and the mix's 2 a channel (the tile store and its add);
-# the saw, the BLEP's compares (its divide is rarely needed), the SVF step,
-# one multiply and the mix
-FLAT_OPS_PER_SAMPLE = {"sine_bank": 17, "sub_bank": 28}
+# the same count on the path the hand kernels take for a warp whose ramps are
+# all flat over the block (hand_ops_per_sample counts the warps that take
+# it), for the sine and subtractive kernels also with every voice sustained
+# or stopped: what is taken once a block (the envelope, amp, pan gains and
+# increment; the SVF coefficients and dt; freq, ratio, index, amp and the
+# modulator's increment) leaves the sine's 9 (the quadrant fold's six
+# integer operations, the shared-memory table read and the sign), the phase
+# add, three multiplies and the mix's 2 a channel (the tile store and its
+# add); the saw, the BLEP's compares (its divide is rarely needed), the SVF
+# step, one multiply and the mix; the FM voice's EnvAr (8), two sines, the
+# modulator's phase add, the carrier's frequency (3) and increment (4) and
+# phase add, the gain, one multiply and the mix
+FLAT_OPS_PER_SAMPLE = {"sine_bank": 17, "sub_bank": 28, "fm_bank": 39}
+# the count on a warp whose every gain is zero (stopped voices, flat amps):
+# the sine kernel adds its B increments at once and sums nothing; the FM
+# kernel still runs both phase recurrences sample by sample (the carrier's
+# increment reads the modulator's sine): the modulator's sine and phase add,
+# the carrier's frequency and increment and its phase add, and no mix
+QUIET_OPS_PER_SAMPLE = {"sine_bank": 0, "fm_bank": 18}
 
 
 def fail(msg):
@@ -240,11 +256,10 @@ def card_name_and_limit():
 
 
 def mix_tolerance(V, peak):
-    # the kernels sum each sample's mix in their own fixed order (a warp
-    # tree and a torch.sum over warp partials in the hand kernels; CTA
-    # tiles or warp rows and then CTA and group rows in the generic and
-    # wavetable kernels), the plain version as one torch.sum over V: the
-    # same terms in another order, so the f32 rounding differs and grows
+    # the kernels sum each sample's mix in their own fixed order (CTA tiles
+    # or warp rows and then CTA and group rows), the plain version as one
+    # torch.sum over V: the same terms in another order, so the f32
+    # rounding differs and grows
     # with the number of terms (~sqrt(V)) and the magnitude of the sum.
     # Kernels that take sinf/cosf/sincosf (wavetable, generic Sine/Additive)
     # may differ from torch's by an ulp per term, far below this bound at
@@ -662,12 +677,9 @@ def bound(nbytes, nops):
 
 
 def written(mod, outs):
-    """A bank kernel's outputs without the mix scratch of the kernels that
-    sum their own mix (their second buffer, ``bank_common.empty_mix``): what
-    the bound counts as written once."""
-    if mod.KERNEL != "fm_bank":
-        return (outs[0], *outs[2:])
-    return outs
+    """A bank kernel's outputs without its mix scratch (the second buffer,
+    ``bank_common.empty_mix``): what the bound counts as written once."""
+    return (outs[0], *outs[2:])
 
 
 def empty_outputs(mod, bank, operands):
@@ -706,6 +718,17 @@ def phase_timings(torch, ktt, kind, bank, state, card):
         bound_ms, bound_by = bound(nbytes, per_sample * N_VOICES * BLOCK)
         general = f", {hoisted:.4f} of the warps on the hoisted path" + general
     graph_wrapper_ms = time_graph(torch, lambda: bank.kernel(**ops), 200)
+    if kind == "fm":
+        # the slice's final state has every voice stopped (EnvAr has no
+        # sustain): the kernel also on a sounding one, every voice triggered
+        # and four blocks rendered (tools/time_bank_kernel.py's state)
+        s_ops, _ = bank.kernel_operands(ctx, sounding_state(torch, ktt, bank), None)
+        s_ms = time_graph(torch, lambda: mod.launch(outs, **s_ops), 200)
+        s_per, s_hoisted = hand_ops_per_sample(torch, mod, s_ops, BLOCK)
+        s_bound, s_by = bound(nbytes, s_per * N_VOICES * BLOCK)
+        print(f"timing {kind} V={N_VOICES} B={BLOCK} on {card}: event-free kernel at the "
+              f"sounding state {s_ms:.4f} ms; bound {s_bound:.4f} ms ({s_by}, {s_per:g} f32 "
+              f"operations a voice-sample, {s_hoisted:.4f} of the warps on the hoisted path)")
     print(f"timing {kind} V={N_VOICES} B={BLOCK} on {card}: event-free kernel "
           f"{ms:.4f} ms (eager {eager_ms:.4f} ms), wrapper {graph_wrapper_ms:.4f} ms "
           f"(eager {wrapper_ms:.4f} ms), plain {plain_ms:.3f} ms; eventful kernel "
@@ -715,29 +738,50 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     return ms, plain_ms, bound_ms, bound_by
 
 
+def sounding_state(torch, ktt, bank):
+    """A state of ``bank`` with its voices sounding: every voice triggered
+    once (``trigger_stages``), then four event-free blocks."""
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    state = bank.init(ctx, device=torch.device("cuda", 0))
+    for ev in trigger_stages(bank):
+        state, _ = bank.process(ctx, state, events=ev)
+    for _ in range(4):
+        state, _ = bank.process(ctx, state)
+    return state
+
+
 def hand_ops_per_sample(torch, mod, ops, B):
     """(f32 operations a voice-sample, share of warps on the hoisted path)
-    of the hand sine or subtractive kernel on the event-free ``ops``, counted
-    from the data as the kernel decides by warp (its __all_sync over
-    ``bank_common``'s flat and steady rules): FLAT_OPS_PER_SAMPLE on a
-    warp whose every lane takes the hoisted path, none on a sine warp of
-    zero gains there (it advances its phases at once and sums nothing),
+    of a hand kernel (sine, subtractive, FM) on the event-free ``ops``,
+    counted from the data as the kernel decides by warp (its __all_sync over
+    ``bank_common``'s flat and steady rules): FLAT_OPS_PER_SAMPLE on a warp
+    whose every lane takes the hoisted path, QUIET_OPS_PER_SAMPLE on a warp
+    of zero gains there (a sine warp advances its phases at once and sums
+    nothing; an FM warp runs both phase recurrences and sums nothing),
     OPS_PER_SAMPLE on every other warp (one that takes some hoists is
-    counted at the general count)."""
+    counted at the general count). The FM kernel's hoisted path is all four
+    ramps flat (its envelope runs a sample), its quiet warps those whose
+    envelopes are stopped and amps flat, whatever their other ramps."""
     from knaster_tpu_torch.kernels import bank_common as bc
 
     ramps, stage = ops["ramps"], ops["stage"]
     amp = ramps[mod.AMP].clone()
     bc.fold_act(amp, ops["act"])
-    fast = bc.ramp_flat_over_block(amp, B) & bc.env_asr_steady(stage)
-    quiet = torch.zeros_like(fast)
+    if mod.KERNEL == "fm_bank":
+        fast = bc.ramp_flat_over_block(amp, B)
+        quiet = fast & bc.env_ar_steady(stage) & (0.0 * bc._mat(0.0, amp) == 0)
+        for p in (mod.FREQ, mod.RATIO, mod.INDEX):
+            fast &= bc.ramp_flat_over_block(ramps[p], B)
+    else:
+        fast = bc.ramp_flat_over_block(amp, B) & bc.env_asr_steady(stage)
+        quiet = torch.zeros_like(fast)
     if mod.KERNEL == "sine_bank":
         pack = bc.pan_pack(ramps[mod.PAN])
         fast &= bc.ramp_flat_over_block(ramps[mod.FREQ], B) & bc.pack_flat_over_block(pack, B)
         hl, hr = bc._pan_gains(0.0, pack)
         gain0 = torch.where(stage == 2, 1.0, 0.0) * bc._mat(0.0, amp)
         quiet = (gain0 == 0) & torch.isfinite(hl) & torch.isfinite(hr)
-    else:
+    elif mod.KERNEL == "sub_bank":
         for p in (mod.FREQ, mod.CUT, mod.Q):
             fast &= bc.ramp_flat_over_block(ramps[p], B)
 
@@ -745,13 +789,16 @@ def hand_ops_per_sample(torch, mod, ops, B):
         pad = torch.ones((-x.numel()) % 32, dtype=torch.bool, device=x.device)
         return torch.cat([x, pad]).view(-1, 32).all(dim=1)
 
-    fast = by_warp(fast)
-    quiet = fast & by_warp(quiet)
+    quiet = by_warp(quiet)
+    if mod.KERNEL == "sine_bank":
+        quiet &= by_warp(fast)
+    fast = by_warp(fast) & ~quiet
     n = fast.numel()
     flat, general = FLAT_OPS_PER_SAMPLE[mod.KERNEL], OPS_PER_SAMPLE[mod.KERNEL]
     n_fast, n_quiet = int(fast.sum()), int(quiet.sum())
-    per_sample = ((n_fast - n_quiet) * flat + (n - n_fast) * general) / n
-    return per_sample, n_fast / n
+    per_sample = (n_fast * flat + n_quiet * QUIET_OPS_PER_SAMPLE.get(mod.KERNEL, 0)
+                  + (n - n_fast - n_quiet) * general) / n
+    return per_sample, (n_fast + n_quiet) / n
 
 
 # --------------------------------------------------------------------------
@@ -824,49 +871,69 @@ def stage_consts(np):
             float(np.float32(2.0 * np.pi / TABLE_SIZE)))
 
 
+def cascade_clusters(mod, device, B):
+    """Every layout ``mod.launch_plan`` can take at B on the card: one CTA
+    where it holds the row, then a cluster of each size from 2 to the
+    card's largest."""
+    return ([1] if B <= mod.ONE_CTA_MAX else []) + list(
+        range(2, mod.card_max_cluster(mod._load(), device) + 1))
+
+
 def phase_fm_cascade_vs_plain(torch, np, dev, Ns=(16, CASCADE), Bs=None):
     """The fm_cascade kernel against its plain version over three blocks of
     each param set at every N and B (by default STAGE_BLOCKS, the longest
     superblock of a B = 64 render and the kernel's own limit), phases
-    starting near the top of the u32 range; checks the saturation rule on
-    the stage phases. Returns the max |output difference| it measured (0.0:
-    bit-equal)."""
+    starting near the top of the u32 range, in the layout ``launch_plan``
+    picks and forced into every layout (``cascade_clusters``; at the
+    kernel's limit the planned one and the largest cluster); checks the
+    saturation rule on the stage phases. Returns the max |output difference|
+    it measured (0.0: bit-equal)."""
     mod = stage_module("fm_cascade")
     Bs = Bs or STAGE_BLOCKS + (CHUNK * BLOCK, mod.MAX_BLOCK)
     f2pi, scale = stage_consts(np)
     err = 0.0
     for N in Ns:
         for B in Bs:
+            clusters = cascade_clusters(mod, dev, B)
+            forced = [None] + (clusters if B < mod.MAX_BLOCK else clusters[-1:])
             for label, vals in FM_PARAM_SETS:
                 params = torch.tensor(vals, dtype=torch.float32, device=dev)
                 ph = u32_near_top(torch, np, N, N + B, dev)
                 for blk in range(3):
-                    pk, pp = ph.clone(), ph.clone()
-                    ok = mod.fm_cascade(params=params, phases=pk, block_size=B,
-                                        f2pi=f2pi, scale=scale)
+                    pp = ph.clone()
                     op = mod.fm_cascade_plain(params=params, phases=pp, block_size=B,
                                               f2pi=f2pi, scale=scale)
-                    torch.cuda.synchronize()
-                    where = f"fm_cascade N={N} B={B} {label} block {blk}"
-                    if not torch.equal(pk, pp):
-                        fail(f"{where}: phases differ from the plain version in "
-                             f"{int((pk != pp).sum())} stages")
-                    err = max(err, float((ok - op).abs().max()))
-                    if not torch.equal(bits(ok), bits(op)):
-                        fail(f"{where}: output differs from the plain version by {err}")
-                    if not bool(torch.isfinite(ok).all()) or float(ok.abs().max()) == 0.0:
-                        fail(f"{where}: output not finite or silent")
-                    step = (pk.long() - ph.long()) % 2**32
+                    for C in forced:
+                        pk = ph.clone()
+                        ok = torch.empty((B,), dtype=torch.float32, device=dev)
+                        plan = mod.launch(ok, params=params, phases=pk, block_size=B,
+                                          f2pi=f2pi, scale=scale, cluster=C)
+                        torch.cuda.synchronize()
+                        where = (f"fm_cascade N={N} B={B} {label} block {blk} "
+                                 f"({'planned, ' if C is None else ''}cluster {plan.cluster})")
+                        if not torch.equal(pk, pp):
+                            fail(f"{where}: phases differ from the plain version in "
+                                 f"{int((pk != pp).sum())} stages")
+                        err = max(err, float((ok - op).abs().max()))
+                        if not torch.equal(bits(ok), bits(op)):
+                            fail(f"{where}: output differs from the plain version by {err}")
+                    if not bool(torch.isfinite(op).all()) or float(op.abs().max()) == 0.0:
+                        fail(f"fm_cascade N={N} B={B} {label} block {blk}: output not "
+                             "finite or silent")
+                    step = (pp.long() - ph.long()) % 2**32
                     if label.startswith("saturating stage 0") and (
                             int(step[0]) != (B * (2**31 - 1)) % 2**32
                             or bool((step[1:] != 0).any())):
-                        fail(f"{where}: stage 0 must advance 2^31 - 1 per sample "
-                             "and the negative stages not at all")
+                        fail(f"fm_cascade N={N} B={B}: stage 0 must advance 2^31 - 1 per "
+                             "sample and the negative stages not at all")
                     if label == "saturating stages" and int(step[-1]) != (B * (2**31 - 1)) % 2**32:
-                        fail(f"{where}: a saturating stage must advance 2^31 - 1 per sample")
-                    ph = pk
+                        fail(f"fm_cascade N={N} B={B}: a saturating stage must advance "
+                             "2^31 - 1 per sample")
+                    ph = pp
         print(f"kernel vs plain fm_cascade N={N} B={Bs}: phases and output bit-equal "
-              f"over 3 blocks of {len(FM_PARAM_SETS)} param sets")
+              f"over 3 blocks of {len(FM_PARAM_SETS)} param sets, in the planned layout "
+              f"and forced to one CTA and to clusters of 2 to {clusters[-1]} (at "
+              f"{mod.MAX_BLOCK} the largest)")
     return err
 
 
@@ -2176,11 +2243,17 @@ def nodes(build):
 EXACT = ("exact",)
 
 
+# the partition phase's render of the slices that render GRAPH_SECONDS
+# elsewhere: 1 s (eight 128-block superblocks at B = 64), to keep the whole
+# run within its time limit as the kernel checks grow
+PARTITION_SECONDS = 1.0
+
+
 def partition_slices():
     """name -> (block size, outputs, frames, setup(kt, g), comparison, the
     kernel its chain or UGen launches or None, whether it renders without
     events)."""
-    s2 = int(GRAPH_SECONDS * SR)
+    s2 = int(PARTITION_SECONDS * SR)
     ck = "chain_kernel"
     return {
         "readme_sine": (BLOCK, 2, SR // 2, readme_sine, EXACT, None, True),
@@ -2361,6 +2434,7 @@ def phase_stage_timings(torch, np, kt, dev, card):
         ph = u32_near_top(torch, np, CASCADE, 0, dev)
         buf = torch.empty((B,), dtype=torch.float32, device=dev)
         ops = dict(params=params, phases=ph, block_size=B, f2pi=f2pi, scale=scale)
+        fm_plan = kfc.launch(buf, **ops)
         fm_ms = time_call(torch, lambda: kfc.launch(buf, **ops), 200)
 
         g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
@@ -2369,7 +2443,8 @@ def phase_stage_timings(torch, np, kt, dev, card):
         program, cops = capture_chain(torch, proc)
         outs = kck.empty_outputs(program, dev, cops["K"], B)
         ch_ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
-        line = (f"timing B={B} on {card}: fm_cascade N={CASCADE} kernel {fm_ms:.4f} ms, "
+        line = (f"timing B={B} on {card}: fm_cascade N={CASCADE} kernel {fm_ms:.4f} ms "
+                f"(cluster {fm_plan.cluster} of {fm_plan.chunk} samples), "
                 f"chain_kernel K={cops['K']} p={program.period} kernel {ch_ms:.4f} ms")
         line += against_parent("fm_cascade", B, ch_ms)
         if B == sb:
@@ -2669,7 +2744,7 @@ def phase_family_vs_plain(torch, np, ktt, dev):
 # run-time variant past them
 MATRIX_VS = (1000, N_VOICES - 17, N_VOICES)
 MATRIX_BS = (BLOCK, 1024)
-HAND_KINDS = ("sine", "sub")
+HAND_KINDS = ("sine", "sub", "fm")
 MATRIX_KINDS = HAND_KINDS + ("wt", "generic-sine", "generic-fm", "generic-subtractive",
                              "generic-additive", "generic-envelope", "generic-modal")
 # with the matrix's 16: 1, 16, 17, the largest unrolled (64) and the
@@ -2677,8 +2752,10 @@ MATRIX_KINDS = HAND_KINDS + ("wt", "generic-sine", "generic-fm", "generic-subtra
 H_SWEEP = (1, 17, 64, 65, 128, 1024)
 # the params whose flat ramps the kernels hoist work on: the pan gains
 # (Sine, Additive, Envelope, Modal, the hand sine), the SVF coefficients
-# (Subtractive), and the hand kernels' freq and amp
-EDGE_PARAMS = ("pan", "cutoff", "q", "freq", "amp")
+# (Subtractive), and the hand kernels' freq and amp (and the FM kernel's
+# ratio and index)
+EDGE_PARAMS = ("pan", "cutoff", "q", "freq", "amp", "ratio", "index")
+HAND_ONLY_PARAMS = ("freq", "amp", "ratio", "index")
 
 
 def matrix_bank(ktt, np, kind, V, B, looping=False, n_harmonics=H):
@@ -2708,7 +2785,7 @@ def flat_edge_cases(torch, bank, operands, B, by_warp=False):
     v = lane % 5
     edged = (lane // 32) % 3 != 0 if by_warp else torch.ones_like(lane, dtype=torch.bool)
     for name in EDGE_PARAMS:
-        if name not in bank._float_names or (name in ("freq", "amp") and not by_warp):
+        if name not in bank._float_names or (name in HAND_ONLY_PARAMS and not by_warp):
             continue
         g = ramps[bank.float_index(name)]
         base = g[0].clone()
@@ -2730,20 +2807,28 @@ def flat_edge_cases(torch, bank, operands, B, by_warp=False):
 
 
 def steady_stages(torch, bank, state):
-    """The EnvAsr stages by warp, so that the hand kernels' steady-envelope
-    hoist runs on both sides: warps 0, 4, 8, ... sustained (stage 2, t = 1),
-    1, 5, ... stopped (stage 0, t = 0), 3, 7, ... alternate lanes sustained
-    and stopped; 2, 6, ... keep the eventful block's attacks, releases and
-    stops."""
+    """The envelope stages by warp, so that the hand kernels' steady-envelope
+    hoist runs on both sides. EnvAsr (sine, subtractive): warps 0, 4, 8, ...
+    sustained (stage 2, t = 1), 1, 5, ... stopped (stage 0, t = 0), 3, 7,
+    ... alternate lanes sustained and stopped. EnvAr (FM), steady only where
+    stopped: warps 0, 4, ... in attack (stage 1, t = 0.25), 1, 5, ...
+    stopped (a warp of zero gains), 3, 7, ... alternate lanes releasing
+    (stage 2, t = 0.5) and stopped. Warps 2, 6, ... keep the eventful
+    block's attacks, releases and stops."""
     n = state["stage"].shape[0]
     lane = torch.arange(n, device=state["stage"].device)
     w = (lane // 32) % 4
     sus = (w == 0) | ((w == 3) & (lane % 2 == 0))
     stop = (w == 1) | ((w == 3) & (lane % 2 == 1))
     st = dict(state)
-    st["stage"] = torch.where(sus, 2.0, torch.where(stop, 0.0, state["stage"]))
+    if "rscale" in state:  # EnvAsr: sustained
+        run_stage, run_t = 2.0, 1.0
+    else:  # EnvAr: attack in warps 0, 4, ..., release in the alternate lanes
+        run_stage = torch.where(w == 0, 1.0, 2.0)
+        run_t = torch.where(w == 0, 0.25, 0.5)
+    st["stage"] = torch.where(sus, run_stage, torch.where(stop, 0.0, state["stage"]))
     t_name = "et" if "et" in state else "t"
-    st[t_name] = torch.where(sus, 1.0, torch.where(stop, 0.0, state[t_name]))
+    st[t_name] = torch.where(sus, run_t, torch.where(stop, 0.0, state[t_name]))
     return st
 
 

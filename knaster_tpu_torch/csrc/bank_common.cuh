@@ -6,10 +6,8 @@
 // as anchored ramp groups ramps[n_float][5][V] (v0, step, el, dur, tgt);
 // eventful blocks add D breakpoint rounds rounds[n_float][5][D][V] (v0,
 // step, dur, tgt, frame) and packed trigger words words[n_trig][W][V], W =
-// ceil(B/32). The hand FM kernel leaves its mix as warp partials
-// partial[ceil(V/32)][C][B], summed by the wrapper; the sine, subtractive,
-// generic and wavetable kernels sum it themselves through the CTA mix below
-// (CtaMix, mix_combine_warps, mix_finish) into mix[C][B].
+// ceil(B/32). Every bank kernel sums its mix itself through the CTA mix
+// below (CtaMix, mix_combine_warps, mix_finish) into mix[C][B].
 //
 // Numerics. Every library is built with --fmad=false and no fast math: each
 // multiply and add rounds on its own and divides are IEEE divides, as in the
@@ -211,7 +209,7 @@ __device__ __forceinline__ bool pack_flat(const PanPack& p, int B) {
 }
 
 // --------------------------------------------------------------------------
-// The mix of the generic and wavetable kernels. Each CTA of 256 voices sums
+// The mix of every bank kernel. Each CTA of 256 voices sums
 // its voices' values into one partial row of work[cta][C][B], and
 // mix_finish sums the rows. The scratch work holds, in order, the CTA rows,
 // one row per group of kMixGroup CTAs, and (eventful blocks) one row per
@@ -503,6 +501,12 @@ __device__ __forceinline__ float env_asr(float& stage, float& t, float& rscale,
 __device__ __forceinline__ bool env_asr_steady(float stage) {
   return stage == 0.0f || stage == 2.0f;
 }
+
+// True where event-free EnvAr (restart false) leaves (stage, t) as they are
+// at every sample and gives one value, 0: stage 0 (stopped) at block entry.
+// EnvAr has no sustain: attack and release move t at every sample
+// (kernels/bank_common.py env_ar_steady states and tests the rule)
+__device__ __forceinline__ bool env_ar_steady(float stage) { return stage == 0.0f; }
 
 // EnvAr state machine (stages: 0 stopped, 1 attack, 2 release), no sustain.
 // restart false is the event-free variant (_env_ar_free). Note that `done`

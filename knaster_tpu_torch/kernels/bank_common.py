@@ -120,15 +120,7 @@ def raise_on_error(kernel, lib, err):
             f"({lib.ktt_error_string(err).decode()})")
 
 
-def empty_partial(V, n_out, B, device):
-    """The warp-partial mix buffer the hand FM kernel writes:
-    [ceil(V/32), n_out, B]."""
-    return torch.empty(((V + 31) // 32, n_out, int(B)), dtype=torch.float32,
-                       device=device)
-
-
-# The mix of the sine, subtractive, generic and wavetable kernels
-# (csrc/bank_common.cuh): one
+# The mix of every bank kernel (csrc/bank_common.cuh): one
 # partial row per CTA of MIX_THREADS voices (event-free blocks sum them in
 # shared memory; eventful blocks write a row per warp first, MIX_WARPS a
 # CTA, and sum those), the rows summed in the kernel by the last CTA of each
@@ -153,7 +145,7 @@ def mix_scratch_rows(V):
 
 def empty_mix(V, n_out, B, device):
     """(mix [n_out, B], scratch [mix_scratch_rows(V), n_out, B]): what a
-    sine, subtractive, generic or wavetable kernel writes."""
+    bank kernel writes."""
     return (torch.empty((n_out, int(B)), dtype=torch.float32, device=device),
             torch.empty((mix_scratch_rows(V), n_out, int(B)), dtype=torch.float32,
                         device=device))
@@ -263,6 +255,14 @@ def env_asr_steady(stage):
     return (stage == 0) | (stage == 2)
 
 
+def env_ar_steady(stage):
+    """bool [V]: where event-free ``_env_ar`` leaves (stage, t) as they are
+    at every sample and gives one value, 0: stage 0 (stopped) at block
+    entry. EnvAr has no sustain, so attack (1) and release (2) move t at
+    every sample (csrc/bank_common.cuh env_ar_steady)."""
+    return stage == 0
+
+
 def pan_pack(g):
     """The event-free pan pack [5, V] (a0, da, lt, rt, rem) from the raw pan
     ramp group ``g`` [5, V] (v0, step, el, dur, tgt, el and dur in f32): the
@@ -283,8 +283,8 @@ def fold_act(g, act):
     """Fold the 0/1 active gain into the amp ramp group ``g`` [5, V] in
     place, three launches: (v0, step, tgt) times act, never el/dur, so
     ``_mat`` of it is ``amp * act`` bit for bit (the JAX package's
-    ``pallas_bank._fold_act``; the FM and wavetable banks stage it on the
-    host, the sine and subtractive kernels in their prologue)."""
+    ``pallas_bank._fold_act``; the wavetable bank stages it on the host,
+    the sine, FM and subtractive kernels in their prologue)."""
     for j in (0, 1, 4):
         g[j].mul_(act)
 

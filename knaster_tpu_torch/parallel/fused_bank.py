@@ -154,10 +154,12 @@ class FusedBank(VoiceBank):
 class _HandBank(FusedBank):
     """A bank whose voice has a hand-written kernel: the kernel's state is
     ``STATE`` (name, "u32" | "f32", initial value) in the kernel's order.
-    With ``HOST_STAGING`` event-free blocks fold act into amp on the host
-    (and, with ``PAN_PACK``, swap pan's ramp group for the linear-angle
-    pack) and pass no act; without it the kernel takes the raw ramp groups
-    and act in every block and stages them itself."""
+    With ``HOST_STAGING`` (the wavetable bank) event-free blocks fold act
+    into amp on the host (and, with ``PAN_PACK``, swap pan's ramp group for
+    the linear-angle pack) and pass no act; without it (the sine, FM and
+    subtractive banks) the kernel takes the raw ramp groups and act in
+    every block and stages them itself, in its prologue. Every hand kernel
+    sums its mix itself: ``kernel`` returns the [C, B] mix."""
 
     STATE = ()
     HOST_STAGING = True
@@ -239,10 +241,13 @@ class FusedSineVoiceBank(_HandBank):
 
 class FusedFMVoiceBank(_HandBank):
     """A bank of FMVoices (modulator and carrier u32 phases, audio-rate FM,
-    EnvAr, mono mix) in one fused kernel per block."""
+    EnvAr, mono mix) in one fused kernel per block. The kernel takes the
+    raw ramp groups and act in every block, folds act into amp itself and
+    sums its mix (``kernels/fm_bank.py``)."""
 
     STATE = (("phm", "u32", 0), ("phc", "u32", 0), ("stage", "f32", 0.0),
              ("t", "f32", 0.0))
+    HOST_STAGING = False  # the kernel folds act itself
     kernel = staticmethod(fm_bank.fm_bank)
 
     def __init__(self, n_voices: int, voice_defaults=None, event_capacity=256,

@@ -3,8 +3,9 @@
 On the CPU the port's kernel wrapper runs its plain torch version; the JAX
 bank runs ``_fm_kernel`` in the Pallas interpreter, jitted at
 ``xla_backend_optimization_level`` 0 (see tests/test_torch_sine_bank.py:
-XLA:CPU otherwise contracts ``a + b*c`` into an FMA). Both get the same
-seeded defaults, events and state, block by block.
+XLA:CPU otherwise contracts ``a + b*c`` into an FMA) with its algebraic
+simplifier off (``EXACT``). Both get the same seeded defaults, events and
+state, block by block.
 
 Tolerances (``lockstep``): the mix within 1e-5 (the same per-voice terms
 summed in another order); phm, phc, stage and the ramp state exact; t
@@ -18,13 +19,17 @@ import numpy as np
 import pytest
 import torch
 from test_generic_bank import _fm_defaults
-from test_torch_sine_bank import _in_kernel, lockstep
+from test_torch_sine_bank import NO_FMA, _in_kernel, lockstep
 
 from knaster_tpu import PallasFMVoiceBank
 from knaster_tpu.parallel import pallas_bank as jpb
 
 import knaster_tpu_torch as ktt
 from knaster_tpu_torch.kernels import bank_common as tbc
+
+# FM amplifies an ulp of the reference into the carrier's phase: the JAX
+# side also runs without XLA's algebraic simplifier (ROADMAP §3 item 2)
+EXACT = dict(NO_FMA, xla_disable_hlo_passes="algsimp")
 
 
 def rich_schedule(bank, fparams, B):
@@ -71,7 +76,7 @@ def test_matches_jax_fm_bank(B):
     pb = PallasFMVoiceBank(V, voice_defaults=d, event_capacity=1024)
     fb = ktt.FusedFMVoiceBank(V, voice_defaults=d, event_capacity=1024)
     sched = rich_schedule(fb, {"freq": 555.0, "index": 2.5, "amp": 0.02}, B)
-    mix, st = lockstep(pb, fb, B, sched)
+    mix, st = lockstep(pb, fb, B, sched, compiler_options=EXACT)
     assert np.abs(mix).max() > 1e-3
     assert bool((st["stage"] != 0).any())
 
@@ -94,7 +99,8 @@ def test_matches_jax_fm_bank_phase_wrap_and_release_to_silence():
         sj["phc"] = start[1].astype(np.uint32).reshape(sj["phc"].shape)
 
     ev = [(v % 1024, v, 0, 1, 0.0) for v in range(V)]
-    mix, st = lockstep(pb, fb, 1024, [ev, None], patch_state=near_top)
+    mix, st = lockstep(pb, fb, 1024, [ev, None], patch_state=near_top,
+                       compiler_options=EXACT)
     assert np.abs(mix).max() > 1e-3
     assert bool((st["stage"] == 0).all()) and bool(st["idle"].all())
 

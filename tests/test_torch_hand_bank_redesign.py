@@ -14,9 +14,10 @@ replaces; and additive tables past the largest unrolled instantiation.
   u32 increment and the saw's dt from ``_mat`` at sample 0 are every
   sample's.
 - The staging the kernels' prologue now does (``fold_act``, ``pan_pack``,
-  ``sine_bank.stage_event_free``), and the FM and wavetable banks' host
-  staging by the same functions, against the parent design's host staging
-  from the carried integer ramp state (restated here): bit-equal.
+  ``sine_bank.stage_event_free``; the sine, subtractive and FM kernels),
+  and the wavetable bank's host staging by the same functions, against the
+  parent design's host staging from the carried integer ramp state
+  (restated here): bit-equal.
 - 128-harmonic wavetable and generic Additive banks (the run-time variant
   on the card) against the JAX banks, as tests/test_torch_wt_bank.py and
   tests/test_torch_generic_bank.py hold the 16-harmonic ones.
@@ -34,6 +35,7 @@ from knaster_tpu import PallasWavetableVoiceBank
 
 import knaster_tpu_torch as ktt
 from knaster_tpu_torch.kernels import bank_common as bc
+from knaster_tpu_torch.kernels import fm_bank as fk
 from knaster_tpu_torch.kernels import sine_bank as sk
 from knaster_tpu_torch.kernels import sub_bank as uk
 from knaster_tpu_torch.parallel import fused_bank as fbk
@@ -248,6 +250,7 @@ def _host_pack(bank, fstate):
 @pytest.mark.parametrize("cls, fparams", [
     (ktt.FusedSineVoiceBank, {"pan": -0.7, "freq": 13000.0, "amp": 0.02}),
     (ktt.FusedSubtractiveVoiceBank, {"cutoff": 900.0, "q": 3.0, "amp": 0.02}),
+    (ktt.FusedFMVoiceBank, {"ratio": 3.0, "freq": 13000.0, "amp": 0.02}),
 ])
 def test_prologue_staging_is_the_host_staging(cls, fparams):
     bank, ctx, st = _ramping_bank(cls, fparams)
@@ -272,14 +275,15 @@ def test_prologue_staging_is_the_host_staging(cls, fparams):
 
 
 @pytest.mark.parametrize("cls, fparams, kw", [
-    (ktt.FusedFMVoiceBank, {"ratio": 3.0, "freq": 13000.0, "amp": 0.02}, {}),
     (ktt.FusedWavetableVoiceBank, {"pan": -0.7, "freq": 13000.0, "amp": 0.02},
      {"harmonics": [1.0, 0.5, 0.25]}),
 ])
 def test_host_staging_is_the_parent_host_staging(cls, fparams, kw):
-    """The FM and wavetable banks stage an event-free block on the host by
+    """The wavetable bank stages an event-free block on the host by
     ``bank_common.fold_act`` and ``pan_pack``: bit-equal to the parent
-    design's staging from the integer ramp state, and no act."""
+    design's staging from the integer ramp state, and no act. (The FM bank
+    stages in its kernel's prologue now:
+    ``test_prologue_staging_is_the_host_staging``.)"""
     bank, ctx, st = _ramping_bank(cls, fparams, **kw)
     ops, carry = bank.kernel_operands(ctx, st)
     assert ops["act"] is None and ops["rounds"] is None
@@ -297,6 +301,7 @@ def test_host_staging_is_the_parent_host_staging(cls, fparams, kw):
 @pytest.mark.parametrize("mod, cls, fparams", [
     (sk, ktt.FusedSineVoiceBank, {"pan": -0.7, "freq": 13000.0, "amp": 0.02}),
     (uk, ktt.FusedSubtractiveVoiceBank, {"cutoff": 900.0, "q": 3.0, "amp": 0.02}),
+    (fk, ktt.FusedFMVoiceBank, {"ratio": 3.0, "freq": 13000.0, "amp": 0.02}),
 ])
 def test_plain_version_on_raw_operands_is_the_host_staged_block(mod, cls, fparams):
     """The plain version fed the raw groups and act renders the block the
@@ -311,10 +316,7 @@ def test_plain_version_on_raw_operands_is_the_host_staged_block(mod, cls, fparam
     if "pan" in fparams:
         host[bank.float_index("pan")] = _host_pack(bank, carry[0])
     staged = dict(ops, ramps=host, act=None)
-    if mod is sk:
-        want = _sine_plain_staged(**staged)
-    else:
-        want = _sub_plain_staged(**staged)
+    want = {sk: _sine_plain_staged, uk: _sub_plain_staged, fk: _fm_plain_staged}[mod](**staged)
     for a, b in zip(got, want):
         assert torch.equal(_bits(a) if a.dtype == F32 else a, _bits(b) if b.dtype == F32 else b)
 
@@ -362,6 +364,25 @@ def _sub_plain_staged(*, ramps, rounds, act, words, t, ic1, ic2, stage, et, rsca
         ic2 = two * v2 - ic2
         out.append(torch.sum(v2 * (env * bc._mat(float(i), ramps[uk.AMP]))))
     return torch.stack(out)[None], t, ic1, ic2, stage, et, rscale
+
+
+def _fm_plain_staged(*, ramps, rounds, act, words, phm, phc, stage, t, block_size, atk, rel,
+                     f2pi):
+    """The parent design's plain FM block on host-staged operands."""
+    atk, rel, f2pi = (bc.scalar(x, "cpu") for x in (atk, rel, f2pi))
+    pm, pc = bc.u32_of(phm), bc.u32_of(phc)
+    out = []
+    for i in range(block_size):
+        env, stage, t = bc._env_ar(stage, t, None, atk, rel)
+        gain = env * bc._mat(float(i), ramps[fk.AMP])
+        freq = bc._mat(float(i), ramps[fk.FREQ])
+        mod = bc._sin_quant(pm)
+        pm = bc.u32_add(pm, bc._to_inc(freq * bc._mat(float(i), ramps[fk.RATIO]) * f2pi))
+        car_freq = freq * (np.float32(1.0) + bc._mat(float(i), ramps[fk.INDEX]) * mod)
+        car = bc._sin_quant(pc)
+        pc = bc.u32_add(pc, bc._to_inc(car_freq * f2pi))
+        out.append(torch.sum(car * gain))
+    return torch.stack(out)[None], bc.i32_of(pm), bc.i32_of(pc), stage, t
 
 
 # --------------------------------------------------------------------------

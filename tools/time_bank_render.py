@@ -10,8 +10,8 @@ imports its own tree's package and ``chip_smoke.py`` and, at 131,072 voices
 (the modal bank 65,536), B = 64, 48 kHz, with ``chip_smoke.py``'s seeded
 defaults:
 
-- the hand sine and subtractive banks and every bank on the generic or
-  wavetable kernel (``sine``, ``sub``, ``wt``, ``generic-sine``, ``-fm``,
+- the hand sine, FM and subtractive banks and every bank on the generic or
+  wavetable kernel (``sine``, ``fm``, ``sub``, ``wt``, ``generic-sine``, ``-fm``,
   ``-subtractive``, ``-additive``, ``envelope_bank``, ``modal_bank``):
   every voice triggered, then three renders of 750
   event-free blocks (1 s of audio) through ``bank.process``, each timed
@@ -35,7 +35,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BANKS = ("sine", "sub", "wt", "generic-sine", "generic-fm", "generic-subtractive", "generic-additive",
+BANKS = ("sine", "fm", "sub", "wt", "generic-sine", "generic-fm", "generic-subtractive", "generic-additive",
          "envelope_bank", "modal_bank")
 RENDERS = 3
 
