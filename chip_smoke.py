@@ -64,8 +64,9 @@ result line):
    Then the matrix of the bank kernels' Hopper design: the hand sine,
    subtractive and FM kernels, the wavetable kernel and every generic body (the
    Envelope body on the four-shape table, looping and one-shot; the Modal
-   body on the bar) at V in {1000, 131055, 131072} (131055: a last CTA
-   with whole warps past the bank and a ragged one) and B in {64, 1024},
+   body on the bar) at V in {1000, 131055} (131055: a last CTA with whole
+   warps past the bank and a ragged one; 131,072 voices at B = 64 are the
+   kernel-vs-plain phase's and the slices') and B in {64, 1024},
    an eventful block and then an event-free one whose pan, cutoff and q
    ramps (and the hand kernels' freq and amp, the FM kernel's ratio and
    index) meet the flat-ramp rules'
@@ -80,7 +81,10 @@ result line):
    instantiations at {65, 128, 1024} (the run-time variant); at V =
    131055, B = 64 two launches on the same buffers must give
    bit-identical mixes (the in-kernel sum's tickets reset). Carries
-   bit-equal, mixes within the tolerance;
+   bit-equal, mixes within the tolerance. Then the four hand bank kernels
+   and the generic FM body against the composable ``VoiceBank`` of the
+   same voice on the card (the JAX package's vmap bank, plain torch), V =
+   1024, four eventful blocks, mix within 1e-5 (``phase_kernels_vs_vmap``);
 4. slices — each bank through its public API at 131,072 voices, B=64,
    48 kHz, with the JAX package's seeded defaults: the sine bank through
    ``bench.py``'s sequence (512 staged trigger blocks of 256 events), the
@@ -133,7 +137,16 @@ result line):
    kernel once per eventful block and per superblock), every voice
    released by ``refresh()``, the first 32 blocks against the CPU render;
    and ``modal_bells`` (examples/modal_bells.py's four bells, 4 s, no
-   kernel) against the CPU within 1e-6;
+   kernel) against the CPU within 1e-6. Then the vmap ``VoiceBank``, no
+   kernel of the port on its path: golden ``detuned_banks`` (two 512-voice
+   banks, FM and additive) at f32 and f64, superblocked and per block,
+   against the fixture (the golden gate; at f32 up to DETUNED_F32_MISSES
+   samples may miss it by one FM table step, named as they miss), the
+   port's CPU render and each other, realtime x and launches per
+   rendered second; the suite's ``fm_voice_bank`` (8192 FM voices) and
+   ``plucked_bank`` (4096 strings), ``bank.process`` over 750 event-free
+   blocks after a block of note-ons, against the CPU over 4 blocks,
+   voice-samples/s, kernels per block and the device-busy share;
 5. timings and profile — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
@@ -2742,7 +2755,9 @@ def phase_family_vs_plain(torch, np, ktt, dev):
 # (EDGE_PARAMS); the hand sine and subtractive kernels' warp-uniform fast
 # paths on both sides (HAND_KINDS); the harmonic instantiations and the
 # run-time variant past them
-MATRIX_VS = (1000, N_VOICES - 17, N_VOICES)
+# the full 131,072 is cut from the matrix to keep the run in its time
+# limit: kernel vs plain and the slices hold every bank there at B = 64
+MATRIX_VS = (1000, N_VOICES - 17)
 MATRIX_BS = (BLOCK, 1024)
 HAND_KINDS = ("sine", "sub", "fm")
 MATRIX_KINDS = HAND_KINDS + ("wt", "generic-sine", "generic-fm", "generic-subtractive",
@@ -3120,6 +3135,251 @@ def phase_modal_bells(torch, np, ktt, dev, card):
           f"no kernel on its path")
 
 
+# --------------------------------------------------------------------------
+# the composable VoiceBank (the JAX package's vmap bank): plain torch ops on
+# the card, no kernel of the port on its path
+# --------------------------------------------------------------------------
+
+DETUNED_VOICES = 512  # tests/golden_configs.py:85-142, each bank
+DETUNED_AMP = 0.002
+DETUNED_FRAMES = 9600  # the golden render's 0.2 s
+# the superblocked render against the per-block one: an envelope whose
+# attack sum reaches 1 on its last rounding crosses a sample apart when the
+# closed form sums over a superblock; one FM and one additive attack step
+DETUNED_CROSSING = DETUNED_AMP * (1.0 / (0.005 * SR) + 1.0 / (0.01 * SR)) + 1e-7
+# at f32 an FM carrier takes its frequency from the modulator's sine every
+# sample, and the card's sinf, torch's CPU sin and XLA's (the fixture's)
+# differ by an ulp on some table indices: the carrier's u32 increment then
+# truncates otherwise and its phase drifts by a few units, which moves its
+# table index by one step where the drift crosses a step. One voice's step
+# at full envelope: amp * 2 pi / 16384. The f32 render may miss the golden
+# gate at DETUNED_F32_MISSES samples at most, each by one such step, and
+# differs from the CPU render by DETUNED_F32_STEPS steps at most; at f64 a
+# sine's ulp never moves an increment (DETUNED_F64_TOL)
+DETUNED_TABLE_STEP = DETUNED_AMP * 2.0 * math.pi / 16384
+DETUNED_F32_MISSES = 16
+DETUNED_F32_STEPS = 4
+DETUNED_F64_TOL = 1e-9
+FM_VMAP_VOICES = 8192  # benchmarks/suite.py bench_fm_bank
+PLUCKED_VOICES = 4096  # benchmarks/suite.py bench_plucked_bank
+VMAP_CPU_BLOCKS = 4  # blocks of each vmap slice held against the CPU render
+VMAP_PROFILE_BLOCKS = 8
+VS_VMAP_VOICES = 1024  # tests/test_voicebank.py:175-213's kernel-vs-vmap bank
+VS_VMAP_TOL = 1e-5
+
+
+def detuned_banks(kt, np, dtype, dev, chunk=CHUNK):
+    """Golden ``detuned_banks``'s processor on ``dev``, its schedule queued
+    (tests/golden_configs.py render_detuned_banks)."""
+    rng = np.random.default_rng(42)
+    V = DETUNED_VOICES
+    fm_d = {"freq": (220.0 * 2 ** rng.uniform(-1, 1, V)).astype(np.float32),
+            "ratio": rng.choice([1.0, 2.0, 3.0], V).astype(np.float32),
+            "index": rng.uniform(0.5, 2.0, V).astype(np.float32),
+            "amp": np.full(V, DETUNED_AMP, np.float32)}
+    wt_d = {"freq": (330.0 * 2 ** rng.uniform(-1, 1, V)).astype(np.float32),
+            "amp": np.full(V, DETUNED_AMP, np.float32),
+            "pan": rng.uniform(-1, 1, V).astype(np.float32)}
+    harmonics = np.array([1.0, 0.6, 0.4, 0.25, 0.15, 0.08], np.float32)
+    g, proc = kt.AudioProcessor.new(
+        0, 2, kt.AudioProcessorOptions(block_size=BLOCK, render_chunk_blocks=chunk),
+        dtype=dtype, device=dev)
+    hs = {}
+
+    def build(gg):
+        hs["fm"] = gg.push(kt.VoiceBank(kt.FMVoice(), V, voice_defaults=fm_d,
+                                        event_capacity=2048))
+        hs["wt"] = gg.push(kt.VoiceBank(kt.AdditiveVoice(harmonics=harmonics), V,
+                                        voice_defaults=wt_d, event_capacity=2048))
+        hs["fm"].out([0, 0]).to_graph_out()
+        hs["wt"].to_graph_out()
+
+    g.edit(build)
+
+    def at(n):
+        return kt.Seconds.from_samples(n, SR)
+
+    tr_fm, fr_fm = hs["fm"].voice_param("t_restart"), hs["fm"].voice_param("freq")
+    tr_wt, fr_wt = hs["wt"].voice_param("t_restart"), hs["wt"].voice_param("freq")
+    for v in range(V):
+        tr_fm.trig_at(v, at(v % 64))
+        tr_wt.trig_at(v, at((v * 3) % 64))
+    for k in range(64):
+        v = int(rng.integers(0, V))
+        fr_fm.smooth(v, 0.02)
+        fr_fm.set_at(v, float(rng.uniform(150, 700)), at(1000 + 37 * k))
+        w = int(rng.integers(0, V))
+        fr_wt.set_at(w, float(rng.uniform(200, 900)), at(1500 + 53 * k))
+    proc._ensure_compiled()
+    return proc
+
+
+def phase_detuned_banks(torch, np, kt, dev, card):
+    """Golden ``detuned_banks`` (two 512-voice vmap banks, FM and additive)
+    at f32 and f64 on the card: no kernel of the port launches; the
+    superblocked render against the fixture (the golden gate), against the
+    port's CPU render and against the card's per-block render (within
+    DETUNED_CROSSING); realtime x of both renders and kernel launches per
+    rendered second (the profiler's count over the first
+    VMAP_PROFILE_BLOCKS blocks, all eventful)."""
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        runs = {}
+        for chunk in (CHUNK, 1):
+            proc = detuned_banks(kt, np, dtype, dev, chunk)
+            reset_all_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = proc.render(frames=DETUNED_FRAMES, fetch=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            expect_counts(read_all_counts(), {}, f"detuned_banks {name}")
+            runs[chunk] = (audio.cpu().numpy(), DETUNED_FRAMES / SR / secs)
+        n_prof = VMAP_PROFILE_BLOCKS * BLOCK
+        n_k = count_kernels(torch, lambda: detuned_banks(kt, np, dtype, dev).render(
+            frames=n_prof, fetch=False))
+        cpu = np.asarray(detuned_banks(kt, np, dtype, "cpu").render(frames=DETUNED_FRAMES))
+        (a, rt_sb), (b, rt_pb) = runs[CHUNK], runs[1]
+        ref, sr = read_fixture(np, f"detuned_banks_{name}")
+        if sr != SR or ref.shape != a.shape or not np.isfinite(a).all():
+            fail(f"detuned_banks {name}: shape {a.shape} against the fixture's {ref.shape}")
+        err_fix = np.abs(a.astype(np.float32) - ref)
+        over = np.argwhere(err_fix > GOLDEN_GATE)
+        gap_cpu = float(np.abs(a - cpu).max())
+        gap_pb = float(np.abs(a - b).max())
+        print(f"slice detuned_banks {name} on {card}: superblocks realtime x {rt_sb:.4g}, "
+              f"per block realtime x {rt_pb:.4g}, "
+              f"{None if n_k is None else n_k / (n_prof / SR)} launches per rendered s "
+              f"(first {VMAP_PROFILE_BLOCKS} blocks); fixture max {float(err_fix.max()):.4e} "
+              f"({len(over)} samples past the gate {GOLDEN_GATE:.4e}: [channel, frame] "
+              f"{over.tolist()[:DETUNED_F32_MISSES]}); card vs CPU {gap_cpu:.4e}; "
+              f"superblocks vs per block {gap_pb:.4e}; no kernel on its path")
+        f32 = dtype == torch.float32
+        if len(over) > (DETUNED_F32_MISSES if f32 else 0) or float(err_fix.max()) > (
+                GOLDEN_GATE + DETUNED_TABLE_STEP):
+            fail(f"detuned_banks {name}: {len(over)} samples past the golden gate")
+        if gap_pb > DETUNED_CROSSING:
+            fail(f"detuned_banks {name}: superblocked and per-block renders differ by "
+                 f"{gap_pb}")
+        if gap_cpu > (DETUNED_F32_STEPS * DETUNED_TABLE_STEP if f32 else DETUNED_F64_TOL):
+            fail(f"detuned_banks {name}: card vs CPU differ by {gap_cpu}")
+
+
+def vmap_fm_bank(kt, np):
+    """benchmarks/suite.py bench_fm_bank's bank (8192 FM voices, seed 0),
+    and its note-ons: every voice restarted at a staggered frame."""
+    V = FM_VMAP_VOICES
+    bank = kt.VoiceBank(kt.FMVoice(), V, voice_defaults=fm_defaults(np, V),
+                        event_capacity=V)
+    return bank, [(v % BLOCK, v, 0, 1, 0.0) for v in range(V)]
+
+
+def vmap_plucked_bank(kt, np):
+    """benchmarks/suite.py bench_plucked_bank's bank (4096 strings, seed 0,
+    ``max_freq=1000``), the seed counter reset first, and its plucks."""
+    V = PLUCKED_VOICES
+    rng = np.random.default_rng(0)
+    d = {"vseed": np.arange(V),
+         "freq": (110.0 * 2 ** rng.uniform(0, 3, V)).astype(np.float32),
+         "damp": rng.uniform(0.995, 0.999, V).astype(np.float32),
+         "brightness": rng.uniform(0.4, 0.9, V).astype(np.float32)}
+    kt.reset_randomness_seeds()
+    bank = kt.VoiceBank(kt.PluckedVoice(max_freq=1000.0), V, voice_defaults=d,
+                        event_capacity=V)
+    return bank, [(v % BLOCK, v, 0, 1, 0.0) for v in range(V)]
+
+
+def phase_vmap_banks(torch, np, kt, dev, card):
+    """The suite's vmap cells on the card: ``fm_voice_bank`` (8192 FM voices)
+    and ``plucked_bank`` (4096 strings), each ``bank.process`` over N_BLOCKS
+    event-free blocks at B = 64 (1 s) after one block of note-ons that
+    sounds every voice (the suite times silence; the note-ons make the
+    output checkable). No kernel of the port launches; the output is finite
+    and sounds; the first VMAP_CPU_BLOCKS blocks match the port's CPU run
+    within ``mix_tolerance``. Prints voice-samples/s, then the profiler's
+    kernels per block and device-busy share over VMAP_PROFILE_BLOCKS
+    blocks."""
+    ctx = kt.AudioCtx(SR, BLOCK, torch.float32)
+    for name, make in (("fm_voice_bank", vmap_fm_bank), ("plucked_bank", vmap_plucked_bank)):
+        bank, notes = make(kt, np)
+        V = bank.n_voices
+        heads = {}
+        for d in ("cpu", dev):
+            st = bank.init(ctx, d)
+            st, out, _ = bank.process(ctx, st, events=bank.node_events_from_lists(notes))
+            head = [out]
+            for _ in range(VMAP_CPU_BLOCKS - 1):
+                st, out, _ = bank.process(ctx, st)
+                head.append(out)
+            heads[str(d)] = torch.cat(head, dim=1).cpu()
+        a, b = heads[str(dev)], heads["cpu"]
+        gap, peak = float((a - b).abs().max()), float(b.abs().max())
+        if gap > mix_tolerance(V, peak) or peak < 1e-3:
+            fail(f"{name}: card vs CPU over {VMAP_CPU_BLOCKS} blocks differ by {gap} "
+                 f"(peak {peak})")
+        state = bank.init(ctx, dev)
+        state, _, _ = bank.process(ctx, state, events=bank.node_events_from_lists(notes))
+        reset_all_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for _ in range(N_BLOCKS):
+            state, out, _ = bank.process(ctx, state)
+            outs.append(out)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        expect_counts(read_all_counts(), {}, name)
+        mix = torch.cat(outs, dim=1)
+        if not bool(torch.isfinite(mix).all()) or float(mix.abs().max()) < 1e-3:
+            fail(f"{name}: the event-free run is not finite or silent")
+
+        print(f"slice {name} ({V} voices, B={BLOCK}, {N_BLOCKS} event-free blocks) on "
+              f"{card}: {V * N_BLOCKS * BLOCK / secs:.4g} voice-samples/s (realtime x "
+              f"{N_BLOCKS * BLOCK / SR / secs:.4g}); card vs CPU {gap:.3e} over "
+              f"{VMAP_CPU_BLOCKS} blocks (peak {peak:.4g}); no kernel of the port on its path")
+
+        def blocks(state=state):
+            s = state
+            for _ in range(VMAP_PROFILE_BLOCKS):
+                s, _, _ = bank.process(ctx, s)
+
+        profile_window(torch, name, blocks, VMAP_PROFILE_BLOCKS)
+
+
+def phase_kernels_vs_vmap(torch, np, kt, dev):
+    """The four hand bank kernels and the generic harness's FM body on the
+    card against the vmap ``VoiceBank`` of the same voice on the card, at
+    V = 1024 over four eventful blocks (restarts on every other voice or
+    every fifth, a release, a freq set, a smoothing ramp), mix within
+    VS_VMAP_TOL per block, as tests/test_voicebank.py:175-213, 306-369 and
+    452-481 hold the Pallas banks. Returns {kind: max |mix diff|}."""
+    V, ctx = VS_VMAP_VOICES, kt.AudioCtx(SR, BLOCK, torch.float32)
+    out = {}
+    for kind in ("sine", "fm", "sub", "wt", "generic-fm"):
+        fused = make_bank(kt, np, kind, V, 2048, seed=3, amp=0.01)
+        vmap = kt.VoiceBank(fused.voice, V, voice_defaults=fused.voice_defaults,
+                            event_capacity=2048)
+        step = 5 if kind == "sine" else 2
+        fi = fused.float_index("freq")
+        blocks = [[(0, v, 0, 1, 0.0) for v in range(0, V, step)],
+                  [(0, 7, fi, 0, 1234.0), (0, 9, fi, 4, 40.0), (10, 9, fi, 0, 300.0)]
+                  + ([(17, 5, 1, 1, 0.0)] if len(fused._trig_names) > 1 else []),
+                  [(3, v, 0, 1, 0.0) for v in range(1, V, 64)],
+                  [(40, 11, fi, 0, 500.0)]]
+        sf, sv = fused.init(ctx, dev), vmap.init(ctx, dev)
+        gap, peak = 0.0, 0.0
+        for k, evs in enumerate(blocks):
+            sf, of = fused.process(ctx, sf, events=fused.node_events_from_lists(evs))
+            sv, ov, _ = vmap.process(ctx, sv, events=vmap.node_events_from_lists(evs))
+            gap = max(gap, float((of - ov).abs().max()))
+            peak = max(peak, float(ov.abs().max()))
+        if gap > VS_VMAP_TOL or peak < 1e-3:
+            fail(f"{kind} kernel against the vmap bank: max |mix diff| {gap} (peak {peak})")
+        print(f"kernel vs vmap bank {kind}: V={V}, 4 eventful blocks, max |mix diff| "
+              f"{gap:.3e} (peak {peak:.4g})")
+        out[kind] = gap
+    return out
+
+
 def phase_family_timings(torch, ktt, kind, bank, state, card):
     """The generic kernel with the Envelope or Modal body, event-free from
     the slice's state, at B in {64, 1024} (CUDA events over back-to-back
@@ -3258,6 +3518,7 @@ def main():
         errs_by_body[body] = max(errs_by_body[body], matrix_errs[f"generic-{body}"])
     for body in ("envelope", "modal"):
         family_errs[body] = max(family_errs[body], matrix_errs[f"generic-{body}"])
+    lap(phase_kernels_vs_vmap, torch, np, ktt, dev)
     print(f"kernel vs plain: {time.perf_counter() - t0:.1f} s")
 
     # -- the slices -------------------------------------------------------
@@ -3311,6 +3572,8 @@ def main():
     lap(phase_galactic_chain, torch, np, ktt, dev, card)
     lap(phase_pool_envelope_bank, torch, np, ktt, dev, card)
     lap(phase_modal_bells, torch, np, ktt, dev, card)
+    lap(phase_detuned_banks, torch, np, ktt, dev, card)
+    lap(phase_vmap_banks, torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------

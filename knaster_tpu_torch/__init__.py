@@ -7,10 +7,12 @@ render, event-free runs as superblocks) with the UGens of the README
 example and of the param sweep (``SinNumeric``, ``Phasor``), the
 subtractive voice's (``PolyBlep``, ``SvfFilter``, the one-poles,
 ``EnvAsr``/``EnvAr``, ``Pan2``), the FDN reverb's (the noises, the delays,
-``Galactic``) and the FM cascade, the multi-segment ``Envelope`` and
-``ModalResonator``, and the fused voice banks, which are graph nodes too
-(per-voice control through ``Handle.voice_param``, allocation through
-``VoicePool``). The README example::
+``Galactic``) and the FM cascade, the multi-segment ``Envelope``,
+``ModalResonator`` and the Karplus-Strong ``PluckedString``, the voice
+models, the composable ``VoiceBank`` (any voice, run once over the voice
+axis) and the fused voice banks; every bank is a graph node (per-voice
+control through ``Handle.voice_param``, allocation through ``VoicePool``).
+The README example::
 
     import knaster_tpu_torch as kt
 
@@ -48,7 +50,7 @@ from .graph.handles import Handle, Parameter, Source, VoiceParameter
 from .graph.processor import AudioProcessor, AudioProcessorOptions
 from .graph.scheduling import SchedulingToken, Time
 from .models.voices import (AdditiveVoice, EnvelopeVoice, FMCascade, FMVoice,
-                            ModalVoice, SineVoice, SubtractiveVoice)
+                            ModalVoice, PluckedVoice, SineVoice, SubtractiveVoice)
 from .parallel.fused_bank import (
     FusedBank,
     FusedFMVoiceBank,
@@ -86,6 +88,7 @@ from .ugens.noise import (BrownNoise, PinkNoise, RandomLin, WhiteNoise,
                           next_randomness_seed, reset_randomness_seeds)
 from .ugens.osc import Phasor, SinNumeric, SinWt
 from .ugens.pan import Pan2
+from .ugens.physical import PluckedString
 from .ugens.polyblep import PolyBlep, Waveform
 from .ugens.util import Constant
 from .ugens.wavetable import NonAaWavetable, harmonics_from_table
@@ -147,6 +150,8 @@ __all__ = [
     "AdditiveVoice",
     "EnvelopeVoice",
     "ModalVoice",
+    "PluckedVoice",
+    "PluckedString",
     "VoicePool",
     "FusedBank",
     "FusedSineVoiceBank",

@@ -29,6 +29,15 @@ the multi-segment ``Envelope``'s ``running`` bool, ``seg`` and
 ``ModalResonator``'s ``s0``/``s1`` [..., M]). A kernel bank node's state
 crosses as a bank's does: its ``[R, 128]`` tiles (the generic bank's
 carries, the Envelope and Modal bodies' included) flat in voice order.
+
+The composable ``VoiceBank`` (the JAX package's vmap bank) holds the same
+ramp arrays and flags and, under ``voices``, its voice's state tree
+replicated over the voice axis. That subtree crosses leaf by leaf in both
+directions: ``[V, ...]`` leaves keep their axes (no tiles), a uint32 leaf
+(an oscillator or PolyBlep phase, a PluckedVoice frame) becomes its int32
+bit pattern, and the voice's unbatched ``shared_state_keys`` leaves stay
+scalars. Going back, an int32 leaf becomes uint32 where ``like`` (the JAX
+state) holds uint32.
 """
 
 from __future__ import annotations
@@ -43,13 +52,40 @@ def _is_tile(v, n_voices):
     return v.ndim == 2 and v.shape == (n_voices // LANES, LANES)
 
 
+def _leaf_from_jax(v, device):
+    v = np.array(v)  # a writable copy: arrays from JAX are read-only
+    if v.dtype == np.uint32:
+        v = v.view(np.int32)
+    return torch.from_numpy(v).to(device)
+
+
+def _tree_from_jax(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_jax(v, device) for k, v in tree.items()}
+    return _leaf_from_jax(tree, device)
+
+
+def _tree_to_numpy(tree, like=None):
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v, None if like is None else like[k])
+                for k, v in tree.items()}
+    v = tree.detach().cpu().numpy()
+    if like is not None and np.asarray(like).dtype == np.uint32 and v.dtype == np.int32:
+        v = v.view(np.uint32)
+    return v
+
+
 def bank_state_from_jax(np_state, device):
     """The port's state on ``device`` from a JAX bank state given as numpy
-    arrays (``{k: np.asarray(v)}``). A ramp array of shape [1, 128] (one
-    float param at V = 128) would read as a tile; no bank has one."""
+    arrays (``{k: np.asarray(v)}``; a vmap bank's ``voices`` subtree as a
+    nested dict of them). A ramp array of shape [1, 128] (one float param
+    at V = 128) would read as a tile; no bank has one."""
     n_voices = np.asarray(np_state["active"]).shape[0]
     out = {}
     for k, v in np_state.items():
+        if isinstance(v, dict):  # a vmap bank's voices: leaf by leaf
+            out[k] = _tree_from_jax(v, device)
+            continue
         v = np.array(v)  # a writable copy: arrays from JAX are read-only
         if v.dtype == np.uint32:
             v = v.view(np.int32)
@@ -59,13 +95,18 @@ def bank_state_from_jax(np_state, device):
     return out
 
 
-def bank_state_to_numpy(state):
+def bank_state_to_numpy(state, like=None):
     """The inverse of ``bank_state_from_jax``: numpy arrays in the JAX
     layout. Every 1-D per-voice tensor but the bool flags becomes a
     ``[V/128, 128]`` tile, int32 ones as uint32 (needs V to be a multiple
-    of 128, as the JAX banks do)."""
+    of 128, as the JAX banks do). A vmap bank's ``voices`` subtree keeps
+    its shapes, its int32 leaves uint32 where ``like`` (the JAX bank's
+    state) holds uint32."""
     out = {}
     for k, v in state.items():
+        if isinstance(v, dict):
+            out[k] = _tree_to_numpy(v, None if like is None else like[k])
+            continue
         v = v.detach().cpu().numpy()
         if v.ndim == 1 and v.dtype != np.bool_:
             if v.shape[0] % LANES:
@@ -93,10 +134,7 @@ def graph_state_from_jax(np_state, device):
         return bank_state_from_jax(np_state, device)
     if isinstance(np_state, dict):
         return {k: graph_state_from_jax(v, device) for k, v in np_state.items()}
-    v = np.array(np_state)  # a writable copy: arrays from JAX are read-only
-    if v.dtype == np.uint32:
-        v = v.view(np.int32)
-    return torch.from_numpy(v).to(device)
+    return _leaf_from_jax(np_state, device)
 
 
 def graph_state_to_numpy(state, like=None):
@@ -105,11 +143,8 @@ def graph_state_to_numpy(state, like=None):
     uint32, kept as int32 without it; a bank's node state as
     ``bank_state_to_numpy`` has it."""
     if _is_bank_state(state):
-        return bank_state_to_numpy(state)
+        return bank_state_to_numpy(state, like)
     if isinstance(state, dict):
         return {k: graph_state_to_numpy(v, None if like is None else like[k])
                 for k, v in state.items()}
-    v = state.detach().cpu().numpy()
-    if like is not None and np.asarray(like).dtype == np.uint32 and v.dtype == np.int32:
-        v = v.view(np.uint32)
-    return v
+    return _tree_to_numpy(state, like)

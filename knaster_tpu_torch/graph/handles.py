@@ -308,8 +308,9 @@ class VoiceParameter:
     """Per-voice parameter of a voice bank: ``vp.set(voice, value)`` /
     ``vp.trig(voice)``, each schedulable with the usual Time forms and
     groupable into atomic batches with ``token=`` (SchedulingToken). Float
-    sets, triggers and smoothing-ramp starts are sample-accurate per voice
-    (``parallel/voicebank.py``)."""
+    sets, int and bool sets, triggers and smoothing-ramp starts are
+    sample-accurate per voice (``parallel/voicebank.py``); the fused kernel
+    banks take float and trigger params only."""
 
     def __init__(self, graph, node_id: int, bank, name: str):
         self.graph = graph
@@ -325,14 +326,16 @@ class VoiceParameter:
         elif self.ptype == "trigger":
             self.index = bank.trig_index(name)
         else:
-            raise NotImplementedError(
-                f"voice parameter {name!r} is an int: the port's banks take float "
-                "and trigger params only")
+            self.index = bank.int_index(name)
 
     def set(self, voice: int, value, t: Optional[Time] = None, token=None) -> None:
         t = t or Time.asap()
         if self.ptype == "float":
             payload = ("voice_float", int(voice), self.index, float(value))
+        elif self.ptype in ("integer", "bool"):
+            if hasattr(value, "value"):  # an enum member
+                value = value.value
+            payload = ("voice_int", int(voice), self.index, int(value))
         else:
             payload = ("voice_trig", int(voice), self.index)
         self.graph._queue_event(self.node_id, self.index, payload, t, token=token)

@@ -1,4 +1,4 @@
-"""Port of knaster_tpu/models/voices.py: the bank voices' declarations and kernel bodies.
+"""Port of knaster_tpu/models/voices.py: the library's voice models.
 
 * ``SineVoice`` — the reference's ``many_sines`` voice
   (knaster/examples/many_sines.rs: EnvAr * (SinWt.wr_mul(amp)) >> Pan2).
@@ -7,15 +7,19 @@
 * ``AdditiveVoice`` — a wavetable cycle re-synthesized from its harmonics.
 * ``EnvelopeVoice`` — a sine gated by a multi-segment ``Envelope``.
 * ``ModalVoice`` — a struck ``ModalResonator`` (EnvAr mallet, Pan2).
+* ``PluckedVoice`` — a Karplus-Strong string with a built-in noise burst.
 * ``FMCascade`` — an N-stage FM cascade as one graph node, with its own
   kernel (``kernels/fm_cascade.py``).
 
-Each voice declares its parameter table, defaults and envelope times (what
-the fused banks read) and ``kernel_voice(ctx)``: the per-sample body the
-generic ``FusedVoiceBank`` runs, in torch over ``[V]`` tensors (the plain
-version) and by name as a CUDA body. Each body is the math of its
-``mosaic_voice`` in the JAX package, op for op. The vmap ``process`` path
-is not ported.
+Each voice has two faces, as in the JAX package. ``init``/``process`` is
+the voice composed from the library's UGens, the path ``VoiceBank`` runs
+(over leading ``[V]`` axes: the port's UGens take batch axes, so the bank
+calls it once for all voices). ``kernel_voice(ctx)`` is the per-sample body
+the generic ``FusedVoiceBank`` runs, in torch over ``[V]`` tensors (the
+plain version) and by name as a CUDA body; each body is the math of its
+``mosaic_voice`` in the JAX package, op for op. The voices' parameter
+tables, defaults and envelope times are what the fused banks read.
+``PluckedVoice`` is blockwise and has no kernel body.
 """
 
 from __future__ import annotations
@@ -23,16 +27,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.ugen import AudioCtx, UGen
+from ..core.dsp import cumsum_base16
+from ..core.ugen import AudioCtx, UGen, normalize_process_result
 from ..kernels.bank_common import (
     _HALF_PI, ENV_SEG_FINISHED, _blep, _env_ar, _env_asr, _exp_poly,
     _make_env_multiseg, _sin_poly, _sin_quant, _sincos_halfturn,
     _svf_low_coeffs, _theta_full, _to_inc, env_present_shapes, i32_of, u32_add,
     u32_of,
 )
-from ..primitives.params import ParameterKind, pfloat, ptrigger
-from ..ugens.envelopes import EnvAr, Envelope
+from ..primitives.params import ParameterKind, pfloat, pinteger, ptrigger
+from ..ugens.envelopes import STOPPED, EnvAr, EnvAsr, Envelope
+from ..ugens.filters import SvfFilter, SvfFilterType
 from ..ugens.modal import _LN10_M3, ModalResonator
+from ..ugens.osc import SinWt, scalar_of
+from ..ugens.pan import Pan2
+from ..ugens.polyblep import PolyBlep, Waveform
 from ..ugens.wavetable import FRACTIONAL_PART, TABLE_SIZE, harmonics_from_table
 
 
@@ -48,6 +57,28 @@ def _f2pi(ctx: AudioCtx):
 
 def _stage_idle(carry):
     return carry["stage"] == 0.0
+
+
+def _run(ugen, ctx: AudioCtx, state, inputs, params):
+    """One UGen's block inside a voice: (state, out, done)."""
+    return normalize_process_result(ugen.process(ctx, state, inputs, params), ctx)
+
+
+def _no_input(ctx: AudioCtx, like):
+    """A generator's empty ``[..., 0, B]`` input, shaped like the params."""
+    return like.new_zeros(like.shape[:-1] + (0, ctx.block_size))
+
+
+def _osc_params(freq):
+    """A SinWt's params inside a voice: ``freq``, no offset, no resets."""
+    return {"freq": freq, "phase_offset": torch.zeros_like(freq),
+            "reset_phase": torch.zeros(freq.shape, dtype=torch.bool, device=freq.device)}
+
+
+def _times(like, attack, release):
+    """An envelope's constant attack and release rows."""
+    return (torch.full(like.shape, attack, dtype=like.dtype, device=like.device),
+            torch.full(like.shape, release, dtype=like.dtype, device=like.device))
 
 
 class SineVoice(UGen):
@@ -68,6 +99,26 @@ class SineVoice(UGen):
         self.pdefaults = {"freq": float(freq), "amp": float(amp), "pan": float(pan)}
         self.attack = float(attack)
         self.release = float(release)
+        self.osc = SinWt(freq)
+        self.env = EnvAsr(attack, release, scan=cumsum_base16)
+        self.panner = Pan2(pan)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"osc": self.osc.init(ctx, device), "env": self.env.init(ctx, device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        """SinWt * EnvAsr * amp, then Pan2 (voices.py:54-85)."""
+        freq = params["freq"]
+        no_in = _no_input(ctx, freq)
+        osc_state, osc_out, _ = _run(self.osc, ctx, state["osc"], no_in, _osc_params(freq))
+        atk, rel = _times(freq, self.attack, self.release)
+        env_state, env_out, done = _run(
+            self.env, ctx, state["env"], no_in,
+            {"attack_time": atk, "release_time": rel,
+             "t_restart": params["t_restart"], "t_release": params["t_release"]})
+        sig = osc_out * env_out * params["amp"].unsqueeze(-2)
+        _, out = self.panner.process(ctx, {}, sig, {"pan": params["pan"]})
+        return {"osc": osc_state, "env": env_state}, out, done
 
     def kernel_voice(self, ctx: AudioCtx):
         """SinWt's u32 phase and table-quantized sine, EnvAsr, and exact
@@ -120,6 +171,32 @@ class FMVoice(UGen):
                           "index": float(index), "amp": float(amp)}
         self.attack = float(attack)
         self.release = float(release)
+        self.mod = SinWt(freq * ratio)
+        self.car = SinWt(freq)
+        self.env = EnvAr(attack, release, scan=cumsum_base16)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"mod": self.mod.init(ctx, device), "car": self.car.init(ctx, device),
+                "env": self.env.init(ctx, device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        """Audio-rate FM of two SinWts, EnvAr, amp (voices.py:317-351). The
+        carrier's frequency ``freq * (1 + index * mod)`` is rounded op by op,
+        as the JAX package writes it: one ulp there can move the carrier's
+        u32 increment."""
+        freq = params["freq"]
+        no_in = _no_input(ctx, freq)
+        mod_state, mod_out, _ = _run(self.mod, ctx, state["mod"], no_in,
+                                     _osc_params(freq * params["ratio"]))
+        car_freq = freq * (1.0 + params["index"] * mod_out[..., 0, :])
+        car_state, car_out, _ = _run(self.car, ctx, state["car"], no_in,
+                                     _osc_params(car_freq))
+        atk, rel = _times(freq, self.attack, self.release)
+        env_state, env_out, done = _run(
+            self.env, ctx, state["env"], no_in,
+            {"attack_time": atk, "release_time": rel, "t_restart": params["t_restart"]})
+        out = car_out * env_out * params["amp"].unsqueeze(-2)
+        return {"mod": mod_state, "car": car_state, "env": env_state}, out, done
 
     def kernel_voice(self, ctx: AudioCtx):
         """The hand FM kernel's math (``kernels/fm_bank.py``)."""
@@ -172,6 +249,42 @@ class SubtractiveVoice(UGen):
                           "q": float(q), "amp": float(amp)}
         self.attack = float(attack)
         self.release = float(release)
+        self.osc = PolyBlep(Waveform.Sawtooth, freq)
+        self.filt = SvfFilter(SvfFilterType.Low, cutoff, q, 0.0)
+        self.env = EnvAsr(attack, release, scan=cumsum_base16)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"osc": self.osc.init(ctx, device), "filt": self.filt.init(ctx, device),
+                "env": self.env.init(ctx, device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        """PolyBlep saw -> SvfFilter lowpass -> * EnvAsr * amp
+        (voices.py:435-475). Unlike the kernel bodies, the PolyBlep keeps
+        its sine above sr/4, as in the JAX package's vmap path."""
+        freq = params["freq"]
+        dev = freq.device
+        no_in = _no_input(ctx, freq)
+        lead = freq.shape[:-1]
+        zero_int = torch.zeros(freq.shape, dtype=torch.int32, device=dev)
+        osc_state, osc_out, _ = _run(
+            self.osc, ctx, state["osc"], no_in,
+            {"waveform": zero_int, "freq": freq,
+             "pulse_width": torch.full_like(freq, 0.5),
+             # the waveform on the host: the saw, for every voice
+             "waveform_host": np.zeros(lead, np.int64)})
+        filt_state, filt_out, _ = _run(
+            self.filt, ctx, state["filt"], osc_out,
+            {"filter": zero_int, "cutoff_freq": params["cutoff"], "q": params["q"],
+             "gain": torch.zeros_like(freq),
+             "t_calculate_coefficients": torch.zeros(freq.shape, dtype=torch.bool,
+                                                     device=dev)})
+        atk, rel = _times(freq, self.attack, self.release)
+        env_state, env_out, done = _run(
+            self.env, ctx, state["env"], no_in,
+            {"attack_time": atk, "release_time": rel,
+             "t_restart": params["t_restart"], "t_release": params["t_release"]})
+        out = filt_out * env_out * params["amp"].unsqueeze(-2)
+        return {"osc": osc_state, "filt": filt_state, "env": env_state}, out, done
 
     def kernel_voice(self, ctx: AudioCtx):
         """The hand subtractive kernel's math (``kernels/sub_bank.py``)."""
@@ -250,6 +363,52 @@ class AdditiveVoice(UGen):
         self.pdefaults = {"freq": float(freq), "amp": float(amp), "pan": float(pan)}
         self.attack = float(attack)
         self.release = float(release)
+        self.env = EnvAsr(attack, release, scan=cumsum_base16)
+        self.panner = Pan2(pan)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"phase": torch.zeros((), dtype=torch.int32, device=device),
+                "env": self.env.init(ctx, device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        """The partials by phasor recurrence, EnvAsr, amp, Pan2
+        (voices.py:777-831): the u32 phase's exclusive cumsum, sin/cos of
+        the full fundamental angle once, harmonic h's phasor by complex
+        multiply, each partial masked above its Nyquist threshold (divided
+        in f64 and rounded to f32, as the kernels' are)."""
+        B = ctx.block_size
+        dtype = ctx.dtype
+        freq = params["freq"]
+        dev = freq.device
+        f2pi = float(_f2pi(ctx))
+        inc = torch.clamp(freq * f2pi, 0.0, 2.0**31 - 1).to(torch.int64)
+        csum = torch.cumsum(inc, dim=-1)  # exact: B increments below 2^31
+        ecs = torch.cat([torch.zeros_like(csum[..., :1]), csum], dim=-1)
+        phase0 = u32_of(state["phase"]).unsqueeze(-1)
+        phase_t = (phase0 + ecs[..., :B]) & 0xFFFFFFFF
+        cycle = TABLE_SIZE * FRACTIONAL_PART  # one cycle: 2^30 phase units
+        theta = (phase_t & (cycle - 1)).to(dtype) * float(np.float32(2.0 * np.pi / cycle))
+        s1, c1 = torch.sin(theta), torch.cos(theta)
+        phi = self.offsets.astype(np.float64) * (2.0 * np.pi / 2.0**32)
+        A = (self.mags * np.cos(phi)).astype(np.float32)
+        Bc = (self.mags * np.sin(phi)).astype(np.float32)
+        hvec = np.arange(1, self.n_harmonics + 1, dtype=np.float64)
+        thr = (np.float64(ctx.sample_rate / 2.0) / hvec).astype(np.float32)
+        thr_t = torch.from_numpy(thr).to(device=dev, dtype=dtype)
+        s, c = s1, c1
+        osc = (float(A[0]) * s + float(Bc[0]) * c) * (freq <= thr_t[0]).to(dtype)
+        for h in range(1, self.n_harmonics):
+            s, c = s * c1 + c * s1, c * c1 - s * s1
+            osc = osc + (float(A[h]) * s + float(Bc[h]) * c) * (freq <= thr_t[h]).to(dtype)
+        atk, rel = _times(freq, self.attack, self.release)
+        env_state, env_out, done = _run(
+            self.env, ctx, state["env"], _no_input(ctx, freq),
+            {"attack_time": atk, "release_time": rel,
+             "t_restart": params["t_restart"], "t_release": params["t_release"]})
+        sig = (osc * env_out[..., 0, :] * params["amp"]).unsqueeze(-2)
+        _, out = self.panner.process(ctx, {}, sig, {"pan": params["pan"]})
+        new_phase = i32_of((u32_of(state["phase"]) + ecs[..., B]) & 0xFFFFFFFF)
+        return {"phase": new_phase, "env": env_state}, out, done
 
     def kernel_voice(self, ctx: AudioCtx):
         """The hand wavetable kernel's partials (``kernels/wt_bank.py``),
@@ -314,8 +473,29 @@ class EnvelopeVoice(UGen):
         if not isinstance(envelope, Envelope):
             raise ValueError("envelope must be an Envelope instance")
         self.env = envelope
+        self.osc = SinWt(freq)
+        self.panner = Pan2(pan)
         self.pdefaults = {"freq": float(freq), "amp": float(amp), "pan": float(pan),
                           "time_scale": float(time_scale)}
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"osc": self.osc.init(ctx, device), "env": self.env.init(ctx, device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        """SinWt * Envelope * amp, then Pan2 (voices.py:191-219); the
+        envelope's ``jump_to_segment`` is held at 0."""
+        freq = params["freq"]
+        no_in = _no_input(ctx, freq)
+        osc_state, osc_out, _ = _run(self.osc, ctx, state["osc"], no_in, _osc_params(freq))
+        env_state, env_out, done = _run(
+            self.env, ctx, state["env"], no_in,
+            {"time_scale": params["time_scale"],
+             "jump_to_segment": torch.zeros(freq.shape, dtype=torch.int32,
+                                            device=freq.device),
+             "t_restart": params["t_restart"], "t_stop": params["t_stop"]})
+        sig = osc_out * env_out * params["amp"].unsqueeze(-2)
+        _, out = self.panner.process(ctx, {}, sig, {"pan": params["pan"]})
+        return {"osc": osc_state, "env": env_state}, out, done
 
     def kernel_voice(self, ctx: AudioCtx):
         """SinWt's phase, the segment-table envelope, polynomial Pan2 gains.
@@ -379,13 +559,42 @@ class ModalVoice(UGen):
                  done_threshold: float = 1e-5):
         self.res = resonator if resonator is not None else ModalResonator.bell(freq)
         half = max(float(strike_ms), 0.05) * 5e-4  # attack + release = strike_ms
-        self.exciter = EnvAr(half, half)
+        self.exciter = EnvAr(half, half, scan=cumsum_base16)
         # a pulse drives a slow mode nearly coherently, so the ring scales
         # with the pulse's area (half*sr samples): normalized by it
         self._half = half
         self.done_threshold = float(done_threshold)
         self.pdefaults = {"freq": float(freq), "amp": float(amp), "pan": float(pan),
                           "decay": float(self.res.pdefaults["decay"])}
+        self.panner = Pan2(pan)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"res": self.res.init(ctx, device), "exc": self.exciter.init(ctx, device),
+                "struck": torch.zeros((), dtype=torch.bool, device=device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        """EnvAr mallet -> ModalResonator -> Pan2 (voices.py:1585-1623).
+        Done fires at the block's last frame once the voice was struck, its
+        mallet stopped and its ring energy fell below ``done_threshold``;
+        it clears the struck flag."""
+        freq = params["freq"]
+        exc = self.exciter.pdefaults
+        atk, rel = _times(freq, exc["attack_time"], exc["release_time"])
+        exc_state, pulse, _ = _run(
+            self.exciter, ctx, state["exc"], _no_input(ctx, freq),
+            {"attack_time": atk, "release_time": rel, "t_restart": params["t_strike"]})
+        inv_area = float(np.float32(1.0 / max(self._half * ctx.sample_rate, 1.0)))
+        res_state, wet = self.res.process(
+            ctx, state["res"], pulse * (params["amp"] * inv_area).unsqueeze(-2),
+            {"freq": freq, "decay": params["decay"]})
+        _, out = self.panner.process(ctx, {}, wet, {"pan": params["pan"]})
+        struck = state["struck"] | params["t_strike"].any(dim=-1)
+        quiet = self.res.ring_energy(res_state) < torch.tensor(
+            self.done_threshold, dtype=ctx.dtype, device=freq.device)
+        fire = struck & quiet & (exc_state["stage"] == STOPPED)
+        done = torch.zeros(freq.shape, dtype=torch.bool, device=freq.device)
+        done[..., -1] = fire
+        return {"res": res_state, "exc": exc_state, "struck": struck & ~fire}, out, done
 
     def batch_key(self):
         return (type(self), self.res.batch_key(), self.done_threshold,
@@ -460,6 +669,135 @@ class ModalVoice(UGen):
         return KernelVoiceSpec(carry=carry, body=body, idle_of=idle_of,
                                cuda_body=f"modal{M}", consts=consts,
                                voice_name=self.name())
+
+
+class PluckedVoice(UGen):
+    """A Karplus-Strong string with a built-in exciter: per-voice Threefry
+    noise gated by a one-pole burst envelope that ``t_pluck`` retriggers,
+    so ``VoiceBank(PluckedVoice(), V)`` is a V-string ensemble with
+    sample-accurate per-voice plucks (voices.py:1335-1516).
+
+    The voice is blockwise: the loop geometry is taken once per block from
+    the block's first sample, the ring ``[T, B]`` (T tiles of one block) is
+    read as the window ``[s, s + B)`` of its flat ``T*B`` samples, and one
+    tile is written per block at the shared tile pointer ``wq``. Loops are
+    clamped to at least one block (freq <= sample_rate / block_size), so
+    the voice is block-dependent (``block_invariant = False``) unless
+    ``max_freq`` declares the shortest loop (``superblock_cap``). The noise
+    is keyed by (seed, ``vseed`` at the block's first sample, absolute
+    frame): give each voice its own ``vseed`` (``voice_defaults=
+    dict(vseed=np.arange(V))``) to decorrelate the plucks. ``seed=None``
+    draws from ``next_randomness_seed`` in construction order.
+
+    Params: freq/amp/damp/brightness floats, ``t_pluck`` trigger, ``vseed``
+    int. ``wq`` and ``frame`` advance alike for every voice: a bank keeps
+    them unbatched (``shared_state_keys``)."""
+
+    inputs = 0
+    outputs = 1
+    block_invariant = False
+    shared_state_keys = ("wq", "frame")
+    params = (
+        pfloat("freq", 220.0, range=(1.0, 20000.0), logarithmic=True,
+               kind=ParameterKind.FREQUENCY),
+        pfloat("amp", 0.5),
+        pfloat("damp", 0.996, range=(0.0, 1.0)),
+        pfloat("brightness", 0.7, range=(0.0, 1.0)),
+        ptrigger("t_pluck"),
+        pinteger("vseed", 0),
+    )
+
+    def __init__(self, freq: float = 220.0, amp: float = 0.5, damp: float = 0.996,
+                 brightness: float = 0.7, min_freq: float = 27.5,
+                 burst_seconds: float = 0.0015, seed=None, max_freq=None):
+        from ..ugens.noise import next_randomness_seed
+
+        self.min_freq = float(min_freq)
+        self.max_freq = None if max_freq is None else float(max_freq)
+        self.burst_seconds = float(burst_seconds)
+        self.seed = next_randomness_seed() if seed is None else int(seed)
+        self.pdefaults = {"freq": float(freq), "amp": float(amp),
+                          "damp": float(damp), "brightness": float(brightness)}
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        B = ctx.block_size
+        # whole blocks covering the longest loop and the interpolation's
+        # headroom, and one spare tile for the block's write
+        L = int(np.ceil((ctx.sample_rate / self.min_freq + 2) / B)) * B + B
+        if self.max_freq is not None:
+            # loops never get shorter than sr/max_freq: superblocks up to
+            # that length keep every read behind the write frontier
+            self.superblock_cap = max(1, min(L, int(ctx.sample_rate / self.max_freq)))
+
+        def zero():
+            return torch.zeros((), dtype=ctx.dtype, device=device)
+
+        return {"buf": torch.zeros((L // B, B), dtype=ctx.dtype, device=device),
+                "wq": torch.zeros((), dtype=torch.int32, device=device),
+                "ap_in": zero(), "ap_out": zero(), "d_last": zero(), "lp": zero(),
+                "env": zero(),
+                # the u32 frame counter as its int32 bit pattern
+                "frame": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        from ..core.dsp import affine_scan_1d
+        from ..ugens.noise import M32, advance_frame, fold_in, prng_key, uniform
+        from ..ugens.physical import string_geometry
+
+        B = ctx.block_size
+        dtype = ctx.dtype
+        buf, wq = state["buf"], state["wq"]
+        T = buf.shape[-2]
+        L = T * B
+        dev = buf.device
+
+        # the burst noise, keyed by (seed, vseed, absolute frame)
+        frames = (u32_of(state["frame"]) + torch.arange(B, device=dev)) & M32
+        vseed = u32_of(params["vseed"][..., 0]).unsqueeze(-1)
+        key = fold_in(prng_key(torch.full_like(vseed, self.seed & M32)), vseed)
+        u = uniform(fold_in(key, frames), 1, dtype)[..., 0] * 2.0 - 1.0
+
+        # the burst envelope: e[t] = 1 on a pluck, else g * e[t-1]
+        trig = params["t_pluck"].to(dtype)
+        g = scalar_of(np.exp(-1.0 / max(self.burst_seconds * ctx.sample_rate, 1.0)), dtype)
+        a = g * (1.0 - trig)
+        e_pre, _ = affine_scan_1d(a, trig, state["env"])
+        env = a * e_pre + trig
+        exc = u * env * params["amp"]
+
+        # the loop geometry, once per block; reads stay at least one tile
+        # behind the write tile
+        nf, coeff, b1, damp = string_geometry(
+            params["freq"][..., 0], params["brightness"][..., 0], params["damp"][..., 0],
+            ctx.sample_rate, self.min_freq, L, dtype)
+        nf = nf.clamp(B, L - B)
+
+        # the ring's window [s, s + B) of the flat T*B samples
+        s = (wq.long() * B - nf) % L
+        idx = (s.unsqueeze(-1) + torch.arange(B, device=dev)) % L
+        raw = torch.gather(buf.reshape(buf.shape[:-2] + (L,)), -1, idx)
+
+        # the allpass interpolator, then the average and the one-pole
+        coeff, b1, damp = coeff.unsqueeze(-1), b1.unsqueeze(-1), damp.unsqueeze(-1)
+        raw_prev = torch.cat([state["ap_in"].unsqueeze(-1), raw[..., :-1]], dim=-1)
+        bvec = coeff * raw + raw_prev
+        a_ap = (-coeff).expand(raw.shape)
+        d_pre, _ = affine_scan_1d(a_ap, bvec, state["ap_out"])
+        d = a_ap * d_pre + bvec
+        d_prev = torch.cat([state["d_last"].unsqueeze(-1), d[..., :-1]], dim=-1)
+        h = 0.5 * (d + d_prev)
+        a0 = 1.0 - b1
+        lp_pre, _ = affine_scan_1d(b1.expand(h.shape), a0 * h, state["lp"])
+        lp = b1 * lp_pre + a0 * h
+        write = exc + damp * lp
+
+        # one tile written at the shared pointer wq
+        buf = buf.index_copy(-2, wq.long().reshape(1), write.unsqueeze(-2))
+        new = {"buf": buf, "wq": ((wq + 1) % T).to(torch.int32),
+               "ap_in": raw[..., -1], "ap_out": d[..., -1], "d_last": d[..., -1],
+               "lp": lp[..., -1], "env": env[..., -1],
+               "frame": advance_frame(state["frame"], B)}
+        return new, write.unsqueeze(-2)
 
 
 class FMCascade(UGen):

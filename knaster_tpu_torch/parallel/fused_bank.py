@@ -105,7 +105,7 @@ class FusedBank(VoiceBank):
 
     def init(self, ctx: AudioCtx, device):
         _check_block(ctx, type(self).__name__)
-        return super().init(ctx, device)
+        return self.init_ramps(ctx, device)
 
     def stage_block(self, ctx: AudioCtx, state, events=None):
         """Apply the event channel and build the operands every kernel

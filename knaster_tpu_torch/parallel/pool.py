@@ -14,8 +14,8 @@ per ``refresh``.
 
 The JAX package's banks compute the latch only once a pool turns
 ``track_idle`` on (and recompile then). The port has no such switch: its
-fused banks always compute the latch, so a pool changes nothing in the
-graph.
+banks, the vmap ``VoiceBank`` and the fused ones alike, always compute the
+latch, so a pool changes nothing in the graph.
 """
 
 from __future__ import annotations

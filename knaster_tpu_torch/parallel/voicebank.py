@@ -1,13 +1,10 @@
-"""Port of knaster_tpu/parallel/voicebank.py: the bank event channel and ramp state.
+"""Port of knaster_tpu/parallel/voicebank.py: ``VoiceBank``, many copies of one voice mixed to one bus.
 
 A bank holds ``n_voices`` copies of one voice. Per-voice control rides a
-private event channel: float sets, triggers, smoothing-ramp starts and
-active/note-on flags, all sample-accurate per voice. Same-block bursts on
-one (param, voice) slot are exact: the host gives each event a per-slot
-``round`` (frame order) and the device folds the rounds in order, emitting
-one trajectory breakpoint per round (``_apply_events_breakpoints``) that the
-kernel folds per sample. The kernel bank keeps the last
-``kernel_burst_depth`` events of a deeper burst and warns once.
+private event channel: float sets, triggers, int sets, smoothing-ramp
+starts and active/note-on flags, all sample-accurate per voice. Same-block
+bursts on one (param, voice) slot are exact: the host gives each event a
+per-slot ``round`` (frame order) and the device folds the rounds in order.
 
 Float params are ANCHORED linear ramps per (param, voice): ``fvals`` is the
 anchor value, ``felapsed`` the integer progress at block start (a set at
@@ -15,21 +12,39 @@ frame f writes ``-f``), ``fdur`` the ramp length and ``ftarget`` the value
 after it; a sample's value is ``anchor + step * progress`` in one rounding,
 so any block partitioning of a render is bit-identical.
 
-This module covers what the fused kernel bank needs: construction, state
-init, event packing, packed trigger words, the breakpoint round fold and the
-ramp advance. The vmap ``process`` path and its per-sample round fold are
-not ported yet, and neither are int params (no voice of the port has one).
+Two consumers share this machinery:
+
+* the bank itself (``process``, the JAX package's vmap path): the round
+  fold materializes ``[nf, V, B]`` float and ``[ni, V, B]`` int planes
+  (``_apply_events_rounds``) and the voice's own ``process`` runs ONCE over
+  the voice axis. The port's UGens take leading batch axes, so where the
+  JAX package ``vmap``s, the port passes ``[V, ...]`` state and ``[V, B]``
+  params; a voice's ``shared_state_keys`` leaves (the same for every
+  voice) stay unbatched. The round count bounding the fold is read from the
+  host's event arrays before they are uploaded, so no block copies
+  anything back from the device;
+* the fused kernel banks (``fused_bank.py``, ``generic_bank.py``), which
+  take the state, event packing and packed trigger words from here and fold
+  D = ``kernel_burst_depth`` trajectory breakpoints per slot in their kernel
+  (``_apply_events_breakpoints``), keeping the last D events of a deeper
+  burst (the bank warns once).
+
+The bank always computes its idle latch from the voices' done rows, as the
+fused banks do (``parallel/pool.py``). The JAX package's single-round
+eventful branch (``burst_rounds = False``) is not ported: such a bank
+raises by name.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..core.ugen import AudioCtx, UGen
+from ..core.ugen import AudioCtx, UGen, normalize_process_result
 
 
 class VoiceBank(UGen):
@@ -38,18 +53,30 @@ class VoiceBank(UGen):
     voice:          a UGen with no audio inputs (a generator/voice model).
     n_voices:       number of parallel voices.
     voice_defaults: optional {param_name: np.ndarray[n_voices]} per-voice
-                    initial parameter values (e.g. detuned freqs).
+                    initial parameter values (e.g. detuned freqs, int
+                    seeds).
+    mix:            'sum' (the mix bus) or 'stack' (outputs =
+                    voices * voice.outputs, voice-major, for per-voice
+                    post-processing).
     """
 
     event_capacity = 256
+    # exact same-block bursts per (param, voice) through the round fold;
+    # the JAX package's single-round branch (False) is not ported
+    burst_rounds = True
     # kernel banks keep each slot's last D events of a same-block burst
     kernel_burst_depth: Optional[int] = None
+    # from this many voices on, the voices' envelopes keep their per-sample
+    # loop (AudioCtx.wide_batch), as in the JAX package: the closed form
+    # reassociates, so the switch is part of the result
+    WIDE_BATCH_VOICES = 4096
 
     def __init__(
         self,
         voice: UGen,
         n_voices: int,
         voice_defaults: Optional[Dict[str, np.ndarray]] = None,
+        mix: str = "sum",
         event_capacity: int = 256,
     ):
         if voice.inputs != 0:
@@ -59,19 +86,25 @@ class VoiceBank(UGen):
         self.voice = voice
         self.n_voices = int(n_voices)
         self.inputs = 0
-        self.outputs = voice.outputs
+        self.mix = mix
+        if mix == "sum":
+            self.outputs = voice.outputs
+        elif mix == "stack":
+            self.outputs = voice.outputs * self.n_voices
+        else:
+            raise ValueError("mix must be 'sum' or 'stack'")
         self.event_capacity = int(event_capacity)
+        # a block-dependent voice (PluckedVoice's blockwise ring read) makes
+        # the bank block-dependent: the compiler keeps it out of uncapped
+        # superblocks
+        if not getattr(voice, "block_invariant", True):
+            self.block_invariant = False
         self.voice_defaults = dict(voice_defaults or {})
         self._float_names = [p.name for p in voice.params if p.ptype == "float"]
         self._trig_names = [p.name for p in voice.params if p.ptype == "trigger"]
         self._int_names = [
             p.name for p in voice.params if p.ptype in ("integer", "bool")
         ]
-        if self._int_names:
-            raise NotImplementedError(
-                "int/bool voice params need the int-set round fold, which "
-                "is not ported yet"
-            )
 
     def name(self) -> str:
         return f"VoiceBank[{self.n_voices}x{self.voice.name()}]"
@@ -83,21 +116,30 @@ class VoiceBank(UGen):
     def trig_index(self, name: str) -> int:
         return self._trig_names.index(name)
 
+    def int_index(self, name: str) -> int:
+        return self._int_names.index(name)
+
     # --------------------------------------------------------------- state
-    def init(self, ctx: AudioCtx, device):
-        """Per-voice ramp state on ``device``: anchored ramps at the voice
-        defaults (or ``voice_defaults``), all voices active, none idle."""
+    def _default_of(self, name: str):
+        p = next(p for p in self.voice.params if p.name == name)
+        return getattr(self.voice, "pdefaults", {}).get(name, p.default_value())
+
+    def init_ramps(self, ctx: AudioCtx, device):
+        """The event channel's per-voice state on ``device``: anchored ramps
+        at the voice defaults (or ``voice_defaults``, cast to ``ctx.dtype``),
+        int values likewise, all voices active, none idle."""
         V = self.n_voices
         np_dtype = np.float32 if ctx.dtype == torch.float32 else np.float64
         fvals = np.zeros((len(self._float_names), V), dtype=np_dtype)
         for i, name in enumerate(self._float_names):
-            for p in self.voice.params:
-                if p.name == name:
-                    fvals[i, :] = getattr(self.voice, "pdefaults", {}).get(
-                        name, p.default_value()
-                    )
+            fvals[i, :] = self._default_of(name)
             if name in self.voice_defaults:
                 fvals[i, :] = np.asarray(self.voice_defaults[name], dtype=np_dtype)
+        ivals = np.zeros((len(self._int_names), V), dtype=np.int32)
+        for i, name in enumerate(self._int_names):
+            ivals[i, :] = int(self._default_of(name))
+            if name in self.voice_defaults:
+                ivals[i, :] = np.asarray(self.voice_defaults[name], dtype=np.int32)
         nf = len(self._float_names)
 
         def zeros(dtype):
@@ -111,11 +153,33 @@ class VoiceBank(UGen):
             "felapsed": zeros(torch.int32),
             "fdur": zeros(torch.int32),
             "fsdur": zeros(torch.int32),
-            "ivals": torch.zeros((0, V), dtype=torch.int32, device=device),
+            "ivals": torch.from_numpy(ivals).to(device),
             "active": torch.ones((V,), dtype=torch.bool, device=device),
             # per-voice done latch, cleared by a note-on (event kind 5)
             "idle": torch.zeros((V,), dtype=torch.bool, device=device),
         }
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        """The event channel's state and, under ``"voices"``, the voice's
+        state replicated over a leading ``[V]`` axis, except its
+        ``shared_state_keys`` leaves, which stay unbatched. A voice may set
+        its ``superblock_cap`` in ``init`` (it needs the sample rate): the
+        bank carries it."""
+        V = self.n_voices
+        voice_state = self.voice.init(ctx, device)
+        vcap = getattr(self.voice, "superblock_cap", None)
+        if vcap is not None:
+            mycap = self.superblock_cap
+            self.superblock_cap = vcap if mycap is None else min(mycap, vcap)
+        shared = set(getattr(self.voice, "shared_state_keys", ()) or ())
+
+        def rep(tree):
+            if isinstance(tree, dict):
+                return {k: rep(v) for k, v in tree.items()}
+            return tree.unsqueeze(0).expand((V,) + tuple(tree.shape)).clone()
+
+        voices = {k: (v if k in shared else rep(v)) for k, v in voice_state.items()}
+        return {"voices": voices, **self.init_ramps(ctx, device)}
 
     # --------------------------------------------------------------- events
     def empty_node_events(self, dtype=np.float32):
@@ -141,10 +205,12 @@ class VoiceBank(UGen):
         block-rate flags; the latest-frame event per (kind, voice) wins.
         Triggers keep every event (one per (frame, param, voice)).
 
-        Banks with ``kernel_burst_depth`` = D keep each slot's LAST D
-        events; deeper bursts drop their earliest events (a <=1-block
-        transient) and the bank warns once. Returns numpy arrays, the same
-        dict the JAX package builds."""
+        Int sets (kind 2) get rounds of their own per (param, voice), in
+        the same order. Banks with ``kernel_burst_depth`` = D keep each
+        slot's LAST D events; deeper bursts drop their earliest events (a
+        <=1-block transient) and the bank warns once. Returns numpy arrays,
+        the same dict the JAX package builds."""
+        self._check_burst_rounds()
         trigs = {}
         dedup = {}  # kinds 3/5 only: latest frame per (kind, voice)
         fam = {}  # (family, param, voice) -> [events], frame-ordered
@@ -365,3 +431,231 @@ class VoiceBank(UGen):
         fvals, ftarget, fstep, felapsed, fdur, fsdur = fstate
         el_next = torch.minimum(felapsed + B, fdur)
         return (fvals, ftarget, fstep, el_next, fdur, fsdur)
+
+    # ------------------------------------------------------ the vmap path
+    def _check_burst_rounds(self):
+        if not self.burst_rounds:
+            raise NotImplementedError(
+                f"{self.name()}: burst_rounds=False (the JAX package's "
+                "single-round eventful branch) is not ported; keep the "
+                "default round fold")
+
+    @staticmethod
+    def _n_rounds(events) -> int:
+        """The rounds the fold must run: the largest ``round`` over the
+        valid float-set, int-set and smoothing-config events, plus one (0
+        when there are none), read from the host's numpy arrays before the
+        upload."""
+        kind = np.asarray(events["kind"])
+        relevant = (np.asarray(events["voice"]) >= 0) & (
+            (kind == 0) | (kind == 2) | (kind == 4))
+        return int(np.asarray(events["round"])[relevant].max()) + 1 if relevant.any() else 0
+
+    def _retrigger_ints(self):
+        return [getattr(p, "retrigger", False)
+                for p in self.voice.params if p.ptype in ("integer", "bool")]
+
+    @staticmethod
+    def _trajectory(fvals, ftarget, fstep, felapsed, fdur, t_idx, dtype):
+        """[nf, V, B] samples of the anchored ramps: the target once the
+        absolute progress ``felapsed + t`` reaches ``fdur``, else anchor +
+        step * progress in one rounding."""
+        ln = felapsed.unsqueeze(-1) + t_idx
+        return torch.where(ln >= fdur.unsqueeze(-1), ftarget.unsqueeze(-1),
+                           fvals.unsqueeze(-1) + fstep.unsqueeze(-1) * ln.to(dtype))
+
+    def _apply_events_rounds(self, ctx: AudioCtx, state, events, n_rounds: int):
+        """Exact same-block burst semantics (graph-engine parity): fold the
+        event tensor round by round, round r holding each slot's r-th event
+        in frame order, and build the per-sample planes as it goes.
+        ``n_rounds`` is ``_n_rounds`` of the host's events; a block whose
+        slots each see at most one event runs one round.
+
+        Per round and slot there is at most ONE float-family event (a set
+        or a smoothing config, which share a round space), so ordering is
+        the round sequence. A smoothing config freezes the in-flight
+        trajectory at its frame (engine KIND_SMOOTH_CFG); a set anchors its
+        ramp (or jump) at its frame, starting from the trajectory's value
+        there. Int sets apply from their frame; retrigger int params also
+        get a per-sample ``<name>_set`` mask that fires at every set.
+
+        Scatters go through a padded sacrificial column V, as in
+        ``_apply_events_breakpoints``. Returns (planes_f [nf, V, B] or
+        None, fstate, ivals, planes_i [ni, V, B] or None, iset [ni, V, B]
+        or None, trig [max(n_trig, 1), V, B], active, idle)."""
+        V = self.n_voices
+        B = ctx.block_size
+        dtype = ctx.dtype
+        nf = state["fvals"].shape[0]
+        ni = state["ivals"].shape[0]
+        n_trig = len(self._trig_names)
+        device = state["fvals"].device
+
+        voice = events["voice"].long()
+        param = events["param"].long()
+        kind = events["kind"]
+        value = events["value"].to(dtype)
+        frame = events["frame"].to(torch.int32)
+        rnd = events["round"]
+        valid = (voice >= 0) & (voice < V)
+        t_idx = torch.arange(B, dtype=torch.int32, device=device)
+
+        def pad(arr):
+            return torch.cat([arr, arr.new_zeros((arr.shape[0], 1))], dim=1)
+
+        def scat(arr, p_sel, v_sel, vals):
+            out = pad(arr)
+            out.index_put_((p_sel, v_sel), vals.to(arr.dtype))
+            return out[:, :V]
+
+        def zeros(n, dt):
+            return torch.zeros((n, V), dtype=dt, device=device)
+
+        def sel_voice(sel):
+            return torch.where(sel, voice, V)
+
+        fvals, ftarget, fstep = state["fvals"], state["ftarget"], state["fstep"]
+        felapsed, fdur, fsdur = state["felapsed"], state["fdur"], state["fsdur"]
+        ivals = state["ivals"]
+        pf = pi = None
+        if nf:
+            pf = self._trajectory(fvals, ftarget, fstep, felapsed, fdur, t_idx, dtype)
+            p_f = param.clamp(0, nf - 1)
+        if ni:
+            pi = ivals.unsqueeze(-1).expand(ni, V, B)
+            p_i = param.clamp(0, ni - 1)
+        for r in range(n_rounds):
+            this = valid & (rnd == r)
+            if nf:
+                # smoothing config (kind 4): freeze the in-flight trajectory
+                # at its frame, retargeted at the value reached there
+                sel_c = this & (kind == 4)
+                v_c = sel_voice(sel_c)
+                fsdur = scat(fsdur, p_f, v_c, value.to(torch.int32))
+                has_cfg = scat(zeros(nf, torch.bool), p_f, v_c, sel_c)
+                cfg_frame = scat(zeros(nf, torch.int32), p_f, v_c, frame)
+                ln_c = felapsed + cfg_frame
+                cur_c = torch.where(ln_c >= fdur, ftarget,
+                                    fvals + fstep * ln_c.to(dtype))
+                cut = has_cfg & (fdur > ln_c)
+                fdur = torch.where(cut, ln_c, fdur)
+                ftarget = torch.where(cut, cur_c, ftarget)
+                pf = torch.where(has_cfg.unsqueeze(-1)
+                                 & (t_idx >= cfg_frame.unsqueeze(-1)),
+                                 cur_c.unsqueeze(-1), pf)
+                # float set (kind 0): a jump, or a ramp anchored at the event
+                # frame from the trajectory's value there
+                sel_f = this & (kind == 0)
+                v_s = sel_voice(sel_f)
+                ln_e = pad(felapsed)[p_f, v_s] + frame
+                cur = torch.where(ln_e >= pad(fdur)[p_f, v_s], pad(ftarget)[p_f, v_s],
+                                  pad(fvals)[p_f, v_s]
+                                  + pad(fstep)[p_f, v_s] * ln_e.to(dtype))
+                dur = pad(fsdur)[p_f, v_s]
+                ramp = dur > 0
+                new_step = torch.where(ramp, (value - cur) / dur.clamp(min=1).to(dtype),
+                                       torch.zeros((), dtype=dtype, device=device))
+                fvals = scat(fvals, p_f, v_s, torch.where(ramp, cur, value))
+                ftarget = scat(ftarget, p_f, v_s, value)
+                fstep = scat(fstep, p_f, v_s, new_step)
+                fdur = scat(fdur, p_f, v_s, torch.where(ramp, dur, 0))
+                felapsed = scat(felapsed, p_f, v_s, -frame)
+                ev_frame = scat(zeros(nf, torch.int32), p_f, v_s, frame)
+                touched = scat(zeros(nf, torch.bool), p_f, v_s, sel_f)
+                row = self._trajectory(fvals, ftarget, fstep, felapsed, fdur, t_idx, dtype)
+                pf = torch.where(touched.unsqueeze(-1) & (t_idx >= ev_frame.unsqueeze(-1)),
+                                 row, pf)
+            if ni:
+                sel_i = this & (kind == 2)
+                v_i = sel_voice(sel_i)
+                ivals = scat(ivals, p_i, v_i, value.to(torch.int32))
+                touched_i = scat(zeros(ni, torch.bool), p_i, v_i, sel_i)
+                if_frame = scat(zeros(ni, torch.int32), p_i, v_i, frame)
+                pi = torch.where(touched_i.unsqueeze(-1) & (t_idx >= if_frame.unsqueeze(-1)),
+                                 ivals.unsqueeze(-1), pi)
+
+        # retrigger set masks, block-rate flags and triggers are round-free
+        # (a mask fires at every event's frame; the flags were host-deduped)
+        f_long = frame.long()
+        iset = None
+        if ni and any(self._retrigger_ints()):
+            sel_i = valid & (kind == 2)
+            iset = torch.zeros((ni, V + 1, B), dtype=torch.bool, device=device)
+            iset.index_put_((p_i, sel_voice(sel_i), f_long), sel_i)
+            iset = iset[:, :V]
+
+        def set_flag(flag, k, vals):
+            out = torch.cat([flag, flag.new_zeros((1,))])
+            out.index_put_((sel_voice(valid & (kind == k)),), vals)
+            return out[:V]
+
+        active = set_flag(state["active"], 3, value > 0.5)
+        # note-on (kind 5): clear the voice's idle latch
+        idle = set_flag(state["idle"], 5, torch.zeros_like(valid))
+        trig = torch.zeros((max(n_trig, 1), V + 1, B), dtype=torch.bool, device=device)
+        sel_t = valid & (kind == 1)
+        trig.index_put_((param.clamp(0, trig.shape[0] - 1), sel_voice(sel_t), f_long),
+                        torch.ones_like(sel_t))
+        fstate = (fvals, ftarget, fstep, felapsed, fdur, fsdur)
+        return pf, fstate, ivals, pi, iset, trig[:, :V], active, idle
+
+    def process(self, ctx: AudioCtx, state, inputs=None, params=None, events=None):
+        """Render one block: (new state, out [outputs, B], done [B]).
+
+        ``events`` is None for an event-free block (the carried ramps
+        materialized as they are), else the numpy dict of
+        ``node_events_from_lists``, uploaded here. The voice's ``process`` runs once
+        over the voice axis with ``[V, B]`` params; inactive voices render
+        but are muted; the idle latch takes every voice's done rows. At
+        ``WIDE_BATCH_VOICES`` voices and more the voice sees
+        ``ctx.wide_batch``. ``inputs`` and ``params`` are unused (a bank is
+        controlled by its events); they keep the UGen call shape."""
+        V = self.n_voices
+        B = ctx.block_size
+        dtype = ctx.dtype
+        if V >= self.WIDE_BATCH_VOICES and not ctx.wide_batch:
+            ctx = dataclasses.replace(ctx, wide_batch=True)
+        device = state["fvals"].device
+        retrig = self._retrigger_ints()
+        if events is not None:
+            self._check_burst_rounds()
+            n_rounds = self._n_rounds(events)
+            (pf, fstate, ivals, pi, iset, trig, active, idle) = self._apply_events_rounds(
+                ctx, state, self._events_to(events, device), n_rounds)
+        else:
+            fstate, ivals, active, idle = self._apply_events(state)
+            t_idx = torch.arange(B, dtype=torch.int32, device=device)
+            pf = self._trajectory(*fstate[:5], t_idx, dtype) if self._float_names else None
+            pi = ivals.unsqueeze(-1).expand(len(self._int_names), V, B)
+            iset = None
+            trig = torch.zeros((1, V, B), dtype=torch.bool, device=device).expand(
+                max(len(self._trig_names), 1), V, B)
+        voice_params = {}
+        for i, name in enumerate(self._float_names):
+            voice_params[name] = pf[i]
+        for i, name in enumerate(self._int_names):
+            voice_params[name] = pi[i]
+            if retrig[i]:
+                voice_params[name + "_set"] = (
+                    iset[i] if iset is not None
+                    else torch.zeros((V, B), dtype=torch.bool, device=device))
+        for i, name in enumerate(self._trig_names):
+            voice_params[name] = trig[i]
+
+        zero_in = torch.zeros((V, 0, B), dtype=dtype, device=device)
+        new_vstate, outs, dones = normalize_process_result(
+            self.voice.process(ctx, state["voices"], zero_in, voice_params), ctx)
+        # latch per-voice done edges for VoicePool auto-release
+        idle = idle | dones.any(dim=-1)
+        outs = torch.where(active[:, None, None], outs, torch.zeros((), dtype=outs.dtype,
+                                                                     device=device))
+        out = outs.sum(dim=0) if self.mix == "sum" else outs.reshape(V * self.voice.outputs, B)
+        done = torch.zeros((B,), dtype=torch.bool, device=device)  # banks never free themselves
+        fvals, ftarget, fstep, felapsed, fdur, fsdur = self._advance_ramps(fstate, B)
+        new_state = {
+            "voices": new_vstate,
+            "fvals": fvals, "ftarget": ftarget, "fstep": fstep,
+            "felapsed": felapsed, "fdur": fdur, "fsdur": fsdur,
+            "ivals": ivals, "active": active, "idle": idle,
+        }
+        return new_state, out, done

@@ -6,11 +6,18 @@ sample by sample over the block. In the event-free fast program
 block (attack -> sustain or release -> stopped for ASR; attack -> release
 -> stopped for AR), so the block has a closed form over cumulative sums of
 the rates; it runs where ``no_events and not wide_batch``, as in the JAX
-package. The cumsums are the Hillis-Steele doubling of ``core/dsp.py`` and
-the crossing tests read the last lane (the rates are positive, so the
-trajectories are monotone): the JAX package's chain-kernel form, which
-``csrc/chain_kernel.cu`` repeats op for op. ``asr_closed_form`` and
-``ar_closed_form`` serve ``process`` and the kernel's plain bodies alike.
+package. The crossing tests read the last lane (the rates are positive, so
+the trajectories are monotone). ``asr_closed_form`` and ``ar_closed_form``
+take the prefix sum as an argument (``scan``), because the association
+decides a crossing: an envelope whose attack sum reaches 1 on its last
+rounding crosses a sample earlier or later in another association. The
+default is the Hillis-Steele doubling of ``core/dsp.cumsum``, which
+``csrc/chain_kernel.cu`` repeats op for op, so a graph's envelope nodes
+render alike through the chain kernel and the scan executor. The voice
+models (``models/voices.py``) build their envelopes with
+``scan=cumsum_base16``, the association ``jnp.cumsum`` takes on XLA's CPU
+backend: the JAX package's vmap bank sums so, and its golden
+``detuned_banks`` fixtures record it.
 
 Both envelopes may set done: the frame the release ends.
 
@@ -47,15 +54,16 @@ def _last(x):
     return x[..., -1]
 
 
-def asr_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
+def asr_closed_form(stage0, t0, rscale, atk_rate, rel_rate, scan=cumsum):
     """EnvAsr's event-free block over ``[..., B]`` rate rows; the state
-    ``[...]``. Returns (stage, t, release_scale, out [..., B], done [..., B])."""
+    ``[...]``; ``scan`` the prefix sum (module docstring). Returns (stage,
+    t, release_scale, out [..., B], done [..., B])."""
     one = const(1.0, t0)
     zero = const(0.0, t0)
     s0, t0_, rs = stage0.unsqueeze(-1), t0.unsqueeze(-1), rscale.unsqueeze(-1)
     lane0 = torch.arange(atk_rate.shape[-1], device=t0.device) == 0
 
-    A = cumsum(atk_rate)
+    A = scan(atk_rate)
     inc_atk = t0_ + A          # t after step i
     e_atk = t0_ + shift1(A)    # t at step i
     atk_any = _last(inc_atk) >= one
@@ -63,7 +71,7 @@ def asr_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
     t_atk = torch.where(atk_any, one, _last(inc_atk))
     stage_atk = torch.where(atk_any, SUSTAINING, ATTACKING)
 
-    R = cumsum(rel_rate)
+    R = scan(rel_rate)
     inc_rel = t0_ - R
     e_rel = t0_ - shift1(R)
     alive = lane0 | (e_rel > zero)
@@ -83,7 +91,7 @@ def asr_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
     return stage.to(stage0.dtype), t, rscale, out, done
 
 
-def ar_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
+def ar_closed_form(stage0, t0, rscale, atk_rate, rel_rate, scan=cumsum):
     """EnvAr's event-free block, including the attack -> release -> stopped
     double transition: the release after the crossing step k runs on the
     release-rate cumsum anchored at R[k], found as the masked lane-min of R
@@ -94,8 +102,8 @@ def ar_closed_form(stage0, t0, rscale, atk_rate, rel_rate):
     s0, t0_, rs = stage0.unsqueeze(-1), t0.unsqueeze(-1), rscale.unsqueeze(-1)
     lane0 = torch.arange(atk_rate.shape[-1], device=t0.device) == 0
 
-    A = cumsum(atk_rate)
-    R = cumsum(rel_rate)
+    A = scan(atk_rate)
+    R = scan(rel_rate)
     Rexc = shift1(R)
     R_last = _last(R)
 
@@ -143,12 +151,15 @@ class _EnvBase(UGen):
     inputs = 0
     outputs = 1
 
-    def __init__(self, attack_time: float = 0.0, release_time: float = 0.0):
+    def __init__(self, attack_time: float = 0.0, release_time: float = 0.0,
+                 scan=cumsum):
         self.pdefaults = {"attack_time": float(attack_time),
                           "release_time": float(release_time)}
+        # the closed form's prefix sum (module docstring)
+        self.scan = scan
 
     def batch_key(self):
-        return (type(self),)
+        return (type(self), self.scan)
 
     def init(self, ctx: AudioCtx, device="cpu"):
         return {
@@ -162,7 +173,8 @@ class _EnvBase(UGen):
         rel = rate_from_time(params["release_time"].to(ctx.dtype), ctx.sample_rate)
         stage, t, rscale = state["stage"], state["t"], state["release_scale"]
         if ctx.no_events and not ctx.wide_batch:
-            stage, t, rscale, out, done = self.CLOSED_FORM(stage, t, rscale, atk, rel)
+            stage, t, rscale, out, done = self.CLOSED_FORM(stage, t, rscale, atk, rel,
+                                                           scan=self.scan)
         else:
             outs, dones = [], []
             for i in range(ctx.block_size):
@@ -217,7 +229,8 @@ class EnvAsr(_EnvBase):
     def kernel_stage(self, ctx: AudioCtx):
         from ..kernels.chain_kernel import BODIES
 
-        return BODIES["env_asr"], 0
+        # the kernel sums in the default association only
+        return (BODIES["env_asr"], 0) if self.scan is cumsum else None
 
 
 class EnvAr(_EnvBase):
@@ -250,7 +263,8 @@ class EnvAr(_EnvBase):
     def kernel_stage(self, ctx: AudioCtx):
         from ..kernels.chain_kernel import BODIES
 
-        return BODIES["env_ar"], 0
+        # the kernel sums in the default association only
+        return (BODIES["env_ar"], 0) if self.scan is cumsum else None
 
 
 class EnvelopeShape:
