@@ -116,7 +116,7 @@ result line):
    output zero from its done frame on). Each prints realtime x (samples/s
    / 48,000). Then golden ``param_sweep`` at f32 and f64 against the port's
    CPU render. Then every graph slice, the param sweep's two cascades
-   included, rendered twice from one schedule (the 2 s slices for 1 s,
+   included, rendered twice from one schedule (the 2 s slices for 0.5 s,
    PARTITION_SECONDS), with superblocks and block
    by block (``render_chunk_blocks=1``): bit-equal where the phases are
    u32, within a stated tolerance where a float scan spans the superblock;
@@ -128,8 +128,9 @@ result line):
    echo chain and the SampleDelay cascade (B=64, 2 s, the chain kernel once
    per superblock, the first two against the scan executor over 64
    blocks); golden ``fdn_galactic`` (1 s, block by block behind its
-   feedback edges) against the CPU render and the f32 fixture, read by the
-   repository's own FLAC decoder; ``galactic_chain`` superblocked and per
+   feedback edges) against the CPU render and the f32 fixture, read
+   through the port's codec (``utils/codec.py``, which builds
+   native/knaster_flac.cpp); ``galactic_chain`` superblocked and per
    block against the CPU. Then ``pool_envelope_bank``: a 131,072-voice
    ``FusedVoiceBank(EnvelopeVoice())`` graph node under a ``VoicePool``
    taking every voice in 1,024 sample-accurate note-ons a block for 128
@@ -146,7 +147,21 @@ result line):
    rendered second; the suite's ``fm_voice_bank`` (8192 FM voices) and
    ``plucked_bank`` (4096 strings), ``bank.process`` over 750 event-free
    blocks after a block of note-ons, against the CPU over 4 blocks,
-   voice-samples/s, kernels per block and the device-busy share;
+   voice-samples/s, kernels per block and the device-busy share. Then
+   buffers and samples (``phase_buffers``), no kernel of the port on
+   their path, each through ``AudioProcessor.render`` at the suite's width:
+   ``sampler_bank`` (16,384 tiled ``SamplerVoice``s over a 1 s tone) and
+   ``sampler_resample`` (the same with rates U(0.5, 1.99)), a block of
+   note-ons then event-free blocks; ``granular`` (one ``GrainPlayer`` of 64
+   grains) and ``granular_bank`` (64 players, which must batch into one
+   plan item); ``convolver`` (``WhiteNoise`` into a 2 s stereo IR, 1500
+   partitions, run with TF32 switched on by the caller and held against a
+   direct f64 convolution within the reference's 2e-4); ``drum_machine``
+   (examples/drum_machine.py's three tiled sampler banks, one bar of
+   ``set_after`` hits). Each superblocked over 1 s (the drums over their
+   bar) against its per-block render of the first 0.25 s and that against
+   the port's CPU render of its first blocks, within stated gates;
+   voice-samples/s or realtime x, kernels a block and the busy share;
 5. timings and profile — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
@@ -602,7 +617,8 @@ def profile_window(torch, label, run, n):
     """torch.profiler (CUPTI) over ``run()``, which renders ``n`` blocks.
     Prints the device-busy share of the profiled window and the kernels
     that fill it; the profiler's own host cost inflates the wall time, so
-    the share is a lower bound on the unprofiled one."""
+    the share is a lower bound on the unprofiled one. Returns (kernels a
+    block, busy %), None each where the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -617,14 +633,15 @@ def profile_window(torch, label, run, n):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print(f"profile {label}: the profiler recorded no device time (not measured)")
-        return
+        return None, None
+    per_block, share = sum(e.count for e in kernels) / n, 100 * busy_us / wall_us
     print(f"profile {label}: {n} event-free blocks, device busy "
           f"{busy_us / n:.2f} us/block of {wall_us / n:.2f} us/block wall under the "
-          f"profiler ({100 * busy_us / wall_us:.1f}% busy), "
-          f"{sum(e.count for e in kernels) / n:.1f} kernels/block")
+          f"profiler ({share:.1f}% busy), {per_block:.1f} kernels/block")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  {e.self_device_time_total / n:9.2f} us/block  x{e.count // n:<3d} "
               f"{e.key[:90]}")
+    return per_block, share
 
 
 def time_call(torch, fn, reps):
@@ -1531,48 +1548,14 @@ def galactic_chain(kt, gg):
     verb.to_graph_out()
 
 
-def read_fixture(np, name):
-    """A golden fixture (tests/golden/<name>.flac, 24-bit) decoded by the
-    repository's own FLAC decoder (native/knaster_flac.cpp), built here into
-    build/ with the host C++ compiler (nvcc where there is none): (data
-    [channels, frames] f32, sample rate)."""
-    import ctypes
-    import shutil
+def read_fixture(name):
+    """A golden fixture (tests/golden/<name>.flac) through the port's codec
+    (``knaster_tpu_torch/utils/codec.py``, which builds
+    native/knaster_flac.cpp at first use): (data [channels, frames] f32,
+    sample rate)."""
+    from knaster_tpu_torch.utils.codec import read_sound_file
 
-    from knaster_tpu_torch.kernels.build import nvcc_path
-
-    so = os.path.join(ROOT, "build", "knaster_flac_reader.so")
-    if not os.path.exists(so):
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        src = os.path.join(ROOT, "native", "knaster_flac.cpp")
-        cxx = shutil.which("c++") or shutil.which("g++")
-        cmd = ([cxx, "-O2", "-std=c++17", "-fPIC", "-shared", "-o", so, src] if cxx else
-               [nvcc_path(), "-O2", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-                "-o", so, src])
-        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
-        if r.returncode != 0:
-            fail(f"building the FLAC decoder failed: {r.stdout}{r.stderr}")
-    lib = ctypes.CDLL(so)
-    lib.kn_flac_open.restype = ctypes.c_void_p
-    lib.kn_flac_open.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
-    for fn in ("kn_flac_channels", "kn_flac_rate", "kn_flac_bits"):
-        getattr(lib, fn).argtypes = [ctypes.c_void_p]
-    lib.kn_flac_frames.restype = ctypes.c_longlong
-    lib.kn_flac_frames.argtypes = [ctypes.c_void_p]
-    lib.kn_flac_read.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32)]
-    lib.kn_flac_close.argtypes = [ctypes.c_void_p]
-    with open(os.path.join(ROOT, "tests", "golden", f"{name}.flac"), "rb") as f:
-        raw = f.read()
-    h = lib.kn_flac_open(raw, len(raw))
-    if not h:
-        fail(f"cannot decode the fixture {name}")
-    try:
-        data = np.zeros((lib.kn_flac_channels(h), lib.kn_flac_frames(h)), np.int32)
-        lib.kn_flac_read(h, data.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-        bits_ = lib.kn_flac_bits(h)
-        return data.astype(np.float32) / np.float32(2 ** (bits_ - 1)), lib.kn_flac_rate(h)
-    finally:
-        lib.kn_flac_close(h)
+    return read_sound_file(os.path.join(ROOT, "tests", "golden", f"{name}.flac"))
 
 
 def tile_operands(torch, ops, n):
@@ -1747,7 +1730,7 @@ def phase_fdn_galactic(torch, np, kt, dev, card):
     second (the golden gate, 1e-6 + 2^-23); realtime x of the whole render
     and the CUDA kernels per rendered second over its first FDN_PROFILE
     blocks (torch.profiler)."""
-    ref, sr = read_fixture(np, "fdn_galactic_f32")
+    ref, sr = read_fixture("fdn_galactic_f32")
     proc = fdn_processor(torch, kt, dev)
     reset_all_counts()
     t0 = time.perf_counter()
@@ -2257,9 +2240,9 @@ EXACT = ("exact",)
 
 
 # the partition phase's render of the slices that render GRAPH_SECONDS
-# elsewhere: 1 s (eight 128-block superblocks at B = 64), to keep the whole
-# run within its time limit as the kernel checks grow
-PARTITION_SECONDS = 1.0
+# elsewhere: 0.5 s (375 blocks at B = 64; 1 s until the buffer phase
+# came), to keep the whole run within its time limit as the phases grow
+PARTITION_SECONDS = 0.5
 
 
 def partition_slices():
@@ -3239,7 +3222,7 @@ def phase_detuned_banks(torch, np, kt, dev, card):
             frames=n_prof, fetch=False))
         cpu = np.asarray(detuned_banks(kt, np, dtype, "cpu").render(frames=DETUNED_FRAMES))
         (a, rt_sb), (b, rt_pb) = runs[CHUNK], runs[1]
-        ref, sr = read_fixture(np, f"detuned_banks_{name}")
+        ref, sr = read_fixture(f"detuned_banks_{name}")
         if sr != SR or ref.shape != a.shape or not np.isfinite(a).all():
             fail(f"detuned_banks {name}: shape {a.shape} against the fixture's {ref.shape}")
         err_fix = np.abs(a.astype(np.float32) - ref)
@@ -3378,6 +3361,289 @@ def phase_kernels_vs_vmap(torch, np, kt, dev):
               f"{gap:.3e} (peak {peak:.4g})")
         out[kind] = gap
     return out
+
+
+# -- buffers and samples ------------------------------------------------------
+SAMPLER_VOICES = 16384  # benchmarks/suite.py bench_sampler_bank, bench_sampler_resample
+GRAIN_SLOTS = 64  # bench_granular and bench_granular_bank
+GRAIN_PLAYERS = 64  # bench_granular_bank
+IR_SECONDS = 2.0  # bench_convolver: K = 2 s * 48000 / 64 = 1500 partitions
+BUFFER_SECONDS = 1.0  # each configuration's superblocked render (drum_machine: its bar)
+BUFFER_PER_BLOCK_SECONDS = 0.25  # the per-block render held against the superblocked one
+BUFFER_CPU_BLOCKS = 6  # blocks of the per-block render held against the port's CPU render
+DIRECT_BLOCKS = 64  # the convolver's output held against a direct convolution
+DIRECT_TOL = 2e-4  # tests/test_convolver.py:44's bound against np.convolve
+DRUM_STEP = 60.0 / 124.0 / 4.0  # examples/drum_machine.py: sixteenths at 124 BPM
+DRUM_PATTERN = {"kick": "x...x...x..x..x.", "snare": "....x.......x...",
+                "hat": "x.xxx.xx.xx.x.xx"}
+DRUM_GAINS = {"kick": 0.9, "snare": 0.6, "hat": 0.35}
+DRUM_PANS = {"kick": 0.0, "snare": -0.15, "hat": 0.3}
+
+
+def tone_220(np):
+    """The suite's source: 1 s of a 220 Hz sine at 48 kHz, f32."""
+    return np.sin(2 * np.pi * 220.0 * np.arange(SR) / SR).astype(np.float32)
+
+
+def buffer_processor(kt, dev, chunk, outputs=2):
+    return kt.AudioProcessor.new(
+        0, outputs, kt.AudioProcessorOptions(block_size=BLOCK, render_chunk_blocks=chunk),
+        device=dev)
+
+
+TONE_SLOPE = 2 * math.pi * 220.0 / SR  # the 220 Hz tone's steepest step a frame
+
+
+def sampler_pointers(proc):
+    """The per-voice read positions (f64 frames) of a graph whose one node
+    is a sampler bank, else None."""
+    nodes = list(proc.state["nodes"].values())
+    voices = nodes[0].get("voices") if len(nodes) == 1 else None
+    if not voices or "pos_int" not in voices:
+        return None
+    return (voices["pos_int"].double() + voices["pos_frac"].double()).cpu()
+
+
+def sampler_drift(a, b, loop_len=SR):
+    """The largest distance between two renders' read positions, around the
+    loop."""
+    d = (a - b).abs()
+    return float((d.minimum(loop_len - d)).max())
+
+
+def sampler_bank(kt, np, dev, chunk, resample=False):
+    """bench_sampler_bank (``tiled=True``) or bench_sampler_resample (rates
+    U(0.5, 1.99) from default_rng(11)): 16,384 looping voices over the 1 s
+    tone at amp 0.01, every voice restarted in block 0 at a staggered
+    frame (the suite times silence)."""
+    V = SAMPLER_VOICES
+    d = {"amp": np.full(V, 0.01, np.float32)}
+    if resample:
+        d["rate"] = np.random.default_rng(11).uniform(0.5, 1.99, V).astype(np.float32)
+    g, proc = buffer_processor(kt, dev, chunk)
+    voice = kt.SamplerVoice(tone_220(np), loop=True, **({"resample": True} if resample
+                                                         else {"tiled": True}))
+    bank = g.edit(lambda gg: gg.push(kt.VoiceBank(voice, V, voice_defaults=d,
+                                                  event_capacity=V)))
+    bank.to_graph_out()
+    g.commit()
+    trig = bank.voice_param("t_restart")
+    for v in range(V):
+        trig.trig_at(v, kt.Seconds.from_samples(v % BLOCK, SR))
+    return proc, V
+
+
+def grain_cloud(kt, np, dev, chunk, players=1):
+    """bench_granular (one player: 64 grains at 400 Hz, grain_dur 0.08,
+    pos_jitter 0.3, rate_jitter 0.5, amp 0.2) or bench_granular_bank (64
+    such players, densities 400 * 2^U(-0.5, 0.5) from default_rng(7),
+    max_rate 2.0, amp 0.2 / 64), over the 1 s tone."""
+    src = kt.Buffer(tone_220(np)[None, :], SR)
+    g, proc = buffer_processor(kt, dev, chunk)
+    rng = np.random.default_rng(7)
+
+    def build(gg):
+        for i in range(players):
+            if players == 1:
+                kw = dict(density=400.0, amp=0.2)
+            else:
+                kw = dict(seed=i, density=float(400.0 * 2 ** rng.uniform(-0.5, 0.5)),
+                          max_rate=2.0, amp=0.2 / players)
+            gg.push(kt.GrainPlayer(src, grains=GRAIN_SLOTS, grain_dur=0.08, pos_jitter=0.3,
+                                   rate_jitter=0.5, **kw)).to_graph_out()
+
+    g.edit(build)
+    return proc, players
+
+
+def convolver_ir(np):
+    """bench_convolver's IR: 2 s stereo from default_rng(0), exp(-3t) * 0.02."""
+    L = int(IR_SECONDS * SR)
+    t = np.arange(L, dtype=np.float32) / SR
+    return (np.random.default_rng(0).standard_normal((2, L)).astype(np.float32)
+            * np.exp(-3.0 * t)[None, :] * 0.02)
+
+
+def convolver(kt, np, dev, chunk):
+    """bench_convolver: WhiteNoise(seed=5) into the 2 s stereo IR."""
+    g, proc = buffer_processor(kt, dev, chunk)
+
+    def build(gg):
+        n = gg.push(kt.WhiteNoise(seed=5))
+        cv = gg.push(kt.Convolver(convolver_ir(np)))
+        n.to(cv)
+        cv.to_graph_out()
+
+    g.edit(build)
+    return proc, 1
+
+
+def drum_kit(np):
+    """examples/drum_machine.py's procedural kit."""
+    t = np.arange(int(0.25 * SR)) / SR
+    kick = np.sin(2 * np.pi * np.cumsum(120.0 * np.exp(-t * 18.0) + 45.0) / SR) * np.exp(-t * 14.0)
+    t = np.arange(int(0.18 * SR)) / SR
+    snare = (0.7 * np.random.default_rng(2).standard_normal(len(t)) * np.exp(-t * 28.0)
+             + 0.5 * np.sin(2 * np.pi * 185.0 * t) * np.exp(-t * 40.0))
+    t = np.arange(int(0.07 * SR)) / SR
+    hat = 0.5 * np.diff(np.random.default_rng(3).standard_normal(len(t)), prepend=0.0) * np.exp(
+        -t * 60.0)
+    return {"kick": kick.astype(np.float32), "snare": snare.astype(np.float32),
+            "hat": hat.astype(np.float32)}
+
+
+def drum_machine(kt, np, dev, chunk):
+    """examples/drum_machine.py for one bar: three ``VoiceBank(SamplerVoice(
+    tiled=True, loop=False))`` of 4 voices, the 16-step pattern scheduled
+    up front by ``set_after``, round-robin over each bank's voices."""
+    g, proc = buffer_processor(kt, dev, chunk)
+    kits, n_voices = drum_kit(np), 4
+
+    def build(gg):
+        banks = {}
+        for name, data in kits.items():
+            banks[name] = gg.push(kt.VoiceBank(
+                kt.SamplerVoice(data, loop=False, tiled=True, attack=0.0005, release=0.01),
+                n_voices, voice_defaults={
+                    "amp": np.full(n_voices, DRUM_GAINS[name], np.float32),
+                    "pan": np.full(n_voices, DRUM_PANS[name], np.float32)}))
+            banks[name].to_graph_out()
+        return banks
+
+    banks = g.edit(build)
+    hits = dict.fromkeys(kits, 0)
+    for step in range(16):
+        for name, pat in DRUM_PATTERN.items():
+            if pat[step] == "x":
+                banks[name].voice_param("t_restart").set_after(
+                    hits[name] % n_voices, None, step * DRUM_STEP + 0.01)
+                hits[name] += 1
+    return proc, 3 * n_voices
+
+
+BUFFER_CONFIGS = {
+    # name: (build function, seconds of the superblocked render, the gate of card vs
+    # CPU and of superblocks vs per block as a function of (V, peak),
+    # voice-samples/s or realtime x, blocks held against the CPU)
+    # the sampler banks: the mix of V voices summed in another order, and
+    # (below) each voice's read position as far apart as the two renders'
+    # pointers are, at the tone's steepest slope and the voices' amp
+    "sampler_bank": (sampler_bank, BUFFER_SECONDS, mix_tolerance, "voices",
+                     BUFFER_CPU_BLOCKS),
+    "sampler_resample": (lambda kt, np, dev, chunk: sampler_bank(kt, np, dev, chunk, True),
+                         BUFFER_SECONDS, mix_tolerance, "voices", BUFFER_CPU_BLOCKS),
+    # the grains: the card's cosf, sinf and exp2f against the CPU's, an ulp
+    # on some inputs, moving a grain's frozen step and pan gains
+    "granular": (grain_cloud, BUFFER_SECONDS, lambda V, peak: 1e-5 * max(1.0, peak),
+                 "realtime", BUFFER_CPU_BLOCKS),
+    "granular_bank": (lambda kt, np, dev, chunk: grain_cloud(kt, np, dev, chunk, GRAIN_PLAYERS),
+                      BUFFER_SECONDS, lambda V, peak: 1e-5 * max(1.0, peak), "realtime",
+                      BUFFER_CPU_BLOCKS),
+    # 1500 partitions summed in another order: the reference's own bound
+    # against the exact convolution
+    "convolver": (convolver, BUFFER_SECONDS, lambda V, peak: DIRECT_TOL, "realtime",
+                  BUFFER_CPU_BLOCKS),
+    # unit-rate copies of the kit's samples; the CPU render covers the first
+    # hits (block 7 on)
+    "drum_machine": (drum_machine, 16 * DRUM_STEP + 0.5, lambda V, peak: 1e-6 * max(1.0, peak),
+                     "realtime", 4 * BUFFER_CPU_BLOCKS),
+}
+
+
+def check_direct_convolution(torch, np, kt, card_audio):
+    """The convolver cell's first DIRECT_BLOCKS blocks against np.convolve in
+    f64 of the same WhiteNoise(seed=5) stream (rendered alone on the CPU)
+    with the same IR: the reference's bound, which TF32 products would
+    break. Returns the gap."""
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                    device="cpu")
+    g.edit(lambda gg: gg.push(kt.WhiteNoise(seed=5)).to_graph_out())
+    n = DIRECT_BLOCKS * BLOCK
+    x = np.asarray(proc.render(frames=n))[0].astype(np.float64)
+    ir = convolver_ir(np).astype(np.float64)
+    direct = np.stack([np.convolve(x, ir[c])[:n] for c in range(2)])
+    return float(np.abs(card_audio[:, :n] - direct).max())
+
+
+def phase_buffers(torch, np, kt, dev, card):
+    """The buffer-and-sample family on the card at the suite's widths, 48 kHz,
+    B = 64, each configuration through ``AudioProcessor.render``: the
+    superblocked render (its 1 s; drum_machine its bar and 0.5 s of tail)
+    timed, voice-samples/s for the sampler banks (voices x samples / wall
+    s) and realtime x for the graphs; the per-block render
+    (``render_chunk_blocks=1``) of its first BUFFER_PER_BLOCK_SECONDS,
+    timed, against the superblocked render; its first BUFFER_CPU_BLOCKS
+    blocks against the port's CPU render of them, per block; no kernel of
+    the port launches; the output finite and sounding; the profiler's
+    kernels a block and device-busy share over VMAP_PROFILE_BLOCKS blocks
+    after the first. ``granular_bank``'s 64 players must run as one batched
+    plan item; the convolver runs with TF32 switched on by the caller
+    (``torch.set_float32_matmul_precision("high")``) and must still meet a
+    direct f64 convolution within the reference's 2e-4."""
+    for name, (build, seconds, gate, metric, cpu_blocks) in BUFFER_CONFIGS.items():
+        t_cfg = time.perf_counter()
+        prev_precision = torch.get_float32_matmul_precision()
+        if name == "convolver":
+            torch.set_float32_matmul_precision("high")  # the caller's TF32: scoped off
+        try:
+            frames = int(round(seconds * SR / BLOCK)) * BLOCK
+            proc, V = build(kt, np, dev, CHUNK)
+            proc._ensure_compiled()
+            batched = max((len(it) for k, it in proc.compiled.plan if k == "batch"), default=0)
+            if name == "granular_bank" and batched != GRAIN_PLAYERS:
+                fail(f"granular_bank: the players ran as a batch of {batched}, not "
+                     f"{GRAIN_PLAYERS}")
+            pb_frames = min(frames, int(BUFFER_PER_BLOCK_SECONDS * SR) // BLOCK * BLOCK)
+            reset_all_counts()
+            # in two calls, so that the pointers can be read where the
+            # per-block render ends
+            head, secs = render_timed(torch, proc, pb_frames / SR)
+            pointers = sampler_pointers(proc)
+            tail, tail_secs = render_timed(torch, proc, (frames - pb_frames) / SR)
+            secs += tail_secs
+            expect_counts(read_all_counts(), {}, name)
+            audio = torch.cat([head, tail], dim=1).cpu().numpy()
+            proc_pb, _ = build(kt, np, dev, 1)
+            per_block, pb_secs = render_timed(torch, proc_pb, pb_frames / SR)
+            per_block = per_block.cpu().numpy()
+            # the resampler's f32 pointer rounds at every render call's
+            # block ends: the partitions read a few ulps apart
+            drift = (None if pointers is None else
+                     float(sampler_drift(pointers, sampler_pointers(proc_pb))))
+            cpu_frames = cpu_blocks * BLOCK
+            proc_cpu, _ = build(kt, np, "cpu", 1)
+            cpu = np.asarray(proc_cpu.render(frames=cpu_frames))
+            direct = check_direct_convolution(torch, np, kt, audio) if name == "convolver" else None
+        finally:
+            torch.set_float32_matmul_precision(prev_precision)
+        peak = float(np.abs(audio).max())
+        if not np.isfinite(audio).all() or peak < 1e-3:
+            fail(f"{name}: the render is not finite or silent (peak {peak})")
+        gap_pb = float(np.abs(audio[:, :pb_frames] - per_block).max())
+        gap_cpu = float(np.abs(per_block[:, :cpu_frames] - cpu).max())
+        tol = gate(V, peak) + (0.0 if drift is None else V * 0.01 * TONE_SLOPE * drift)
+        if gap_pb > tol or gap_cpu > tol:
+            fail(f"{name}: superblocks vs per block {gap_pb}, card vs CPU {gap_cpu} (gate "
+                 f"{tol})")
+        if direct is not None and direct > DIRECT_TOL:
+            fail(f"convolver: {direct} from a direct convolution (bound {DIRECT_TOL})")
+
+        def more(proc=proc_pb):
+            proc.render(frames=VMAP_PROFILE_BLOCKS * BLOCK, fetch=False)
+
+        k_block, busy = profile_window(torch, name, more, VMAP_PROFILE_BLOCKS)
+        rate = (f"{V * frames / secs:.4g} voice-samples/s (realtime x {frames / SR / secs:.4g})"
+                if metric == "voices" else f"realtime x {frames / SR / secs:.4g}")
+        print(f"slice {name} on {card}: {rate} superblocked over {frames / SR:.3f} s; per "
+              f"block realtime x {pb_frames / SR / pb_secs:.4g} over {pb_frames / SR:.3f} s; "
+              f"{k_block} kernels a block and {busy}% busy (per block, "
+              f"{VMAP_PROFILE_BLOCKS} blocks); superblocks vs per block {gap_pb:.3e}, card vs "
+              f"CPU {gap_cpu:.3e} over {cpu_blocks} blocks (gate {tol:.3e}, peak "
+              f"{peak:.4g})" + (f"; batched players {batched}" if name == "granular_bank" else "")
+              + (f"; pointer drift {drift:.4g} frames" if drift is not None else "")
+              + (f"; direct f64 convolution {direct:.3e} over {DIRECT_BLOCKS} blocks with TF32 "
+                 f"on outside (bound {DIRECT_TOL})" if direct is not None else "")
+              + f"; no kernel of the port on its path ({time.perf_counter() - t_cfg:.1f} s)")
 
 
 def phase_family_timings(torch, ktt, kind, bank, state, card):
@@ -3574,6 +3840,7 @@ def main():
     lap(phase_modal_bells, torch, np, ktt, dev, card)
     lap(phase_detuned_banks, torch, np, ktt, dev, card)
     lap(phase_vmap_banks, torch, np, ktt, dev, card)
+    lap(phase_buffers, torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------

@@ -12,6 +12,9 @@ subtractive voice's (``PolyBlep``, ``SvfFilter``, the one-poles,
 models, the composable ``VoiceBank`` (any voice, run once over the voice
 axis) and the fused voice banks; every bank is a graph node (per-voice
 control through ``Handle.voice_param``, allocation through ``VoicePool``).
+Recorded audio: ``Buffer`` (``Buffer.from_sound_file``: wav, ogg, flac,
+mp3 through ``utils/codec.py``), ``BufferReader``, ``SamplerVoice``,
+``GrainPlayer`` and ``Convolver``.
 The README example::
 
     import knaster_tpu_torch as kt
@@ -50,7 +53,8 @@ from .graph.handles import Handle, Parameter, Source, VoiceParameter
 from .graph.processor import AudioProcessor, AudioProcessorOptions
 from .graph.scheduling import SchedulingToken, Time
 from .models.voices import (AdditiveVoice, EnvelopeVoice, FMCascade, FMVoice,
-                            ModalVoice, PluckedVoice, SineVoice, SubtractiveVoice)
+                            ModalVoice, PluckedVoice, SamplerVoice, SineVoice,
+                            SubtractiveVoice)
 from .parallel.fused_bank import (
     FusedBank,
     FusedFMVoiceBank,
@@ -79,10 +83,13 @@ from .primitives import (
     ptrigger,
     set_default_dtype,
 )
+from .ugens.buffer import Buffer, BufferReader
+from .ugens.convolver import Convolver
 from .ugens.delay import AllpassDelay, AllpassFeedbackDelay, SampleDelay, StaticSampleDelay
 from .ugens.envelopes import EnvAr, EnvAsr, Envelope, EnvelopeSegment, EnvelopeShape
 from .ugens.filters import OnePoleHpf, OnePoleLpf, SvfFilter, SvfFilterType
 from .ugens.math import Math1UGen, MathUGen
+from .ugens.granular import GrainPlayer
 from .ugens.modal import ModalResonator
 from .ugens.noise import (BrownNoise, PinkNoise, RandomLin, WhiteNoise,
                           next_randomness_seed, reset_randomness_seeds)
@@ -92,6 +99,7 @@ from .ugens.physical import PluckedString
 from .ugens.polyblep import PolyBlep, Waveform
 from .ugens.util import Constant
 from .ugens.wavetable import NonAaWavetable, harmonics_from_table
+from .utils.codec import read_sound_file, write_flac, write_mp3, write_ogg
 
 __all__ = [
     "knaster",
@@ -140,6 +148,15 @@ __all__ = [
     "AllpassFeedbackDelay",
     "StaticSampleDelay",
     "Galactic",
+    "Buffer",
+    "BufferReader",
+    "SamplerVoice",
+    "GrainPlayer",
+    "Convolver",
+    "read_sound_file",
+    "write_flac",
+    "write_mp3",
+    "write_ogg",
     "FMCascade",
     "Beats",
     "Seconds",

@@ -25,8 +25,12 @@ and PolyBlep phases) become int32 bit patterns, everything else keeps its
 dtype (the SVF's ``ic`` [..., 2] and the one-poles' ``last`` as f32, the
 envelopes' ``stage`` as int32 beside their f32 ``t`` and ``release_scale``,
 the multi-segment ``Envelope``'s ``running`` bool, ``seg`` and
-``last_jump`` int32, ``time`` and ``from_value``, and a
-``ModalResonator``'s ``s0``/``s1`` [..., M]). A kernel bank node's state
+``last_jump`` int32, ``time`` and ``from_value``, a
+``ModalResonator``'s ``s0``/``s1`` [..., M], a ``BufferReader``'s int32
+``ptr_int``, ``ptr_frac`` and bool ``finished``, a ``GrainPlayer``'s u32
+``seed`` and ``counter`` as int32 bits beside its per-slot ``age`` and
+grain values, a ``Convolver``'s spectra ``Hr``/``Hi`` and delay line
+``fdl_r``/``fdl_i``/``prev``). A kernel bank node's state
 crosses as a bank's does: its ``[R, 128]`` tiles (the generic bank's
 carries, the Envelope and Modal bodies' included) flat in voice order.
 
@@ -36,7 +40,8 @@ replicated over the voice axis. That subtree crosses leaf by leaf in both
 directions: ``[V, ...]`` leaves keep their axes (no tiles), a uint32 leaf
 (an oscillator or PolyBlep phase, a PluckedVoice frame) becomes its int32
 bit pattern, and the voice's unbatched ``shared_state_keys`` leaves stay
-scalars. Going back, an int32 leaf becomes uint32 where ``like`` (the JAX
+scalars (a ``SamplerVoice``'s ``pos_int``, ``pos_frac``, ``playing`` and
+nested ``env`` cross as ``[V]`` leaves). Going back, an int32 leaf becomes uint32 where ``like`` (the JAX
 state) holds uint32.
 """
 

@@ -8,6 +8,7 @@
 * ``EnvelopeVoice`` — a sine gated by a multi-segment ``Envelope``.
 * ``ModalVoice`` — a struck ``ModalResonator`` (EnvAr mallet, Pan2).
 * ``PluckedVoice`` — a Karplus-Strong string with a built-in noise burst.
+* ``SamplerVoice`` — sample playback from a shared buffer (gather read).
 * ``FMCascade`` — an N-stage FM cascade as one graph node, with its own
   kernel (``kernels/fm_cascade.py``).
 
@@ -19,7 +20,7 @@ the generic ``FusedVoiceBank`` runs, in torch over ``[V]`` tensors (the
 plain version) and by name as a CUDA body; each body is the math of its
 ``mosaic_voice`` in the JAX package, op for op. The voices' parameter
 tables, defaults and envelope times are what the fused banks read.
-``PluckedVoice`` is blockwise and has no kernel body.
+``PluckedVoice`` and ``SamplerVoice`` have no kernel body.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..kernels.bank_common import (
     u32_of,
 )
 from ..primitives.params import ParameterKind, pfloat, pinteger, ptrigger
+from ..ugens.buffer import Buffer
 from ..ugens.envelopes import STOPPED, EnvAr, EnvAsr, Envelope
 from ..ugens.filters import SvfFilter, SvfFilterType
 from ..ugens.modal import _LN10_M3, ModalResonator
@@ -669,6 +671,152 @@ class ModalVoice(UGen):
         return KernelVoiceSpec(carry=carry, body=body, idle_of=idle_of,
                                cuda_body=f"modal{M}", consts=consts,
                                voice_name=self.name())
+
+
+class SamplerVoice(UGen):
+    """Sample-playback voice for a ``VoiceBank``: one shared buffer, per-voice
+    rate, amp and pan, an ASR envelope, a restart trigger
+    (voices.py:909-1334; BufferReader, ugens/buffer.rs:21-190, at voice
+    scale).
+
+    Read positions are computed in closed form for the whole block: the loop
+    wrap is an integer modulus, a restart re-anchors the positions at its
+    exact frame (the last restart of a block wins), so a bank of V voices is
+    two ``[V, B]`` gathers from the shared buffer plus elementwise math. The
+    loop boundary is rounded to whole frames.
+
+    The port has the gather read only. The JAX package's ``tiled`` and
+    ``resample`` reads are TPU reformulations of the same gather, held
+    bit-identical to it by its tests, and here they are flags on the gather
+    read with their semantics kept:
+
+    * ``tiled=True`` plays at unit rate (the ``rate`` param is ignored),
+      needs the buffer at the engine's sample rate and a loop of at least
+      one block, and makes the voice block-dependent with a superblock cap
+      of one loop length, as the tiled read does; a one-shot voice's
+      pointer stops at the loop's end;
+    * ``resample=True`` clamps the rate to ``[0, max_rate]``.
+    """
+
+    inputs = 0
+    outputs = 2
+    params = (
+        pfloat("rate", 1.0),
+        pfloat("amp", 0.5),
+        pfloat("pan", 0.0),
+        ptrigger("t_restart"),
+        ptrigger("t_release"),
+    )
+
+    def __init__(self, buffer, rate: float = 1.0, amp: float = 0.5, pan: float = 0.0,
+                 loop: bool = True, start_s: float = 0.0, end_s: float = -1.0,
+                 attack: float = 0.005, release: float = 0.05, tiled: bool = False,
+                 resample: bool = False, max_rate: float = 2.0):
+        data = np.asarray(buffer.data if hasattr(buffer, "data") else buffer)
+        if data.ndim == 2:
+            data = data[0]
+        self._data = data.astype(np.float32)
+        self._buf_sr = float(getattr(buffer, "sample_rate", 48000))
+        n = len(self._data)
+        self._start = int(round(start_s * self._buf_sr))
+        end = n if end_s < 0 else min(n, int(round(end_s * self._buf_sr)))
+        self._loop_len = max(end - self._start, 1)
+        self.loop = bool(loop)
+        self.tiled = bool(tiled)
+        self.resample = bool(resample)
+        if self.tiled and self.resample:
+            raise ValueError("tiled and resample are mutually exclusive")
+        self.max_rate = float(max_rate)
+        self.pdefaults = {"rate": float(rate), "amp": float(amp), "pan": float(pan)}
+        self._attack = float(attack)
+        self._release = float(release)
+        self.env = EnvAsr(attack, release, scan=cumsum_base16)
+        self.panner = Pan2(pan)
+        self._source = Buffer(self._data, int(self._buf_sr))  # its device copies
+
+    def batch_key(self):
+        return (type(self), id(self._data), self._start, self._loop_len, self.loop,
+                self._attack, self._release, self.tiled, self.resample, self.max_rate)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        if self.tiled:
+            if self._buf_sr != float(ctx.sample_rate):
+                raise ValueError(
+                    "tiled SamplerVoice needs the buffer at the engine sample rate "
+                    f"({self._buf_sr} != {ctx.sample_rate})")
+            if self._loop_len < ctx.block_size:
+                raise ValueError(
+                    f"tiled SamplerVoice needs loop_len >= block_size "
+                    f"({self._loop_len} < {ctx.block_size})")
+            # the tiled read's contract: exact up to one loop length
+            self.block_invariant = False
+            self.superblock_cap = self._loop_len
+        return {"pos_int": torch.zeros((), dtype=torch.int32, device=device),
+                "pos_frac": torch.zeros((), dtype=ctx.dtype, device=device),
+                "playing": torch.zeros((), dtype=torch.bool, device=device),
+                "env": self.env.init(ctx, device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        B, dtype, L = ctx.block_size, ctx.dtype, self._loop_len
+        amp = params["amp"]
+        dev = amp.device
+        buf = self._source.on(dev, dtype)[0]
+        if self.tiled:
+            step = torch.ones(amp.shape[:-1] + (1,), dtype=dtype, device=dev)
+        else:
+            # block-rate pitch, from the block's first sample
+            step = params["rate"][..., :1] * float(np.float32(self._buf_sr / ctx.sample_rate))
+            if self.resample:
+                step = step.clamp(0.0, float(np.float32(self.max_rate)))
+        t = torch.arange(B, device=dev).to(dtype)
+        base = (state["pos_int"].to(dtype) + state["pos_frac"]).unsqueeze(-1)
+
+        # closed-form positions: continue from state, or re-anchor at the
+        # block's last restart frame tf
+        pos = base + step * t
+        end_pos = base + step * B
+        playing = state["playing"]
+        if not ctx.no_events:
+            trig = params["t_restart"]
+            any_trig = trig.any(-1, keepdim=True)
+            tf = torch.where(trig, torch.arange(B, device=dev),
+                             torch.full_like(trig, -1, dtype=torch.long)).amax(-1, keepdim=True)
+            fresh = step * (t - tf.to(dtype))
+            pos = torch.where(any_trig & (t >= tf.to(dtype)), fresh, pos)
+            end_pos = torch.where(any_trig, step * (B - tf.to(dtype)), end_pos)
+            playing = playing | any_trig[..., 0]
+        ipos = torch.floor(pos)
+        frac = pos - ipos
+        ipos = ipos.to(torch.int32).long()
+        if self.loop:
+            idx, idx1 = ipos.remainder(L), (ipos + 1).remainder(L)
+            alive = playing.unsqueeze(-1)
+        else:
+            idx, idx1 = ipos.clamp(0, L - 1), (ipos + 1).clamp(0, L - 1)
+            alive = playing.unsqueeze(-1) & (ipos < L)
+        s0 = self._start
+        a, b = buf[s0 + idx], buf[s0 + idx1]
+        sig = torch.where(alive, a + (b - a) * frac, torch.zeros((), dtype=dtype, device=dev))
+
+        # the end-of-block pointer: the same trajectory at t = B
+        e_int = torch.floor(end_pos)
+        pos_frac = (end_pos - e_int)[..., 0]
+        pos_int = e_int.to(torch.int32)[..., 0]
+        if self.loop:
+            pos_int = pos_int.remainder(L)
+        elif self.tiled:
+            pos_int = pos_int.clamp(max=L)
+
+        no_in = _no_input(ctx, amp)
+        atk, rel = _times(amp, self._attack, self._release)
+        env_state, env_out, done = _run(
+            self.env, ctx, state["env"], no_in,
+            {"attack_time": atk, "release_time": rel,
+             "t_restart": params["t_restart"], "t_release": params["t_release"]})
+        sig = (sig * env_out[..., 0, :] * amp).unsqueeze(-2)
+        _, out = self.panner.process(ctx, {}, sig, {"pan": params["pan"]})
+        return ({"pos_int": pos_int, "pos_frac": pos_frac, "playing": playing,
+                 "env": env_state}, out, done)
 
 
 class PluckedVoice(UGen):

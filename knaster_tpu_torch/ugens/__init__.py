@@ -1,6 +1,6 @@
 """Port of knaster_tpu/ugens: the unit generators of the ported slices.
 
-The noise and delay names below resolve at first access: the kernel
+The names below resolve at first access: the kernel
 modules import ``ugens.wavetable``, and the UGens import the kernel
 modules, so this package imports none of its modules up front.
 """
@@ -12,6 +12,8 @@ _EXPORTS = {
     "RandomLin": "noise", "next_randomness_seed": "noise",
     "reset_randomness_seeds": "noise", "SampleDelay": "delay", "AllpassDelay": "delay",
     "AllpassFeedbackDelay": "delay", "StaticSampleDelay": "delay",
+    "Buffer": "buffer", "BufferReader": "buffer", "GrainPlayer": "granular",
+    "Convolver": "convolver",
 }
 
 __all__ = list(_EXPORTS)

@@ -6,8 +6,8 @@ seed 42, triggered across the first block, with per-voice smoothing
 configs and 128 sample-accurate freq sets landing mid-render; 0.2 s at 64
 samples a block.
 
-- The port's render on the CPU meets both fixtures (read with the JAX
-  package's codec) at the golden gate 1e-6 + 2^-23 on every sample:
+- The port's render on the CPU meets both fixtures (read with the port's
+  codec) at the golden gate 1e-6 + 2^-23 on every sample:
   measured 6.0e-8 at f64 and 1.0068e-6 at f32. The f32 render sits near
   the gate because the FM carrier takes its frequency from the modulator's
   sine every sample, and XLA's f32 sine (the fixture's) and torch's differ
@@ -27,6 +27,10 @@ samples a block.
   rate). The JAX package's own per-block render shows the same
   difference: the port's per-block render matches it within ``F64_TOL``
   at f64.
+
+Each render two tests read (the port's superblocked f32 render with its
+program sequence, and its superblocked f64 render) is made once, in a
+module-scoped fixture.
 """
 
 import os
@@ -39,7 +43,7 @@ from test_torch_voice_pool import _spy
 import knaster_tpu as jk
 import knaster_tpu.graph.processor as jP
 import knaster_tpu_torch as kt
-from knaster_tpu.utils.codec import read_flac
+from knaster_tpu_torch.utils.codec import read_flac
 
 SR = 48000
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -101,28 +105,17 @@ def detuned_banks(m, dtype, render_chunk_blocks=128):
     return proc
 
 
-@pytest.mark.parametrize("dtype,name", [(torch.float32, "f32"), (torch.float64, "f64")])
-def test_detuned_banks_meets_golden(dtype, name):
-    audio = detuned_banks(kt, dtype).render(frames=FRAMES)
-    ref, sr = read_flac(os.path.join(GOLDEN_DIR, f"detuned_banks_{name}.flac"))
-    assert sr == SR and ref.shape == audio.shape
-    assert audio.dtype == (np.float32 if name == "f32" else np.float64)
-    assert float(np.abs(audio.astype(np.float32) - ref).max()) <= GOLDEN_GATE
-    assert np.abs(ref).max() > 0.1
-
-
-def test_detuned_banks_takes_the_jax_partition(monkeypatch):
-    """The same (program, length) sequence as the JAX processor: eventful
-    blocks one by one, each event-free run as superblocks; and the port's
-    render within the gate of the JAX render made here."""
-    seqs, outs = {}, {}
-    for m, dtype in ((jk, np.float32), (kt, torch.float32)):
+def _spied_render(m, dtype):
+    """One render of ``detuned_banks`` with its (program, length) sequence.
+    The JAX processor renders a run of 16 or more eventful blocks as one
+    scan of its per-block program: that many single blocks."""
+    with pytest.MonkeyPatch.context() as mp:
         proc = detuned_banks(m, dtype)
-        seqs[m] = seq = _spy(monkeypatch, m, proc)
-        if m is jk:  # a scan of the per-block program: that many single blocks
+        seq = _spy(mp, m, proc)
+        if m is jk:
             real = jP._get_full_scan_fn
 
-            def full_scan(cg, real=real, seq=seq):
+            def full_scan(cg):
                 fn = real(cg)
 
                 def logged(state, ev_stack, inputs):
@@ -131,21 +124,51 @@ def test_detuned_banks_takes_the_jax_partition(monkeypatch):
 
                 return logged
 
-            monkeypatch.setattr(jP, "_get_full_scan_fn", full_scan)
-        outs[m] = np.asarray(proc.render(frames=FRAMES))
-        monkeypatch.undo()
-    assert seqs[kt] == seqs[jk]
-    assert ("full", 1) in seqs[kt] and any(p in ("super", "scan") for p, _ in seqs[kt])
-    assert float(np.abs(outs[kt] - outs[jk]).max()) <= GOLDEN_GATE
+            mp.setattr(jP, "_get_full_scan_fn", full_scan)
+        return seq, np.asarray(proc.render(frames=FRAMES))
 
 
-def test_superblocks_against_per_block():
+@pytest.fixture(scope="module")
+def f32_renders():
+    """The port's and the JAX package's f32 renders with their sequences,
+    made once for the tests of this module that read them."""
+    return {m: _spied_render(m, dtype) for m, dtype in ((jk, np.float32), (kt, torch.float32))}
+
+
+@pytest.fixture(scope="module")
+def port_f64():
+    """The port's superblocked f64 render, made once."""
+    return detuned_banks(kt, torch.float64).render(frames=FRAMES)
+
+
+@pytest.mark.parametrize("dtype,name", [(torch.float32, "f32"), (torch.float64, "f64")])
+def test_detuned_banks_meets_golden(dtype, name, request):
+    audio = (request.getfixturevalue("f32_renders")[kt][1] if name == "f32"
+             else request.getfixturevalue("port_f64"))
+    ref, sr = read_flac(os.path.join(GOLDEN_DIR, f"detuned_banks_{name}.flac"))
+    assert sr == SR and ref.shape == audio.shape
+    assert audio.dtype == (np.float32 if name == "f32" else np.float64)
+    assert float(np.abs(audio.astype(np.float32) - ref).max()) <= GOLDEN_GATE
+    assert np.abs(ref).max() > 0.1
+
+
+def test_detuned_banks_takes_the_jax_partition(f32_renders):
+    """The same (program, length) sequence as the JAX processor: eventful
+    blocks one by one, each event-free run as superblocks; and the port's
+    render within the gate of the JAX render made here."""
+    (jseq, jout), (seq, out) = f32_renders[jk], f32_renders[kt]
+    assert seq == jseq
+    assert ("full", 1) in seq and any(p in ("super", "scan") for p, _ in seq)
+    assert float(np.abs(out - jout).max()) <= GOLDEN_GATE
+
+
+def test_superblocks_against_per_block(port_f64):
     """At f64: the superblocked render within ``CROSSING`` of the per-block
     one, and the port's per-block render within ``F64_TOL`` of the JAX
     package's per-block render (module docstring)."""
     import jax
 
-    sup = detuned_banks(kt, torch.float64).render(frames=FRAMES)
+    sup = port_f64
     per = detuned_banks(kt, torch.float64, render_chunk_blocks=1).render(frames=FRAMES)
     err = np.abs(sup - per)
     assert float(err.max()) <= CROSSING and float(err.max()) > 0

@@ -6,7 +6,7 @@ port, and a JAX render's state carried into the port mid-render.
   prime loop lengths, OnePoleLpf damping, a Hadamard feedback mix over
   feedback edges, Galactic on the stereo taps), rendered 1 s at f32 and
   f64 on the CPU and held to the golden gate 1e-6 + 2^-23 against the
-  fixtures (read with the JAX package's codec). Measured 6.7e-8 (f32) and
+  fixtures (read with the port's codec). Measured 6.7e-8 (f32) and
   6.0e-8 (f64): the allpass interpolators' and Galactic's affine scans in
   the port's Hillis-Steele association stay far inside the gate, so no
   second association is needed. Galactic takes its seed from the global
@@ -28,7 +28,7 @@ import torch
 import knaster_tpu as jk
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
-from knaster_tpu.utils.codec import read_flac
+from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
 
 SR = 48000

@@ -15,7 +15,7 @@ Each scenario is written once over a module (``knaster_tpu`` or
   the other (they differ by an ulp at some table indices): within 1e-6.
 
 ``readme_sine`` at f32 and f64 meets its golden fixtures (read with the
-JAX package's codec) at the golden gate, 1e-6 + 2^-23. ``convert`` carries a
+port's codec) at the golden gate, 1e-6 + 2^-23. ``convert`` carries a
 JAX compiled graph's state (batched groups and chain stacks included) into
 the port, which then renders on exactly as the JAX graph does.
 """
@@ -30,7 +30,7 @@ import torch
 
 import knaster_tpu as jk
 import knaster_tpu_torch as kt
-from knaster_tpu.utils.codec import read_flac
+from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
 from tests.utils import TestInPlusParamUGen as JaxInPlusParam
 from tests.utils import TestNumUGen as JaxNum

@@ -45,7 +45,7 @@ import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
 import knaster_tpu_torch.graph.chain_kernel as tck
-from knaster_tpu.utils.codec import read_flac
+from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
 from knaster_tpu_torch.core.dsp import cumsum_base16
 from knaster_tpu_torch.kernels import chain_kernel as kck

@@ -24,7 +24,7 @@ kernel's plain path.
   carries those roundings: measured 1.25e-6 at 0.62 of a 1.26 peak; the
   other chains 7.2e-7 or less (Pan2, peak 2.7), the PolyBlep cascade 0.
 - Golden ``subtractive_voice`` at f32 and f64 through the port, at the
-  golden gate 1e-6 + 2^-23 (fixtures read with the JAX package's codec).
+  golden gate 1e-6 + 2^-23 (fixtures read with the port's codec).
 - ``convert`` carries these units' state (batched groups with two-word
   SVF state, chain stacks) from a JAX graph into the port.
 """
@@ -42,7 +42,7 @@ import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
 import knaster_tpu_torch.graph.chain_kernel as tck
-from knaster_tpu.utils.codec import read_flac
+from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
 
 SR = 48000
