@@ -161,7 +161,24 @@ result line):
    ``set_after`` hits). Each superblocked over 1 s (the drums over their
    bar) against its per-block render of the first 0.25 s and that against
    the port's CPU render of its first blocks, within stated gates;
-   voice-samples/s or realtime x, kernels a block and the busy share;
+   voice-samples/s or realtime x, kernels a block and the busy share.
+   Then the live path (``phase_live``): the four scenarios of the JAX
+   package's realtime soak at its sizes (``tools/realtime_soak.py``:
+   ``bank``, 131,072 sine voices; ``cascade``, 256 modulated ``SinWt``;
+   ``ir``, a 2 s convolver; ``edit``, 64 sines restructured live), each
+   warmed as a stream warms it and bounced over two scripted 64-block
+   chunks (the programs each chunk took printed; the sine kernel's
+   eventful 1024-sample superblocks and its other eventful and first
+   event-free calls against its plain version on the card; the cascade's
+   chain kernel, a float-event block 0 included, bit-equal to the scan
+   executor and within LIVE_FM_GATE of the CPU; ``ir`` and ``edit``
+   within LIVE_CPU_GATE of the CPU), then streamed through
+   ``StreamBackend`` for LIVE_SECONDS with live control: one JSON row
+   each (underruns, the ring's frames against the wall, the peak,
+   startup, chunk ms, the busy share of a profiled second, edit to
+   audible), the ring at least LIVE_WRITTEN of real time, every edit
+   heard, no thread failed; and the bank's state saved, loaded into a
+   fresh processor and rendered on bit-equal;
 5. timings and profile — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
@@ -186,7 +203,10 @@ result line):
    the parent design's ms from one call on the card (PARENT_CHAIN_MS; the
    FM cascade's at the superblock length also with its rows in the global
    workspace), and at the superblock length the
-   profiler's device time and plain ms. Every kernel row carries its bound (the larger of its bytes
+   profiler's device time and plain ms; and the live path's two rows,
+   the sine kernel on an eventful 1024-sample superblock of ``bank`` and
+   the chain kernel on ``cascade``'s float-event block, each with its
+   launches in the soak. Every kernel row carries its bound (the larger of its bytes
    over HBM bandwidth and its f32 operations over the unfused f32 peak),
    at the superblock length.
 
@@ -3646,6 +3666,394 @@ def phase_buffers(torch, np, kt, dev, card):
               + f"; no kernel of the port on its path ({time.perf_counter() - t_cfg:.1f} s)")
 
 
+# --------------------------------------------------------------------------
+# the live path: StreamBackend, async recompile, the stream-warmed programs
+# --------------------------------------------------------------------------
+
+LIVE_CHUNK = 64  # benchmarks/realtime_soak.py's chunk (SOAK_CHUNK), in blocks
+LIVE_SECONDS = 8.0  # each scenario's soak: wall seconds of live control
+LIVE_CPU_GATE = 1e-6  # the card against the port's CPU render, x max(1, peak)
+# the cascade's: each stage's output sets the next stage's u32 increment,
+# and the card's sinf differs from the CPU's by an ulp on some inputs (PR
+# 12's detuned_banks finding), which 255 FM stages amplify; the chain
+# kernel is held bit-equal to the scan executor on the card instead
+LIVE_FM_GATE = 1e-3
+LIVE_WRITTEN = 0.8  # the ring's frames_written >= this x wall x 48 kHz
+LIVE_FREE_CHECKS = 4  # event-free sine-kernel calls held against the plain version
+LIVE_CHECKPOINT_BLOCKS = 16
+LIVE_PROGRAMS = (("get_evchunk_fn", "evchunk"), ("get_float_evchunk_fn", "float_evchunk"),
+                 ("get_float_fn", "float"), ("get_full_super_fn", "full_super"),
+                 ("get_full_super_scan_fn", "full_super_scan"), ("get_full_scan_fn", "full_scan"),
+                 ("get_super_fn", "super"), ("get_super_scan_fn", "super_scan"),
+                 ("get_scan_fn", "scan"))
+
+
+def soak_module():
+    """tools/realtime_soak.py, the port's soak loop."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import realtime_soak
+
+    return realtime_soak
+
+
+class ProgramLog:
+    """Within ``with``, each program the runner calls appends its name (the
+    processor module's getters wrapped); ``names`` is the list."""
+
+    def __init__(self):
+        import knaster_tpu_torch.graph.processor as tP
+
+        self.module, self.names, self.saved = tP, [], {}
+
+    def __enter__(self):
+        for attr, name in LIVE_PROGRAMS:
+            orig = self.saved[attr] = getattr(self.module, attr)
+
+            def getter(*a, _orig=orig, _name=name, **k):
+                fn = _orig(*a, **k)
+                if fn is None:
+                    return None
+
+                def call(*x, **y):
+                    self.names.append(_name)
+                    return fn(*x, **y)
+
+                return call
+
+            setattr(self.module, attr, getter)
+        return self
+
+    def __exit__(self, *exc):
+        for attr, orig in self.saved.items():
+            setattr(self.module, attr, orig)
+
+
+def build_programs_like(proc, like):
+    """Build, without running them, the programs of the compile ``like``
+    (a warmed one) on ``proc``'s own compile: a reference render then takes
+    the warmed render's partition for a fraction of the warm's time."""
+    from knaster_tpu_torch.graph import compile as C
+
+    proc._ensure_compiled()
+    cg = proc.compiled
+    for key in like.super_fns:
+        if isinstance(key, int):
+            C.get_super_fn(cg, key)
+        elif key[0] == "full":
+            C.get_full_super_fn(cg, key[1])
+        else:
+            C.get_full_super_scan_fn(cg, key[1])
+    for n in like.evchunk_fns:
+        C.get_evchunk_fn(cg, n)
+    for key in like.float_fns:
+        C.get_float_fn(cg) if key == 1 else C.get_float_evchunk_fn(cg, int(key[2:]))
+    cg.full_scan_warm |= like.full_scan_warm
+
+
+def live_processor(kt, rs, dev, scenario, like=None):
+    """The soak's graph and processor on ``dev``, warmed as the stream warms
+    it (``warm_for_stream`` at the soak's chunk), or given the programs of
+    the warmed compile ``like``; returns (graph, processor, handles, the
+    seeded rng the script goes on drawing from)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    g, proc = rs.processor(kt, dev)
+    handles = g.edit(lambda gg: rs.build(kt, gg, scenario, rng))
+    if like is None:
+        proc.warm_for_stream(LIVE_CHUNK)
+    else:
+        build_programs_like(proc, like)
+    return g, proc, handles, rng
+
+
+def live_script(kt, scenario, g, handles, rng):
+    """The scenario's events for the warmed bounce, one callable a chunk,
+    at fixed seeded frames: asap batches land in block 0 of the next chunk
+    (the eventful-chunk programs), ``*_at`` inside a chunk (the eventful
+    superblock, or for the capped bank the loop of eventful 16-block
+    superblocks)."""
+    C = LIVE_CHUNK * BLOCK
+
+    def at(n):
+        return kt.Seconds.from_samples(int(n), SR)
+
+    if scenario == "bank":
+        trig, rel, freq = (handles.voice_param(n) for n in ("t_restart", "t_release", "freq"))
+
+        def c0():
+            for v in range(64):
+                trig.trig(v)
+            for v in range(8):
+                freq.set(v, float(rng.uniform(200, 2000)))
+
+        def c1():
+            frames = rng.integers(C, 2 * C, 136)
+            for i in range(64):
+                trig.trig_at(64 + i, at(frames[i]))
+                rel.trig_at(i, at(frames[64 + i]))
+            for i in range(8):
+                freq.set_at(64 + i, float(rng.uniform(200, 2000)), at(frames[128 + i]))
+
+        return [c0, c1]
+    if scenario == "cascade":
+        def c0():  # a float batch: the chain kernel's float-event block
+            handles[0].param("freq").set(float(rng.uniform(80, 160)))
+
+        def c1():
+            handles[0].param("freq").set_at(float(rng.uniform(80, 160)),
+                                            at(C + int(rng.integers(0, C))))
+            handles[17 % len(handles)].param("reset_phase").trig_at(
+                at(C + int(rng.integers(0, C))))
+
+        return [c0, c1]
+    if scenario == "ir":
+        dw = handles.param("dry_wet")
+
+        def chunk(c):
+            def go():
+                for _ in range(4):
+                    dw.set_at(float(rng.uniform(0.1, 0.9)), at(c * C + int(rng.integers(0, C))))
+            return go
+
+        return [chunk(0), chunk(1)]
+
+    def c1():  # a push and a free between the chunks (a synchronous recompile)
+        def push_one(gg):
+            s = gg.push(kt.SinWt(float(rng.uniform(150, 2000))))
+            (s * 0.002).to_graph_out()
+
+        g.edit(push_one)
+        g.edit(lambda gg: handles[0].free())
+
+    return [lambda: None, c1]
+
+
+class SineCheck:
+    """The live bank's kernel wrapper, replaced: a call whose block is
+    eventful, and the first LIVE_FREE_CHECKS event-free ones, also run the
+    plain version on copies of their operands, on the card; state must be
+    bit-equal and the mix within ``mix_tolerance``. Keeps the first
+    eventful superblock call's operands (for its timing)."""
+
+    def __init__(self, torch, mod):
+        self.torch, self.mod = torch, mod
+        self.err, self.checked, self.free, self.superblock_ops = 0.0, [], 0, None
+
+    def __call__(self, **ops):
+        torch = self.torch
+        eventful = ops["rounds"] is not None
+        check = eventful or self.free < LIVE_FREE_CHECKS
+        self.free += not eventful
+        copy = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in ops.items()}
+        if eventful and ops["block_size"] > BLOCK and self.superblock_ops is None:
+            self.superblock_ops = copy
+        ref = self.mod.sine_bank_plain(**copy) if check else None
+        out = self.mod.sine_bank(**ops)
+        if check:
+            label = f"live bank, {'eventful' if eventful else 'event-free'} B={ops['block_size']}"
+            for n, (a, b) in enumerate(zip(out[1:], ref[1:])):
+                if not torch.equal(bits(a), bits(b)):
+                    fail(f"{label}: state output {n} differs from the plain version")
+            err = float((out[0] - ref[0]).abs().max())
+            peak = float(ref[0].abs().max())
+            if not bool(torch.isfinite(out[0]).all()) or err > mix_tolerance(N_VOICES, peak):
+                fail(f"{label}: mix differs from the plain version by {err} (peak {peak})")
+            self.err = max(self.err, err)
+            self.checked.append((eventful, ops["block_size"]))
+        return out
+
+
+class ChainSpy:
+    """``kernels.chain_kernel.chain_kernel`` wrapped within ``with``: keeps
+    the first call's (program, operands) at the native block."""
+
+    def __init__(self):
+        self.kck, self.first = stage_module("chain_kernel"), None
+
+    def __enter__(self):
+        real = self.real = self.kck.chain_kernel
+
+        def spy(program, **ops):
+            if self.first is None and ops["block_size"] == BLOCK:
+                self.first = (program, ops)
+            return real(program, **ops)
+
+        self.kck.chain_kernel = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.kck.chain_kernel = self.real
+
+
+def live_bounce(torch, kt, rs, dev, scenario, chain_mode=None, like=None):
+    """The warmed bounce of ``scenario`` on ``dev`` (or one given the
+    programs of ``like``): its two scripted chunks through ``render`` (the
+    stream's call), no threads. Returns (audio [2, 2 * 64 * B] numpy, the
+    programs each chunk took, the warmed compile)."""
+    import knaster_tpu_torch.graph.chain_kernel as tck
+
+    saved, tck._MODE = tck._MODE, chain_mode
+    try:
+        g, proc, handles, rng = live_processor(kt, rs, dev, scenario, like)
+        warmed = proc.compiled
+        outs, programs = [], []
+        for events in live_script(kt, scenario, g, handles, rng):
+            events()
+            with ProgramLog() as log:
+                outs.append(proc.render(frames=LIVE_CHUNK * BLOCK, fetch=False))
+            programs.append(log.names or ["blocks"])
+        audio = torch.cat(outs, dim=1).cpu().numpy()
+    finally:
+        tck._MODE = saved
+    return audio, programs, warmed
+
+
+def phase_live(torch, np, kt, dev, card):
+    """The live path on the card (``StreamBackend``, async recompile, the
+    stream-warmed programs, checkpoints), driven by the JAX package's
+    realtime soak's four scenarios at their sizes (tools/realtime_soak.py).
+
+    (a) The warmed bounce: each scenario warmed as a stream warms it, then
+    two scripted 64-block chunks through ``render`` with no threads; prints
+    the programs each chunk took and the kernels' launches. ``bank``: every
+    eventful call of the sine kernel (the eventful block 0 at B = 64, the
+    eventful 1024-sample superblocks) and the first event-free ones held
+    against the plain version on the card. ``cascade``: the chain kernel's
+    render (its float-event block 0 included) bit-equal to the scan
+    executor's (``_MODE = "0"``), and against the port's CPU render
+    (LIVE_FM_GATE); ``ir`` and ``edit`` against the port's CPU render
+    (LIVE_CPU_GATE).
+    (b) The live soak: each scenario streamed LIVE_SECONDS with its control
+    loop; one JSON row each; the ring's frames_written at least
+    LIVE_WRITTEN x wall x 48 kHz, the peak finite and above zero, every edit
+    heard, no thread failed; underruns reported, not gated.
+    (c) After ``bank``: ``save_state``, ``load_state`` into a fresh
+    processor, LIVE_CHECKPOINT_BLOCKS blocks bit-equal to the original's
+    next ones. Returns the kernels line's two live rows."""
+    import tempfile
+
+    from knaster_tpu_torch.kernels import sine_bank
+
+    rs = soak_module()
+    kck = stage_module("chain_kernel")
+    rows = {}
+    # (a) the warmed bounce
+    check = SineCheck(torch, sine_bank)
+    for scenario in rs.SCENARIOS:
+        t0 = time.perf_counter()
+        reset_all_counts()
+        if scenario == "bank":
+            g, proc, handles, rng = live_processor(kt, rs, dev, scenario)
+            proc.compiled.entries[handles.node_id].ugen.kernel = check
+            programs = []
+            for events in live_script(kt, scenario, g, handles, rng):
+                events()
+                with ProgramLog() as log:
+                    proc.render(frames=LIVE_CHUNK * BLOCK, fetch=False)
+                programs.append(log.names or ["blocks"])
+            counts = read_all_counts()
+            if not any(e and b == 16 * BLOCK for e, b in check.checked):
+                fail(f"live bank: no eventful 1024-sample superblock was checked: "
+                     f"{check.checked}")
+            gap = f"the sine kernel vs plain over {len(check.checked)} calls {check.err:.3e}"
+        else:
+            with ChainSpy() as spy:
+                audio, programs, warmed = live_bounce(torch, kt, rs, dev, scenario)
+            counts = read_all_counts()
+            cpu, cpu_programs, _ = live_bounce(torch, kt, rs, "cpu", scenario, like=warmed)
+            if cpu_programs != programs and scenario != "cascade":
+                fail(f"live {scenario}: the CPU took {cpu_programs}, the card {programs}")
+            peak = float(np.abs(audio).max())
+            err = float(np.abs(audio - cpu).max())
+            gate = (LIVE_FM_GATE if scenario == "cascade" else LIVE_CPU_GATE) * max(1.0, peak)
+            if not np.isfinite(audio).all() or err > gate:
+                fail(f"live {scenario}: card vs CPU {err} (peak {peak}, gate {gate})")
+            gap = f"card vs CPU {err:.3e} (peak {peak:.4g}, gate {gate:.1e})"
+            if scenario == "cascade":
+                scan, scan_programs, _ = live_bounce(torch, kt, rs, dev, scenario, "0",
+                                                     like=warmed)
+                if not np.array_equal(bits(torch.from_numpy(audio)),
+                                      bits(torch.from_numpy(scan))):
+                    fail("live cascade: the chain kernel's render differs from the scan "
+                         f"executor's by {float(np.abs(audio - scan).max())}")
+                if programs[0] != ["float_evchunk"] or counts["chain_kernel"] == 0:
+                    fail(f"live cascade: block 0's float batch took {programs[0]} with "
+                         f"{counts['chain_kernel']} chain kernel launches")
+                chain_call = spy.first
+                gap += (f"; the chain kernel bit-equal to the scan executor over "
+                        f"{2 * LIVE_CHUNK} blocks (the scan executor took {scan_programs})")
+        print(f"live bounce {scenario} on {card}: chunks took {programs}; {gap} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        print(f"live bounce {scenario} launches (its warm included): "
+              f"{ {k: n for k, n in counts.items() if n} }")
+    # (b) the live soak, and (c) the checkpoint after bank
+    live_counts = {}
+    for scenario in rs.SCENARIOS:
+        reset_all_counts()
+        row, proc = rs.soak(kt, torch, scenario, LIVE_SECONDS, dev)
+        live_counts[scenario] = read_all_counts()
+        row["card"] = card
+        row["launches"] = {k: n for k, n in live_counts[scenario].items() if n}
+        print(json.dumps(row))
+        floor = LIVE_WRITTEN * row["wall_s"] * SR
+        if row["frames_written"] < floor:
+            fail(f"live {scenario}: the ring took {row['frames_written']} frames in "
+                 f"{row['wall_s']:.2f} s (floor {floor:.0f})")
+        if not (math.isfinite(row["peak"]) and row["peak"] > 0):
+            fail(f"live {scenario}: peak {row['peak']}")
+        if scenario == "edit" and (row["edits_not_audible"] or not row["edits"]):
+            fail(f"live edit: {row['edits_not_audible']} of {row['edits']} edits never "
+                 "became audible")
+        if scenario == "bank":
+            proc.render(frames=LIVE_CHUNK * BLOCK)  # what the control loop queued last
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "bank.ckpt")
+                proc.save_state(path)
+                g2, fresh = rs.processor(kt, dev)
+                g2.edit(lambda gg: rs.build(kt, gg, "bank", np.random.default_rng(0)))
+                fresh.load_state(path)
+            n = LIVE_CHECKPOINT_BLOCKS * BLOCK
+            a = proc.render(frames=n, fetch=False)
+            b = fresh.render(frames=n, fetch=False)
+            if not torch.equal(bits(a), bits(b)):
+                fail(f"live checkpoint: the restored bank differs by "
+                     f"{float((a - b).abs().max())}")
+            print(f"live checkpoint on {card}: {LIVE_CHECKPOINT_BLOCKS} blocks after "
+                  f"load_state bit-equal to the original's (peak {float(a.abs().max()):.4g})")
+    for scenario, name in (("bank", "sine_bank"), ("cascade", "chain_kernel")):
+        if not live_counts[scenario][name]:
+            fail(f"live {scenario}: {name} never launched in the soak")
+    # the two kernels at the live path's shapes
+    mod = sine_bank
+    ops = check.superblock_ops
+    B = ops["block_size"]
+    outs = mod.empty_outputs(ops["phase"], B)
+    ms = time_graph(torch, lambda: mod.launch(outs, **ops), 20)
+    plain_ms = time_call(torch, lambda: mod.sine_bank_plain(**ops), 1)
+    D = ops["rounds"].shape[2]
+    per_sample = OPS_PER_SAMPLE["sine_bank"] + 15 * D
+    b_ms, b_by = bound(tensor_bytes(ops, written(mod, outs)), per_sample * N_VOICES * B)
+    print(f"timing sine_bank live eventful superblock V={N_VOICES} B={B} D={D} on {card}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{per_sample} f32 operations a voice-sample: the general count and 15 a "
+          "breakpoint round)")
+    rows["sine_bank"] = kernel_row("sine_bank", live_counts["bank"]["sine_bank"], check.err,
+                                   ms, plain_ms, b_ms, b_by, label="sine_bank:live_bank")
+    program, cops = chain_call
+    outs = kck.empty_outputs(program, dev, cops["K"], cops["block_size"])
+    ms = time_call(torch, lambda: kck.launch(outs, program, **cops), 200)
+    plain_ms = time_call(torch, lambda: kck.chain_kernel_plain(program, **cops), 3)
+    b_ms, b_by = chain_bound(program, cops)
+    print(f"timing chain_kernel live float-event block K={cops['K']} B={cops['block_size']} "
+          f"on {card}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+          f"({b_by})")
+    rows["chain_kernel"] = kernel_row(
+        "chain_kernel", live_counts["cascade"]["chain_kernel"], 0.0, ms, plain_ms, b_ms,
+        b_by, label="chain_kernel:live_cascade")
+    return rows
+
+
 def phase_family_timings(torch, ktt, kind, bank, state, card):
     """The generic kernel with the Envelope or Modal body, event-free from
     the slice's state, at B in {64, 1024} (CUDA events over back-to-back
@@ -3841,6 +4249,7 @@ def main():
     lap(phase_detuned_banks, torch, np, ktt, dev, card)
     lap(phase_vmap_banks, torch, np, ktt, dev, card)
     lap(phase_buffers, torch, np, ktt, dev, card)
+    live_rows = lap(phase_live, torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -3885,6 +4294,7 @@ def main():
     for path, row in phase_chain_path_timings(torch, ktt, dev, card, paths).items():
         table.append(kernel_row("chain_kernel", path_launches[path], path_errs[path],
                                 *row, label=f"chain_kernel:{path}"))
+    table.extend(live_rows.values())
     print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -14,7 +14,11 @@ axis) and the fused voice banks; every bank is a graph node (per-voice
 control through ``Handle.voice_param``, allocation through ``VoicePool``).
 Recorded audio: ``Buffer`` (``Buffer.from_sound_file``: wav, ogg, flac,
 mp3 through ``utils/codec.py``), ``BufferReader``, ``SamplerVoice``,
-``GrainPlayer`` and ``Convolver``.
+``GrainPlayer`` and ``Convolver``. The live path: ``StreamBackend`` (a
+graph edited while it plays, over the native ring of
+``backends/native.py``, with async recompile), ``OfflineBackend``,
+``LogProbe`` and ``rt_log`` (``core/log.py``), ``inspect``/``to_dot`` and
+``AudioProcessor.save_state``/``load_state``.
 The README example::
 
     import knaster_tpu_torch as kt
@@ -47,9 +51,12 @@ state lies on the device its ``init`` is given.
 """
 
 from .airwindows.galactic import Galactic
+from .backends import AudioBackend, OfflineBackend, StreamBackend
+from .core.log import ArLogReceiver, ArLogSender, rt_log
 from .core.ugen import AudioCtx, UGen
 from .graph.graph import CircularConnection, Done, Graph, GraphError, NodeFreed
 from .graph.handles import Handle, Parameter, Source, VoiceParameter
+from .graph.inspection import inspect, node_handles, to_dot
 from .graph.processor import AudioProcessor, AudioProcessorOptions
 from .graph.scheduling import SchedulingToken, Time
 from .models.voices import (AdditiveVoice, EnvelopeVoice, FMCascade, FMVoice,
@@ -97,7 +104,7 @@ from .ugens.osc import Phasor, SinNumeric, SinWt
 from .ugens.pan import Pan2
 from .ugens.physical import PluckedString
 from .ugens.polyblep import PolyBlep, Waveform
-from .ugens.util import Constant
+from .ugens.util import Constant, LogProbe
 from .ugens.wavetable import NonAaWavetable, harmonics_from_table
 from .utils.codec import read_sound_file, write_flac, write_mp3, write_ogg
 
@@ -122,6 +129,16 @@ __all__ = [
     "SinNumeric",
     "Phasor",
     "Constant",
+    "LogProbe",
+    "rt_log",
+    "ArLogReceiver",
+    "ArLogSender",
+    "AudioBackend",
+    "OfflineBackend",
+    "StreamBackend",
+    "inspect",
+    "node_handles",
+    "to_dot",
     "MathUGen",
     "Math1UGen",
     "PolyBlep",

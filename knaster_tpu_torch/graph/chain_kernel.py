@@ -218,10 +218,12 @@ def run(cp, reps, ctx, state_stack, planes, plane_index, carry0, ext_rows, neede
             names.append((name, 1 if leaf.dim() == 1 else leaf.shape[1]))
         leaves.append(names)
     device = next(iter(carry0.values())).device  # a chain always has a carry
-    lowered = (cp.lowered or {}).get(str(device))
-    if lowered is None:
+    if cp.lowered is None:
+        cp.lowered = {}
+    lowered = cp.lowered.get(str(device))
+    if lowered is None:  # the plan's program, once per device (stage runs share it)
         lowered = lower(cp, reps, ctx, plane_index, list(ext_rows), needed, leaves)
-        cp.lowered = {**(cp.lowered or {}), str(device): lowered or False}
+        cp.lowered[str(device)] = lowered or False
     if not lowered:
         return None
     program, out_map, state_rows, done_map = lowered

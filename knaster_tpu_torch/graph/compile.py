@@ -11,8 +11,21 @@ block m*B (the JAX package's superblock fast program), for graphs that pass
 ``superblock_eligible``; ``get_super_scan_fn`` covers a run longer than the
 graph's cap as a loop of capped superblocks (a Python loop where the JAX
 package scans). ``processor.render`` splits a bounce into them as the JAX
-package does. The programs' caches, the eventful superblock, the
-eventful-chunk and the float-event programs are not ported.
+package does.
+
+The live path's programs, which a stream warms and a bounce then takes
+(``existing_only``): ``get_full_super_fn`` (the eventful renderer at m*B,
+event frames relative to the superblock), ``get_full_super_scan_fn`` (a
+loop of eventful k-superblocks for capped graphs), ``get_evchunk_fn``
+(an eventful block 0, then the event-free (n-1)-superblock, or a loop of
+``render_fast`` where the graph takes no superblock of that length), and
+the float-event programs ``get_float_fn`` / ``get_float_evchunk_fn``,
+whose collapsed chains stay on the chain kernel in blocks whose events
+carry no trigger. Each is a closure over renderers built once; "built"
+means the same here as "compiled" in the JAX package, so both take the
+same partition. The JAX package's program and plan caches exist to skip
+XLA compiles and are not ported: the port builds eagerly, and
+``init_state`` carries state as they do.
 
 The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 (``state_key``, ``group_key``, ``chain_key``) name the same nodes in both:
@@ -21,10 +34,12 @@ The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 * ``batch``: same-kind nodes at one dataflow depth, as ONE call with a
   leading batch axis (the JAX package's ``vmap``);
 * ``chain``: a collapsed run of K isomorphic units (``_find_chains``). On
-  the fast renderer it runs the chain kernel (``chain_kernel.run``: one
-  CUDA kernel for the whole stage loop, done rows included) when the
-  device is a card; the scan executor (a loop over the stages) runs where
-  the JAX package runs it: eventful blocks, f64, a unit with no body.
+  the fast and float-event renderers it runs the chain kernel
+  (``chain_kernel.run``: one CUDA kernel for the whole stage loop, done
+  rows included) when the device is a card; the scan executor (a loop over
+  the stages) runs where the JAX package runs it: eventful blocks, f64, a
+  unit with no body, except that in a block with triggers only the
+  stages they touch leave the kernel.
 
 * Additive connects: summed by the renderer.
 * A node with its own event channel (a fused voice bank) gets its events
@@ -38,7 +53,7 @@ The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -126,7 +141,13 @@ class CompiledGraph:
     # superblock in samples; the event-free renderers built at m * B
     superblock_ok: Optional[bool] = None
     superblock_max: float = math.inf
-    super_fns: Dict[int, Any] = field(default_factory=dict)
+    super_fns: Dict[Any, Any] = field(default_factory=dict)
+    # the live path's programs, built on request (``existing_only`` reads
+    # them without building): eventful chunks by length, the float-event
+    # programs, the chunk lengths whose whole-chunk full scan was warmed
+    evchunk_fns: Dict[int, Any] = field(default_factory=dict)
+    float_fns: Dict[Any, Any] = field(default_factory=dict)
+    full_scan_warm: set = field(default_factory=set)
 
     # ----------------------------------------------------- canonical keys
     def state_key(self, nid: int) -> str:
@@ -531,14 +552,27 @@ def superblock_eligible(cg: CompiledGraph) -> bool:
     return cg.superblock_ok
 
 
-def get_super_fn(cg: CompiledGraph, m: int):
+def _super_ok(cg: CompiledGraph, m: int) -> bool:
+    """The graph renders m > 1 blocks as one superblock."""
+    return m > 1 and _rest_ok(cg, m)
+
+
+def _rest_ok(cg: CompiledGraph, m: int) -> bool:
+    """The graph renders m blocks as one block of m*B (m = 1 included)."""
+    return superblock_eligible(cg) and m * cg.ctx.block_size <= cg.superblock_max
+
+
+def get_super_fn(cg: CompiledGraph, m: int, existing_only: bool = False):
     """The event-free renderer at block m*B: fn(state, inputs [in, m*B]) ->
     (state, out [ch, m*B], done_vec or None), or None when the graph is
-    superblock-ineligible or m*B exceeds its cap. Built at first use."""
-    if m <= 1 or not superblock_eligible(cg) or m * cg.ctx.block_size > cg.superblock_max:
+    superblock-ineligible or m*B exceeds its cap. Built at first use;
+    ``existing_only`` returns it only if it was built before."""
+    if not _super_ok(cg, m):
         return None
     fn = cg.super_fns.get(m)
     if fn is None:
+        if existing_only:
+            return None
         raw = _build_render(cg, fast=True, block_multiple=m)
         fn = cg.super_fns[m] = lambda state, inputs: raw(state, None, inputs)
     return fn
@@ -564,6 +598,161 @@ def get_super_scan_fn(cg: CompiledGraph, k: int):
         return state, torch.cat(outs, dim=1), done
 
     return loop
+
+
+def _or_done(a, b):
+    """The OR of two done vectors, either of which may be None."""
+    if a is None:
+        return b
+    return a if b is None else a | b
+
+
+def get_full_super_fn(cg: CompiledGraph, m: int, existing_only: bool = False):
+    """The eventful renderer at block m*B: fn(state, events, inputs [in,
+    m*B]) -> (state, out [ch, m*B], done_vec or None), or None where
+    ``get_super_fn`` is. Event frames are relative to the superblock start,
+    node event tensors span it, and the param engine stairs block-rate ramps
+    at the native blocks, so that it equals m native blocks of ``render``
+    (the JAX package's ``get_full_super_fn``)."""
+    if not _super_ok(cg, m):
+        return None
+    key = ("full", m)
+    fn = cg.super_fns.get(key)
+    if fn is None and not existing_only:
+        fn = cg.super_fns[key] = _build_render(cg, block_multiple=m)
+    return fn
+
+
+def get_full_super_scan_fn(cg: CompiledGraph, k: int, existing_only: bool = False):
+    """The eventful k-superblock renderer in a loop (the JAX package's scan
+    of it): fn(state, events [one event dict per k-superblock, frames
+    relative to its start], inputs [in, n*k*B]) -> (state, out [ch,
+    n*k*B], the OR of the done vectors or None), for graphs whose cap is
+    below the chunk. None where ``get_super_fn(cg, k)`` is."""
+    if not _super_ok(cg, k):
+        return None
+    key = ("full_scan", k)
+    fn = cg.super_fns.get(key)
+    if fn is None and not existing_only:
+        raw = _build_render(cg, block_multiple=k)
+        kB = k * cg.ctx.block_size
+
+        def fn(state, events, inputs):
+            outs, done = [], None
+            for i, ev in enumerate(events):
+                state, out, d = raw(state, ev, inputs[:, i * kB:(i + 1) * kB])
+                outs.append(out)
+                done = _or_done(done, d)
+            return state, torch.cat(outs, dim=1), done
+
+        cg.super_fns[key] = fn
+    return fn
+
+
+def chain_in_plan(cg: CompiledGraph) -> bool:
+    return any(kind == "chain" for kind, _ in cg.plan)
+
+
+def get_float_fn(cg: CompiledGraph, existing_only: bool = False):
+    """The float-event renderer fn(state, events, inputs) -> (state, out,
+    done_vec): ``render`` with collapsed chains still on the chain kernel,
+    exact for blocks whose events carry float and int sets and smoothing but
+    no trigger (the kernel reads no trigger plane; the host takes it only
+    for such blocks). None when the graph has no collapsed chain or the
+    chain kernel is off on its device."""
+    if not chain_kernel.enabled(cg.device) or not chain_in_plan(cg):
+        return None
+    fn = cg.float_fns.get(1)
+    if fn is None and not existing_only:
+        fn = cg.float_fns[1] = _build_render(cg, float_events=True)
+    return fn
+
+
+def _chunk_fn(first, rest):
+    """fn(state, events, in_first [in, B], in_rest [in, (n-1)*B]): block 0
+    through ``first``, the rest through ``rest`` -> (state, out [ch, n*B],
+    done_vec or None)."""
+    def chunk(state, events, in_first, in_rest):
+        state, out0, done0 = first(state, events, in_first)
+        state, out_rest, done1 = rest(state, None, in_rest)
+        return state, torch.cat([out0, out_rest], dim=1), _or_done(done0, done1)
+
+    return chunk
+
+
+def get_float_evchunk_fn(cg: CompiledGraph, n: int, existing_only: bool = False):
+    """``get_evchunk_fn``'s float-event sibling: block 0 through the
+    float-event renderer, the rest as one event-free (n-1)-superblock. None
+    where ``get_float_fn`` is, or where the graph takes no superblock of
+    n-1 blocks."""
+    if n < 2 or not chain_kernel.enabled(cg.device) or not chain_in_plan(cg):
+        return None
+    key = f"ev{n}"
+    fn = cg.float_fns.get(key)
+    if fn is None and not existing_only and _rest_ok(cg, n - 1):
+        fn = cg.float_fns[key] = _chunk_fn(
+            _build_render(cg, float_events=True),
+            _build_render(cg, fast=True, block_multiple=n - 1))
+    return fn
+
+
+def get_evchunk_fn(cg: CompiledGraph, n: int, existing_only: bool = False):
+    """The eventful chunk with its events in block 0 (an asap control
+    batch): fn(state, events, in_first [in, B], in_rest [in, (n-1)*B]) ->
+    (state, out [ch, n*B], done_vec or None). Block 0 renders through
+    ``render``, the rest as one event-free (n-1)-superblock, or, where the
+    graph takes none of that length (feedback edges, a cap), as n-1 blocks
+    of ``render_fast``."""
+    if n < 2:
+        return None
+    fn = cg.evchunk_fns.get(n)
+    if fn is None and not existing_only:
+        B = cg.ctx.block_size
+        if _rest_ok(cg, n - 1):
+            rest = _build_render(cg, fast=True, block_multiple=n - 1)
+        else:
+            def rest(state, _events, inputs):
+                outs, done = [], None
+                for i in range(n - 1):
+                    state, out, d = cg.render_fast(state, inputs[:, i * B:(i + 1) * B])
+                    outs.append(out)
+                    done = _or_done(done, d)
+                return state, torch.cat(outs, dim=1), done
+        fn = cg.evchunk_fns[n] = _chunk_fn(cg.render, rest)
+    return fn
+
+
+def get_full_scan_fn(cg: CompiledGraph):
+    """``render`` over n blocks in turn (the JAX package's full-program
+    scan): fn(state, events [one event dict per block], inputs [in, n*B])
+    -> (state, out [ch, n*B], the OR of the done vectors or None)."""
+    B = cg.ctx.block_size
+
+    def scan(state, events, inputs):
+        outs, done = [], None
+        for i, ev in enumerate(events):
+            state, out, d = cg.render(state, ev, inputs[:, i * B:(i + 1) * B])
+            outs.append(out)
+            done = _or_done(done, d)
+        return state, torch.cat(outs, dim=1), done
+
+    return scan
+
+
+def get_scan_fn(cg: CompiledGraph):
+    """``render_fast`` over the n blocks of inputs [in, n*B] in turn (the
+    JAX package's fast scan) -> (state, out [ch, n*B], done OR or None)."""
+    B = cg.ctx.block_size
+
+    def scan(state, inputs):
+        outs, done = [], None
+        for i in range(inputs.shape[-1] // B):
+            state, out, d = cg.render_fast(state, inputs[:, i * B:(i + 1) * B])
+            outs.append(out)
+            done = _or_done(done, d)
+        return state, torch.cat(outs, dim=1), done
+
+    return scan
 
 
 def _node_depths(cg: CompiledGraph) -> Dict[int, int]:
@@ -880,26 +1069,40 @@ def _instance_default(ugen, pidx: int):
     return spec.default_value()
 
 
-def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1):
+def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1,
+                  float_events: bool = False):
     """The block renderer ``render(state, events, graph_inputs) -> (state,
     out [outputs, B], done_vec)``. ``fast=True`` is the event-free variant:
-    params come straight from the ramp state, triggers are all false, and
-    collapsed chains try the chain kernel. ``done_vec`` is None unless the
-    graph has done actions or a node that frees the top-level graph.
+    params come straight from the ramp state and triggers are all false.
+    ``float_events=True`` is the eventful renderer whose collapsed chains
+    stay on the chain kernel, on the materialized per-sample param planes:
+    exact for events without triggers, the only blocks the host gives it.
+    Collapsed chains take the chain kernel where it is on (a card) in those
+    two; in the eventful renderer they take the scan executor, as in the
+    JAX package, but for a block with triggers (or retriggering int sets):
+    then only the stages those touch run on the scan executor, the runs of
+    stages between them (the whole chain where they touch none) on the
+    kernel (``_chain_stages``), bit-equal to the scan executor over the
+    whole chain. The port's eager scan executor costs ~45 launches a stage
+    (``tools/time_live_chunks.py``), too many for a live trigger in a long
+    chain. ``done_vec`` is None unless the graph has done actions or a node
+    that frees the top-level graph.
 
-    ``block_multiple`` m > 1 (with ``fast``) builds the superblock
-    renderer: the whole graph over one block of m*B samples, the param
-    engine stairing block-rate ramps at the native blocks, so that it
-    equals m native blocks wherever the nodes are block-length invariant
-    (every phase, scan and closed form is length-parametric; float sums
-    may reassociate).
+    ``block_multiple`` m > 1 builds the superblock renderer: the whole
+    graph over one block of m*B samples, the param engine stairing
+    block-rate ramps at the native blocks, so that it equals m native
+    blocks wherever the nodes are block-length invariant (every phase, scan
+    and closed form is length-parametric; float sums may reassociate).
+    Without ``fast`` it is the eventful superblock: event frames are
+    relative to its start.
 
     Everything that depends only on the graph (slot index tensors on the
     device, source lists) is worked out here, once; each call does the
     per-block tensor work."""
     m = int(block_multiple)
     B = cg.ctx.block_size * m
-    ctx = AudioCtx(cg.ctx.sample_rate, B, cg.ctx.dtype, no_events=True) if fast else cg.ctx
+    ctx = (AudioCtx(cg.ctx.sample_rate, B, cg.ctx.dtype, no_events=fast)
+           if fast or m > 1 else cg.ctx)
     engine = (PEngine(cg.layout, B, dtype=ctx.dtype, native_block=cg.ctx.block_size)
               if m > 1 else cg.engine)
     dtype = ctx.dtype
@@ -1003,12 +1206,26 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
             kernel_index = dict(plane_index)
             for i, (key, _idx_) in enumerate(int_idx):
                 kernel_index[key] = len(plane_index) + i
+            # the stage each trigger slot (and retriggering int slot) drives:
+            # an eventful block runs the stages they touch on the scan
+            # executor; runs of stages between them launch the kernel on a
+            # plan (``seg``) whose outputs include the carry
+            touch = {}
+            for j, rep in enumerate(reps):
+                for pidx, spec in enumerate(rep.params):
+                    for k, stage in enumerate(cp.stages):
+                        typ, slot = cg.layout.lookup(stage[j], pidx)
+                        if typ == "trigger":
+                            touch[("t", slot)] = k
+                        elif typ == "int" and getattr(spec, "retrigger", False):
+                            touch[("i", slot)] = k
+            needed = chain_kernel.needed_outputs(cg, cp)
+            seg = (replace(cp, lowered={}), needed | set(cp.carry_keys))
             steps.append(("chain", cp, reps,
                           (_idx(float_slots) if float_slots else None,
-                           plane_index, others,
-                           chain_kernel.needed_outputs(cg, cp),
+                           plane_index, others, needed,
                            chain_kernel.ext_descs(cp),
-                           [idx for _key, idx in int_idx], kernel_index)))
+                           [idx for _key, idx in int_idx], kernel_index, touch, seg)))
 
     # a UGen that branches on an int param per block (PolyBlep's waveform)
     # reads its values from the engine's host copy: no block waits on a
@@ -1020,6 +1237,9 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
     def render(state, events, graph_inputs):
         pe = state["pe"]
         pf = pt = pi = pset = None
+        # a block with triggers: each chain's stages its triggers leave
+        # alone take the kernel (``_chain_stages``)
+        trigger_block = not (fast or float_events) and bool((events["t_slot"] >= 0).any())
         # the compile's own engine keeps the host copy for every renderer
         ints_host = cg.engine.ints_at_block_start(pe, events) if wants_host else None
         if fast:
@@ -1163,7 +1383,7 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
                     done_parts.append(done.any(dim=1))
             else:
                 (_, cp, reps, (fidx, plane_index, others, needed, exts, int_idx,
-                               kernel_index)) = step
+                               kernel_index, touch, seg)) = step
                 K, p = len(cp.stages), cp.period
                 ckey = cg.chain_key(cp)
                 n_planes = len(plane_index)
@@ -1173,27 +1393,10 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
                     f"{dj}_{c}": read_source(*cp.carry_init[(dj, c)])
                     for (dj, c) in cp.carry_keys
                 }
-                res = None
-                if fast and chain_kernel.enabled(device):
-                    ext = {d: read_source(d[1], d[2], d[3]) for d in exts}
-                    kplanes = planes
-                    if int_idx:
-                        ints = torch.stack([rows_of("int", idx, K) for idx in int_idx])
-                        ints = ints.to(dtype)
-                        kplanes = ints if planes is None else torch.cat([planes, ints])
-                    res = chain_kernel.run(
-                        cp, reps, ctx, state["nodes"][ckey], kplanes, kernel_index,
-                        carry0, ext, needed=needed)
-                    if res is not None and track_done:
-                        # the kernel's done planes in the scan executor's
-                        # [K, p, B] layout
-                        no = torch.zeros((K, B), dtype=torch.bool, device=device)
-                        res = res[:2] + (torch.stack(
-                            [no if res[2][j] is None else res[2][j] for j in range(p)],
-                            dim=1),)
-                    elif res is not None:
-                        res = res[:2] + (None,)
-                if res is None:
+
+                def scan_params(planes=planes, plane_index=plane_index, others=others,
+                                p=p, K=K):
+                    """The scan executor's params: per offset {name: [K, B]}."""
                     par = [dict() for _ in range(p)]
                     for (j, name), pi_ in plane_index.items():
                         par[j][name] = planes[pi_]
@@ -1203,7 +1406,33 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
                             par[j][name + "_set"] = rows_of("set", idx, K)
                         if host is not None:
                             par[j][name + "_host"] = ints_host[host]
-                    res = _scan_chain(cp, reps, ctx, state["nodes"][ckey], par,
+                    return par
+
+                res = None
+                touched = () if fast or float_events else _touched_stages(touch, events)
+                if (fast or float_events or trigger_block or touched) and \
+                        chain_kernel.enabled(device):
+                    ext = {d: read_source(d[1], d[2], d[3]) for d in exts}
+                    kplanes = planes
+                    if int_idx:
+                        ints = torch.stack([rows_of("int", idx, K) for idx in int_idx])
+                        ints = ints.to(dtype)
+                        kplanes = ints if planes is None else torch.cat([planes, ints])
+                    if kplanes is not None:
+                        kplanes = kplanes.contiguous()  # a view of the materialized rows
+                    if touched:
+                        res = _chain_stages(cp, seg, reps, ctx, state["nodes"][ckey],
+                                            kplanes, kernel_index, carry0, ext, touched,
+                                            scan_params, read_source, track_done, device)
+                    else:
+                        res = chain_kernel.run(
+                            cp, reps, ctx, state["nodes"][ckey], kplanes, kernel_index,
+                            carry0, ext, needed=needed)
+                        if res is not None:
+                            res = res[:2] + (_done_stack(res[2], K, p, B, device)
+                                             if track_done else None,)
+                if res is None:
+                    res = _scan_chain(cp, reps, ctx, state["nodes"][ckey], scan_params(),
                                       carry0, read_source, track_done, device)
                 st_stack, outs_stack, chain_dones = res
                 new_nodes[ckey] = st_stack
@@ -1242,6 +1471,64 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
         return new_state, out_block, done_vec
 
     return render
+
+
+def _touched_stages(touch, events):
+    """The chain stages a block's trigger and int-set events drive."""
+    out = {touch.get(("t", int(s))) for s in events["t_slot"] if s >= 0}
+    out |= {touch.get(("i", int(s))) for s in events["i_slot"] if s >= 0}
+    out.discard(None)
+    return out
+
+
+def _done_stack(dones, n, p, B, device):
+    """The kernel's per-offset done rows ({j: [n, B] or None}) in the scan
+    executor's [n, p, B] layout."""
+    no = torch.zeros((n, B), dtype=torch.bool, device=device)
+    return torch.stack([no if dones[j] is None else dones[j] for j in range(p)], dim=1)
+
+
+def _chain_stages(cp, seg, reps, ctx, st_stack, kplanes, kernel_index, carry0, ext,
+                  touched, scan_params, read_source, track_done, device):
+    """A chain's block as runs of stages: each run of untouched stages one
+    chain-kernel launch, each run of ``touched`` ones the scan executor, the
+    carry of one run's last stage into the next. Returns what
+    ``_scan_chain`` returns, or None where the kernel takes no part of the
+    plan (the caller runs the scan executor)."""
+    K, p, B = len(cp.stages), cp.period, ctx.block_size
+    seg_cp, seg_needed = seg
+    runs = []
+    for k in range(K):
+        on_kernel = k not in touched
+        if runs and runs[-1][2] == on_kernel:
+            runs[-1][1] = k + 1
+        else:
+            runs.append([k, k + 1, on_kernel])
+    par = scan_params()
+    carry, states, outs, dones = carry0, [], [], []
+    for a, b, on_kernel in runs:
+        sub = replace(seg_cp, stages=cp.stages[a:b])  # shares the lowered cache
+        sub_st = {key: _tree_map(lambda x: x[a:b], v) for key, v in st_stack.items()}
+        if on_kernel:
+            r = chain_kernel.run(sub, reps, ctx, sub_st,
+                                 None if kplanes is None else kplanes[:, a:b].contiguous(),
+                                 kernel_index, carry, ext, needed=seg_needed)
+            if r is None:
+                return None
+            r = r[:2] + (_done_stack(r[2], b - a, p, B, device) if track_done else None,)
+        else:
+            sub_par = [{name: rows[a:b] for name, rows in pj.items()} for pj in par]
+            r = _scan_chain(sub, reps, ctx, sub_st, sub_par, carry, read_source,
+                            track_done, device)
+        states.append(r[0])
+        outs.append(r[1])
+        dones.append(r[2])
+        carry = {f"{dj}_{c}": r[1][dj][-1, c] for (dj, c) in cp.carry_keys}
+    new_states = {key: _tree_map(lambda *xs: torch.cat(xs), *(s[key] for s in states))
+                  for key in st_stack}
+    outs_stack = {j: None if any(o[j] is None for o in outs) else torch.cat([o[j] for o in outs])
+                  for j in range(p)}
+    return new_states, outs_stack, (torch.cat(dones) if track_done else None)
 
 
 def _scan_chain(cp, reps, ctx, st_stack, par, carry0, read_source, track_done,

@@ -138,6 +138,10 @@ class Graph:
         # abandoned list (CPython can switch threads between the attribute
         # load and the method call — the GIL does not make that atomic)
         self.event_lock = threading.Lock()
+        # held across an edit and across a compile's read of the structure,
+        # so a compile on another thread (async recompile) never sees half
+        # of an edit; one lock for the whole tree
+        self.edit_lock = parent.edit_lock if parent else threading.RLock()
         self._event_order = 0
         self.revision = 0  # bumped on every structural change
         self.clock = parent.clock if parent else _FrameClock()
@@ -181,9 +185,11 @@ class Graph:
 
     # ------------------------------------------------------------------ edit
     def edit(self, fn: Callable[["Graph"], Any]):
-        """Run ``fn(self)`` and commit (reference graph.rs:1410 Graph::edit)."""
-        result = fn(self)
-        self.commit()
+        """Run ``fn(self)`` and commit (reference graph.rs:1410 Graph::edit),
+        under the tree's ``edit_lock``."""
+        with self.edit_lock:
+            result = fn(self)
+            self.commit()
         return result
 
     def commit(self) -> None:

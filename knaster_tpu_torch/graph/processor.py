@@ -1,4 +1,4 @@
-"""Port of knaster_tpu/graph/processor.py: the block runner and offline render loop.
+"""Port of knaster_tpu/graph/processor.py: the block runner, the offline render loop and the live path's runner.
 
 ``AudioProcessor`` runs a Graph one block at a time (``run``) and bounces
 it offline (``render``). Graph edits are picked up between blocks: when
@@ -11,34 +11,65 @@ to "cuda" and raises where there is none. The CPU is taken only when the
 caller passes ``device="cpu"`` (the tests do); nothing falls back to it.
 
 ``render`` splits a bounce as the JAX package's does
-(knaster_tpu/graph/processor.py:841-1092, the paths an offline bounce
-takes): each chunk of ``render_chunk_blocks`` into runs of eventful and
-event-free blocks. Eventful blocks render one by one through ``render``
-(the JAX package's full scan is the same per-block program). Event-free
-runs are covered by lengths halving from the chunk: a length of 2 or more
-renders as one superblock (``compile.get_super_fn``) or, past the graph's
-cap, as a loop of capped superblocks (``get_super_scan_fn``); a length of 1,
-and every block of a superblock-ineligible graph, through ``render_fast``.
-Where collapsed chains run, they take the chain kernel on a card. Float
-sums such as ``SinNumeric``'s phase depend on the partition, so taking the
-JAX package's keeps the port on its reference's samples;
-``AudioProcessorOptions(render_chunk_blocks=1)`` renders block by block.
-The programs that the JAX bounce runs only once a stream has warmed them
-(``existing_only``: the eventful-chunk, eventful-superblock and float-event
-programs), async recompile, the streaming backend, probes and save/load
-are not ported yet.
+(knaster_tpu/graph/processor.py:841-1092): collect each chunk's events
+(``render_chunk_blocks`` blocks, 16 with done actions), then
+
+* events in block 0 only: one eventful-chunk program, the float-event one
+  (``get_float_evchunk_fn``) when block 0 carries no trigger, else
+  ``get_evchunk_fn``;
+* events anywhere: the eventful superblock over the whole chunk
+  (``get_full_super_fn``), else for capped graphs a loop of eventful
+  k-superblocks (``get_full_super_scan_fn``), else, for graphs without
+  superblocks, the whole chunk block by block when that chunk length was
+  warmed (``full_scan_warm``);
+* otherwise runs of eventful and event-free blocks: an event-free run of a
+  length already built renders as that one superblock; the rest in lengths
+  halving from the chunk, each of 2 or more blocks as one superblock or,
+  past the graph's cap, a loop of capped superblocks
+  (``get_super_scan_fn``); eventful blocks and single blocks one by one,
+  through ``render`` or, where ``run`` meets a trigger-free batch and the
+  float-event program exists, ``get_float_fn``.
+
+The first three take a program only if it exists (``existing_only``):
+``_warm_programs`` builds and executes them, as a stream's start and every
+async recompile do, and so does an earlier bounce that built the same
+length. The JAX package gates its bounce the same way, so the port takes
+its reference's partition before a stream and after one; float sums such
+as ``SinNumeric``'s phase depend on it. Collapsed chains take the chain
+kernel on a card in every event-free renderer and in the float-event
+programs, and in an eventful block whose triggers touch some of their
+stages, every stage but those (``compile._build_render``). ``AudioProcessorOptions(render_chunk_blocks=1)`` renders block by
+block.
+
+Live editing (``enable_async_recompile``, which ``StreamBackend`` turns
+on): an edit is compiled on a worker thread from a ``copy_state`` snapshot
+of the live state, every program the runner can take is warmed on copies
+(``_warm_programs``), and the result is published tagged with the revision
+it compiled; the runner swaps it in between blocks, carrying state as the
+synchronous path does, and drops a stale result. A failure in the worker is
+raised on the thread that swaps. The JAX package's undo-carry prewarm
+(``prewarm_undo_carry``, ``_pending_prewarm``) saves a jit compile of the
+reverse state carry; eager torch compiles nothing, so it is not ported.
+Probes (``probe_log``: every ``LogProbe`` in one device-to-host copy) and
+checkpoints (``save_state``/``load_state``) complete the live path.
 """
 
 from __future__ import annotations
 
+import collections
+import pickle
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .compile import (CompiledGraph, compile_graph, get_super_fn, get_super_scan_fn,
-                      resolve_device, superblock_eligible)
+from .compile import (CompiledGraph, _tree_map, compile_graph, get_evchunk_fn,
+                      get_float_evchunk_fn,
+                      get_float_fn, get_full_scan_fn, get_full_super_fn,
+                      get_full_super_scan_fn, get_scan_fn, get_super_fn,
+                      get_super_scan_fn, resolve_device, superblock_eligible)
 from .graph import Done, Graph
 from .scheduling import ScheduledEvent
 
@@ -62,11 +93,39 @@ class AudioProcessorOptions:
     sample_rate: int = 48000
     # max scheduled events applied per block (ring_buffer_size analog)
     event_capacity: int = 64
+    # capacity of a log channel (core/log.py ArLogReceiver.sender)
+    log_channel_capacity: int = 100
     # compiler: batch same-kind nodes at equal depth into one call
     auto_batch: bool = True
     # render: blocks whose events are collected (and slot-resolved) at once,
     # and the longest superblock; 1 renders block by block
     render_chunk_blocks: int = 128
+
+
+def copy_state(state):
+    """A deep copy of a state tree: every tensor leaf cloned on its device.
+    A warm renders on one, so the live state is never read by two renders
+    at once."""
+    return _tree_map(torch.clone, state)
+
+
+def _flatten(tree, path=()):
+    """[(path, leaf)] of nested dicts, in order; a path is the keys down to
+    the leaf."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _flatten(v, path + (k,))]
+    return [(path, tree)]
+
+
+def _unflatten(items):
+    """The nested dicts of ``_flatten``'s (path, leaf) pairs."""
+    root = {}
+    for path, leaf in items:
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return root
 
 
 class AudioProcessor:
@@ -84,6 +143,9 @@ class AudioProcessor:
         # leftover samples from a render() that wasn't block-aligned; the
         # next render() consumes them first so bounces are sample-continuous
         self._pending: Optional[np.ndarray] = None
+        # (revision, frame) of the latest async program swaps: the frame
+        # from which a live edit renders
+        self.swaps = collections.deque(maxlen=256)
 
     # ------------------------------------------------------------- factory
     @staticmethod
@@ -110,13 +172,168 @@ class AudioProcessor:
     def _ensure_compiled(self) -> None:
         if self.compiled is not None and self.compiled.revision == self.graph.revision:
             return
-        prev_compiled = self.compiled
-        prev_state = self.state
-        self.compiled = compile_graph(
-            self.graph, self.options.event_capacity, self.options.auto_batch,
-            device=self.device,
-        )
-        self.state = self.compiled.init_state(prev_state, prev_compiled)
+        if self._async_recompile and self.compiled is not None:
+            # live edits: keep rendering the old program while a worker
+            # compiles the new one; swap between blocks
+            self._kick_async_compile()
+            return
+        with self.graph.edit_lock:
+            compiled = compile_graph(
+                self.graph, self.options.event_capacity, self.options.auto_batch,
+                device=self.device,
+            )
+        self.state = compiled.init_state(self.state, self.compiled)
+        self.compiled = compiled
+
+    # -- async recompile (the streaming backend turns it on) ---------------
+    _async_recompile = False
+    _compile_thread = None
+    _compiled_next = None
+    _compile_error = None
+    # the event-free run lengths (blocks) the runner will take and the
+    # stream's chunk length: ``_warm_programs`` builds their programs
+    _warm_scan_lengths: Tuple[int, ...] = ()
+    _warm_chunk_len: int = 0
+
+    def enable_async_recompile(self, enabled: bool = True) -> None:
+        """Compile graph edits on a worker thread and swap between blocks,
+        so a running stream keeps playing the old program while the new
+        one is compiled and warmed."""
+        self._async_recompile = bool(enabled)
+
+    def join_background(self, timeout: float = 120.0) -> None:
+        """Wait for the compile worker; raise what it raised, if nothing
+        has yet."""
+        t = self._compile_thread
+        if t is not None and t.is_alive():
+            t.join(timeout=timeout)
+        self._raise_compile_error()
+
+    def _raise_compile_error(self) -> None:
+        err, self._compile_error = self._compile_error, None
+        if err is not None:
+            raise RuntimeError("async recompile failed in the worker") from err
+
+    def warm_for_stream(self, chunk_blocks: int) -> None:
+        """Warm what a stream of ``chunk_blocks``-block chunks takes: the
+        superblock of every power of two up to the chunk and the chunk's
+        eventful programs (``_warm_programs``), and record those lengths, so
+        that the async-recompile worker warms the same on every new
+        program (``StreamBackend.start_processing`` calls it)."""
+        self._ensure_compiled()
+        cap = min(int(chunk_blocks), self.options.render_chunk_blocks)
+        lengths, sub = [], 2
+        while sub <= cap:
+            lengths.append(sub)
+            sub *= 2
+        self._warm_scan_lengths = tuple(lengths)
+        self._warm_chunk_len = cap
+        self._warm_programs(self.compiled, self.state)
+
+    def _warm_programs(self, cg: CompiledGraph, base_state) -> None:
+        """Build and execute once, each on a ``copy_state`` copy of
+        ``base_state``, every renderer the runner can take: the two block
+        renderers, the superblock or block-loop of each of
+        ``_warm_scan_lengths``, and at the stream's chunk length the
+        eventful-chunk, float-event and eventful-superblock programs (the
+        JAX package's ``_warm_programs``, step for step, registering the
+        same lengths). Executing them builds what first use builds (the
+        kernel libraries, the chain kernel's program, cuBLAS's handle) off
+        the thread that renders. A loop of one renderer (the block loops,
+        the loop of capped superblocks) runs one step: its other steps run
+        nothing that step did not."""
+        B = self.graph.block_size
+        ev = cg.events_from_lists([], [], [], {})
+
+        def zeros(n_blocks):
+            return self._zero_inputs(n_blocks * B)
+
+        def cp():
+            return copy_state(base_state)
+
+        cg.render_fast(cp(), zeros(1))
+        cg.render(cp(), ev, zeros(1))
+        if self._warm_scan_lengths:
+            for sub in self._warm_scan_lengths:
+                super_fn = get_super_fn(cg, sub)
+                if super_fn is not None:
+                    super_fn(cp(), zeros(sub))
+                elif sub >= MIN_SCAN:
+                    get_scan_fn(cg)(cp(), zeros(1))
+                if sub >= MIN_SCAN:  # eventful runs below this go block by block
+                    get_full_scan_fn(cg)(cp(), [ev], zeros(1))
+                    cg.full_scan_warm.add(sub)
+            n = min(self._warm_chunk_len or max(self._warm_scan_lengths),
+                    self.options.render_chunk_blocks)
+            if cg.has_done_actions:
+                n = min(n, 16)
+            # the eventful chunk's event-free tail, also taken alone
+            tail = get_super_fn(cg, n - 1) if n - 1 >= 2 else None
+            if tail is not None:
+                tail(cp(), zeros(n - 1))
+            evfn = get_evchunk_fn(cg, n)
+            if evfn is not None:
+                evfn(cp(), ev, zeros(1), zeros(n - 1))
+            ffn = get_float_fn(cg)
+            if ffn is not None:
+                ffn(cp(), ev, zeros(1))
+                fev = get_float_evchunk_fn(cg, n)
+                if fev is not None:
+                    fev(cp(), ev, zeros(1), zeros(n - 1))
+            fsfn = get_full_super_fn(cg, n)
+            if fsfn is not None:
+                fsfn(cp(), ev, zeros(n))
+            else:
+                k = self._super_scan_k(n, cg)
+                ssfn = get_full_super_scan_fn(cg, k) if k >= 2 else None
+                if ssfn is not None:
+                    ssfn(cp(), [ev], zeros(k))
+                elif n >= 2:
+                    # no superblocks (feedback edges): the whole eventful
+                    # chunk block by block, at this length only
+                    get_full_scan_fn(cg)(cp(), [ev], zeros(1))
+                    cg.full_scan_warm.add(n)
+        if self.device.type == "cuda":
+            # a launch that failed surfaces here, on the warming thread
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _kick_async_compile(self) -> None:
+        """Swap in a finished compile of the current revision; else start a
+        worker unless one runs (a stale result is dropped and compiled
+        again). The worker's failure is raised here."""
+        self._raise_compile_error()
+        ready = self._compiled_next
+        if ready is not None and ready.revision == self.graph.revision:
+            # the swap between blocks, carrying state (TakeFromTask)
+            self.state = ready.init_state(self.state, self.compiled)
+            self.compiled = ready
+            self._compiled_next = None
+            self.swaps.append((ready.revision, self.graph.clock.frames))
+            return
+        if self._compile_thread is not None and self._compile_thread.is_alive():
+            return  # still compiling (maybe an older revision; kicked again after)
+        self._compiled_next = None
+        # a snapshot of the live state: the producer renders on while the
+        # worker warms, and the warm must not read what a render replaces
+        live_state = copy_state(self.state)
+        live_compiled = self.compiled
+
+        def worker():
+            try:
+                if self.device.type == "cuda":
+                    torch.cuda.set_device(self.device)
+                with self.graph.edit_lock:
+                    cg = compile_graph(self.graph, self.options.event_capacity,
+                                       self.options.auto_batch, device=self.device)
+                self._warm_programs(cg, cg.init_state(live_state, live_compiled))
+            except BaseException as exc:  # carried to the thread that swaps
+                self._compile_error = exc
+                return
+            self._compiled_next = cg
+
+        self._compile_thread = threading.Thread(target=worker, daemon=True,
+                                                name="knaster-compile")
+        self._compile_thread.start()
 
     def _collect_due_events(self, horizon_blocks: int = 1):
         """Pop events due within the next ``horizon_blocks`` blocks and
@@ -213,6 +430,29 @@ class AudioProcessor:
     def _events(self, lists):
         return self.compiled.events_from_lists(*lists)
 
+    def _merged_events_lists(self, per_block):
+        """The blocks' event lists merged into one set with frames relative
+        to the first block's start (the eventful superblock's), or None when
+        a merged list exceeds its capacity (a superblock holds the union of
+        its blocks; each block was capped alone)."""
+        B = self.graph.block_size
+        cap = self.compiled.event_capacity
+        fl, tl, il, nd = [], [], [], {}
+        for bi, (f, t, i, n) in enumerate(per_block):
+            off = bi * B
+            fl.extend((e[0] + off,) + tuple(e[1:]) for e in f)
+            tl.extend((e[0] + off, e[1]) for e in t)
+            il.extend((e[0] + off,) + tuple(e[1:]) for e in i)
+            for nid, evs in n.items():
+                nd.setdefault(nid, []).extend((e[0] + off,) + tuple(e[1:]) for e in evs)
+        if len(fl) > cap or len(tl) > cap or len(il) > cap:
+            return None
+        for nid, evs in nd.items():
+            entry = self.compiled.entries.get(nid)
+            if entry is None or len(evs) > entry.ugen.event_capacity:
+                return None
+        return fl, tl, il, nd
+
     def _zero_inputs(self, frames=None):
         """Zero inputs of ``frames`` samples (one block by default), one
         cached tensor per length: they are only read."""
@@ -224,11 +464,11 @@ class AudioProcessor:
                                      device=self.device)
         return cache[key]
 
-    def _super_scan_k(self, sub: int) -> int:
+    def _super_scan_k(self, sub: int, cg: Optional[CompiledGraph] = None) -> int:
         """Largest power-of-two superblock multiple k (>= 2) that divides
         ``sub`` and fits the graph's superblock cap, or 0 (the JAX package's
         ``_super_scan_k``)."""
-        cg = self.compiled
+        cg = cg or self.compiled
         if not superblock_eligible(cg):
             return 0
         B = self.graph.block_size
@@ -237,18 +477,60 @@ class AudioProcessor:
             k *= 2
         return k if k >= 2 else 0
 
+    def _chunk_program(self, per_block, eventful):
+        """The one program that renders a whole eventful chunk, as
+        fn(state, inputs [in, n*B]) -> (state, out, done), or None: the
+        eventful-chunk program when only block 0 has events (its
+        float-event sibling when they hold no trigger), the eventful
+        superblock, the loop of eventful k-superblocks, the whole chunk
+        block by block where that length was warmed. Each only if built."""
+        cg, n, B = self.compiled, len(per_block), self.graph.block_size
+        if eventful[0] and not any(eventful[1:]):
+            fn = None
+            if not per_block[0][1]:  # no trigger in the batch
+                fn = get_float_evchunk_fn(cg, n, existing_only=True)
+            if fn is None:
+                fn = get_evchunk_fn(cg, n, existing_only=True)
+            if fn is not None:
+                ev = self._events(per_block[0])
+                return lambda st, inp: fn(st, ev, inp[:, :B], inp[:, B:])
+        fn = get_full_super_fn(cg, n, existing_only=True)
+        if fn is not None:
+            lists = self._merged_events_lists(per_block)
+            if lists is not None:
+                ev = self._events(lists)
+                return lambda st, inp: fn(st, ev, inp)
+        k = self._super_scan_k(n)
+        fn = get_full_super_scan_fn(cg, k, existing_only=True) if k >= 2 else None
+        if fn is not None:
+            groups = [self._merged_events_lists(per_block[i:i + k]) for i in range(0, n, k)]
+            if all(g is not None for g in groups):
+                evs = [self._events(g) for g in groups]
+                return lambda st, inp: fn(st, evs, inp)
+        if n in cg.full_scan_warm:
+            evs = [self._events(lists) for lists in per_block]
+            return lambda st, inp: get_full_scan_fn(cg)(st, evs, inp)
+        return None
+
     def _block(self, lists, inputs):
-        """Render one block with its event lists; returns the output [ch, B]."""
+        """Render one block with its event lists; returns the output [ch, B].
+        A batch without triggers takes the float-event program if it was
+        built, so collapsed chains stay on the chain kernel."""
+        cg = self.compiled
         if any(lists):
-            self.state, out, done = self.compiled.render(
-                self.state, self._events(lists), inputs)
+            fn = get_float_fn(cg, existing_only=True) if not lists[1] else None
+            self.state, out, done = (fn or cg.render)(self.state, self._events(lists),
+                                                      inputs)
         else:
             # the cheap steady-state renderer (no event machinery)
-            self.state, out, done = self.compiled.render_fast(self.state, inputs)
-        if self.compiled.has_done_actions:
-            self._apply_done_flags(done.cpu().numpy())
+            self.state, out, done = cg.render_fast(self.state, inputs)
+        self._done(done)
         self.graph.clock.frames += self.graph.block_size
         return out
+
+    def _done(self, done) -> None:
+        if self.compiled.has_done_actions and done is not None:
+            self._apply_done_flags(done.cpu().numpy())
 
     # ------------------------------------------------------------------ run
     def run(self, inputs=None):
@@ -282,6 +564,10 @@ class AudioProcessor:
     def _apply_done_flags(self, done_vec: np.ndarray) -> None:
         if self.compiled is None or not done_vec.any():
             return
+        with self.graph.edit_lock:
+            self._free_done(done_vec)
+
+    def _free_done(self, done_vec: np.ndarray) -> None:
         freed_any = False
         for i, nid in enumerate(self.compiled.done_order):
             if not done_vec[i]:
@@ -310,6 +596,24 @@ class AudioProcessor:
         if freed_any:
             self.graph.commit()
 
+    # ---------------------------------------------------------------- logs
+    def probe_log(self, retries: int = 3):
+        """The latest ``LogProbe`` captures, all probes in one device-to-host
+        copy (``core.log.collect_probes``). Safe from a control thread while
+        a stream renders: a read that meets a program swap half done (the
+        new state beside the old program) is retried."""
+        from ..core.log import collect_probes
+
+        for _ in range(max(retries, 1)):
+            compiled, state = self.compiled, self.state
+            if compiled is None or state is None:
+                return []
+            try:
+                return collect_probes(compiled, state)
+            except (KeyError, IndexError):
+                continue
+        return []
+
     # ------------------------------------------------------------- bounce
     def render(
         self,
@@ -323,14 +627,14 @@ class AudioProcessor:
 
         Returns ``[channels, frames]`` as numpy, or with ``fetch=False`` as a
         tensor on the processor's device (no device-to-host copy; needs
-        block-aligned ``frames`` and no pending remainder). Events are
-        collected for ``render_chunk_blocks`` blocks at a time (16 when the
-        graph has done actions, or ``check_done_every``), and each chunk is
-        split into runs as the module docstring says: done-action frees land
-        after the superblock or run piece that raised them, and take effect
-        in the graph at the next chunk. With external ``inputs``, a trailing
-        partial block is rendered with the missing input samples
-        zero-padded.
+        block-aligned ``frames`` and no pending remainder: the streaming
+        producer's call). Events are collected for ``render_chunk_blocks``
+        blocks at a time (16 when the graph has done actions, or
+        ``check_done_every``), and each chunk renders as the module
+        docstring says: done-action frees land after the program or run
+        piece that raised them, and take effect in the graph at the next
+        chunk. With external ``inputs``, a trailing partial block is
+        rendered with the missing input samples zero-padded.
         """
         B = self.graph.block_size
         if frames is None:
@@ -378,51 +682,64 @@ class AudioProcessor:
 
         outs = []
         rendered = 0
-        # as in the JAX package: a chunk is compiled and its events
-        # collected once (done-action frees recompile at the next chunk);
-        # eventful runs and the event-free runs of graphs without
-        # superblocks go block by block, and below MIN_SCAN blocks their
-        # done flags are applied per block, else per run piece
         while rendered < n_blocks and not self.freed:
             n = min(chunk, n_blocks - rendered)
             self._ensure_compiled()
             cg = self.compiled
             per_block = self._collect_due_events(n)
             eventful = [any(pb) for pb in per_block]
+            program = self._chunk_program(per_block, eventful) if (
+                n >= 2 and any(eventful)) else None
+            if program is not None:
+                self.state, out, done = program(self.state, inputs_for(rendered, n))
+                outs.append(out)
+                self._done(done)
+                self.graph.clock.frames += n * B
+                rendered += n
+                continue
             bi = 0
             while bi < n:
                 flag, run = eventful[bi], 1
                 while bi + run < n and eventful[bi + run] == flag:
                     run += 1
+                if not flag and run >= 2:
+                    # an event-free run of a length built before: one superblock
+                    exact = get_super_fn(cg, run, existing_only=True)
+                    if exact is not None:
+                        self.state, out, done = exact(self.state, inputs_for(rendered, run))
+                        outs.append(out)
+                        self._done(done)
+                        self.graph.clock.frames += run * B
+                        rendered += run
+                        bi += run
+                        continue
                 while run:
                     sub = chunk
                     while sub > run:
                         sub //= 2
+                    inp = inputs_for(rendered, sub)
                     fn = None
-                    if not flag and sub >= 2:
+                    if sub >= MIN_SCAN and flag:
+                        evs = [self._events(lists) for lists in per_block[bi:bi + sub]]
+                        fn = (lambda st, x, f=get_full_scan_fn(cg), evs=evs:
+                              f(st, evs, x))
+                    elif sub >= 2 and not flag:
                         fn = get_super_fn(cg, sub)
                         if fn is None and sub >= MIN_SCAN:
                             k = self._super_scan_k(sub)
-                            fn = get_super_scan_fn(cg, k) if k else None
+                            fn = (get_super_scan_fn(cg, k) if k else None) or get_scan_fn(cg)
                     if fn is not None:
-                        self.state, out, done = fn(self.state, inputs_for(rendered, sub))
-                        outs.append(out)
-                        dones = [done]
+                        self.state, out, done = fn(self.state, inp)
                     else:
-                        if sub < MIN_SCAN:
-                            sub = 1
-                        dones = []
-                        for i in range(sub):
-                            inp = inputs_for(rendered + i, 1)
-                            if flag:
-                                self.state, out, done = cg.render(
-                                    self.state, self._events(per_block[bi + i]), inp)
-                            else:
-                                self.state, out, done = cg.render_fast(self.state, inp)
-                            outs.append(out)
-                            dones.append(done)
-                    if cg.has_done_actions:
-                        self._apply_done_flags(torch.stack(dones).any(dim=0).cpu().numpy())
+                        sub = 1
+                        inp = inputs_for(rendered, 1)
+                        if flag:
+                            self.state, out, done = cg.render(
+                                self.state, self._events(per_block[bi]), inp)
+                        else:
+                            self.state, out, done = cg.render_fast(self.state, inp)
+                    outs.append(out)
+                    self._done(done)
                     self.graph.clock.frames += sub * B
                     rendered += sub
                     run -= sub
@@ -446,3 +763,48 @@ class AudioProcessor:
         if prefix is not None:
             audio = np.concatenate([prefix, audio], axis=1)
         return audio
+
+    # ------------------------------------------------------- checkpoints
+    def save_state(self, path: str) -> None:
+        """Checkpoint the complete DSP state to ``path`` (the JAX package's
+        ``save_state``): a pickle of the state's leaves as numpy arrays, each
+        beside its path of keys, with the frame clock, the revision and the
+        sub-block remainder, so a bounce resumes sample-exactly. Restore
+        into a processor whose graph has the same topology."""
+        self._ensure_compiled()
+        leaves = _flatten(self.state)
+        blob = {
+            "paths": [p for p, _ in leaves],
+            "leaves": [x.detach().cpu().numpy() for _, x in leaves],
+            "clock": self.graph.clock.frames,
+            "revision": self.graph.revision,
+            "pending": self._pending,
+        }
+        with open(path, "wb") as f:
+            pickle.dump(blob, f)
+
+    def load_state(self, path: str) -> None:
+        """Restore a checkpoint of ``save_state``: each leaf onto the device
+        and dtype of the leaf at its path in the processor's own state; the
+        clock and the remainder too. Where the structure changed, the
+        checkpoint's tree is restored as it was saved (on the processor's
+        device), as the JAX package does."""
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        self._ensure_compiled()
+        saved = dict(zip(blob["paths"], blob["leaves"]))
+        ref = _flatten(self.state)
+
+        def restore(x, like=None):
+            t = torch.from_numpy(np.array(x))
+            return (t.to(self.device) if like is None
+                    else t.to(device=like.device, dtype=like.dtype))
+
+        if set(saved) == {p for p, _ in ref}:
+            state = _unflatten((p, restore(saved[p], like)) for p, like in ref)
+        else:
+            state = _unflatten((p, restore(x)) for p, x in saved.items())
+        self.state = state
+        self.graph.clock.frames = blob["clock"]
+        self._pending = blob.get("pending")
+
