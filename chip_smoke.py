@@ -8,7 +8,9 @@ result line):
 
 1. device — a CUDA card is required; prints its name and power limit;
 2. build — compiles every CUDA kernel of ``knaster_tpu_torch/csrc`` (seven
-   libraries), one nvcc per source, all at once;
+   libraries) and the two user voices' bodies of tools/user_voices.py
+   (each against ``csrc/generic_harness.cuh``), one nvcc per source, all
+   at once;
 3. kernel vs plain — each bank kernel (sine, FM, subtractive, wavetable,
    and the generic harness with its Sine, FM, Subtractive and Additive
    bodies) in both variants against its plain torch version on the card, at
@@ -64,9 +66,10 @@ result line):
    Then the matrix of the bank kernels' Hopper design: the hand sine,
    subtractive and FM kernels, the wavetable kernel and every generic body (the
    Envelope body on the four-shape table, looping and one-shot; the Modal
-   body on the bar) at V in {1000, 131055} (131055: a last CTA with whole
+   body on the bar) at (V, B) in MATRIX_CELLS: V in {1000, 131055} at B =
+   64 and 131055 at B = 1024 (131055: a last CTA with whole
    warps past the bank and a ragged one; 131,072 voices at B = 64 are the
-   kernel-vs-plain phase's and the slices') and B in {64, 1024},
+   kernel-vs-plain phase's and the slices'),
    an eventful block and then an event-free one whose pan, cutoff and q
    ramps (and the hand kernels' freq and amp, the FM kernel's ratio and
    index) meet the flat-ramp rules'
@@ -77,8 +80,8 @@ result line):
    (sustained or, EnvAr, attacking; stopped; alternating lanes; the
    eventful block's own), so
    that both sides of every warp-uniform hoist run; the wavetable kernel
-   and the Additive body also at H in {1, 17, 64} and past the unrolled
-   instantiations at {65, 128, 1024} (the run-time variant); at V =
+   and the Additive body also at H in {1, 64} and past the unrolled
+   instantiations at {65, 1024} (the run-time variant); at V =
    131055, B = 64 two launches on the same buffers must give
    bit-identical mixes (the in-kernel sum's tickets reset). Carries
    bit-equal, mixes within the tolerance. Then the four hand bank kernels
@@ -116,7 +119,7 @@ result line):
    output zero from its done frame on). Each prints realtime x (samples/s
    / 48,000). Then golden ``param_sweep`` at f32 and f64 against the port's
    CPU render. Then every graph slice, the param sweep's two cascades
-   included, rendered twice from one schedule (the 2 s slices for 0.5 s,
+   included, rendered twice from one schedule (the 2 s slices for 0.256 s,
    PARTITION_SECONDS), with superblocks and block
    by block (``render_chunk_blocks=1``): bit-equal where the phases are
    u32, within a stated tolerance where a float scan spans the superblock;
@@ -136,7 +139,8 @@ result line):
    taking every voice in 1,024 sample-accurate note-ons a block for 128
    blocks, rendered to 2 s with superblocks and block by block (the generic
    kernel once per eventful block and per superblock), every voice
-   released by ``refresh()``, the first 32 blocks against the CPU render;
+   released by ``refresh()``, the first POOL_HEAD blocks against the CPU
+   render;
    and ``modal_bells`` (examples/modal_bells.py's four bells, 4 s, no
    kernel) against the CPU within 1e-6. Then the vmap ``VoiceBank``, no
    kernel of the port on its path: golden ``detuned_banks`` (two 512-voice
@@ -178,7 +182,22 @@ result line):
    startup, chunk ms, the busy share of a profiled second, edit to
    audible), the ring at least LIVE_WRITTEN of real time, every edit
    heard, no thread failed; and the bank's state saved, loaded into a
-   fresh processor and rendered on bit-equal;
+   fresh processor and rendered on bit-equal.
+   Then the user's side (``phase_extensions``): the user voices'
+   CUDA bodies (``DetunedVoice``, mono, and ``OrganVoice``, stereo with the
+   exact pan, from tools/user_voices.py) in the generic harness against
+   their torch bodies at V in {1000, 131072}, B = 64, eventful and
+   event-free (carry bit-equal, mix within the gate), the detuned bank's
+   slice at 131,072 voices; examples/custom_voice_bank.py (512
+   OrganVoices, its defaults and four chords) through
+   ``AudioProcessor.render`` for ORGAN_SECONDS, realtime x, and its four
+   chords ORGAN_CMP_SPACING apart on the card against the port's CPU
+   render; and a graph of ``OscWt``
+   over the anti-aliased ``Wavetable`` (a 20 Hz -> 20 kHz glide and a
+   reset), ``wr_mul``, ``SafetyLimiter``, ``@ugen`` and ``@ugen.sample``
+   UGens, ``ugen_from_sample_fn``, ``WrArParamToInput`` driven by a
+   ``Phasor`` and ``DoneOnTrig`` freeing its subgraph, on the card against
+   the CPU within EXT_GATE, realtime x and launches per rendered second;
 5. timings and profile — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
@@ -266,7 +285,30 @@ OPS_PER_SAMPLE = {"sine_bank": 40, "fm_bank": 60, "sub_bank": 70, "wt_bank": 110
                   "generic_bank": 60, "fm_cascade": 8,
                   # the generic harness's bodies repeat their hand banks' math
                   "generic-sine": 40, "generic-fm": 60, "generic-subtractive": 70,
-                  "generic-additive": 110}
+                  "generic-additive": 110,
+                  # the user bodies (tools/user_voices.py), counted from their
+                  # sources and the harness (csrc/generic_harness.cuh) on an
+                  # event-free sample: USER_OPS_PER_SAMPLE
+                  "generic-user-detuned": 82, "generic-user-organ": 128}
+# the user bodies' count on an event-free sample, item by item from
+# DETUNED_SOURCE, ORGAN_SOURCE, bank_common.cuh and the harness's sample():
+# the harness's sample index (1) and each float param it reads (mat_base's
+# add, compare-select, multiply and add: 4), the active gain (1 a channel)
+# and the mix (2 a channel: the tile store and its add); env_ar with no
+# restart (14: t*t*t and two compare-selects for the level, an add, a
+# subtract and two compare-selects for t, a compare and two selects each
+# for the release and the stop); sin_quant (19: five integer operations of
+# the quadrant fold, the sign's compare and select, the conversion, the
+# scale and sin_poly's ten); to_inc (3: max, min, conversion) with its
+# multiplies and the u32 add. Detuned: 1 + 3 params (12) + env_ar (14) +
+# two sines (38) + the increments (5 and 6) + the gain (3) + active (1) +
+# mix (2) = 82. Organ with its pan flat over the block (the harness takes
+# the exact gains once a block there): 1 + 4 params (16) + env_ar (14) +
+# three sines (57) + the drawbars and gain (6) + the increments (5, 6, 6)
+# + the pan gains' two multiplies + active (2) + mix (4) = 119; where the
+# pan moves, its read (4), the angle (3), cosf and sinf (2) each sample:
+# 128 (user_ops_per_sample counts the warps that take the hoist)
+USER_FLAT_PAN_OPS_PER_SAMPLE = {"generic-user-organ": 119}
 # the same count on the path the hand kernels take for a warp whose ramps are
 # all flat over the block (hand_ops_per_sample counts the warps that take
 # it), for the sine and subtractive kernels also with every voice sustained
@@ -359,6 +401,14 @@ def wt_defaults(np, V, seed=0, amp=1e-4):
             "pan": rng.uniform(-1, 1, V).astype(np.float32)}
 
 
+def detuned_defaults(np, V, seed=0, amp=0.005):
+    """tests/test_generic_bank.py's user voice: two sines detuned by up to 1%."""
+    rng = np.random.default_rng(seed)
+    return {"freq": rng.uniform(100, 900, V).astype(np.float32),
+            "detune": rng.uniform(1.0, 1.01, V).astype(np.float32),
+            "amp": np.full(V, amp, np.float32)}
+
+
 def saw_table(ktt, n_harmonics=H):
     """bench_wavetable_bank's table: a saw of H harmonics."""
     nb = ktt.NonAaWavetable()
@@ -368,8 +418,10 @@ def saw_table(ktt, n_harmonics=H):
 
 def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None, n_harmonics=H):
     """A bank of one kind with its benchmark's seeded defaults. Kinds:
-    sine, fm, sub, wt (the hand banks) and generic-<body>; the wavetable
-    and Additive banks of ``n_harmonics`` partials."""
+    sine, fm, sub, wt (the hand banks) and generic-<body>, the bodies of
+    the library voices and generic-user-detuned and generic-user-organ
+    (tools/user_voices.py); the wavetable and Additive banks of
+    ``n_harmonics`` partials."""
     amp_kw = {} if amp is None else {"amp": amp}
     if kind == "sine":
         return ktt.FusedSineVoiceBank(
@@ -389,7 +441,11 @@ def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None, n_harmonics=H):
             voice_defaults=wt_defaults(np, V, seed, **amp_kw),
             event_capacity=capacity)
     body = kind.split("-", 1)[1]
+    uv = user_voices_module()
     voice, defaults = {
+        "user-detuned": (uv.DetunedVoice(), detuned_defaults),
+        "user-organ": (uv.OrganVoice(), lambda np, V, seed=0, amp=0.003: {
+            **uv.organ_defaults(V, seed), "amp": np.full(V, amp, np.float32)}),
         "sine": (ktt.SineVoice(), sine_defaults),
         "fm": (ktt.FMVoice(), fm_defaults),
         "subtractive": (ktt.SubtractiveVoice(), sub_defaults),
@@ -402,7 +458,7 @@ def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None, n_harmonics=H):
 
 
 # the other float param each schedule ramps, and its target
-OTHER = {"pan": 0.9, "ratio": 3.0, "cutoff": 900.0}
+OTHER = {"pan": 0.9, "ratio": 3.0, "cutoff": 900.0, "detune": 1.02}
 
 
 def schedule(bank, V, B):
@@ -511,7 +567,7 @@ def phase_kernel_vs_plain(torch, np, ktt, dev, kind, Vs=(1000, N_VOICES),
             state = bank.init(ctx, device=dev)
             # phases near the top of the u32 range: the add must wrap
             rng = np.random.default_rng(V + B)
-            for name in ("phase", "phm", "phc"):
+            for name in ("phase", "phm", "phc", "p1", "p2", "p3"):
                 if name in state:
                     state[name] = torch.from_numpy(
                         rng.integers(2**32 - 2**26, 2**32, V, dtype=np.uint64)
@@ -760,11 +816,12 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     nbytes = tensor_bytes(ops, written(mod, outs))
     bound_ms, bound_by = bound(nbytes, per_sample * N_VOICES * BLOCK)
     general = ""
-    if kind in HAND_KINDS:
+    if kind in HAND_KINDS or kind in USER_FLAT_PAN_OPS_PER_SAMPLE:
         # the bound is that of the path these inputs take; the general
         # count's beside it
         general = f"; at the general count ({per_sample}) {bound_ms:.4f} ms ({bound_by})"
-        per_sample, hoisted = hand_ops_per_sample(torch, mod, ops, BLOCK)
+        per_sample, hoisted = (hand_ops_per_sample(torch, mod, ops, BLOCK) if kind in HAND_KINDS
+                               else user_ops_per_sample(torch, kind, ops, BLOCK))
         bound_ms, bound_by = bound(nbytes, per_sample * N_VOICES * BLOCK)
         general = f", {hoisted:.4f} of the warps on the hoisted path" + general
     graph_wrapper_ms = time_graph(torch, lambda: bank.kernel(**ops), 200)
@@ -849,6 +906,25 @@ def hand_ops_per_sample(torch, mod, ops, B):
     per_sample = (n_fast * flat + n_quiet * QUIET_OPS_PER_SAMPLE.get(mod.KERNEL, 0)
                   + (n - n_fast - n_quiet) * general) / n
     return per_sample, (n_fast + n_quiet) / n
+
+
+def user_ops_per_sample(torch, kind, ops, B):
+    """(f32 operations a voice-sample, share of warps on the hoisted path)
+    of a stereo user body on the event-free ``ops``: the harness takes the
+    pan gains once a block on a lane whose pan ramp is flat over it
+    (csrc/bank_common.cuh ramp_flat), so a warp of such lanes does
+    USER_FLAT_PAN_OPS_PER_SAMPLE and every other warp OPS_PER_SAMPLE (its
+    lanes run the pan each sample)."""
+    from knaster_tpu_torch.kernels import bank_common as bc
+
+    pan = ops["ramps"][list(ops["float_names"]).index("pan")]
+    flat = bc.ramp_flat_over_block(pan, B)
+    flat = torch.cat([flat, torch.ones((-flat.numel()) % 32, dtype=torch.bool,
+                                       device=flat.device)]).view(-1, 32).all(dim=1)
+    n, n_flat = flat.numel(), int(flat.sum())
+    per_sample = (n_flat * USER_FLAT_PAN_OPS_PER_SAMPLE[kind]
+                  + (n - n_flat) * OPS_PER_SAMPLE[kind]) / n
+    return per_sample, n_flat / n
 
 
 # --------------------------------------------------------------------------
@@ -2260,9 +2336,10 @@ EXACT = ("exact",)
 
 
 # the partition phase's render of the slices that render GRAPH_SECONDS
-# elsewhere: 0.5 s (375 blocks at B = 64; 1 s until the buffer phase
-# came), to keep the whole run within its time limit as the phases grow
-PARTITION_SECONDS = 0.5
+# elsewhere: 0.256 s (192 blocks at B = 64; 1 s until the buffer phase
+# came, 0.5 s until the user's side came), to keep the whole run within
+# its time limit as the phases grow
+PARTITION_SECONDS = 0.256
 
 
 def partition_slices():
@@ -2317,30 +2394,33 @@ def count_kernels(torch, run):
     return n or None
 
 
-# the windows whose launches are counted: one render chunk superblocked;
-# 16 blocks block by block, whose launches repeat every block and whose
-# hundreds of thousands of profiler events take minutes to collect
+# the window whose launches the partition phase counts: one render chunk
+# superblocked (an eventful first block dominates it where the schedule
+# has one: the polyblep cascade's ~49,500 launches)
 PROFILE_BLOCKS = CHUNK
-PROFILE_BLOCKS_PER_BLOCK = 16
 
 
 def phase_partitions(torch, np, kt, dev, card):
     """Every graph slice rendered on the card twice from the same schedule:
     with superblocks (the default) and block by block
     (``render_chunk_blocks=1``). Each pair compared as ``partition_slices``
-    says; each render's realtime x (unprofiled) and its kernel launches per
-    rendered second (the profiler's count over up to PROFILE_BLOCKS blocks,
-    PROFILE_BLOCKS_PER_BLOCK block by block,
-    of a third and fourth render) printed beside the card. Returns {slice:
-    (realtime x, launches/s) superblocked and per block, the port's own
-    kernel launches of the superblocked render}."""
+    says; each render's realtime x (unprofiled) and the superblocked one's
+    kernel launches per rendered second (the profiler's count over up to
+    PROFILE_BLOCKS blocks of a third render) printed beside the card.
+    Returns {slice: (realtime x, launches/s) superblocked and per block
+    (None: not counted), the port's own kernel launches of the superblocked
+    render}."""
     out = {}
     for name, (bs, outs, frames, setup, how, kernel, free) in partition_slices().items():
+        t_slice = time.perf_counter()
         res = {}
         for chunk in (CHUNK, 1):
             opts = kt.AudioProcessorOptions(block_size=bs, render_chunk_blocks=chunk)
             runs = []
-            for _ in range(2):  # the timed render, then the profiled one
+            # the timed render, then the profiled one superblocked; block by
+            # block nothing is counted (the profiler took up to 28 s a slice
+            # to collect those launches, to keep the run in its time limit)
+            for _ in range(2 if chunk == CHUNK else 1):
                 g, proc = kt.AudioProcessor.new(0, outs, opts, device=dev)
                 setup(kt, g)
                 proc._ensure_compiled()
@@ -2357,9 +2437,9 @@ def phase_partitions(torch, np, kt, dev, card):
                     kernel: event_free_pieces(runs[0], frames // bs) if free
                     else max(1, counts.get(kernel, 0))}
                 expect_counts(counts, want, f"partition {name}")
-            n_prof = min(frames, (PROFILE_BLOCKS if chunk == CHUNK
-                                  else PROFILE_BLOCKS_PER_BLOCK) * bs)
-            n_k = count_kernels(torch, lambda: runs[1].render(frames=n_prof, fetch=False))
+            n_prof = min(frames, PROFILE_BLOCKS * bs)
+            n_k = (count_kernels(torch, lambda: runs[1].render(frames=n_prof, fetch=False))
+                   if chunk == CHUNK else None)
             res[chunk] = (audio, frames / SR / secs,
                           None if n_k is None else n_k / (n_prof / SR), counts)
         (a, rt_sb, lps_sb, counts), (b, rt_pb, lps_pb, _) = res[CHUNK], res[1]
@@ -2384,8 +2464,9 @@ def phase_partitions(torch, np, kt, dev, card):
         full = float((a - b).abs().max())
         print(f"partition {name} (B={bs}, {frames / SR:g} s) on {card}: superblocks "
               f"realtime x {rt_sb:.4g}, {lps_sb} launches per rendered s, kernels {counts}; "
-              f"per block realtime x {rt_pb:.4g}, {lps_pb} launches per rendered s; "
-              f"{held} ({diff:.3e}; whole render {full:.3e})")
+              f"per block realtime x {rt_pb:.4g}; "
+              f"{held} ({diff:.3e}; whole render {full:.3e}) "
+              f"({time.perf_counter() - t_slice:.1f} s)")
         out[name] = (rt_sb, lps_sb, rt_pb, lps_pb, counts)
     return out
 
@@ -2761,13 +2842,20 @@ def phase_family_vs_plain(torch, np, ktt, dev):
 # the full 131,072 is cut from the matrix to keep the run in its time
 # limit: kernel vs plain and the slices hold every bank there at B = 64
 MATRIX_VS = (1000, N_VOICES - 17)
-MATRIX_BS = (BLOCK, 1024)
+# the (V, B) cells of the matrix: every pair but (1000, 1024), dropped
+# with the user's side to keep the run within its time limit (131,055
+# voices at B = 1024 keep the long block and the ragged last CTA)
+MATRIX_CELLS = ((MATRIX_VS[0], BLOCK), (MATRIX_VS[1], BLOCK), (MATRIX_VS[1], 1024))
 HAND_KINDS = ("sine", "sub", "fm")
 MATRIX_KINDS = HAND_KINDS + ("wt", "generic-sine", "generic-fm", "generic-subtractive",
                              "generic-additive", "generic-envelope", "generic-modal")
 # with the matrix's 16: 1, 16, 17, the largest unrolled (64) and the
 # run-time variant past it
-H_SWEEP = (1, 17, 64, 65, 128, 1024)
+# with the matrix's 16: 1, 17, the largest unrolled (64) and the
+# run-time variant past it (65 and 1024; 128 dropped with the user's
+# side, for the time limit): every instantiation of HARMONIC_SLOTS (8, 16,
+# 32, 64) and the run-time one
+H_SWEEP = (1, 17, 64, 65, 1024)
 # the params whose flat ramps the kernels hoist work on: the pan gains
 # (Sine, Additive, Envelope, Modal, the hand sine), the SVF coefficients
 # (Subtractive), and the hand kernels' freq and amp (and the FM kernel's
@@ -2900,7 +2988,7 @@ def matrix_cell(torch, ktt, np, dev, kind, V, B, looping=False, n_harmonics=H):
 
 def phase_bank_matrix_vs_plain(torch, np, ktt, dev):
     """The hand sine and subtractive kernels, every generic body and the
-    wavetable kernel over MATRIX_VS x MATRIX_BS (the Envelope body looping
+    wavetable kernel over MATRIX_CELLS (the Envelope body looping
     and one-shot; the 1000-voice cells' plain version on the CPU), then the
     wavetable kernel and the Additive body at H in H_SWEEP, B = 64, V =
     131,055: carries bit-equal
@@ -2910,16 +2998,15 @@ def phase_bank_matrix_vs_plain(torch, np, ktt, dev):
     errs, ulps = {}, 0
     for kind in MATRIX_KINDS:
         t0 = time.perf_counter()
-        for V in MATRIX_VS:
-            for B in MATRIX_BS:
-                for looping in ((False, True) if kind == "generic-envelope" else (False,)):
-                    e, u = matrix_cell(torch, ktt, np, dev, kind, V, B, looping)
-                    errs[kind], ulps = max(errs.get(kind, 0.0), e), max(ulps, u)
+        for V, B in MATRIX_CELLS:
+            for looping in ((False, True) if kind == "generic-envelope" else (False,)):
+                e, u = matrix_cell(torch, ktt, np, dev, kind, V, B, looping)
+                errs[kind], ulps = max(errs.get(kind, 0.0), e), max(ulps, u)
         if kind in ("wt", "generic-additive"):
             for n in H_SWEEP:
                 e, _ = matrix_cell(torch, ktt, np, dev, kind, MATRIX_VS[1], BLOCK, n_harmonics=n)
                 errs[kind] = max(errs[kind], e)
-        print(f"kernel vs plain matrix {kind}: V in {MATRIX_VS}, B in {MATRIX_BS}"
+        print(f"kernel vs plain matrix {kind}: (V, B) in {MATRIX_CELLS}"
               + (f", H in {(H,) + H_SWEEP}" if kind in ("wt", "generic-additive") else "")
               + f": carries bit-equal, max |mix diff| {errs[kind]:.3e}, back to back "
               f"bit-identical ({time.perf_counter() - t0:.1f} s)")
@@ -4054,6 +4141,217 @@ def phase_live(torch, np, kt, dev, card):
     return rows
 
 
+# --------------------------------------------------------------------------
+# the user's side: user voices' CUDA bodies in the generic harness, the
+# custom-voice example, and a graph of the user-written UGens
+# --------------------------------------------------------------------------
+
+ORGAN_SECONDS = 2.5  # examples/custom_voice_bank.py's 10 s, cut
+# held against the port's CPU render (~36 s of host a rendered second, so
+# not the whole 2.5 s): the same bank and score with its chords
+# ORGAN_CMP_SPACING apart (mid-block at B = 64), rendered for
+# ORGAN_CMP_SECONDS on both: the first chord and three retune-and-restart
+# blocks; the timed render's first chord against the same CPU render
+ORGAN_CMP_SECONDS = 0.3
+ORGAN_CMP_SPACING = 0.075
+EXT_SECONDS = 0.5  # the extension graph's render, on the card and on the CPU
+EXT_COUNT_SECONDS = 0.064  # its launches counted over 48 blocks (the profiler's events cost)
+EXT_GATE = 1e-6  # card vs CPU, x max(1, peak)
+
+
+def user_voices_module():
+    """tools/user_voices.py: the user voices' torch and CUDA bodies."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import user_voices
+
+    return user_voices
+
+
+def organ_processor(ktt, uv, dev, seconds, spacing=None):
+    """examples/custom_voice_bank.py on the port: 512 OrganVoices with the
+    example's defaults in a FusedVoiceBank graph node, its four chords
+    ``spacing`` apart (by default spread over ``ORGAN_SECONDS``),
+    scheduled for ``seconds``."""
+    g, proc = ktt.knaster(outputs=2, device=dev)
+    bank = g.edit(lambda gg: gg.push(ktt.FusedVoiceBank(
+        uv.OrganVoice(), uv.ORGAN_VOICES, voice_defaults=uv.organ_defaults(),
+        event_capacity=SUITE_CAPACITY)))
+    bank.to_graph_out()
+    g.commit()
+    uv.organ_score(bank, seconds, spacing or ORGAN_SECONDS / len(uv.ORGAN_CHORDS))
+    proc._ensure_compiled()
+    return proc
+
+
+def extension_graph(kt, g, seconds=EXT_SECONDS):
+    """A graph of the user's side: ``OscWt(Wavetable.saw(), interpolate=True)``
+    gliding 20 Hz -> 20 kHz over ``seconds`` (every one of the 17 tables)
+    with a ``reset_phase`` trigger, ``.wr_mul(0.5)`` into ``SafetyLimiter``
+    into an ``@ugen`` block gain; an ``@ugen.sample`` saw with a reset
+    trigger into ``ugen_from_sample_fn`` (its square); a ``SinWt`` under
+    ``WrArParamToInput(..., "freq")`` driven by a ``Phasor``; and a
+    subgraph whose ``DoneOnTrig`` frees it (``Done.FREE_PARENT``) at 60% of
+    the render. All into one output."""
+    import torch
+
+    from knaster_tpu_torch.wrappers import WrArParamToInput
+
+    @kt.ugen(inputs=1, outputs=1)
+    def block_gain(inputs, *, amount=0.8):
+        return inputs * amount[None, :]
+
+    @kt.ugen.sample(inputs=0, outputs=1,
+                    state=lambda ctx: {"phase": torch.zeros((), dtype=ctx.dtype)})
+    def saw(carry, frame, *, freq=110.0, t_reset=kt.TRIG):
+        phase = torch.where(t_reset, torch.zeros_like(carry["phase"]), carry["phase"])
+        step = phase + freq * (1.0 / SR)
+        return {"phase": step - torch.floor(step)}, (phase * 2.0 - 1.0).reshape(1)
+
+    def at(frac):
+        return kt.Seconds.from_samples(int(frac * seconds * SR), SR)
+
+    def build(gg):
+        osc = gg.push(kt.OscWt(kt.Wavetable.saw(), 20.0, interpolate=True).wr_mul(0.5))
+        lim = gg.push(kt.SafetyLimiter())
+        gain = gg.push(block_gain())
+        osc.to(lim)
+        lim.to(gain)
+        gain.to_graph_out()
+        sw = gg.push(saw(freq=110.0))
+        sq = gg.push(kt.ugen_from_sample_fn(lambda f: f * f * 0.25, inputs=1, outputs=1))
+        sw.to(sq)
+        sq.to_graph_out()
+        lfo = gg.push(kt.Phasor(3.0))
+        ar = gg.push(WrArParamToInput(kt.SinWt(0.0), "freq"))
+        (lfo * 300.0 + 200.0).to(ar)
+        (ar * 0.2).to_graph_out()
+        child, ch = gg.subgraph(inputs=0, outputs=1, name="voice")
+        tone = child.push(kt.SinWt(660.0))
+        (tone * 0.1).to_graph_out()
+        done = child.push_with_done_action(kt.DoneOnTrig(), kt.Done.FREE_PARENT)
+        ch.to_graph_out()
+        return osc, sw, done, ch
+
+    osc, sw, done, ch = g.edit(build)
+    freq = osc.param("freq")
+    freq.smooth(kt.Smoothing.linear(seconds))
+    freq.set(20000.0)
+    osc.param("reset_phase").trig_at(at(0.37))
+    sw.param("t_reset").trig_at(at(0.21))
+    done.param("t_done").trig_at(at(0.6))
+    return ch
+
+
+def phase_extensions(torch, np, ktt, dev, card):
+    """The user's side of the library on the card. (1) The user voices'
+    CUDA bodies (tools/user_voices.py: ``DetunedVoice``, mono;
+    ``OrganVoice``, stereo with the exact pan) in the generic harness,
+    each against its torch body at V in {1000, 131072}, B = 64, eventful
+    and event-free (``phase_kernel_vs_plain``): carry bit-equal, mix
+    within the gate; the detuned bank's slice through ``bank.process`` at
+    131,072 voices (``phase_slice``), and each body's kernel ms
+    (``phase_timings``). (2) examples/custom_voice_bank.py: 512
+    OrganVoices with its defaults and four retuned chords through
+    ``AudioProcessor.render``, ORGAN_SECONDS on the card (realtime x,
+    launches); the same score with its chords ORGAN_CMP_SPACING apart,
+    ORGAN_CMP_SECONDS on the card and on the CPU, and the timed render's
+    first chord against it, within 1e-6 x max(1, peak). (3) ``extension_graph`` on the card and
+    the CPU within EXT_GATE x max(1, peak): realtime x and kernel launches
+    per rendered second. Returns the kernels line's rows of the two user
+    bodies."""
+    from knaster_tpu_torch.kernels import build
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    uv = user_voices_module()
+    t0 = time.perf_counter()
+    errs = {name: phase_kernel_vs_plain(torch, np, ktt, dev, f"generic-user-{name}",
+                                        Bs=(BLOCK,))
+            for name in ("detuned", "organ")}
+    for name, src in (("detuned", uv.DETUNED_SOURCE), ("organ", uv.ORGAN_SOURCE)):
+        print(f"  user body {name}: {build.user_body_path(src).name}")
+
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    bank, state, det_launches, _, _, _ = phase_slice(torch, np, ktt, dev,
+                                                     "generic-user-detuned", card, False)
+    operands, _ = bank.kernel_operands(ctx, state, None)
+    _, err, _ = compare_block(torch, "generic", bank, operands, "slice user detuned final block")
+    errs["detuned"] = max(errs["detuned"], err)
+    det_row = phase_timings(torch, ktt, "generic-user-detuned", bank, sounding_state(
+        torch, ktt, bank), card)
+    print(f"  (user bodies: {time.perf_counter() - t0:.1f} s)")
+
+    # (2) the custom-voice example
+    t0 = time.perf_counter()
+    proc = organ_processor(ktt, uv, dev, ORGAN_SECONDS)
+    reset_all_counts()
+    audio, secs = render_timed(torch, proc, ORGAN_SECONDS)
+    counts = read_all_counts()
+    organ_launches = counts[gk.KERNEL]
+    if organ_launches == 0:
+        fail("custom_voice_bank: the generic kernel never launched")
+    expect_counts(counts, {gk.KERNEL: organ_launches}, "custom_voice_bank")
+    a = audio.cpu().numpy()
+    c, b = (np.asarray(organ_processor(ktt, uv, d, ORGAN_CMP_SECONDS, ORGAN_CMP_SPACING)
+                       .render(seconds=ORGAN_CMP_SECONDS)) for d in (dev, "cpu"))
+    n_head = int(ORGAN_CMP_SPACING * SR)
+    gap, peak = float(np.abs(c - b).max()), float(np.abs(b).max())
+    head_gap = float(np.abs(a[:, :n_head] - b[:, :n_head]).max())
+    if (not np.isfinite(a).all() or not np.isfinite(c).all() or peak < 1e-3
+            or max(gap, head_gap) > 1e-6 * max(1.0, peak)):
+        fail(f"custom_voice_bank: card vs CPU differ by {gap} over the chords "
+             f"{ORGAN_CMP_SPACING:g} s apart, the timed render's first chord by "
+             f"{head_gap} (peak {peak}), or silent")
+    tail_peak = float(np.abs(a[:, -SR // 4:]).max())
+    if tail_peak < 1e-3:
+        fail(f"custom_voice_bank: the last chord is silent ({tail_peak})")
+    print(f"slice custom_voice_bank: {uv.ORGAN_VOICES} OrganVoices, {ORGAN_SECONDS:g} s on {card} "
+          f"in {secs:.3f} s (realtime x {ORGAN_SECONDS / secs:.4g}), generic_bank launches "
+          f"{organ_launches}; card vs CPU over {ORGAN_CMP_SECONDS:g} s of its four chords "
+          f"{ORGAN_CMP_SPACING:g} s apart {gap:.3e}, the timed render's first chord "
+          f"{head_gap:.3e}, peak {peak:.4g}")
+    obank = make_bank(ktt, np, "generic-user-organ", N_VOICES, SUITE_CAPACITY)
+    organ_row = phase_timings(torch, ktt, "generic-user-organ", obank,
+                              sounding_state(torch, ktt, obank), card)
+    print(f"  (custom_voice_bank and the organ body's timing: {time.perf_counter() - t0:.1f} s)")
+
+    # (3) the extension graph
+    t0 = time.perf_counter()
+    got = {}
+    for d in (dev, "cpu"):
+        g, p = ktt.AudioProcessor.new(0, 1, ktt.AudioProcessorOptions(block_size=BLOCK),
+                                      dtype=torch.float32, device=d)
+        ch = extension_graph(ktt, g)
+        p._ensure_compiled()
+        t1 = time.perf_counter()
+        out = np.asarray(p.render(seconds=EXT_SECONDS))
+        got[str(d)] = (out, time.perf_counter() - t1, ch.node_id in g.nodes)
+    (a, secs, alive), (b, _, cpu_alive) = got[str(dev)], got["cpu"]
+    gap, peak = float(np.abs(a - b).max()), float(np.abs(b).max())
+    if not np.isfinite(a).all() or peak < 1e-3 or gap > EXT_GATE * max(1.0, peak):
+        fail(f"extension graph: card vs CPU differ by {gap} (peak {peak}), or silent")
+    if alive or cpu_alive:
+        fail("extension graph: DoneOnTrig did not free its subgraph")
+    g, p = ktt.AudioProcessor.new(0, 1, ktt.AudioProcessorOptions(block_size=BLOCK),
+                                  dtype=torch.float32, device=dev)
+    extension_graph(ktt, g)
+    p._ensure_compiled()
+    n = count_kernels(torch, lambda: p.render(seconds=EXT_COUNT_SECONDS, fetch=False))
+    per_s = "not measured" if n is None else f"{n / EXT_COUNT_SECONDS:.6g}"
+    print(f"slice extension graph: {EXT_SECONDS:g} s on {card} in {secs:.3f} s (realtime x "
+          f"{EXT_SECONDS / secs:.4g}), {per_s} kernel launches per rendered second (over its "
+          f"first {EXT_COUNT_SECONDS:g} s); card vs CPU {gap:.3e}, peak {peak:.4g}; subgraph "
+          f"freed by DoneOnTrig ({time.perf_counter() - t0:.1f} s)")
+
+    rows = []
+    for name, launches, row in (("detuned", det_launches, det_row),
+                                ("organ", organ_launches, organ_row)):
+        r = kernel_row("generic_bank", launches, errs[name], *row,
+                       label=f"generic_bank:user-{name}")
+        r["source"] = "tools/user_voices.py"
+        rows.append(r)
+    return rows
+
+
 def phase_family_timings(torch, ktt, kind, bank, state, card):
     """The generic kernel with the Envelope or Modal body, event-free from
     the slice's state, at B in {64, 1024} (CUDA events over back-to-back
@@ -4152,11 +4450,16 @@ def main():
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
-    paths = build.build_all()
+    uv = user_voices_module()
+    user_sources = {"user-detuned": uv.DETUNED_SOURCE, "user-organ": uv.ORGAN_SOURCE}
+    paths = build.build_all(user_sources=tuple(user_sources.values()))
     for name in paths:
         build.load_library(name)
-    print(f"build: {len(paths)} libraries in {time.perf_counter() - t0:.1f} s")
-    print_ptxas(paths)
+    for src in user_sources.values():
+        build.load_user_body(src)
+    print(f"build: {len(paths)} libraries and {len(user_sources)} user voice bodies in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print_ptxas({**paths, **{n: build.user_body_path(src) for n, src in user_sources.items()}})
 
     # -- kernel vs plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -4250,6 +4553,7 @@ def main():
     lap(phase_vmap_banks, torch, np, ktt, dev, card)
     lap(phase_buffers, torch, np, ktt, dev, card)
     live_rows = lap(phase_live, torch, np, ktt, dev, card)
+    user_rows = lap(phase_extensions, torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -4295,6 +4599,7 @@ def main():
         table.append(kernel_row("chain_kernel", path_launches[path], path_errs[path],
                                 *row, label=f"chain_kernel:{path}"))
     table.extend(live_rows.values())
+    table.extend(user_rows)
     print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -18,7 +18,14 @@ mp3 through ``utils/codec.py``), ``BufferReader``, ``SamplerVoice``,
 graph edited while it plays, over the native ring of
 ``backends/native.py``, with async recompile), ``OfflineBackend``,
 ``LogProbe`` and ``rt_log`` (``core/log.py``), ``inspect``/``to_dot`` and
-``AudioProcessor.save_state``/``load_state``.
+``AudioProcessor.save_state``/``load_state``. The user's side: the
+``@ugen`` decorator (``ugen``, ``ugen.sample``, ``TRIG``), ``ClosureUGen``
+and ``ugen_from_sample_fn``, ``sample_scan``, the wrappers
+(``knaster_tpu_torch.wrappers``: ``WrMul`` ... ``WrClosure``,
+``WrArParamToInput``; ``UGen.wr_mul`` ... ``UGen.wr``), ``OscWt`` over the
+anti-aliased ``Wavetable``, ``SafetyLimiter``, ``DoneOnTrig``, user voices
+whose ``KernelVoiceSpec`` carries CUDA source for ``FusedVoiceBank``, and
+``knaster_tpu_torch.prelude`` (``from knaster_tpu_torch.prelude import *``).
 The README example::
 
     import knaster_tpu_torch as kt
@@ -52,8 +59,9 @@ state lies on the device its ``init`` is given.
 
 from .airwindows.galactic import Galactic
 from .backends import AudioBackend, OfflineBackend, StreamBackend
+from .core.decorator import TRIG, ugen
 from .core.log import ArLogReceiver, ArLogSender, rt_log
-from .core.ugen import AudioCtx, UGen
+from .core.ugen import AudioCtx, UGen, sample_scan
 from .graph.graph import CircularConnection, Done, Graph, GraphError, NodeFreed
 from .graph.handles import Handle, Parameter, Source, VoiceParameter
 from .graph.inspection import inspect, node_handles, to_dot
@@ -91,8 +99,10 @@ from .primitives import (
     set_default_dtype,
 )
 from .ugens.buffer import Buffer, BufferReader
+from .ugens.closure import ClosureUGen, ugen_from_sample_fn
 from .ugens.convolver import Convolver
 from .ugens.delay import AllpassDelay, AllpassFeedbackDelay, SampleDelay, StaticSampleDelay
+from .ugens.dynamics import SafetyLimiter
 from .ugens.envelopes import EnvAr, EnvAsr, Envelope, EnvelopeSegment, EnvelopeShape
 from .ugens.filters import OnePoleHpf, OnePoleLpf, SvfFilter, SvfFilterType
 from .ugens.math import Math1UGen, MathUGen
@@ -100,18 +110,23 @@ from .ugens.granular import GrainPlayer
 from .ugens.modal import ModalResonator
 from .ugens.noise import (BrownNoise, PinkNoise, RandomLin, WhiteNoise,
                           next_randomness_seed, reset_randomness_seeds)
-from .ugens.osc import Phasor, SinNumeric, SinWt
+from .ugens.osc import OscWt, Phasor, SinNumeric, SinWt
 from .ugens.pan import Pan2
 from .ugens.physical import PluckedString
 from .ugens.polyblep import PolyBlep, Waveform
-from .ugens.util import Constant, LogProbe
-from .ugens.wavetable import NonAaWavetable, harmonics_from_table
+from .ugens.util import Constant, DoneOnTrig, LogProbe
+from .ugens.wavetable import NonAaWavetable, Wavetable, harmonics_from_table
 from .utils.codec import read_sound_file, write_flac, write_mp3, write_ogg
 
 __all__ = [
     "knaster",
     "AudioCtx",
     "UGen",
+    "sample_scan",
+    "ugen",
+    "TRIG",
+    "ClosureUGen",
+    "ugen_from_sample_fn",
     "AudioProcessor",
     "AudioProcessorOptions",
     "Graph",
@@ -126,9 +141,12 @@ __all__ = [
     "SchedulingToken",
     "Time",
     "SinWt",
+    "OscWt",
     "SinNumeric",
     "Phasor",
     "Constant",
+    "DoneOnTrig",
+    "SafetyLimiter",
     "LogProbe",
     "rt_log",
     "ArLogReceiver",
@@ -195,6 +213,7 @@ __all__ = [
     "FusedVoiceBank",
     "KernelVoiceSpec",
     "NonAaWavetable",
+    "Wavetable",
     "harmonics_from_table",
     "VoiceBank",
     "NYQUIST",

@@ -20,6 +20,13 @@ declared ``params``); runtime state lives in the dict of tensors its
   engine's host copy, so that the branch costs no device-to-host read.
 * ``kernel_stage(ctx)`` — the port's counterpart of ``mosaic_stage``: the
   chain-kernel body of this UGen (``graph/chain_kernel.py``), or None.
+* ``wr_mul(c)`` ... ``wr(fn)`` — the fluent wrapper combinators
+  (``wrappers/math.py``); ``smooth_params``, ``ar_params`` and
+  ``precise_timing`` are identities, since the param engine gives every
+  node smoothing, audio-rate params and sample-accurate changes.
+
+UGens written per sample use :func:`sample_scan` (the reference's default
+``process_block`` loop, ugen.rs:263-284): a Python loop over the block.
 
 u32 state (oscillator phases) is held as its int32 bit pattern, as the
 fused banks hold it.
@@ -28,7 +35,7 @@ fused banks hold it.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -129,6 +136,66 @@ class UGen:
     def name(self) -> str:
         return type(self).__name__
 
+    # ---- fluent wrapper combinators (parity with UGenWrapperCoreExt,
+    #      knaster_core_dsp/src/wrappers_core.rs:26-120) ---------------------
+    def wr_mul(self, c):
+        from ..wrappers.math import WrMul
+
+        return WrMul(self, c)
+
+    def wr_add(self, c):
+        from ..wrappers.math import WrAdd
+
+        return WrAdd(self, c)
+
+    def wr_sub(self, c):
+        from ..wrappers.math import WrSub
+
+        return WrSub(self, c)
+
+    def wr_v_sub(self, c):
+        from ..wrappers.math import WrVSub
+
+        return WrVSub(self, c)
+
+    def wr_div(self, c):
+        from ..wrappers.math import WrDiv
+
+        return WrDiv(self, c)
+
+    def wr_v_div(self, c):
+        from ..wrappers.math import WrVDiv
+
+        return WrVDiv(self, c)
+
+    def wr_powf(self, c):
+        from ..wrappers.math import WrPowf
+
+        return WrPowf(self, c)
+
+    def wr_powi(self, c):
+        from ..wrappers.math import WrPowi
+
+        return WrPowi(self, int(c))
+
+    def wr(self, fn):
+        from ..wrappers.math import WrClosure
+
+        return WrClosure(self, fn)
+
+    # In the reference these opt into per-node features
+    # (wrappers_core/smooth_params.rs, audio_rate.rs, precise_timing.rs);
+    # here the parameter engine gives every node smoothing, audio-rate and
+    # sample-accurate changes, so they are identities kept for the API.
+    def smooth_params(self):
+        return self
+
+    def ar_params(self):
+        return self
+
+    def precise_timing(self, max_changes_per_block: int = 0):
+        return self
+
     def __repr__(self):
         return (
             f"<{type(self).__name__} in={self.inputs} out={self.outputs} "
@@ -161,3 +228,70 @@ def normalize_process_result(result, ctx: AudioCtx):
     else:
         state, out, done = result
     return state, out, ensure_done(done, ctx, out)
+
+
+def tree_to(tree, device):
+    """``tree`` (dicts, lists and tuples of tensors) with every tensor moved
+    to ``device``: a user's state builder makes its tensors where it likes."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree
+
+
+def per_instance(fn: Callable, inputs: torch.Tensor) -> Callable:
+    """``fn(state, inputs, params)`` mapped over the leading batch axes of
+    ``inputs`` (``[..., inputs, B]``) and of every state and param leaf
+    with ``torch.func.vmap``, once per axis; ``fn`` itself where there are
+    none. Where the JAX package ``vmap``s a user's function over a batch
+    (a voice bank), the user's function here sees one instance too, never
+    a shape the JAX package would not give it."""
+    for _ in range(inputs.dim() - 2):
+        fn = torch.func.vmap(fn)
+    return fn
+
+
+def sample_scan(
+    fn: Callable,
+    state,
+    ctx: AudioCtx,
+    inputs: Optional[torch.Tensor] = None,
+    params: Optional[Dict[str, torch.Tensor]] = None,
+    n_out: int = 1,
+    with_done: bool = False,
+):
+    """Run a per-sample function over one block: a Python loop over the
+    ``ctx.block_size`` samples (the JAX package's ``lax.scan``; the
+    reference's default ``process_block`` loop, ugen.rs:263-284).
+
+    ``fn(carry, frame) -> (carry, out)``, or ``(carry, (out, done))`` when
+    ``with_done``; ``frame`` is a dict with ``frame["in"]`` = the sample's
+    ``[inputs]`` column (when there are inputs) and one entry per param,
+    each the sample's value. ``out`` is ``[n_out]``. Returns ``(carry, out
+    [n_out, B])`` or ``(carry, out, done [B])``. Samples are read along the
+    last axis and the outputs stacked along it, so leading batch axes pass
+    through.
+
+    Prefer closed-form block ``process`` implementations where possible;
+    use this for genuinely sequential recurrences."""
+    carry = state
+    ys, dones = [], []
+    for t in range(ctx.block_size):
+        frame = {}
+        if inputs is not None and inputs.shape[-2] > 0:
+            frame["in"] = inputs[..., t]
+        if params:
+            for k, v in params.items():
+                frame[k] = v[..., t]
+        carry, y = fn(carry, frame)
+        if with_done:
+            y, d = y
+            dones.append(d)
+        ys.append(y)
+    out = torch.stack(ys, dim=-1)
+    if with_done:
+        return carry, out, torch.stack(dones, dim=-1)
+    return carry, out

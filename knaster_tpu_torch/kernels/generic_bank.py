@@ -41,7 +41,12 @@ host image of the kernel parameter.
 
 The bodies: Sine, FM, Subtractive, Additive (unrolled up to 64 harmonics,
 a run-time loop past), Envelope and Modal (one instantiation per mode count, M = 1 ... 16:
-the carry is a register array whose length the compiler must know).
+the carry is a register array whose length the compiler must know). A
+user voice brings its own body as CUDA source (``spec.cuda_source``): it
+is compiled against ``csrc/generic_harness.cuh`` into a library of its own
+(``build.load_user_body``) at its first launch, its counts checked against
+the voice, and launched with the same arguments; its constants are
+``spec.consts`` as they are.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
 raise, also for a voice with no CUDA body), CPU tensors run
@@ -90,13 +95,14 @@ def const_image(spec):
     device constants). Envelope: the 10-float head (its
     segment table stays on the device). Modal (atk, rel, 1/area, 2pi/sr,
     thr^2, M, ratio[M], k_exp[M], gain[M], gain^2[M]): atk, rel, 1/area,
-    2pi/sr, ratio, k_exp, gain."""
+    2pi/sr, ratio, k_exp, gain. A user body (``spec.cuda_source``): the
+    constants as they are."""
     image = getattr(spec, "_cuda_image", None)
     if image is not None:
         return image
     body = spec.cuda_body
-    k = np.asarray(spec.consts, np.float32)
-    if body in ("sine", "fm", "subtractive"):
+    k = np.asarray(np.zeros(0) if spec.consts is None else spec.consts, np.float32)
+    if spec.cuda_source is not None or body in ("sine", "fm", "subtractive"):
         image = k
     elif body == "additive":
         H = (k.shape[0] - 3) // 3
@@ -193,19 +199,26 @@ def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
     V, B, D = _validate(spec, float_names, trig_names, ramps, rounds, act,
                         words, carry, consts, block_size)
     device = carry.device
-    if spec.cuda_body not in BODIES:
+    if spec.cuda_source is None and spec.cuda_body not in BODIES:
         raise ValueError(
             f"{KERNEL}: voice {spec.voice_name} has no CUDA body "
-            f"(cuda_body={spec.cuda_body!r}; known: {sorted(BODIES)})")
-    body_id, nf, nt, nc, c = BODIES[spec.cuda_body]
+            f"(cuda_body={spec.cuda_body!r}, no cuda_source; known: {sorted(BODIES)})")
+    bc.require_cuda(KERNEL, device)
+    if spec.cuda_source is not None:
+        lib, counts = user_body(spec)
+        body_id, what = 0, f"user body of {spec.voice_name}"
+    else:
+        lib = None
+        body_id, *counts = BODIES[spec.cuda_body]
+        what = f"{spec.cuda_body} body"
+    nf, nt, nc, c = counts
     if (nf, nt, nc, c) != (len(float_names), len(trig_names), len(spec.carry),
                            n_out):
         raise ValueError(
-            f"{KERNEL}: the {spec.cuda_body} body takes {nf} float params, "
+            f"{KERNEL}: the {what} takes {nf} float params, "
             f"{nt} triggers, {nc} carry words and {c} outputs; voice "
             f"{spec.voice_name} has {len(float_names)}, {len(trig_names)}, "
             f"{len(spec.carry)} and {n_out}")
-    bc.require_cuda(KERNEL, device)
     image = const_image(spec)
     mix, work, carry_out = outs
     bc.check(KERNEL, "mix", mix, torch.float32, (n_out, B), device)
@@ -214,9 +227,10 @@ def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
     bc.check(KERNEL, "carry_out", carry_out, torch.int32, tuple(carry.shape),
              device)
 
-    from .build import load_library
+    if lib is None:
+        from .build import load_library
 
-    lib = load_library(KERNEL)
+        lib = load_library(KERNEL)
     ptr = bc.ptr
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -228,6 +242,18 @@ def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
             consts.shape[0], image.shape[0], ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
+
+
+def user_body(spec):
+    """(library, (NF, NT, NC, C)) of a user voice's CUDA body: built from
+    ``spec.cuda_source`` and loaded at the first call, then kept on the
+    spec. Raises with nvcc's output if the build fails."""
+    if spec._cuda_lib is None:
+        from .build import load_user_body, user_body_counts
+
+        lib = load_user_body(spec.cuda_source)
+        spec._cuda_lib = (lib, user_body_counts(lib))
+    return spec._cuda_lib
 
 
 def generic_bank_plain(*, spec, float_names, trig_names, n_out, ramps, rounds,

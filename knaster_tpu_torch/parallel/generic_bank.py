@@ -3,8 +3,11 @@
 A voice opts in by implementing ``kernel_voice(ctx)``, which returns a
 :class:`KernelVoiceSpec`: its per-voice scalar carry, a per-sample body
 over ``[V]`` tensors in torch (the plain version, run on the CPU), an
-``idle_of`` for the idle latch, and the name of its CUDA body in
-``csrc/generic_bank.cu``. :class:`FusedVoiceBank` supplies the rest: the
+``idle_of`` for the idle latch, and its CUDA body: the name of a library
+body in ``csrc/generic_bank.cu``, or, for a user voice, CUDA C++ source
+that defines the body (``cuda_source``), built against the harness into a
+library of its own at its first launch on the card.
+:class:`FusedVoiceBank` supplies the rest: the
 anchored-ramp / burst-breakpoint event machinery, packed trigger words, the
 per-sample active mask on every output, the carry across blocks and the
 mix. It is the counterpart of ``PallasVoiceBank``; the library voices
@@ -14,9 +17,9 @@ bodies that are the math of the hand-written banks' kernels, and
 their own. In a graph the bank is a node like any other (its superblocks
 capped at 1024 samples) under per-voice handles and ``VoicePool``.
 
-On CUDA tensors a voice whose ``cuda_body`` is None (or unknown to the
-harness) raises a ``ValueError`` that names it; on CPU tensors the torch
-body runs.
+On CUDA tensors a voice with neither a known ``cuda_body`` nor a
+``cuda_source`` raises a ``ValueError`` that names it; on CPU tensors the
+torch body runs.
 """
 
 from __future__ import annotations
@@ -49,7 +52,18 @@ class KernelVoiceSpec:
     idle_of: optional ``carry -> bool [V]`` on the block's final carry (the
         VoicePool idle latch).
     cuda_body: the CUDA body's name in ``kernels.generic_bank.BODIES``, or
-        None for a voice that runs on the CPU only.
+        None.
+    cuda_source: CUDA C++ source that defines ``struct VoiceBody`` in the
+        harness's body contract (``csrc/generic_harness.cuh``: ``NF``,
+        ``NT``, ``NC``, ``C``, ``kPan``, a ``Consts`` struct of floats read
+        from ``consts``, ``step``, and the hoist, table, register and pan
+        policies by deriving ``NoHoist``, ``NoTable``, ``FourCtas``,
+        ``ExactPan`` or ``PolyPan``), or None. It may call
+        ``csrc/bank_common.cuh``'s helpers (``sin_quant``, ``to_inc``,
+        ``env_ar``, ``env_asr``, ``sin_poly``). Its counts are checked
+        against the voice before the first launch. A voice with neither
+        ``cuda_body`` nor ``cuda_source`` runs on the CPU only; one with
+        both is refused.
     consts: f32 [n] body constants the CUDA body reads.
     voice_name: for error messages.
     """
@@ -60,9 +74,20 @@ class KernelVoiceSpec:
     cuda_body: Optional[str] = None
     consts: np.ndarray = None
     voice_name: str = "voice"
+    cuda_source: Optional[str] = None
     # the kernel parameter's host image (kernels.generic_bank.const_image)
     _cuda_image: Optional[np.ndarray] = field(default=None, init=False, repr=False,
                                               compare=False)
+    # a user body's loaded library and its (NF, NT, NC, C)
+    # (kernels.generic_bank.user_body)
+    _cuda_lib: Optional[tuple] = field(default=None, init=False, repr=False,
+                                       compare=False)
+
+    def __post_init__(self):
+        if self.cuda_body is not None and self.cuda_source is not None:
+            raise ValueError(
+                f"{self.voice_name}: a KernelVoiceSpec takes cuda_body (a library "
+                "body) or cuda_source (its own body), not both")
 
 
 class FusedVoiceBank(FusedBank):
@@ -120,11 +145,12 @@ class FusedVoiceBank(FusedBank):
         needs."""
         spec = self.spec(ctx)
         dev = state["fvals"].device
-        if dev.type == "cuda" and spec.cuda_body not in gk.BODIES:
+        if (dev.type == "cuda" and spec.cuda_body not in gk.BODIES
+                and spec.cuda_source is None):
             raise ValueError(
                 f"{self.voice.name()} has no CUDA body for FusedVoiceBank "
-                f"(cuda_body={spec.cuda_body!r}): its bank runs on CPU "
-                "tensors only")
+                f"(cuda_body={spec.cuda_body!r}, no cuda_source): its bank runs "
+                "on CPU tensors only")
         ramps, rounds, act, words, carry = self.stage_block(ctx, state, events)
         key = (ctx.sample_rate, dev)
         if key not in self._consts:

@@ -1,4 +1,4 @@
-"""Port of knaster_tpu/ugens/osc.py: the phase helpers, ``SinWt``, ``SinNumeric`` and ``Phasor``.
+"""Port of knaster_tpu/ugens/osc.py: the phase helpers, ``SinWt``, ``OscWt``, ``SinNumeric`` and ``Phasor``.
 
 The reference's per-sample phase-increment loop is a block-level exclusive
 cumulative sum of per-sample increments, exact in u32 fixed point, with
@@ -28,11 +28,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.dsp import cumsum_base16, recip
+from ..core.dsp import const, cumsum_base16, recip
 from ..core.ugen import AudioCtx, UGen
 from ..kernels.bank_common import i32_of, u32_of
 from ..primitives.params import ParameterKind, pfloat, ptrigger
-from .wavetable import FRACTIONAL_PART, TABLE_HIGH_MASK, TABLE_SIZE, NonAaWavetable
+from .wavetable import (AA_FREQ_THRESHOLDS, FRACTIONAL_PART, NUM_AA_TABLES, TABLE_HIGH_MASK,
+                        TABLE_SIZE, NonAaWavetable, Wavetable)
 
 U32_MASK = (1 << 32) - 1
 # the largest f32 below 2^31: the int32 conversion of the clamped value is
@@ -148,6 +149,19 @@ def shared_sine_table(dtype, device):
     return tab
 
 
+_AA_THRESHOLDS = {}
+
+
+def aa_thresholds(device):
+    """``AA_FREQ_THRESHOLDS`` (f32) on ``device``, copied there once."""
+    key = str(device)
+    th = _AA_THRESHOLDS.get(key)
+    if th is None:
+        th = torch.from_numpy(AA_FREQ_THRESHOLDS).to(device)
+        _AA_THRESHOLDS[key] = th
+    return th
+
+
 class SinWt(UGen):
     """Sine with the reference's u32 fixed-point wavetable phase
     (osc.rs:97-168 SinWt: 16384-entry table, lookup without interpolation).
@@ -199,6 +213,72 @@ class SinWt(UGen):
         from ..kernels.chain_kernel import BODIES
 
         return BODIES["sinwt"], 0
+
+
+class OscWt(UGen):
+    """Arbitrary anti-aliased wavetable oscillator (osc.rs:30-90 OscWt).
+
+    Owns a :class:`Wavetable` mip chain; the playback frequency selects the
+    band-limited partial table per sample (``AA_FREQ_THRESHOLDS``: numpy's
+    ``side="left"`` on the f32 frequency, also at f64) and the table is
+    read at the u32 phase's index by a gather, nearest-neighbour as the
+    reference's ``Wavetable::get``, or ``interpolate``d through the diff
+    tables. The ``[17, TABLE_SIZE]`` tables (and diffs) live in the state,
+    on the state's device, as in the JAX package."""
+
+    inputs = 0
+    outputs = 1
+    params = (
+        pfloat("freq", 440.0, kind=ParameterKind.FREQUENCY),
+        pfloat("phase_offset", 0.0),
+        ptrigger("reset_phase"),
+    )
+
+    def __init__(self, wavetable: Wavetable, freq: float = 440.0, interpolate: bool = False):
+        self.pdefaults = {"freq": float(freq)}
+        self.wavetable = wavetable
+        self.interpolate = bool(interpolate)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        np_dtype = np.float32 if ctx.dtype == torch.float32 else np.float64
+        tables, diffs = self.wavetable.stacked(np_dtype)
+        st = {
+            "phase": torch.zeros((), dtype=torch.int32, device=device),
+            "tables": torch.from_numpy(tables).to(device),
+        }
+        if self.interpolate:
+            st["diffs"] = torch.from_numpy(diffs).to(device)
+        return st
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        B = ctx.block_size
+        f2pi = float(TABLE_SIZE) * float(FRACTIONAL_PART) / ctx.sample_rate
+        freq = params["freq"]
+        inc = _freq_to_inc_u32(freq, f2pi, ctx.dtype)
+        phases, carry = _segmented_cumsum_u32(
+            inc, params["reset_phase"], u32_of(state["phase"]), B,
+            no_resets=ctx.no_events,
+        )
+        off = _f32_to_u32(params["phase_offset"] * float(FRACTIONAL_PART))
+        ph = (phases + off) & U32_MASK
+        idx = (ph >> 16) & TABLE_HIGH_MASK
+        ti = torch.searchsorted(aa_thresholds(freq.device), freq.to(torch.float32).contiguous(),
+                                right=False)
+        lin = ti * TABLE_SIZE + idx  # [..., B] into the flattened [17 * N] tables
+
+        def read(tables):
+            # one gather over each batch row's flattened tables
+            flat = tables.reshape(-1, NUM_AA_TABLES * TABLE_SIZE)
+            return torch.gather(flat, 1, lin.reshape(flat.shape[0], -1)).reshape(lin.shape)
+
+        out = read(state["tables"])
+        if self.interpolate:
+            frac = (ph & 0xFFFF).to(ctx.dtype)
+            frac = frac / const(65535.0, frac)
+            out = out + read(state["diffs"]) * frac
+        new_state = dict(state)
+        new_state["phase"] = i32_of(carry)
+        return new_state, out.unsqueeze(-2)
 
 
 class SinNumeric(UGen):

@@ -1,11 +1,11 @@
-"""Port of knaster_tpu/ugens/util.py: ``Constant`` (reference util.rs:37-67) and ``LogProbe``."""
+"""Port of knaster_tpu/ugens/util.py: ``Constant`` (reference util.rs:37-67), ``DoneOnTrig`` and ``LogProbe``."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.ugen import AudioCtx, UGen
-from ..primitives.params import pfloat
+from ..primitives.params import pfloat, ptrigger
 
 
 class Constant(UGen):
@@ -29,6 +29,33 @@ class Constant(UGen):
         from ..kernels.chain_kernel import BODIES
 
         return BODIES["constant"], 0
+
+
+class DoneOnTrig(UGen):
+    """Sets the done flag when it receives a trigger (reference util.rs:8-34).
+
+    Use with ``Graph.push_with_done_action`` and a ``Done`` action that frees
+    more than the current node. As in the JAX package, done is marked from
+    the trigger's frame on (the reference's one-sample latency collapsed,
+    since triggers are sample-stamped), and in every later block."""
+
+    may_set_done = True
+
+    inputs = 0
+    outputs = 0
+    params = (ptrigger("t_done"),)
+
+    def init(self, ctx: AudioCtx, device="cpu"):
+        return {"triggered": torch.zeros((), dtype=torch.bool, device=device)}
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        trig = params["t_done"]
+        fired = state["triggered"]
+        done = trig | fired.unsqueeze(-1)
+        new_state = {"triggered": fired | trig.any(dim=-1)}
+        out = torch.zeros(trig.shape[:-1] + (0, ctx.block_size), dtype=ctx.dtype,
+                          device=trig.device)
+        return new_state, out, done
 
 
 class LogProbe(UGen):
