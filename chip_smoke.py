@@ -8,9 +8,12 @@ result line):
 
 1. device — a CUDA card is required; prints its name and power limit;
 2. build — compiles every CUDA kernel of ``knaster_tpu_torch/csrc`` (seven
-   libraries) and the two user voices' bodies of tools/user_voices.py
-   (each against ``csrc/generic_harness.cuh``), one nvcc per source, all
-   at once;
+   libraries), the two user voices' hand bodies of tools/user_voices.py
+   and the six bodies ``kernels/lower.py`` lowers from torch bodies
+   (``LOWERED``: the torch-only detuned and organ voices, the bell and
+   strings of 17, 32 and 64 modes), each against ``csrc/generic_harness.cuh``,
+   one nvcc per source, all at once; prints each library's nvcc seconds
+   and each instantiation's registers and spills;
 3. kernel vs plain — each bank kernel (sine, FM, subtractive, wavetable,
    and the generic harness with its Sine, FM, Subtractive and Additive
    bodies) in both variants against its plain torch version on the card, at
@@ -163,7 +166,8 @@ result line):
    direct f64 convolution within the reference's 2e-4); ``drum_machine``
    (examples/drum_machine.py's three tiled sampler banks, one bar of
    ``set_after`` hits). Each superblocked over 1 s (the drums over their
-   bar) against its per-block render of the first 0.25 s and that against
+   bar, ``sampler_resample`` over SAMPLER_RESAMPLE_SECONDS) against its
+   per-block render of the first 0.25 s and that against
    the port's CPU render of its first blocks, within stated gates;
    voice-samples/s or realtime x, kernels a block and the busy share.
    Then the live path (``phase_live``): the four scenarios of the JAX
@@ -197,7 +201,25 @@ result line):
    reset), ``wr_mul``, ``SafetyLimiter``, ``@ugen`` and ``@ugen.sample``
    UGens, ``ugen_from_sample_fn``, ``WrArParamToInput`` driven by a
    ``Phasor`` and ``DoneOnTrig`` freeing its subgraph, on the card against
-   the CPU within EXT_GATE, realtime x and launches per rendered second;
+   the CPU within EXT_GATE, realtime x and launches per rendered second.
+   Then the voices that reach the card from their torch bodies alone
+   (``phase_lowered``): each lowered body against its torch body on the
+   card (the torch-only ``DetunedVoice`` and ``OrganVoice`` at V in {1000,
+   131072} over ``schedule``, the bell and the 17-, 32- and 64-mode strings
+   over ``body_schedule``, all four blocks at V = 1000 and the first two at
+   65,536; eventful and event-free, carry bit-equal, mix within the gate);
+   the lowered bell's carry bit-equal to
+   the library ``modal12`` body's; each lowered bank's slice (a trigger
+   block and LOWERED_SLICE_BLOCKS event-free blocks through
+   ``bank.process``, its launches; the kernels a block of the 64-mode bank,
+   whose ``idle_of`` is eager); examples/custom_voice_bank.py's score
+   through the torch-only organ against the CPU render within 1e-6 x
+   max(1, peak), realtime x; and each lowered body's kernel ms, event-free
+   and eventful, beside the hand or library body it stands in for on the
+   same operands, with its plain ms and its bound from the operations the
+   voice's function needs on the timed state (the hand count of the body it
+   stands in for, ``modal_ops`` for the Modal bodies), the lowering's own
+   count beside it;
 5. timings and profile — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
@@ -419,9 +441,12 @@ def saw_table(ktt, n_harmonics=H):
 def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None, n_harmonics=H):
     """A bank of one kind with its benchmark's seeded defaults. Kinds:
     sine, fm, sub, wt (the hand banks) and generic-<body>, the bodies of
-    the library voices and generic-user-detuned and generic-user-organ
-    (tools/user_voices.py); the wavetable and Additive banks of
-    ``n_harmonics`` partials."""
+    the library voices, generic-user-detuned and generic-user-organ
+    (tools/user_voices.py, their hand CUDA bodies) and the voices whose
+    torch bodies the card runs lowered (``LOWERED``): the torch-only
+    detuned and organ voices, the bell (M = 12) with its library body
+    dropped and strings of 17, 32 and 64 modes on ``modal_bank``'s defaults;
+    the wavetable and Additive banks of ``n_harmonics`` partials."""
     amp_kw = {} if amp is None else {"amp": amp}
     if kind == "sine":
         return ktt.FusedSineVoiceBank(
@@ -442,10 +467,26 @@ def make_bank(ktt, np, kind, V, capacity, seed=0, amp=None, n_harmonics=H):
             event_capacity=capacity)
     body = kind.split("-", 1)[1]
     uv = user_voices_module()
+
+    def organ(np, V, seed=0, amp=0.003):
+        return {**uv.organ_defaults(V, seed), "amp": np.full(V, amp, np.float32)}
+
+    def modal(np, V, seed=0, amp=0.01):
+        return {**modal_defaults(np, V, seed), "amp": np.full(V, amp, np.float32)}
+
+    def string(n_modes):
+        return ktt.ModalVoice(ktt.ModalResonator.string(330.0, n_modes=n_modes))
+
     voice, defaults = {
         "user-detuned": (uv.DetunedVoice(), detuned_defaults),
-        "user-organ": (uv.OrganVoice(), lambda np, V, seed=0, amp=0.003: {
-            **uv.organ_defaults(V, seed), "amp": np.full(V, amp, np.float32)}),
+        "user-organ": (uv.OrganVoice(), organ),
+        "lowered-detuned": (uv.torch_only(uv.DetunedVoice()), detuned_defaults),
+        "lowered-organ": (uv.torch_only(uv.OrganVoice()), organ),
+        "lowered-modal12": (uv.torch_only(ktt.ModalVoice(ktt.ModalResonator.bell(330.0))),
+                            modal),
+        "lowered-modal17": (string(17), modal),
+        "lowered-modal32": (string(32), modal),
+        "lowered-modal64": (string(64), modal),
         "sine": (ktt.SineVoice(), sine_defaults),
         "fm": (ktt.FMVoice(), fm_defaults),
         "subtractive": (ktt.SubtractiveVoice(), sub_defaults),
@@ -2398,6 +2439,10 @@ def count_kernels(torch, run):
 # superblocked (an eventful first block dominates it where the schedule
 # has one: the polyblep cascade's ~49,500 launches)
 PROFILE_BLOCKS = CHUNK
+# slices whose superblocked launches are not counted, to keep the run in
+# its time limit: the profiler took 23.96 s (the polyblep cascade) and
+# 19.80 s (env_asr_chain) of it on an H100 (PERF.md §6)
+UNCOUNTED_PARTITIONS = ("polyblep_cascade", "env_asr_chain")
 
 
 def phase_partitions(torch, np, kt, dev, card):
@@ -2408,8 +2453,8 @@ def phase_partitions(torch, np, kt, dev, card):
     kernel launches per rendered second (the profiler's count over up to
     PROFILE_BLOCKS blocks of a third render) printed beside the card.
     Returns {slice: (realtime x, launches/s) superblocked and per block
-    (None: not counted), the port's own kernel launches of the superblocked
-    render}."""
+    (None: not counted; never for UNCOUNTED_PARTITIONS), the port's own
+    kernel launches of the superblocked render}."""
     out = {}
     for name, (bs, outs, frames, setup, how, kernel, free) in partition_slices().items():
         t_slice = time.perf_counter()
@@ -2439,7 +2484,7 @@ def phase_partitions(torch, np, kt, dev, card):
                 expect_counts(counts, want, f"partition {name}")
             n_prof = min(frames, PROFILE_BLOCKS * bs)
             n_k = (count_kernels(torch, lambda: runs[1].render(frames=n_prof, fetch=False))
-                   if chunk == CHUNK else None)
+                   if chunk == CHUNK and name not in UNCOUNTED_PARTITIONS else None)
             res[chunk] = (audio, frames / SR / secs,
                           None if n_k is None else n_k / (n_prof / SR), counts)
         (a, rt_sb, lps_sb, counts), (b, rt_pb, lps_pb, _) = res[CHUNK], res[1]
@@ -2463,7 +2508,7 @@ def phase_partitions(torch, np, kt, dev, card):
                  f"(held {held})")
         full = float((a - b).abs().max())
         print(f"partition {name} (B={bs}, {frames / SR:g} s) on {card}: superblocks "
-              f"realtime x {rt_sb:.4g}, {lps_sb} launches per rendered s, kernels {counts}; "
+              f"realtime x {rt_sb:.4g}, {lps_sb or 'not counted'} launches per rendered s, kernels {counts}; "
               f"per block realtime x {rt_pb:.4g}; "
               f"{held} ({diff:.3e}; whole render {full:.3e}) "
               f"({time.perf_counter() - t_slice:.1f} s)")
@@ -2660,7 +2705,7 @@ SUITE_ENV = [(0.05, 1.0), (0.4, 0.5), (0.8, 0.75, "sinusoidal"), (1.5, 0.0)]
 EFROM_ULPS = 4
 POOL_BLOCKS = 128  # blocks of note-ons in the pool slice
 POOL_PER_BLOCK = N_VOICES // POOL_BLOCKS  # 1024 note-ons a block: every voice taken
-POOL_HEAD = 32  # blocks of the pool slice held against the CPU render
+POOL_HEAD = 16  # blocks of the pool slice held against the CPU render (~2 s of CPU each)
 PEAL = (220.0, 277.18, 329.63, 440.0)  # examples/modal_bells.py:25
 BELLS_SECONDS = 4.0
 
@@ -3476,6 +3521,10 @@ GRAIN_SLOTS = 64  # bench_granular and bench_granular_bank
 GRAIN_PLAYERS = 64  # bench_granular_bank
 IR_SECONDS = 2.0  # bench_convolver: K = 2 s * 48000 / 64 = 1500 partitions
 BUFFER_SECONDS = 1.0  # each configuration's superblocked render (drum_machine: its bar)
+# sampler_resample's, cut to keep the run in its time limit (51.9 s at 1 s
+# on an H100, PERF.md §6): voices at rates of 1.67 and more still wrap
+# their 1 s loop
+SAMPLER_RESAMPLE_SECONDS = 0.6
 BUFFER_PER_BLOCK_SECONDS = 0.25  # the per-block render held against the superblocked one
 BUFFER_CPU_BLOCKS = 6  # blocks of the per-block render held against the port's CPU render
 DIRECT_BLOCKS = 64  # the convolver's output held against a direct convolution
@@ -3638,7 +3687,7 @@ BUFFER_CONFIGS = {
     "sampler_bank": (sampler_bank, BUFFER_SECONDS, mix_tolerance, "voices",
                      BUFFER_CPU_BLOCKS),
     "sampler_resample": (lambda kt, np, dev, chunk: sampler_bank(kt, np, dev, chunk, True),
-                         BUFFER_SECONDS, mix_tolerance, "voices", BUFFER_CPU_BLOCKS),
+                         SAMPLER_RESAMPLE_SECONDS, mix_tolerance, "voices", BUFFER_CPU_BLOCKS),
     # the grains: the card's cosf, sinf and exp2f against the CPU's, an ulp
     # on some inputs, moving a grain's frozen step and pan gains
     "granular": (grain_cloud, BUFFER_SECONDS, lambda V, peak: 1e-5 * max(1.0, peak),
@@ -4167,15 +4216,17 @@ def user_voices_module():
     return user_voices
 
 
-def organ_processor(ktt, uv, dev, seconds, spacing=None):
-    """examples/custom_voice_bank.py on the port: 512 OrganVoices with the
+def organ_processor(ktt, uv, dev, seconds, spacing=None, torch_only=False):
+    """examples/custom_voice_bank.py on the port: 512 OrganVoices (with the
+    hand CUDA body, or ``torch_only``: the lowered torch body) with the
     example's defaults in a FusedVoiceBank graph node, its four chords
     ``spacing`` apart (by default spread over ``ORGAN_SECONDS``),
     scheduled for ``seconds``."""
     g, proc = ktt.knaster(outputs=2, device=dev)
+    voice = uv.torch_only(uv.OrganVoice()) if torch_only else uv.OrganVoice()
     bank = g.edit(lambda gg: gg.push(ktt.FusedVoiceBank(
-        uv.OrganVoice(), uv.ORGAN_VOICES, voice_defaults=uv.organ_defaults(),
-        event_capacity=SUITE_CAPACITY)))
+        voice, uv.ORGAN_VOICES,
+        voice_defaults=uv.organ_defaults(), event_capacity=SUITE_CAPACITY)))
     bank.to_graph_out()
     g.commit()
     uv.organ_score(bank, seconds, spacing or ORGAN_SECONDS / len(uv.ORGAN_CHORDS))
@@ -4258,7 +4309,8 @@ def phase_extensions(torch, np, ktt, dev, card):
     first chord against it, within 1e-6 x max(1, peak). (3) ``extension_graph`` on the card and
     the CPU within EXT_GATE x max(1, peak): realtime x and kernel launches
     per rendered second. Returns the kernels line's rows of the two user
-    bodies."""
+    bodies and the organ score's CPU render (``phase_lowered`` holds the
+    lowered organ against it)."""
     from knaster_tpu_torch.kernels import build
     from knaster_tpu_torch.kernels import generic_bank as gk
 
@@ -4293,6 +4345,7 @@ def phase_extensions(torch, np, ktt, dev, card):
     a = audio.cpu().numpy()
     c, b = (np.asarray(organ_processor(ktt, uv, d, ORGAN_CMP_SECONDS, ORGAN_CMP_SPACING)
                        .render(seconds=ORGAN_CMP_SECONDS)) for d in (dev, "cpu"))
+    b_organ = b
     n_head = int(ORGAN_CMP_SPACING * SR)
     gap, peak = float(np.abs(c - b).max()), float(np.abs(b).max())
     head_gap = float(np.abs(a[:, :n_head] - b[:, :n_head]).max())
@@ -4349,6 +4402,254 @@ def phase_extensions(torch, np, ktt, dev, card):
                        label=f"generic_bank:user-{name}")
         r["source"] = "tools/user_voices.py"
         rows.append(r)
+    return rows, b_organ
+
+
+# --------------------------------------------------------------------------
+# voices whose torch bodies the card runs lowered to CUDA (kernels/lower.py)
+# --------------------------------------------------------------------------
+
+# kind -> the bank's voices in its slice and timing: the user voices at the
+# suite's bank size, the Modal bodies at modal_bank's (suite.py:962-1023)
+LOWERED = {"lowered-detuned": N_VOICES, "lowered-organ": N_VOICES,
+           "lowered-modal12": MODAL_VOICES, "lowered-modal17": MODAL_VOICES,
+           "lowered-modal32": MODAL_VOICES, "lowered-modal64": MODAL_VOICES}
+# the hand-written or library body each lowered one stands in for, timed
+# beside it on the same operands
+LOWERED_YARDSTICK = {"lowered-detuned": "generic-user-detuned",
+                     "lowered-organ": "generic-user-organ", "lowered-modal12": "modal12"}
+LOWERED_SLICE_BLOCKS = 64  # event-free blocks of a lowered bank's slice, after its trigger block
+# (V, body_schedule's blocks) each lowered Modal body is held against its
+# torch body over: all four at V = 1000, the first two (one eventful, one
+# event-free) at the full size (the plain 64-mode body takes ~4 s a block on
+# the card)
+LOWERED_MODAL_CHECKS = ((1000, 4), (MODAL_VOICES, 2))
+# the hand count of operations a voice-sample of the function each lowered
+# user body computes (OPS_PER_SAMPLE's key); the Modal bodies' is modal_ops
+LOWERED_FUNCTION_OPS = {"lowered-detuned": "generic-user-detuned",
+                        "lowered-organ": "generic-user-organ"}
+
+
+def lowered_body(torch, ktt, bank):
+    """The bank's voice's torch body lowered (``generic_bank.lowered``,
+    kept on its spec)."""
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    spec = bank.spec(ktt.AudioCtx(SR, BLOCK, torch.float32))
+    return gk.lowered(spec, bank._float_names, bank._trig_names, bank.voice.outputs)
+
+
+def lowered_sources(torch, np, ktt):
+    """{kind: LoweredBody} of every ``LOWERED`` voice: what the build phase
+    compiles."""
+    return {kind: lowered_body(torch, ktt, make_bank(ktt, np, f"generic-{kind}", 32, 32))
+            for kind in LOWERED}
+
+
+def yardstick_bank(ktt, np, kind, V, capacity, seed=0):
+    """The bank of the hand or library body that lowered ``kind`` stands in
+    for, on the same defaults (the same state layout and constants)."""
+    other = LOWERED_YARDSTICK[kind]
+    if other == "modal12":
+        return modal_bank(ktt, np, V, capacity, "bell", seed)
+    return make_bank(ktt, np, other, V, capacity, seed)
+
+
+def lowered_schedule(bank, V, B):
+    return (body_schedule if "t_strike" in bank._trig_names else schedule)(bank, V, B)
+
+
+def lowered_slice(torch, np, ktt, dev, kind, card):
+    """A lowered bank through ``bank.process`` at its ``LOWERED`` size: one
+    block of SUITE_CAPACITY restarts or strikes (spread over the bank), then
+    LOWERED_SLICE_BLOCKS event-free blocks; every block launches the generic
+    kernel, the mix is finite and sounds. Returns (bank, state, launches)."""
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    V = LOWERED[kind]
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    bank = make_bank(ktt, np, f"generic-{kind}", V, SUITE_CAPACITY)
+    trig = bank.trig_index("t_strike" if "t_strike" in bank._trig_names else "t_restart")
+    ev = bank.node_events_from_lists([(0, v, trig, 1, 0.0)
+                                      for v in range(0, V, V // SUITE_CAPACITY)])
+    state = bank.init(ctx, device=dev)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    state, _ = bank.process(ctx, state, events=ev)
+    state, outs, secs = timed_blocks(torch, bank, ctx, state, LOWERED_SLICE_BLOCKS)
+    counts = read_all_counts()
+    expect_counts(counts, {gk.KERNEL: 1 + LOWERED_SLICE_BLOCKS}, f"slice {kind}")
+    peak = float(outs.abs().max())
+    if not bool(torch.isfinite(outs).all()) or peak == 0.0:
+        fail(f"slice {kind}: the rendered mix is not finite or silent")
+    print(f"slice {kind}: {V} voices, {SUITE_CAPACITY} triggers in block 0, "
+          f"{LOWERED_SLICE_BLOCKS} event-free blocks in {secs:.4f} s "
+          f"({V * LOWERED_SLICE_BLOCKS * BLOCK / secs:.6g} voice-samples/s on {card}), "
+          f"mix peak {peak:.4g}, generic_bank launches {counts[gk.KERNEL]}")
+    return bank, state, counts[gk.KERNEL]
+
+
+def lowered_timings(torch, np, ktt, kind, bank, state, card):
+    """The lowered body's kernel ms (device time in a CUDA graph), event-free
+    from ``state`` and eventful, beside its yardstick's on the same operands
+    where it has one; the plain version's ms; the bound from the bytes or
+    from the operations a voice-sample that the voice's function needs on
+    this state: the hand count of the body it stands in for (the organ's
+    with its pan taken once a block where the pan is flat,
+    ``user_ops_per_sample``), ``modal_ops`` for the Modal bodies. The
+    lowering's own count (``LoweredBody.ops_per_sample``, which also counts
+    work the function takes once a block, such as a flat pan) is printed
+    beside it. Returns (ms, plain_ms, bound_ms, bound_by)."""
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    V = bank.n_voices
+    ops, _ = bank.kernel_operands(ctx, state, None)
+    ev = bank.node_events_from_lists(lowered_schedule(bank, V, BLOCK)[0][:bank.event_capacity])
+    ev_ops, _ = bank.kernel_operands(ctx, state, ev)
+    outs = gk.empty_outputs(ops["carry"], bank.voice.outputs, BLOCK)
+    ms = time_graph(torch, lambda: gk.launch(outs, **ops), 100)
+    ev_ms = time_graph(torch, lambda: gk.launch(outs, **ev_ops), 50)
+    line = f"event-free kernel {ms:.4f} ms, eventful {ev_ms:.4f} ms"
+    if kind in LOWERED_YARDSTICK:
+        other = yardstick_bank(ktt, np, kind, V, bank.event_capacity).spec(ctx)
+        o_ms = time_graph(torch, lambda: gk.launch(outs, **dict(ops, spec=other)), 100)
+        o_ev = time_graph(torch, lambda: gk.launch(outs, **dict(ev_ops, spec=other)), 50)
+        line += (f"; {LOWERED_YARDSTICK[kind]} on the same operands {o_ms:.4f} ms, "
+                 f"eventful {o_ev:.4f} ms (lowered / yardstick {ms / o_ms:.3f}, {ev_ms / o_ev:.3f})")
+    plain_ms = time_call(torch, lambda: gk.generic_bank_plain(**ops), 1)
+    fn = LOWERED_FUNCTION_OPS.get(kind)
+    if fn in USER_FLAT_PAN_OPS_PER_SAMPLE:
+        per_sample, _ = user_ops_per_sample(torch, fn, ops, BLOCK)
+    elif fn is not None:
+        per_sample = OPS_PER_SAMPLE[fn]
+    else:
+        per_sample = modal_ops(bank.voice.res.n_modes, moving_pans(torch, bank, ops, BLOCK))
+    nbytes = tensor_bytes(ops, written(gk, outs))
+    bound_ms, bound_by = bound(nbytes, per_sample * V * BLOCK)
+    lowering = lowered_body(torch, ktt, bank).ops_per_sample
+    at_lowering, _ = bound(nbytes, lowering * V * BLOCK)
+    print(f"timing generic_bank:{kind} V={V} B={BLOCK} on {card}: {line}; plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}, {per_sample:g} f32 "
+          f"operations a voice-sample that the function needs); at the lowering's count "
+          f"({lowering} operations a voice-sample) {at_lowering:.5f} ms")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+def phase_lowered(torch, np, ktt, dev, card, organ_cpu):
+    """Voices that reach the card from their torch bodies alone
+    (kernels/lower.py, built in the build phase). (1) Each lowered body in
+    the generic harness against its torch body on the card: the torch-only
+    ``DetunedVoice`` and ``OrganVoice`` at V in {1000, 131072}, B = 64,
+    over ``schedule``'s five blocks, eventful and event-free
+    (``phase_kernel_vs_plain``); the bell (M = 12, its library body
+    dropped) and strings of 17, 32 and 64 modes over ``body_schedule``'s
+    blocks as LOWERED_MODAL_CHECKS says (all four at V = 1000, two at
+    65,536): carry bit-equal, mix within the gate.
+    (2) The lowered bell's carry bit-equal to the library ``modal12``
+    body's, block by block from one state and schedule at 65,536 voices.
+    (3) Each lowered bank's slice (``lowered_slice``: its launches), and
+    the kernels one event-free block of the 64-mode bank takes (its
+    ``idle_of`` stays eager torch). (4) examples/custom_voice_bank.py's score
+    through the torch-only organ: ORGAN_SECONDS on the card (realtime x,
+    launches) and the chords ORGAN_CMP_SPACING apart against the CPU
+    render ``organ_cpu`` within 1e-6 x max(1, peak). (5) Each lowered
+    body's timing (``lowered_timings``). Returns the kernels line's rows."""
+    from knaster_tpu_torch.kernels import generic_bank as gk
+
+    uv = user_voices_module()
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    t0 = time.perf_counter()
+    errs = {}
+    for kind in ("lowered-detuned", "lowered-organ"):
+        errs[kind] = phase_kernel_vs_plain(torch, np, ktt, dev, f"generic-{kind}", Bs=(BLOCK,))
+    for kind in ("lowered-modal12", "lowered-modal17", "lowered-modal32", "lowered-modal64"):
+        t1 = time.perf_counter()
+        errs[kind] = 0.0
+        for V, n in LOWERED_MODAL_CHECKS:
+            bank = make_bank(ktt, np, f"generic-{kind}", V, V * 2, seed=V)
+            e, _, _, _ = run_generic_vs_plain(
+                torch, ktt, bank, dev, BLOCK, body_schedule(bank, V, BLOCK)[:n], f"{kind} V={V}")
+            errs[kind] = max(errs[kind], e)
+        over = ", ".join(f"{n} blocks at V={V}" for V, n in LOWERED_MODAL_CHECKS)
+        print(f"kernel vs plain {kind} B={BLOCK}: carries bit-equal over {over} (eventful and "
+              f"event-free), max |mix diff| {errs[kind]:.3e} ({time.perf_counter() - t1:.1f} s)")
+
+    # (2) the lowered bell against the library modal12 body
+    V = MODAL_VOICES
+    banks = (yardstick_bank(ktt, np, "lowered-modal12", V, V, seed=3),
+             make_bank(ktt, np, "generic-lowered-modal12", V, V, seed=3))
+    states = [b.init(ctx, device=dev) for b in banks]
+    gap = 0.0
+    for blk, evs in enumerate(body_schedule(banks[0], V, BLOCK)):
+        outs = []
+        for i, b in enumerate(banks):
+            operands, carry = b.kernel_operands(
+                ctx, states[i], None if evs is None else b.node_events_from_lists(evs))
+            k = b.kernel(**operands)
+            states[i], _ = b.finish(ctx, carry, k)
+            outs.append(k)
+        torch.cuda.synchronize()
+        if not torch.equal(outs[0][1], outs[1][1]):
+            fail(f"lowered modal12 block {blk}: carry differs from the library modal12 body's "
+                 f"in {int((outs[0][1] != outs[1][1]).sum())} words")
+        gap = max(gap, float((outs[0][0] - outs[1][0]).abs().max()))
+        if gap > mix_tolerance(V, float(outs[0][0].abs().max())):
+            fail(f"lowered modal12 block {blk}: mix differs from the library body's by {gap}")
+    print(f"lowered modal12 vs library modal12 V={V}: carries bit-equal over 4 blocks, max "
+          f"|mix diff| {gap:.3e}")
+    print(f"  (lowered bodies vs plain: {time.perf_counter() - t0:.1f} s)")
+
+    # (3) the slices
+    t0 = time.perf_counter()
+    slices = {kind: lowered_slice(torch, np, ktt, dev, kind, card)
+              for kind in LOWERED if kind != "lowered-organ"}
+    bank, state, _ = slices["lowered-modal64"]
+    n = count_kernels(torch, lambda: bank.process(ctx, state))
+    print(f"slice lowered-modal64: {n if n is not None else 'not measured'} kernels in one "
+          f"event-free block (the lowered body once; the rest staging and the eager idle_of)")
+
+    # (4) the custom-voice example through the lowered organ
+    proc = organ_processor(ktt, uv, dev, ORGAN_SECONDS, torch_only=True)
+    reset_all_counts()
+    audio, secs = render_timed(torch, proc, ORGAN_SECONDS)
+    counts = read_all_counts()
+    organ_launches = counts[gk.KERNEL]
+    if organ_launches == 0:
+        fail("custom_voice_bank (lowered organ): the generic kernel never launched")
+    expect_counts(counts, {gk.KERNEL: organ_launches}, "custom_voice_bank (lowered organ)")
+    a = audio.cpu().numpy()
+    c = np.asarray(organ_processor(ktt, uv, dev, ORGAN_CMP_SECONDS, ORGAN_CMP_SPACING,
+                                   torch_only=True).render(seconds=ORGAN_CMP_SECONDS))
+    n_head = int(ORGAN_CMP_SPACING * SR)
+    gap, peak = float(np.abs(c - organ_cpu).max()), float(np.abs(organ_cpu).max())
+    head_gap = float(np.abs(a[:, :n_head] - organ_cpu[:, :n_head]).max())
+    if (not np.isfinite(a).all() or not np.isfinite(c).all() or peak < 1e-3
+            or max(gap, head_gap) > 1e-6 * max(1.0, peak)):
+        fail(f"custom_voice_bank (lowered organ): card vs CPU differ by {gap} over the chords, "
+             f"the timed render's first chord by {head_gap} (peak {peak}), or silent")
+    print(f"slice custom_voice_bank through the lowered organ: {uv.ORGAN_VOICES} voices, "
+          f"{ORGAN_SECONDS:g} s on {card} in {secs:.3f} s (realtime x {ORGAN_SECONDS / secs:.4g}), "
+          f"generic_bank launches {organ_launches}; card vs CPU over {ORGAN_CMP_SECONDS:g} s "
+          f"{gap:.3e}, the timed render's first chord {head_gap:.3e}, peak {peak:.4g}")
+    print(f"  (lowered slices and custom_voice_bank: {time.perf_counter() - t0:.1f} s)")
+
+    # (5) timings
+    t0 = time.perf_counter()
+    rows = []
+    for kind in LOWERED:
+        if kind in slices:
+            bank, state, launches = slices[kind]
+        else:
+            bank = make_bank(ktt, np, f"generic-{kind}", LOWERED[kind], SUITE_CAPACITY)
+            launches = organ_launches
+        if kind in ("lowered-detuned", "lowered-organ"):
+            state = sounding_state(torch, ktt, bank)
+        row = lowered_timings(torch, np, ktt, kind, bank, state, card)
+        r = kernel_row("generic_bank", launches, errs[kind], *row, label=f"generic_bank:{kind}")
+        r["source"] = "knaster_tpu_torch/kernels/lower.py"
+        rows.append(r)
+    print(f"  (lowered timings: {time.perf_counter() - t0:.1f} s)")
     return rows
 
 
@@ -4398,12 +4699,16 @@ def kernel_row(name, launches, err, ms, plain_ms, bound_ms, bound_by, label=None
 
 
 def print_ptxas(paths):
-    """Each kernel instantiation's registers and spills from the ``ptxas
-    -v`` log beside each library, one line an instantiation, named as
-    ``c++filt`` demangles it where the toolchain has one."""
+    """Each library's nvcc seconds and each kernel instantiation's registers
+    and spills from the ``ptxas -v`` log beside each library, one line an
+    instantiation, named as ``c++filt`` demangles it where the toolchain has
+    one."""
     import re
 
+    from knaster_tpu_torch.kernels.build import build_seconds
+
     for name, so in paths.items():
+        print(f"  nvcc {name}: {build_seconds(so)} s")
         entries, cur = [], None
         for line in so.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -4452,13 +4757,21 @@ def main():
     t0 = time.perf_counter()
     uv = user_voices_module()
     user_sources = {"user-detuned": uv.DETUNED_SOURCE, "user-organ": uv.ORGAN_SOURCE}
+    lowered = lowered_sources(torch, np, ktt)
+    user_sources.update({kind: lb.source for kind, lb in lowered.items()})
+    t_lower = time.perf_counter() - t0
     paths = build.build_all(user_sources=tuple(user_sources.values()))
     for name in paths:
         build.load_library(name)
     for src in user_sources.values():
         build.load_user_body(src)
-    print(f"build: {len(paths)} libraries and {len(user_sources)} user voice bodies in "
+    print(f"build: {len(paths)} libraries and {len(user_sources)} user voice bodies "
+          f"({len(lowered)} lowered from torch bodies in {t_lower:.1f} s) in "
           f"{time.perf_counter() - t0:.1f} s")
+    for kind, lb in lowered.items():
+        print(f"  {kind}: {lb.voice_name} lowered, {lb.counts[2]} carry words, "
+              f"{lb.ops_per_sample} operations a voice-sample, "
+              f"{build.user_body_path(lb.source).name}")
     print_ptxas({**paths, **{n: build.user_body_path(src) for n, src in user_sources.items()}})
 
     # -- kernel vs plain --------------------------------------------------
@@ -4553,7 +4866,8 @@ def main():
     lap(phase_vmap_banks, torch, np, ktt, dev, card)
     lap(phase_buffers, torch, np, ktt, dev, card)
     live_rows = lap(phase_live, torch, np, ktt, dev, card)
-    user_rows = lap(phase_extensions, torch, np, ktt, dev, card)
+    user_rows, organ_cpu = lap(phase_extensions, torch, np, ktt, dev, card)
+    lowered_rows = lap(phase_lowered, torch, np, ktt, dev, card, organ_cpu)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings and profile at the main path's shape ---------------------
@@ -4600,6 +4914,7 @@ def main():
                                 *row, label=f"chain_kernel:{path}"))
     table.extend(live_rows.values())
     table.extend(user_rows)
+    table.extend(lowered_rows)
     print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 

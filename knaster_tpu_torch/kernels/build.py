@@ -11,8 +11,9 @@ raises with the compiler's output. ``load_library(name)`` builds what is
 missing and loads the library with ``ctypes``, its entry point declared from
 the kernel module's ``ARGTYPES``.
 
-A user voice's CUDA body (``KernelVoiceSpec.cuda_source``) is built the
-same way into a library of its own: ``user_translation_unit`` wraps the
+A user voice's CUDA body (``KernelVoiceSpec.cuda_source``, or the source
+``lower.lower_body`` writes from a voice's torch body) is built the same
+way into a library of its own: ``user_translation_unit`` wraps the
 source in a translation unit that includes ``csrc/generic_harness.cuh``
 and exports ``ktt_generic_bank`` (the library harness's arguments) and
 ``ktt_body_counts`` (the body's NF, NT, NC and C). ``load_user_body``
@@ -29,7 +30,9 @@ import importlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
+import time
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -75,7 +78,8 @@ def library_path(name: str) -> Path:
 
 def build_all(names=KERNELS, user_sources=()) -> dict:
     """Compile every named kernel library, and every user body of
-    ``user_sources``, whose current build is missing, one nvcc per source,
+    ``user_sources`` (hand-written or lowered sources), whose current build
+    is missing, one nvcc per source,
     all at once; returns {name: path} for the kernels. The compiler's log
     (with ptxas register counts) is kept beside each as ``<name>_<hash>.log``."""
     if unknown := [n for n in names if n not in KERNELS]:
@@ -95,22 +99,31 @@ def build_all(names=KERNELS, user_sources=()) -> dict:
 
 def _compile(jobs):
     """Run one nvcc per (label, library, source) job, all at once; raise with
-    the compiler's output of every job that failed."""
+    the compiler's output of every job that failed. Each job's log (its
+    command, the compiler's output and its wall seconds, ``build_seconds``)
+    is kept beside its library."""
     if not jobs:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     running = []
+    t0 = time.monotonic()
     for label, so, src in jobs:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running.append((label, so, tmp, cmd, proc))
+        out = tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT, text=True)
+        running.append([label, so, tmp, cmd, proc, out, None])
+    while any(job[6] is None for job in running):
+        for job in running:
+            if job[6] is None and job[4].poll() is not None:
+                job[6] = time.monotonic() - t0
+        time.sleep(0.05)
     failed = []
-    for label, so, tmp, cmd, proc in running:
-        out, _ = proc.communicate()
-        log = f"$ {' '.join(cmd)}\n{out}"
+    for label, so, tmp, cmd, proc, out, secs in running:
+        with out:
+            out.seek(0)
+            log = f"$ {' '.join(cmd)}\n{out.read()}\n# nvcc: {secs:.1f} s\n"
         so.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
@@ -119,6 +132,15 @@ def _compile(jobs):
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def build_seconds(so: Path):
+    """The wall seconds nvcc took for a library, from the log beside it
+    (None for a library built before the log kept them)."""
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if line.startswith("# nvcc: "):
+            return float(line.split()[2])
+    return None
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -5,7 +5,8 @@ from ``PallasVoiceBank.process``) with the CUDA C++ harness in
 ``csrc/generic_bank.cu``, templated over a device body per library voice.
 A voice brings a ``KernelVoiceSpec`` (``parallel/generic_bank.py``): its
 carry table, a torch body over ``[V]`` tensors (what the plain harness here
-runs), and the name of its CUDA body (``BODIES``).
+runs), and the name of its CUDA body (``BODIES``), its own CUDA source, or
+neither (its torch body is lowered).
 
 Per voice and sample the harness does what ``_generic_kernel`` does:
 materialize every float param (``_mat``), read each trigger's bit from its
@@ -46,10 +47,13 @@ user voice brings its own body as CUDA source (``spec.cuda_source``): it
 is compiled against ``csrc/generic_harness.cuh`` into a library of its own
 (``build.load_user_body``) at its first launch, its counts checked against
 the voice, and launched with the same arguments; its constants are
-``spec.consts`` as they are.
+``spec.consts`` as they are. A voice with neither (a user voice from its
+torch body alone, a ModalVoice past 16 modes) has its torch body lowered to
+such a source once (``lower.lower_body``, kept on the spec) and built the
+same way; its constants are literals in the source.
 
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (or
-raise, also for a voice with no CUDA body), CPU tensors run
+raise: a body the lowering refuses, a build that fails), CPU tensors run
 ``generic_bank_plain``. Nothing falls back.
 """
 
@@ -70,7 +74,7 @@ LAUNCHES = 0
 # CUDA body name -> (id in csrc/generic_bank.cu, float params, triggers,
 # carry words, outputs). The modal body is one instantiation per mode count
 # M = 1 ... 16 ("modal<M>", id 4 + M, 3 + 2M carry words); a ModalVoice of
-# more modes has no CUDA body.
+# more modes names no library body, and its torch body is lowered.
 BODIES = {
     "sine": (0, 3, 2, 4, 2),
     "fm": (1, 4, 1, 4, 1),
@@ -96,13 +100,16 @@ def const_image(spec):
     segment table stays on the device). Modal (atk, rel, 1/area, 2pi/sr,
     thr^2, M, ratio[M], k_exp[M], gain[M], gain^2[M]): atk, rel, 1/area,
     2pi/sr, ratio, k_exp, gain. A user body (``spec.cuda_source``): the
-    constants as they are."""
+    constants as they are. A lowered body: its one unused float (the
+    constants are literals in its source)."""
     image = getattr(spec, "_cuda_image", None)
     if image is not None:
         return image
     body = spec.cuda_body
     k = np.asarray(np.zeros(0) if spec.consts is None else spec.consts, np.float32)
-    if spec.cuda_source is not None or body in ("sine", "fm", "subtractive"):
+    if body is None and spec.cuda_source is None:
+        image = spec._lowered.image
+    elif spec.cuda_source is not None or body in ("sine", "fm", "subtractive"):
         image = k
     elif body == "additive":
         H = (k.shape[0] - 3) // 3
@@ -192,21 +199,25 @@ def empty_outputs(carry, n_out, block_size):
 def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
            words, carry, consts, block_size):
     """Launch the CUDA harness with the voice's body on the current stream,
-    writing ``outs`` (from ``empty_outputs``). Raises for a voice with no
-    CUDA body, for anything but CUDA tensors of the documented layout, and
-    if the launch fails."""
+    writing ``outs`` (from ``empty_outputs``). Raises for an unknown library
+    body, a torch body the lowering refuses, anything but CUDA tensors of
+    the documented layout, a build that fails, and a launch that fails."""
     global LAUNCHES
     V, B, D = _validate(spec, float_names, trig_names, ramps, rounds, act,
                         words, carry, consts, block_size)
     device = carry.device
-    if spec.cuda_source is None and spec.cuda_body not in BODIES:
+    if spec.cuda_body is None and spec.cuda_source is None:
+        lowered(spec, float_names, trig_names, n_out)
+    elif spec.cuda_body is not None and spec.cuda_body not in BODIES:
         raise ValueError(
-            f"{KERNEL}: voice {spec.voice_name} has no CUDA body "
-            f"(cuda_body={spec.cuda_body!r}, no cuda_source; known: {sorted(BODIES)})")
+            f"{KERNEL}: voice {spec.voice_name} names no known CUDA body "
+            f"(cuda_body={spec.cuda_body!r}; known: {sorted(BODIES)})")
     bc.require_cuda(KERNEL, device)
-    if spec.cuda_source is not None:
+    if spec.cuda_body is None:
         lib, counts = user_body(spec)
-        body_id, what = 0, f"user body of {spec.voice_name}"
+        body_id = 0
+        what = (f"user body of {spec.voice_name}" if spec.cuda_source is not None
+                else f"body lowered from the torch body of {spec.voice_name}")
     else:
         lib = None
         body_id, *counts = BODIES[spec.cuda_body]
@@ -244,14 +255,27 @@ def launch(outs, *, spec, float_names, trig_names, n_out, ramps, rounds, act,
     LAUNCHES += 1
 
 
+def lowered(spec, float_names, trig_names, n_out):
+    """The spec's torch body lowered to a CUDA body (``lower.lower_body``)
+    at the first call, then kept on the spec. Raises ValueError, naming the
+    voice and the op, for a body the lowering refuses."""
+    if spec._lowered is None:
+        from .lower import lower_body
+
+        spec._lowered = lower_body(spec, float_names, trig_names, n_out)
+    return spec._lowered
+
+
 def user_body(spec):
-    """(library, (NF, NT, NC, C)) of a user voice's CUDA body: built from
-    ``spec.cuda_source`` and loaded at the first call, then kept on the
-    spec. Raises with nvcc's output if the build fails."""
+    """(library, (NF, NT, NC, C)) of a voice's own CUDA body: its
+    ``cuda_source``, or the source lowered from its torch body (``lowered``
+    first); built and loaded at the first call, then kept on the spec.
+    Raises with nvcc's output if the build fails."""
     if spec._cuda_lib is None:
         from .build import load_user_body, user_body_counts
 
-        lib = load_user_body(spec.cuda_source)
+        source = spec.cuda_source if spec.cuda_source is not None else spec._lowered.source
+        lib = load_user_body(source)
         spec._cuda_lib = (lib, user_body_counts(lib))
     return spec._cuda_lib
 
@@ -259,9 +283,11 @@ def user_body(spec):
 def generic_bank_plain(*, spec, float_names, trig_names, n_out, ramps, rounds,
                        act, words, carry, consts, block_size):
     """``generic_bank`` in plain torch: a Python loop over the B samples
-    running the voice's torch body on [V] tensors. u32 carries are unpacked
-    to int64 in [0, 2^32) for the body and packed back after. The mix is
-    one ``torch.sum`` per sample and channel."""
+    running the voice's torch body on [V] tensors. The body's sample index
+    ``i_f`` is a 0-d f32 tensor, as the JAX kernel's traced index and the
+    harness's ``p.i_f`` are, so arithmetic on it rounds in f32. u32 carries
+    are unpacked to int64 in [0, 2^32) for the body and packed back after.
+    The mix is one ``torch.sum`` per sample and channel."""
     V, B, _ = _validate(spec, float_names, trig_names, ramps, rounds, act,
                         words, carry, consts, block_size)
     vals = {}
@@ -269,11 +295,12 @@ def generic_bank_plain(*, spec, float_names, trig_names, n_out, ramps, rounds,
         vals[name] = bc.u32_of(carry[k]) if kind == "u32" else carry[k].view(torch.float32)
     eventful = rounds is not None
     outs = [[] for _ in range(n_out)]
+    index = torch.arange(B, dtype=torch.float32, device=act.device)
     for i in range(B):
         P = ParamView(float(i), ramps, rounds, float_names)
         T = {name: (_trig_bit(i, words[k]) if eventful else None)
              for k, name in enumerate(trig_names)}
-        vals, rows = spec.body(float(i), vals, P, T)
+        vals, rows = spec.body(index[i], vals, P, T)
         for ch in range(n_out):
             outs[ch].append(torch.sum(rows[ch] * act))
     mix = torch.stack([torch.stack(o) for o in outs])

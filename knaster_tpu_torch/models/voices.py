@@ -608,8 +608,11 @@ class ModalVoice(UGen):
         exp argument is ``(K/(rel_m*sr)) * (1/decay)``; decays come from
         ``_exp_poly`` and the rotation from ``_sincos_halfturn``, and a mode
         at or above pi is dead (r = 0). Constants: atk, rel, 1/area, 2pi/sr,
-        thr^2, M, then ratios[M], k_exp[M], gains[M], gains^2[M]. The CUDA
-        body takes M <= 16 (``modal1`` ... ``modal16``)."""
+        thr^2, M, then ratios[M], k_exp[M], gains[M], gains^2[M]. On the
+        card M <= 16 takes the library body (``modal1`` ... ``modal16``);
+        past 16 modes the spec names none, and this torch body is lowered
+        to a CUDA body of its own (``kernels/lower.py``) at the bank's first
+        launch."""
         from ..parallel.generic_bank import KernelVoiceSpec
 
         res = self.res
@@ -669,7 +672,7 @@ class ModalVoice(UGen):
         consts = np.concatenate([np.array([atk, rel, inv_area, c2pi, thr2, M], np.float32),
                                  ratios, k_exp, gains, g2])
         return KernelVoiceSpec(carry=carry, body=body, idle_of=idle_of,
-                               cuda_body=f"modal{M}", consts=consts,
+                               cuda_body=f"modal{M}" if M <= 16 else None, consts=consts,
                                voice_name=self.name())
 
 

@@ -3,23 +3,27 @@
 A voice opts in by implementing ``kernel_voice(ctx)``, which returns a
 :class:`KernelVoiceSpec`: its per-voice scalar carry, a per-sample body
 over ``[V]`` tensors in torch (the plain version, run on the CPU), an
-``idle_of`` for the idle latch, and its CUDA body: the name of a library
-body in ``csrc/generic_bank.cu``, or, for a user voice, CUDA C++ source
-that defines the body (``cuda_source``), built against the harness into a
-library of its own at its first launch on the card.
+``idle_of`` for the idle latch, and its CUDA body by one of three routes:
+the name of a library body in ``csrc/generic_bank.cu``; CUDA C++ source
+that defines the body (``cuda_source``); or neither, and the torch body is
+lowered to such a source (``kernels/lower.py``, as ``PallasVoiceBank``
+traces a ``mosaic_voice`` body into its kernel). The last two are built
+against the harness into a library of their own at the first launch on the
+card.
 :class:`FusedVoiceBank` supplies the rest: the
 anchored-ramp / burst-breakpoint event machinery, packed trigger words, the
 per-sample active mask on every output, the carry across blocks and the
 mix. It is the counterpart of ``PallasVoiceBank``; the library voices
 (``SineVoice``, ``FMVoice``, ``SubtractiveVoice``, ``AdditiveVoice``) carry
 bodies that are the math of the hand-written banks' kernels, and
-``EnvelopeVoice`` and ``ModalVoice`` (up to 16 modes on the card) bodies of
-their own. In a graph the bank is a node like any other (its superblocks
-capped at 1024 samples) under per-voice handles and ``VoicePool``.
+``EnvelopeVoice`` and ``ModalVoice`` (a library body up to 16 modes, the
+lowered torch body past) bodies of their own. In a graph the bank is a node
+like any other (its superblocks capped at 1024 samples) under per-voice
+handles and ``VoicePool``.
 
-On CUDA tensors a voice with neither a known ``cuda_body`` nor a
-``cuda_source`` raises a ``ValueError`` that names it; on CPU tensors the
-torch body runs.
+On CUDA tensors a voice whose torch body the lowering refuses raises a
+``ValueError`` that names it and the op at the first launch, and a build
+that fails raises with nvcc's output; on CPU tensors the torch body runs.
 """
 
 from __future__ import annotations
@@ -62,8 +66,10 @@ class KernelVoiceSpec:
         ``csrc/bank_common.cuh``'s helpers (``sin_quant``, ``to_inc``,
         ``env_ar``, ``env_asr``, ``sin_poly``). Its counts are checked
         against the voice before the first launch. A voice with neither
-        ``cuda_body`` nor ``cuda_source`` runs on the CPU only; one with
-        both is refused.
+        ``cuda_body`` nor ``cuda_source`` has ``body`` lowered to such a
+        source at its first launch on the card (``kernels/lower.py``: the
+        elementwise ops on ``[V]`` values that it lists; anything else is
+        refused by name); one with both is refused.
     consts: f32 [n] body constants the CUDA body reads.
     voice_name: for error messages.
     """
@@ -81,6 +87,9 @@ class KernelVoiceSpec:
     # a user body's loaded library and its (NF, NT, NC, C)
     # (kernels.generic_bank.user_body)
     _cuda_lib: Optional[tuple] = field(default=None, init=False, repr=False,
+                                       compare=False)
+    # the torch body lowered to CUDA (kernels.generic_bank.lowered)
+    _lowered: Optional[object] = field(default=None, init=False, repr=False,
                                        compare=False)
 
     def __post_init__(self):
@@ -145,12 +154,6 @@ class FusedVoiceBank(FusedBank):
         needs."""
         spec = self.spec(ctx)
         dev = state["fvals"].device
-        if (dev.type == "cuda" and spec.cuda_body not in gk.BODIES
-                and spec.cuda_source is None):
-            raise ValueError(
-                f"{self.voice.name()} has no CUDA body for FusedVoiceBank "
-                f"(cuda_body={spec.cuda_body!r}, no cuda_source): its bank runs "
-                "on CPU tensors only")
         ramps, rounds, act, words, carry = self.stage_block(ctx, state, events)
         key = (ctx.sample_rate, dev)
         if key not in self._consts:

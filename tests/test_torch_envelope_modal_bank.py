@@ -17,8 +17,9 @@ replay of the recurrence, the same bound), :467 (choked modal voices go
 idle, never-struck ones do not), :578 (the envelope-finished idle latch; a
 t_stop voice is not idle), :619 (a looping program never idles) and :643
 (exponential segments), plus the bank against the JAX bank over eventful
-and event-free blocks for a four-shape program, looping and not, and for
-the bell, bar and string presets.
+and event-free blocks for a four-shape program, looping and not, for
+the bell, bar and string presets, and for a string of 24 modes (past the
+library's 16, the body the card lowers from torch).
 """
 
 import numpy as np
@@ -34,6 +35,7 @@ from knaster_tpu.ugens.modal import _LN10_M3
 import knaster_tpu_torch as kt
 from knaster_tpu_torch.kernels import generic_bank as tgb
 from knaster_tpu_torch.kernels.bank_common import ENV_SEG_FINISHED, ENV_SEG_STOPPED
+from knaster_tpu_torch.kernels.lower import lower_body
 
 SR = 48000
 EXACT = dict(NO_FMA, xla_disable_hlo_passes="algsimp")
@@ -241,19 +243,44 @@ def test_envelope_exponential_shape():
     assert np.abs(mix).max() > 1e-3
 
 
+def test_modal_bank_past_16_modes_matches_jax():
+    """A 24-mode string, past the library's ModalBody<M> (M <= 16): the JAX
+    bank runs its mosaic body in the Pallas interpreter, the port its torch
+    body (what the card lowers to its own CUDA body); carries bit-equal,
+    mix within lockstep's 1e-5 (the sum's order)."""
+    V, B = 128, 64
+
+    def voice(m):
+        cls = jk.ModalResonator if m is jk else kt.ModalResonator
+        return m.ModalVoice(cls.string(440.0, n_modes=24), strike_ms=1.5,
+                            done_threshold=1e-4)
+
+    pb, fb = _pair(voice, V, _modal_defaults(V, 29))
+    mix, _ = lockstep(pb, fb, B, _modal_schedule(fb, B)[:4], compiler_options=EXACT)
+    assert np.abs(mix).max() > 1e-3
+    assert fb.spec(kt.AudioCtx(SR, B)).cuda_body is None
+
+
 def test_modal_voice_past_16_modes_has_no_cuda_body():
-    """ModalBody<M> exists for M = 1 ... 16; a voice of more modes names
-    itself off the CPU (and still runs on CPU tensors)."""
+    """ModalBody<M> exists for M = 1 ... 16; past 16 modes the spec names no
+    library body and its torch body lowers (kernels/lower.py), so off the
+    CPU the bank launches the lowered body (here the device check refuses
+    the meta device, after the lowering); it still runs on CPU tensors."""
     ctx = kt.AudioCtx(SR, 64)
     for M in (1, 16):
         spec = kt.ModalVoice(kt.ModalResonator.string(n_modes=M)).kernel_voice(ctx)
         body = tgb.BODIES[spec.cuda_body]
         assert body[3] == len(spec.carry) == 3 + 2 * M
     bank = kt.FusedVoiceBank(kt.ModalVoice(kt.ModalResonator.string(n_modes=17)), 32)
+    spec = bank.spec(ctx)
+    assert spec.cuda_body is None and spec.cuda_source is None
+    lowered = lower_body(spec, bank._float_names, bank._trig_names, 2)
+    assert lowered.counts == (4, 1, 3 + 2 * 17, 2) and "struct VoiceBody" in lowered.source
     st = bank.init(ctx, device="cpu")
     st, out = bank.process(ctx, st)
     assert out.shape == (2, 64)
     ops, _ = bank.kernel_operands(ctx, st)
     meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v) for k, v in ops.items()}
-    with pytest.raises(ValueError, match="ModalVoice has no CUDA body"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         tgb.generic_bank(**meta)
+    assert spec._lowered.counts == lowered.counts

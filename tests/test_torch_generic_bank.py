@@ -95,8 +95,8 @@ def test_generic_matches_hand_bank(name, hand):
 
 class TorchDetunedVoice(ktt.UGen):
     """tests/test_generic_bank.py's user voice (two detuned sines, AR
-    envelope) with a torch body and no CUDA body: it runs on CPU tensors
-    only."""
+    envelope) with a torch body and no CUDA body: the card runs its torch
+    body lowered (kernels/lower.py)."""
 
     inputs = 0
     outputs = 1
@@ -139,9 +139,15 @@ def test_cpu_only_user_voice_matches_jax_and_names_itself_off_the_cpu():
     sched = rich_schedule(fb, {"freq": 444.0, "detune": 1.02, "amp": 0.02}, 64)
     mix, st = lockstep(pb, fb, 64, sched)
     assert np.abs(mix).max() > 1e-3
+    # off the CPU the wrapper lowers the torch body to a CUDA body named for
+    # the voice (kernels/lower.py), then launches it: here the device check
+    # refuses the meta device
     ctx = ktt.AudioCtx(48000, 64)
     ops, _ = fb.kernel_operands(ctx, st)
     meta = {k: (v.to("meta") if isinstance(v, torch.Tensor) else v)
             for k, v in ops.items()}
-    with pytest.raises(ValueError, match="TorchDetunedVoice has no CUDA body"):
+    with pytest.raises(ValueError, match="unsupported device meta"):
         tgb.generic_bank(**meta)
+    lowered = fb.spec(ctx)._lowered
+    assert "torch body of TorchDetunedVoice" in lowered.source
+    assert lowered.counts == (3, 1, 4, 1)

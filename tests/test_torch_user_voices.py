@@ -11,9 +11,10 @@ the algebraic simplifier off (``EXACT``; it folds the organ's ``freq * 3.0
 * f2pi`` into ``freq * (3.0 * f2pi)`` and moves the third partial's u32
 increment), the mix within 1e-5 (the sum's order), u32 phases, stage and
 the ramp state exact, t within 1e-6. The CUDA body builds and runs only
-on the card (``chip_smoke.py`` ``phase_extensions`` holds it bit-equal to
-the torch body); here the spec's contract and the translation unit the
-build writes are checked.
+on the card (``chip_smoke.py`` ``phase_extensions`` holds the hand body,
+and ``phase_lowered`` the body lowered from torch, bit-equal to the torch
+body); here the spec's contract and the translation unit the build writes
+are checked.
 """
 
 import importlib.util
@@ -33,6 +34,7 @@ import knaster_tpu as jk
 import knaster_tpu_torch as kt
 from knaster_tpu_torch.kernels import build
 from knaster_tpu_torch.kernels import generic_bank as tgb
+from knaster_tpu_torch.kernels.lower import lower_body
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -50,14 +52,24 @@ def _example():
     return mod
 
 
-@pytest.mark.parametrize("B", [48, 64])
-def test_organ_voice_matches_the_jax_example_voice(B):
+@pytest.mark.parametrize("B, torch_only", [(48, False), (64, False), (64, True)],
+                         ids=["48", "64", "64-torch-only"])
+def test_organ_voice_matches_the_jax_example_voice(B, torch_only):
+    """The organ, with its hand CUDA source or torch-only (the card lowers
+    its torch body, as the JAX example's organ reaches the TPU from its
+    Python body alone): the same torch body on the CPU."""
     V = 256
     d = user_voices.organ_defaults(V, 7)
     pb = jk.PallasVoiceBank(_example().OrganVoice(), V, voice_defaults=d,
                             event_capacity=1024)
-    fb = kt.FusedVoiceBank(user_voices.OrganVoice(), V, voice_defaults=d,
-                           event_capacity=1024)
+    organ = user_voices.OrganVoice()
+    fb = kt.FusedVoiceBank(user_voices.torch_only(organ) if torch_only else organ, V,
+                           voice_defaults=d, event_capacity=1024)
+    spec = fb.spec(kt.AudioCtx(48000, B))
+    assert (spec.cuda_source is None) == torch_only
+    if torch_only:
+        lowered = lower_body(spec, fb._float_names, fb._trig_names, 2)
+        assert lowered.counts == (5, 1, 5, 2)
     sched = rich_schedule(fb, {"freq": 440.0, "bar2": 0.9, "pan": -0.6, "amp": 0.02}, B)
     mix, st = lockstep(pb, fb, B, sched, compiler_options=EXACT)
     assert mix.shape == (2, 8 * B) and np.abs(mix).max() > 1e-3

@@ -1,19 +1,28 @@
-"""User voices for the port's generic ``FusedVoiceBank``, each with its torch body and its CUDA body.
+"""User voices for the port's generic ``FusedVoiceBank``: torch bodies, and hand-written CUDA bodies beside two of them.
 
 A voice that is not in the library reaches the fused kernel path by
-returning a ``KernelVoiceSpec`` from ``kernel_voice(ctx)`` with two bodies
-of the same math: a torch body over ``[V]`` tensors (what the bank runs on
-CPU tensors) and ``cuda_source``, CUDA C++ that defines ``struct
-VoiceBody`` in the harness's body contract
-(``knaster_tpu_torch/csrc/generic_harness.cuh``), compiled into a library
-of its own at the bank's first launch on the card. The two keep one
-association, op for op, so that the CUDA body (built with --fmad=false)
-carries its state bit-equal to the torch body.
+returning a ``KernelVoiceSpec`` from ``kernel_voice(ctx)`` with a torch body
+over ``[V]`` tensors (what the bank runs on CPU tensors). On the card that
+body is lowered to CUDA at the bank's first launch
+(``knaster_tpu_torch/kernels/lower.py``), as ``PallasVoiceBank`` traces a
+``mosaic_voice`` body; or the voice brings the same math written by hand
+as ``cuda_source``, CUDA C++ that defines ``struct VoiceBody`` in the
+harness's body contract (``knaster_tpu_torch/csrc/generic_harness.cuh``).
+Either is compiled into a library of its own, and keeps the torch body's
+association op for op, so that it (built with --fmad=false) carries its
+state bit-equal to the torch body.
 
 * ``DetunedVoice`` — two detuned table-quantized sines and an AR envelope,
   mono (the user voice of tests/test_generic_bank.py:128-200).
 * ``OrganVoice`` — three drawbar harmonics, an AR envelope and an exact
   equal-power pan, stereo (examples/custom_voice_bank.py:29-122).
+
+Each brings its hand source (``DETUNED_SOURCE``, ``ORGAN_SOURCE``, the
+yardstick beside the lowered bodies). ``torch_only(voice)`` drops a voice's
+CUDA body, hand source or library body alike: then the card runs its
+lowered torch body, as the JAX example's organ reaches the TPU from its
+Python body alone (``torch_only(ModalVoice(...))`` lowers the Modal body at
+any mode count, the yardstick against the library ``modal<M>`` bodies).
 
 ``chip_smoke.py`` and the CPU tests both import this module, so the bodies
 they hold against each other cannot drift apart. Each class's params and
@@ -21,6 +30,9 @@ defaults are those of the JAX package's voice of the same name.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -183,6 +195,18 @@ class OrganVoice(UGen):
                    "stage": ("f32", 0.0), "t": ("f32", 0.0)},
             body=body, idle_of=_stage_idle, cuda_source=ORGAN_SOURCE,
             consts=np.array([f2pi, atk, rel], np.float32), voice_name=self.name())
+
+
+def torch_only(voice):
+    """``voice`` (the same object) with no CUDA body of its own: its spec
+    names no library body and brings no source, so on the card its torch
+    body is lowered (knaster_tpu_torch/kernels/lower.py)."""
+    voice.kernel_voice = functools.partial(_torch_only_spec, type(voice).kernel_voice, voice)
+    return voice
+
+
+def _torch_only_spec(kernel_voice, voice, ctx):
+    return dataclasses.replace(kernel_voice(voice, ctx), cuda_body=None, cuda_source=None)
 
 
 # examples/custom_voice_bank.py's bank and score
