@@ -3036,7 +3036,9 @@ def phase_bank_matrix_vs_plain(torch, np, ktt, dev):
     wavetable kernel over MATRIX_CELLS (the Envelope body looping
     and one-shot; the 1000-voice cells' plain version on the CPU), then the
     wavetable kernel and the Additive body at H in H_SWEEP, B = 64, V =
-    131,055: carries bit-equal
+    1000 (the plain version of 131,055 voices at H = 1024 took most of the
+    matrix's time; the cells cover that V at H = 16):
+    carries bit-equal
     (the envelope's efrom within EFROM_ULPS), mixes within mix_tolerance,
     and at V = 131,055, B = 64 two launches on the same buffers
     bit-identical. Returns {kind: max |mix diff|}."""
@@ -3049,10 +3051,11 @@ def phase_bank_matrix_vs_plain(torch, np, ktt, dev):
                 errs[kind], ulps = max(errs.get(kind, 0.0), e), max(ulps, u)
         if kind in ("wt", "generic-additive"):
             for n in H_SWEEP:
-                e, _ = matrix_cell(torch, ktt, np, dev, kind, MATRIX_VS[1], BLOCK, n_harmonics=n)
+                e, _ = matrix_cell(torch, ktt, np, dev, kind, MATRIX_VS[0], BLOCK, n_harmonics=n)
                 errs[kind] = max(errs[kind], e)
         print(f"kernel vs plain matrix {kind}: (V, B) in {MATRIX_CELLS}"
-              + (f", H in {(H,) + H_SWEEP}" if kind in ("wt", "generic-additive") else "")
+              + (f", H in {H_SWEEP} at V = {MATRIX_VS[0]}" if kind in ("wt", "generic-additive")
+                 else "")
               + f": carries bit-equal, max |mix diff| {errs[kind]:.3e}, back to back "
               f"bit-identical ({time.perf_counter() - t0:.1f} s)")
     if ulps > EFROM_ULPS:
@@ -3525,7 +3528,13 @@ BUFFER_SECONDS = 1.0  # each configuration's superblocked render (drum_machine: 
 # on an H100, PERF.md §6): voices at rates of 1.67 and more still wrap
 # their 1 s loop
 SAMPLER_RESAMPLE_SECONDS = 0.6
-BUFFER_PER_BLOCK_SECONDS = 0.25  # the per-block render held against the superblocked one
+# sampler_bank's, cut from the suite's 1 s to keep the run in its time
+# limit (2.47e7 voice-samples/s on an H100, ~32 s a rendered second): its
+# unit-rate voices wrap their 1 s loop in neither
+SAMPLER_SECONDS = 0.4
+# the per-block render held against the superblocked one (cut from 0.25 s
+# for the time limit: the sampler banks render ~0.03x realtime)
+BUFFER_PER_BLOCK_SECONDS = 0.125
 BUFFER_CPU_BLOCKS = 6  # blocks of the per-block render held against the port's CPU render
 DIRECT_BLOCKS = 64  # the convolver's output held against a direct convolution
 DIRECT_TOL = 2e-4  # tests/test_convolver.py:44's bound against np.convolve
@@ -3684,7 +3693,7 @@ BUFFER_CONFIGS = {
     # the sampler banks: the mix of V voices summed in another order, and
     # (below) each voice's read position as far apart as the two renders'
     # pointers are, at the tone's steepest slope and the voices' amp
-    "sampler_bank": (sampler_bank, BUFFER_SECONDS, mix_tolerance, "voices",
+    "sampler_bank": (sampler_bank, SAMPLER_SECONDS, mix_tolerance, "voices",
                      BUFFER_CPU_BLOCKS),
     "sampler_resample": (lambda kt, np, dev, chunk: sampler_bank(kt, np, dev, chunk, True),
                          SAMPLER_RESAMPLE_SECONDS, mix_tolerance, "voices", BUFFER_CPU_BLOCKS),
@@ -4123,9 +4132,13 @@ def phase_live(torch, np, kt, dev, card):
               f"({time.perf_counter() - t0:.1f} s)")
         print(f"live bounce {scenario} launches (its warm included): "
               f"{ {k: n for k, n in counts.items() if n} }")
-    # (b) the live soak, and (c) the checkpoint after bank
+    # (b) the live soak, and (c) the checkpoint after bank; a soak compiles
+    # its own renderers (the bounce's bank UGen holds the checking kernel)
+    from knaster_tpu_torch.graph.compile import clear_program_cache
+
     live_counts = {}
     for scenario in rs.SCENARIOS:
+        clear_program_cache()
         reset_all_counts()
         row, proc = rs.soak(kt, torch, scenario, LIVE_SECONDS, dev)
         live_counts[scenario] = read_all_counts()
@@ -4141,6 +4154,12 @@ def phase_live(torch, np, kt, dev, card):
         if scenario == "edit" and (row["edits_not_audible"] or not row["edits"]):
             fail(f"live edit: {row['edits_not_audible']} of {row['edits']} edits never "
                  "became audible")
+        if scenario == "edit":
+            print(f"live edit on {card}: edit-to-audible median "
+                  f"{row['edit_to_audible_s_median']:.3f} s (0.384 s before the program "
+                  f"cache, PERF.md §5); {row['cache_hits']} of {row['compiles']} compiles were "
+                  f"program-cache hits, compile median {row['compile_ms_median']:.1f} ms, "
+                  f"warm median {row['warm_ms_median']:.1f} ms")
         if scenario == "bank":
             proc.render(frames=LIVE_CHUNK * BLOCK)  # what the control loop queued last
             with tempfile.TemporaryDirectory() as tmp:
@@ -4188,6 +4207,219 @@ def phase_live(torch, np, kt, dev, card):
         "chain_kernel", live_counts["cascade"]["chain_kernel"], 0.0, ms, plain_ms, b_ms,
         b_by, label="chain_kernel:live_cascade")
     return rows
+
+
+# --------------------------------------------------------------------------
+# the program and plan caches: recurring edits reuse renderers and lowered
+# chain programs
+# --------------------------------------------------------------------------
+
+CACHE_BLOCKS = 64  # the FM cascade's render after a hit, in blocks
+CACHE_CPU_BLOCKS = 16  # its first blocks held against the port's CPU render
+CACHE_BANK_BLOCKS = 16  # a bank's render after a hit
+CACHE_EDITS = 8  # the edit scenario's push/free edits
+
+
+class LowerSpy:
+    """``graph.chain_kernel.lower`` wrapped within ``with``: its calls and
+    their host ms."""
+
+    def __enter__(self):
+        import knaster_tpu_torch.graph.chain_kernel as tck
+
+        self.tck, self.real, self.ms = tck, tck.lower, []
+
+        def spy(*a, **k):
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        tck.lower = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tck.lower = self.real
+
+
+def free_all(g):
+    """Free every node of the top-level graph."""
+    def edit(gg):
+        for nid in list(gg.nodes):
+            if nid in gg.nodes:
+                gg.free_node(nid)
+
+    g.edit(edit)
+
+
+def cache_bank(ktt, np, kind, seed):
+    """A bank node for the cache phase: the sine bank (table row 1) or the
+    generic bank with the Envelope body (row 5), at N_VOICES, its voice
+    defaults drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    vd = {"freq": rng.uniform(80, 3000, N_VOICES).astype(np.float32),
+          "amp": np.full(N_VOICES, 5e-5, np.float32),
+          "pan": rng.uniform(-1, 1, N_VOICES).astype(np.float32)}
+    if kind == "sine":
+        return ktt.FusedSineVoiceBank(N_VOICES, voice_defaults=vd)
+    return ktt.FusedVoiceBank(ktt.EnvelopeVoice(), N_VOICES, voice_defaults=vd)
+
+
+def cache_bank_render(torch, np, ktt, dev, kind, seeds):
+    """Push a bank at each of ``seeds``' voice defaults in turn, freeing the
+    one before; restart 64 voices and render CACHE_BANK_BLOCKS blocks after
+    each push. Returns (the last render, its compile's hit, the processor)."""
+    g, proc = ktt.AudioProcessor.new(0, 2, ktt.AudioProcessorOptions(block_size=BLOCK),
+                                      device=dev)
+    for seed in seeds:
+        free_all(g)
+        h = g.edit(lambda gg: gg.push(cache_bank(ktt, np, kind, seed)))
+        g.edit(lambda gg: h.to_graph_out())
+        for v in range(0, N_VOICES, N_VOICES // 64):
+            h.voice_param("t_restart").trig(v)
+        audio = proc.render(frames=CACHE_BANK_BLOCKS * BLOCK, fetch=False)
+    return audio, proc.compiled.cache_hit, proc
+
+
+def phase_program_cache(torch, np, ktt, dev, card):
+    """The program and plan caches on the card (``graph/compile.py``):
+
+    (a) the 256-stage FM cascade (the fm_cascade slice's graph, on the chain
+    kernel, table row 6) pushed, freed and pushed again at other stage
+    defaults (every SinWt at 1.5 x its freq): the second compile is a hit,
+    ``lower`` is not called again, the chain kernel launches, and its
+    CACHE_BLOCKS-block render is bit-equal to the same graph's compiled
+    after ``clear_program_cache()``; its first CACHE_CPU_BLOCKS blocks
+    against the port's CPU render within LIVE_FM_GATE (the cascade's FM
+    feedback amplifies an ulp, as in phase_live).
+    (b) a fused bank node (the sine bank, row 1; the generic bank with the
+    Envelope body, row 5) pushed, freed and pushed at other voice defaults:
+    a hit whose kernel launches, bit-equal to a fresh compile.
+    (c) the soak's ``edit`` scenario as tools/time_live_chunks.py builds it
+    (warmed for the stream's chunk), CACHE_EDITS push or free edits, each
+    compiled and warmed by the async worker and swapped in, with no stream:
+    per edit the host ms of the plan, the rest of the compile, ``lower``,
+    the state carry and the warm, and whether it was a hit."""
+    from knaster_tpu_torch.graph.compile import clear_program_cache
+
+    rs = soak_module()
+    # (a) the chain kernel
+    t0 = time.perf_counter()
+    opts = ktt.AudioProcessorOptions(block_size=BLOCK)
+    faster = lambda f: ktt.SinWt(1.5 * f)  # noqa: E731
+    with LowerSpy() as spy:
+        g, proc = ktt.AudioProcessor.new(0, 1, opts, device=dev)
+        g.edit(lambda gg: build_cascade(ktt, gg, CASCADE))
+        proc.render(frames=4 * BLOCK, fetch=False)
+        first = len(spy.ms)
+        free_all(g)
+        g.edit(lambda gg: build_cascade(ktt, gg, CASCADE, osc=faster))
+        reset_all_counts()
+        hit = proc.render(frames=CACHE_BLOCKS * BLOCK, fetch=False)
+        launches = read_all_counts()["chain_kernel"]
+        cg = proc.compiled
+        if not cg.cache_hit or len(spy.ms) != first or first != 1 or not launches:
+            fail(f"cache fm_cascade: hit {cg.cache_hit}, lower called {first} then "
+                 f"{len(spy.ms) - first} times, {launches} chain kernel launches")
+        clear_program_cache()
+        g2, fresh_proc = ktt.AudioProcessor.new(0, 1, opts, device=dev)
+        g2.edit(lambda gg: build_cascade(ktt, gg, CASCADE, osc=faster))
+        fresh = fresh_proc.render(frames=CACHE_BLOCKS * BLOCK, fetch=False)
+        if len(spy.ms) != first + 1:
+            fail(f"cache fm_cascade: a fresh compile called lower {len(spy.ms) - first} "
+                 "times")
+    if not torch.equal(bits(hit), bits(fresh)):
+        fail(f"cache fm_cascade: the hit's render differs from a fresh compile's by "
+             f"{float((hit - fresh).abs().max())}")
+    g3, cpu_proc = ktt.AudioProcessor.new(0, 1, opts, device="cpu")
+    g3.edit(lambda gg: build_cascade(ktt, gg, CASCADE, osc=faster))
+    cpu = cpu_proc.render(frames=CACHE_CPU_BLOCKS * BLOCK)
+    head = hit[:, :CACHE_CPU_BLOCKS * BLOCK].cpu().numpy()
+    peak = float(np.abs(head).max())
+    err = float(np.abs(head - cpu).max())
+    gate = LIVE_FM_GATE * max(1.0, peak)
+    if not np.isfinite(head).all() or peak == 0.0 or err > gate:
+        fail(f"cache fm_cascade: card vs CPU {err} (peak {peak}, gate {gate})")
+    print(f"cache fm_cascade ({CASCADE} stages) on {card}: re-push at new defaults a "
+          f"hit, lower {first} call ({spy.ms[0]:.2f} ms) and none on the hit, "
+          f"{launches} chain kernel launches over {CACHE_BLOCKS} blocks bit-equal to a "
+          f"fresh compile; card vs CPU {err:.3e} over {CACHE_CPU_BLOCKS} blocks (gate "
+          f"{gate:.1e}); plan {cg.compile_ms['plan']:.1f} ms, build "
+          f"{cg.compile_ms['build']:.1f} ms on the hit, plan "
+          f"{fresh_proc.compiled.compile_ms['plan']:.1f} ms, build "
+          f"{fresh_proc.compiled.compile_ms['build']:.1f} ms fresh "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # (b) the fused banks
+    for kind, kernel in (("sine", "sine_bank"), ("envelope", "generic_bank")):
+        t0 = time.perf_counter()
+        clear_program_cache()
+        reset_all_counts()
+        audio, was_hit, proc = cache_bank_render(torch, np, ktt, dev, kind, (1, 2))
+        counts = read_all_counts()
+        clear_program_cache()
+        fresh, _, _ = cache_bank_render(torch, np, ktt, dev, kind, (2,))
+        peak = float(audio.abs().max())
+        if not was_hit or not counts[kernel] or peak == 0.0:
+            fail(f"cache {kind} bank: hit {was_hit}, {counts[kernel]} {kernel} launches, "
+                 f"peak {peak}")
+        if not torch.equal(bits(audio), bits(fresh)):
+            fail(f"cache {kind} bank: the hit's render differs from a fresh compile's by "
+                 f"{float((audio - fresh).abs().max())}")
+        print(f"cache {kind} bank (V={N_VOICES}) on {card}: re-push at new voice "
+              f"defaults a hit, {counts[kernel]} {kernel} launches, "
+              f"{CACHE_BANK_BLOCKS} blocks bit-equal to a fresh compile (peak "
+              f"{peak:.4g}) ({time.perf_counter() - t0:.1f} s)")
+    # (c) the edit scenario's edits, compiled and warmed as a stream's are
+    t0 = time.perf_counter()
+    clear_program_cache()
+    rng = np.random.default_rng(0)
+    g, proc = rs.processor(ktt, dev)
+    hs = g.edit(lambda gg: rs.build(ktt, gg, "edit", rng))
+    proc.warm_for_stream(LIVE_CHUNK)
+    proc.enable_async_recompile()
+    rows = []
+    with LowerSpy() as spy:
+        for i in range(CACHE_EDITS):
+            if len(hs) > 66:
+                victim = hs.pop(0)
+                g.edit(lambda gg: victim.free())
+                what = "free"
+            else:
+                def push_one(gg):
+                    s = gg.push(ktt.SinWt(float(rng.uniform(150, 2000))))
+                    (s * 0.002).to_graph_out()
+                    return s
+
+                hs.append(g.edit(push_one))
+                what = "push"
+            n_lower = len(spy.ms)
+            proc._kick_async_compile()
+            proc._compile_thread.join(timeout=120)
+            proc._kick_async_compile()  # the swap
+            c = proc.compiles[-1]
+            if proc.compiled.revision != g.revision or c["revision"] != g.revision:
+                fail(f"cache edit {i}: revision {g.revision} was not swapped in")
+            c["lower_ms"] = sum(spy.ms[n_lower:])
+            rows.append(c)
+            proc.render(frames=LIVE_CHUNK * BLOCK, fetch=False)
+            print(f"cache edit {i} ({what}, {len(hs)} sines) on {card}: hit {c['hit']}, "
+                  f"plan {c['plan_ms']:.2f} ms, build {c['build_ms']:.2f} ms, lower "
+                  f"{c['lower_ms']:.2f} ms, carry {c['carry_ms']:.2f} ms, warm "
+                  f"{c['warm_ms']:.1f} ms")
+    torch.cuda.synchronize()
+    hits = [c for c in rows if c["hit"]]
+    misses = [c for c in rows if not c["hit"]]
+    if not hits:
+        fail("cache edit: no edit was a program-cache hit")
+
+    def med(cs, key):
+        return float(np.median([c[key] for c in cs])) if cs else float("nan")
+
+    print(f"cache edit on {card}: {len(hits)} of {len(rows)} edits hit; warm median "
+          f"{med(misses, 'warm_ms'):.1f} ms on a miss, {med(hits, 'warm_ms'):.1f} ms on a "
+          f"hit; plan+build median {med(misses, 'build_ms') + med(misses, 'plan_ms'):.2f} "
+          f"ms on a miss, {med(hits, 'build_ms') + med(hits, 'plan_ms'):.2f} ms on a hit "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 # --------------------------------------------------------------------------
@@ -4731,7 +4963,12 @@ def print_ptxas(paths):
 
 
 def lap(phase, *args):
-    """``phase(*args)``, printing its wall time (the run's time budget)."""
+    """``phase(*args)``, printing its wall time (the run's time budget). The
+    program and plan caches are emptied first: a phase's compiles reuse
+    only what that phase built."""
+    from knaster_tpu_torch.graph.compile import clear_program_cache
+
+    clear_program_cache()
     t0 = time.perf_counter()
     out = phase(*args)
     print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
@@ -4866,6 +5103,7 @@ def main():
     lap(phase_vmap_banks, torch, np, ktt, dev, card)
     lap(phase_buffers, torch, np, ktt, dev, card)
     live_rows = lap(phase_live, torch, np, ktt, dev, card)
+    lap(phase_program_cache, torch, np, ktt, dev, card)
     user_rows, organ_cpu = lap(phase_extensions, torch, np, ktt, dev, card)
     lowered_rows = lap(phase_lowered, torch, np, ktt, dev, card, organ_cpu)
     print(f"slices: {time.perf_counter() - t0:.1f} s")

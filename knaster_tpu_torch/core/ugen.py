@@ -40,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..primitives.params import Param
+from .signature import DEFAULT_SIGNATURE_EXCLUDE
 
 
 @dataclass(frozen=True)
@@ -85,6 +86,12 @@ class UGen:
     may_set_done: bool = False
     # int params the renderer also passes on the host (module docstring)
     host_int_params: Tuple[str, ...] = ()
+    # Instance attributes that are runtime DATA, not config: excluded from
+    # the structural signature (core/signature.py), so graphs differing only
+    # in them share cached renderers. Only safe for values consumed as state
+    # or param data (``init()`` outputs, param-engine defaults): anything
+    # ``process`` reads from the instance must stay in.
+    signature_exclude: Tuple[str, ...] = DEFAULT_SIGNATURE_EXCLUDE
 
     def empty_node_events(self, dtype=None):
         raise NotImplementedError

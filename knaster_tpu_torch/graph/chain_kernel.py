@@ -9,8 +9,10 @@ that: ``kernels/chain_kernel.py launch_plan``), per-stage params are rows
 of the stacked [K, B] planes, staged into shared memory a stage ahead, and
 per-stage state (phases, filter and envelope state) is read and written by
 stage index, one 32-bit word per value. The kernel is generic:
-``lower`` turns a ``ChainPlan`` into a small int32 program once per compile
-(no code is generated per graph, so an edit never waits for a compiler),
+``lower`` turns a ``ChainPlan`` into a small int32 program once per
+structural signature and device (the plan cache shares a plan's
+``lowered`` dict among every compile of that signature: graph/compile.py;
+no code is generated per graph, so an edit never waits for a compiler),
 and ``run`` launches it per block. Done-capable units (the envelopes) write
 a done row per stage, which ``run`` hands back as the JAX package's does.
 

@@ -23,9 +23,24 @@ the float-event programs ``get_float_fn`` / ``get_float_evchunk_fn``,
 whose collapsed chains stay on the chain kernel in blocks whose events
 carry no trigger. Each is a closure over renderers built once; "built"
 means the same here as "compiled" in the JAX package, so both take the
-same partition. The JAX package's program and plan caches exist to skip
-XLA compiles and are not ported: the port builds eagerly, and
-``init_state`` carries state as they do.
+same partition.
+
+The program and plan caches (the JAX package's, compile.py:1055-1233): a
+compile whose structural signature (``_structural_signature``: every
+node's config frozen at push time by ``core/signature.py``, the wiring in
+canonical positions, the device and the chain-collapse switches) matches
+an earlier one takes that compile's renderers, its lazily built programs
+(the entry holds the dicts each ``get_*_fn`` fills) and its plan, whose
+chains share their lowered chain-kernel programs (``ChainPlan.lowered``),
+so ``chain_kernel.lower`` runs once per signature and device. Only the
+param layout and ``init_state``'s carry are built anew. A reused renderer
+runs the first compile's UGens: what the signature leaves out of a UGen
+(``signature_exclude``: param defaults, a bank's voice defaults, a
+wavetable, an IR) reaches ``process`` only as state or param data, which
+the new compile builds. The processor's warm executes only the programs an
+entry has not warmed yet (``cache_entry["warmed"]``). ``clear_program_cache``
+empties both caches; a graph holding an unfreezable UGen (signature None)
+compiles fresh every time.
 
 The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 (``state_key``, ``group_key``, ``chain_key``) name the same nodes in both:
@@ -53,6 +68,9 @@ The plan (``_plan_batches``) follows the JAX package exactly, so state keys
 from __future__ import annotations
 
 import math
+import threading
+import time
+from collections import OrderedDict
 from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -99,8 +117,12 @@ class ChainPlan:
                           body reads from the previous stage (the carry).
     ``carry_init``       — for stage 0, the external source feeding each
                           carry key: ``(kind, src_nid, ch)``.
-    ``lowered``          — the chain kernel's program for this plan, built
-                          at first use (``chain_kernel.run``).
+    ``lowered``          — the chain kernel's program for this plan by
+                          device, built at first use (``chain_kernel.run``);
+                          ``seg_lowered`` the same for the runs of stages of
+                          a block with triggers (``_chain_stages``). The
+                          plan cache shares both dicts among every plan of
+                          one signature.
     """
 
     stages: List[List[int]]
@@ -109,7 +131,8 @@ class ChainPlan:
     pe_pattern: List[Tuple]
     carry_keys: List[Tuple[int, int]]
     carry_init: Dict[Tuple[int, int], Tuple[str, Optional[int], int]]
-    lowered: Any = None
+    lowered: Any = field(default_factory=dict)
+    seg_lowered: Any = field(default_factory=dict)
 
 
 @dataclass
@@ -148,6 +171,19 @@ class CompiledGraph:
     evchunk_fns: Dict[int, Any] = field(default_factory=dict)
     float_fns: Dict[Any, Any] = field(default_factory=dict)
     full_scan_warm: set = field(default_factory=set)
+    # the block loops of ``render_fast`` and ``render`` (get_scan_fn,
+    # get_full_scan_fn), built on request
+    scan_fn: Any = None
+    full_scan_fn: Any = None
+    # the program cache: the structural signature (None = uncacheable),
+    # whether this compile took an earlier one's renderers, and the shared
+    # entry its lazily built programs register into
+    signature: Any = None
+    cache_hit: bool = False
+    cache_entry: Optional[dict] = None
+    # host ms of this compile's plan (found or taken from the plan cache)
+    # and of the rest of compile_graph (layout, renderers or the lookup)
+    compile_ms: Dict[str, float] = field(default_factory=dict)
 
     # ----------------------------------------------------- canonical keys
     def state_key(self, nid: int) -> str:
@@ -316,6 +352,7 @@ def compile_graph(
     graph: Graph, event_capacity: int = 64, auto_batch: bool = True,
     device="cuda",
 ) -> CompiledGraph:
+    t0 = time.perf_counter()
     device = resolve_device(device)
     root = graph.root()
     ctx = AudioCtx(root.sample_rate, root.block_size, root.dtype)
@@ -457,8 +494,20 @@ def compile_graph(
         revision=root.revision,
         canon={nid: i for i, nid in enumerate(order)},
     )
-    cg.plan = (_plan_batches(cg) if auto_batch
-               else [("single", nid) for nid in order])
+    # the plan (chain detection especially) is host Python that grows with
+    # the graph; it is a function of the structural signature in canonical
+    # position space, so it is cached like the renderers and translated
+    # back to node ids
+    cg.signature = _structural_signature(cg, auto_batch)
+    t_plan = time.perf_counter()
+    cached_plan = _plan_cache_get(cg.signature)
+    if cached_plan is not None:
+        cg.plan = _plan_from_pos(order, cached_plan)
+    else:
+        cg.plan = (_plan_batches(cg) if auto_batch
+                   else [("single", nid) for nid in order])
+        _plan_cache_put(cg.signature, _plan_to_pos(cg))
+    t_built = time.perf_counter()
 
     # ------------------------------------------------------------ param slots
     # Slot order follows the PLAN: a batch group's members get CONTIGUOUS
@@ -501,9 +550,46 @@ def compile_graph(
                 done_order.extend(stage)
     cg.done_order = done_order
 
-    cg.render = _build_render(cg)
-    render_fast = _build_render(cg, fast=True)
-    cg.render_fast = lambda state, graph_inputs: render_fast(state, None, graph_inputs)
+    # ------------------------------------------------- program cache lookup
+    # a compile whose canonical shape matches an earlier one takes its
+    # renderers and lazily built programs; only the state carry is rebuilt
+    hit = _program_cache_get(cg.signature)
+    if hit is not None:
+        cg.engine = hit["engine"]  # the host int copy the renderers keep
+        cg.render = hit["render"]
+        cg.render_fast = hit["render_fast"]
+        cg.scan_fn = hit.get("scan_fn")
+        cg.full_scan_fn = hit.get("full_scan_fn")
+        cg.super_fns = hit["super_fns"]
+        cg.evchunk_fns = hit["evchunk_fns"]
+        cg.float_fns = hit["float_fns"]
+        cg.superblock_ok = hit.get("superblock_ok")
+        cg.superblock_max = hit.get("superblock_max", math.inf)
+        cg.cache_entry = hit
+        cg.cache_hit = True
+    else:
+        cg.render = _build_render(cg)
+        render_fast = _build_render(cg, fast=True)
+        cg.render_fast = lambda state, graph_inputs: render_fast(state, None, graph_inputs)
+        if cg.signature is not None:
+            entry = {
+                "engine": cg.engine,
+                "render": cg.render,
+                "render_fast": cg.render_fast,
+                # the compile's own dicts: a program built lazily (get_*_fn)
+                # is registered in the entry as it is built
+                "super_fns": cg.super_fns,
+                "evchunk_fns": cg.evchunk_fns,
+                "float_fns": cg.float_fns,
+                # the warm's keys whose programs have executed once
+                # (processor._warm_programs)
+                "warmed": set(),
+            }
+            _program_cache_put(cg.signature, entry)
+            cg.cache_entry = entry
+    t_end = time.perf_counter()
+    cg.compile_ms = {"plan": 1e3 * (t_built - t_plan),
+                     "build": 1e3 * ((t_plan - t0) + (t_end - t_built))}
     return cg
 
 
@@ -549,6 +635,9 @@ def superblock_eligible(cg: CompiledGraph) -> bool:
             max_len = min(max_len, int(cap))
     cg.superblock_ok = ok and max_len >= 2 * B
     cg.superblock_max = max_len if cg.superblock_ok else 0
+    if cg.cache_entry is not None:
+        cg.cache_entry["superblock_ok"] = cg.superblock_ok
+        cg.cache_entry["superblock_max"] = cg.superblock_max
     return cg.superblock_ok
 
 
@@ -726,33 +815,239 @@ def get_full_scan_fn(cg: CompiledGraph):
     """``render`` over n blocks in turn (the JAX package's full-program
     scan): fn(state, events [one event dict per block], inputs [in, n*B])
     -> (state, out [ch, n*B], the OR of the done vectors or None)."""
+    if cg.full_scan_fn is not None:
+        return cg.full_scan_fn
     B = cg.ctx.block_size
+    render = cg.render
 
     def scan(state, events, inputs):
         outs, done = [], None
         for i, ev in enumerate(events):
-            state, out, d = cg.render(state, ev, inputs[:, i * B:(i + 1) * B])
+            state, out, d = render(state, ev, inputs[:, i * B:(i + 1) * B])
             outs.append(out)
             done = _or_done(done, d)
         return state, torch.cat(outs, dim=1), done
 
+    cg.full_scan_fn = scan
+    if cg.cache_entry is not None:
+        cg.cache_entry["full_scan_fn"] = scan
     return scan
 
 
 def get_scan_fn(cg: CompiledGraph):
     """``render_fast`` over the n blocks of inputs [in, n*B] in turn (the
     JAX package's fast scan) -> (state, out [ch, n*B], done OR or None)."""
+    if cg.scan_fn is not None:
+        return cg.scan_fn
     B = cg.ctx.block_size
+    render_fast = cg.render_fast
 
     def scan(state, inputs):
         outs, done = [], None
         for i in range(inputs.shape[-1] // B):
-            state, out, d = cg.render_fast(state, inputs[:, i * B:(i + 1) * B])
+            state, out, d = render_fast(state, inputs[:, i * B:(i + 1) * B])
             outs.append(out)
             done = _or_done(done, d)
         return state, torch.cat(outs, dim=1), done
 
+    cg.scan_fn = scan
+    if cg.cache_entry is not None:
+        cg.cache_entry["scan_fn"] = scan
     return scan
+
+
+# -------------------------------------------------------- program cache
+_PROGRAM_CACHE: "OrderedDict[Any, dict]" = OrderedDict()
+_PROGRAM_CACHE_CAP = 64
+_PROGRAM_CACHE_LOCK = threading.Lock()
+
+
+def _program_cache_get(sig):
+    if sig is None:
+        return None
+    with _PROGRAM_CACHE_LOCK:
+        hit = _PROGRAM_CACHE.get(sig)
+        if hit is not None:
+            _PROGRAM_CACHE.move_to_end(sig)
+        return hit
+
+
+def _program_cache_put(sig, entry):
+    with _PROGRAM_CACHE_LOCK:
+        _PROGRAM_CACHE[sig] = entry
+        while len(_PROGRAM_CACHE) > _PROGRAM_CACHE_CAP:
+            _PROGRAM_CACHE.popitem(last=False)
+
+
+def clear_program_cache() -> None:
+    """Empty the program and plan caches: the next compile of any graph
+    builds its plan, renderers and lowered chain programs anew."""
+    with _PROGRAM_CACHE_LOCK:
+        _PROGRAM_CACHE.clear()
+        _PLAN_CACHE.clear()
+
+
+# ---------------------------------------------------------------- plan cache
+# cached batching/chain plans keyed by the structural signature, stored in
+# CANONICAL (topo-position) space so they replay onto any graph with the
+# same structure regardless of node-id numbering (see compile_graph). A
+# chain's entry also holds its lowered-program dicts, which every plan
+# replayed from it shares.
+_PLAN_CACHE: "OrderedDict[Any, Any]" = OrderedDict()
+_PLAN_CACHE_CAP = 256
+
+
+def _plan_cache_get(sig):
+    if sig is None:
+        return None
+    with _PROGRAM_CACHE_LOCK:
+        hit = _PLAN_CACHE.get(sig)
+        if hit is not None:
+            _PLAN_CACHE.move_to_end(sig)
+        return hit
+
+
+def _plan_cache_put(sig, plan_pos) -> None:
+    if sig is None:
+        return
+    with _PROGRAM_CACHE_LOCK:
+        _PLAN_CACHE[sig] = plan_pos
+        while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
+            _PLAN_CACHE.popitem(last=False)
+
+
+def _desc_to_pos(canon, d):
+    """('abs', kind, src_nid, ch) -> position form; 'rel' descs unchanged."""
+    if d[0] == "abs":
+        _a, kind, s, c = d
+        return ("abs", kind, None if s is None else canon[s], c)
+    return d
+
+
+def _desc_to_nid(order, d):
+    if d[0] == "abs":
+        _a, kind, s, c = d
+        return ("abs", kind, None if s is None else order[s], c)
+    return d
+
+
+def _chain_to_pos(canon, cp):
+    return (
+        tuple(tuple(canon[n] for n in st) for st in cp.stages),
+        cp.period,
+        tuple(tuple(tuple(_desc_to_pos(canon, d) for d in row)
+                    for row in rows) for rows in cp.in_pattern),
+        tuple(tuple((pi, _desc_to_pos(canon, d)) for pi, d in pes)
+              for pes in cp.pe_pattern),
+        tuple(tuple(k) for k in cp.carry_keys),
+        tuple(sorted(
+            (tuple(k), (kind, None if s is None else canon[s], c))
+            for k, (kind, s, c) in cp.carry_init.items()
+        )),
+        (cp.lowered, cp.seg_lowered),  # shared, not copied
+    )
+
+
+def _chain_from_pos(order, t):
+    stages_p, period, inp, pep, ckeys, cinit, (lowered, seg_lowered) = t
+    return ChainPlan(
+        stages=[[order[p] for p in st] for st in stages_p],
+        period=period,
+        in_pattern=[tuple(tuple(_desc_to_nid(order, d) for d in row)
+                          for row in rows) for rows in inp],
+        pe_pattern=[tuple((pi, _desc_to_nid(order, d)) for pi, d in pes)
+                    for pes in pep],
+        carry_keys=[tuple(k) for k in ckeys],
+        carry_init={tuple(k): (kind, None if s is None else order[s], c)
+                    for k, (kind, s, c) in cinit},
+        lowered=lowered,
+        seg_lowered=seg_lowered,
+    )
+
+
+def _plan_to_pos(cg):
+    canon = cg.canon
+    out = []
+    for kind, item in cg.plan:
+        if kind == "single":
+            out.append(("single", canon[item]))
+        elif kind == "batch":
+            out.append(("batch", tuple(canon[n] for n in item)))
+        else:
+            out.append(("chain", _chain_to_pos(canon, item)))
+    return tuple(out)
+
+
+def _plan_from_pos(order, plan):
+    out = []
+    for kind, item in plan:
+        if kind == "single":
+            out.append(("single", order[item]))
+        elif kind == "batch":
+            out.append(("batch", [order[p] for p in item]))
+        else:
+            out.append(("chain", _chain_from_pos(order, item)))
+    return out
+
+
+def _structural_signature(cg: CompiledGraph, auto_batch: bool):
+    """Hashable signature of everything that shapes the plan and the
+    renderers, with nodes labeled canonically (topo position). None =
+    uncacheable (some node's UGen config couldn't be frozen at push time).
+
+    Beside the JAX package's key: the device (a renderer built for one card
+    never serves the CPU or another card), the port's chain-collapse
+    switches and the chain kernel's mode in place of the Mosaic mode, and
+    each node's enclosing subgraphs by canonical label (the chain pass
+    keeps units of different subgraphs apart) where the JAX key has a
+    bool."""
+    canon = cg.canon
+    containers: Dict[int, int] = {}
+
+    def src_key(kind, s, c):
+        return (kind, -1 if s is None else canon[s], c)
+
+    node_rows = []
+    for nid in cg.order:
+        e = cg.entries[nid]
+        if e.sig is None:
+            return None
+        node_rows.append(
+            (
+                e.sig,
+                e.done_action.value,
+                tuple(containers.setdefault(c, len(containers))
+                      for c in cg.enclosing[nid]),
+                tuple(
+                    tuple(src_key(*s) for s in per) for per in cg.resolved_in[nid]
+                ),
+            )
+        )
+    pe_rows = tuple(
+        sorted(
+            (canon[dst], pidx, canon[src], ch)
+            for (dst, pidx), (src, ch) in cg.resolved_param_edges.items()
+        )
+    )
+    out_rows = tuple(
+        tuple(src_key(*s) for s in per) for per in cg.resolved_out
+    )
+    fb_rows = tuple((canon[s], c) for (s, c) in cg.fb_sources)
+    return (
+        str(cg.device),
+        cg.ctx.sample_rate,
+        cg.ctx.block_size,
+        str(cg.ctx.dtype),
+        cg.graph.inputs,
+        cg.graph.outputs,
+        cg.event_capacity,
+        auto_batch,
+        (_CHAIN_COLLAPSE_ON, MIN_CHAIN_STAGES, MAX_CHAIN_PERIOD, chain_kernel._MODE),
+        tuple(node_rows),
+        pe_rows,
+        out_rows,
+        fb_rows,
+    )
 
 
 def _node_depths(cg: CompiledGraph) -> Dict[int, int]:
@@ -1220,7 +1515,7 @@ def _build_render(cg: CompiledGraph, fast: bool = False, block_multiple: int = 1
                         elif typ == "int" and getattr(spec, "retrigger", False):
                             touch[("i", slot)] = k
             needed = chain_kernel.needed_outputs(cg, cp)
-            seg = (replace(cp, lowered={}), needed | set(cp.carry_keys))
+            seg = (replace(cp, lowered=cp.seg_lowered), needed | set(cp.carry_keys))
             steps.append(("chain", cp, reps,
                           (_idx(float_slots) if float_slots else None,
                            plane_index, others, needed,

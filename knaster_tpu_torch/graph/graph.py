@@ -31,6 +31,7 @@ import threading
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+from ..core.signature import ugen_signature
 from ..core.ugen import UGen
 from ..primitives.floats import as_torch_dtype
 from .handles import K_GRAPH_IN, K_NODE, Handle, Source
@@ -87,6 +88,9 @@ class NodeEntry:
     mortal: bool = True
     auto: bool = False  # auto-created by operator sugar; GC'd when orphaned
     subgraph: Optional["Graph"] = None
+    # structural signature of the UGen's config, frozen at push time
+    # (core/signature.py); None = uncacheable
+    sig: Any = None
 
 
 class _FrameClock:
@@ -225,6 +229,7 @@ class Graph:
             inputs=ugen.inputs,
             outputs=ugen.outputs,
             done_action=done_action,
+            sig=ugen_signature(ugen),
         )
         self.nodes[nid] = entry
         self.in_edges[nid] = [[] for _ in range(entry.inputs)]

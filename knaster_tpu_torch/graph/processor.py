@@ -44,7 +44,8 @@ block.
 Live editing (``enable_async_recompile``, which ``StreamBackend`` turns
 on): an edit is compiled on a worker thread from a ``copy_state`` snapshot
 of the live state, every program the runner can take is warmed on copies
-(``_warm_programs``), and the result is published tagged with the revision
+(``_warm_programs``: on a program-cache hit only what its cache entry has
+not warmed yet), and the result is published tagged with the revision
 it compiled; the runner swaps it in between blocks, carrying state as the
 synchronous path does, and drops a stale result. A failure in the worker is
 raised on the thread that swaps. The JAX package's undo-carry prewarm
@@ -59,6 +60,7 @@ from __future__ import annotations
 import collections
 import pickle
 import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -146,6 +148,11 @@ class AudioProcessor:
         # (revision, frame) of the latest async program swaps: the frame
         # from which a live edit renders
         self.swaps = collections.deque(maxlen=256)
+        # the latest compiles: {"revision", "hit" (a program-cache hit),
+        # "plan_ms", "build_ms" (CompiledGraph.compile_ms), "carry_ms"
+        # (init_state), "warm_ms" (the async worker's warm; None for a
+        # synchronous compile)}, host ms
+        self.compiles = collections.deque(maxlen=256)
 
     # ------------------------------------------------------------- factory
     @staticmethod
@@ -182,8 +189,16 @@ class AudioProcessor:
                 self.graph, self.options.event_capacity, self.options.auto_batch,
                 device=self.device,
             )
+        t0 = time.perf_counter()
         self.state = compiled.init_state(self.state, self.compiled)
+        self._log_compile(compiled, None, 1e3 * (time.perf_counter() - t0))
         self.compiled = compiled
+
+    def _log_compile(self, cg: CompiledGraph, warm_ms, carry_ms) -> None:
+        self.compiles.append({"revision": cg.revision, "hit": cg.cache_hit,
+                              "plan_ms": cg.compile_ms.get("plan"),
+                              "build_ms": cg.compile_ms.get("build"),
+                              "carry_ms": carry_ms, "warm_ms": warm_ms})
 
     # -- async recompile (the streaming backend turns it on) ---------------
     _async_recompile = False
@@ -241,27 +256,39 @@ class AudioProcessor:
         kernel libraries, the chain kernel's program, cuBLAS's handle) off
         the thread that renders. A loop of one renderer (the block loops,
         the loop of capped superblocks) runs one step: its other steps run
-        nothing that step did not."""
+        nothing that step did not.
+
+        A program-cache hit shares its programs with the compile it hit
+        (``compile_graph``): each program executes once per cache entry,
+        whose ``warmed`` set records it once the warm has synchronized, so
+        a hit executes only what an earlier warm of its entry did not (the
+        JAX package's warm after a hit finds its programs compiled)."""
         B = self.graph.block_size
         ev = cg.events_from_lists([], [], [], {})
+        entry = cg.cache_entry
+        done = entry["warmed"] if entry is not None else set()
+        ran = []
 
         def zeros(n_blocks):
             return self._zero_inputs(n_blocks * B)
 
-        def cp():
-            return copy_state(base_state)
+        def run(key, fn, *args):
+            """Execute ``fn`` on a copy of the state, once per entry."""
+            if key not in done:
+                fn(copy_state(base_state), *args)
+                ran.append(key)
 
-        cg.render_fast(cp(), zeros(1))
-        cg.render(cp(), ev, zeros(1))
+        run("fast", cg.render_fast, zeros(1))
+        run("full", cg.render, ev, zeros(1))
         if self._warm_scan_lengths:
             for sub in self._warm_scan_lengths:
                 super_fn = get_super_fn(cg, sub)
                 if super_fn is not None:
-                    super_fn(cp(), zeros(sub))
+                    run(("super", sub), super_fn, zeros(sub))
                 elif sub >= MIN_SCAN:
-                    get_scan_fn(cg)(cp(), zeros(1))
+                    run("scan", get_scan_fn(cg), zeros(1))
                 if sub >= MIN_SCAN:  # eventful runs below this go block by block
-                    get_full_scan_fn(cg)(cp(), [ev], zeros(1))
+                    run("full_scan", get_full_scan_fn(cg), [ev], zeros(1))
                     cg.full_scan_warm.add(sub)
             n = min(self._warm_chunk_len or max(self._warm_scan_lengths),
                     self.options.render_chunk_blocks)
@@ -270,32 +297,33 @@ class AudioProcessor:
             # the eventful chunk's event-free tail, also taken alone
             tail = get_super_fn(cg, n - 1) if n - 1 >= 2 else None
             if tail is not None:
-                tail(cp(), zeros(n - 1))
+                run(("super", n - 1), tail, zeros(n - 1))
             evfn = get_evchunk_fn(cg, n)
             if evfn is not None:
-                evfn(cp(), ev, zeros(1), zeros(n - 1))
+                run(("evchunk", n), evfn, ev, zeros(1), zeros(n - 1))
             ffn = get_float_fn(cg)
             if ffn is not None:
-                ffn(cp(), ev, zeros(1))
+                run("float", ffn, ev, zeros(1))
                 fev = get_float_evchunk_fn(cg, n)
                 if fev is not None:
-                    fev(cp(), ev, zeros(1), zeros(n - 1))
+                    run(("float_evchunk", n), fev, ev, zeros(1), zeros(n - 1))
             fsfn = get_full_super_fn(cg, n)
             if fsfn is not None:
-                fsfn(cp(), ev, zeros(n))
+                run(("full_super", n), fsfn, ev, zeros(n))
             else:
                 k = self._super_scan_k(n, cg)
                 ssfn = get_full_super_scan_fn(cg, k) if k >= 2 else None
                 if ssfn is not None:
-                    ssfn(cp(), [ev], zeros(k))
+                    run(("full_super_scan", k), ssfn, [ev], zeros(k))
                 elif n >= 2:
                     # no superblocks (feedback edges): the whole eventful
                     # chunk block by block, at this length only
-                    get_full_scan_fn(cg)(cp(), [ev], zeros(1))
+                    run("full_scan", get_full_scan_fn(cg), [ev], zeros(1))
                     cg.full_scan_warm.add(n)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and ran:
             # a launch that failed surfaces here, on the warming thread
             torch.cuda.current_stream(self.device).synchronize()
+        done.update(ran)
 
     def _kick_async_compile(self) -> None:
         """Swap in a finished compile of the current revision; else start a
@@ -325,7 +353,12 @@ class AudioProcessor:
                 with self.graph.edit_lock:
                     cg = compile_graph(self.graph, self.options.event_capacity,
                                        self.options.auto_batch, device=self.device)
-                self._warm_programs(cg, cg.init_state(live_state, live_compiled))
+                t0 = time.perf_counter()
+                base = cg.init_state(live_state, live_compiled)
+                t1 = time.perf_counter()
+                self._warm_programs(cg, base)
+                self._log_compile(cg, 1e3 * (time.perf_counter() - t1),
+                                  1e3 * (t1 - t0))
             except BaseException as exc:  # carried to the thread that swaps
                 self._compile_error = exc
                 return

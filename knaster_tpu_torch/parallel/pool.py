@@ -13,9 +13,12 @@ latch only when its host-side free list runs dry: one device-to-host copy
 per ``refresh``.
 
 The JAX package's banks compute the latch only once a pool turns
-``track_idle`` on (and recompile then). The port has no such switch: its
-banks, the vmap ``VoiceBank`` and the fused ones alike, always compute the
-latch, so a pool changes nothing in the graph.
+``track_idle`` on, and the pool then re-freezes the bank node's structural
+signature, so that the program cache does not serve the latch-free
+program, and recompiles. The port has no such switch: its banks, the vmap
+``VoiceBank`` and the fused ones alike, always compute the latch, so a pool
+changes nothing in the graph, neither its renderers nor the signature
+frozen at push time, and re-freezes nothing.
 """
 
 from __future__ import annotations

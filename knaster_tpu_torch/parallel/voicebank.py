@@ -70,6 +70,10 @@ class VoiceBank(UGen):
     # loop (AudioCtx.wide_batch), as in the JAX package: the closed form
     # reassociates, so the switch is part of the result
     WIDE_BATCH_VOICES = 4096
+    # voice_defaults arrays are consumed only by init() (per-voice initial
+    # fvals/ivals: state data): banks differing only in them share cached
+    # renderers
+    signature_exclude = ("pdefaults", "voice_defaults", "_burst_depth_warned")
 
     def __init__(
         self,

@@ -108,6 +108,9 @@ class Convolver(UGen):
 
     may_set_done = False
     params = (pfloat("dry_wet", 1.0, range=(0.0, 1.0)),)
+    # the IR's spectra live in the state (init): a live IR swap of the same
+    # length and channel layout is a program-cache hit
+    signature_exclude = ("pdefaults", "ir")
 
     def __init__(self, ir, inputs: int = 1, dry_wet: float = 1.0):
         ir = np.asarray(ir, dtype=np.float32)

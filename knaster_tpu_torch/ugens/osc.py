@@ -234,6 +234,10 @@ class OscWt(UGen):
         ptrigger("reset_phase"),
     )
 
+    # the tables reach process() through the state: re-pushing with new
+    # table content is a program-cache hit
+    signature_exclude = ("pdefaults", "wavetable")
+
     def __init__(self, wavetable: Wavetable, freq: float = 440.0, interpolate: bool = False):
         self.pdefaults = {"freq": float(freq)}
         self.wavetable = wavetable

@@ -19,6 +19,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 from knaster_tpu_torch.kernels import chain_kernel as kck
 
@@ -28,9 +29,11 @@ JAX_TOL = 1e-6
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 def build_cascade(m, gg, n, hs=None):

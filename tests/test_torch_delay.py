@@ -30,6 +30,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 from knaster_tpu_torch.kernels import chain_kernel as kck
 
@@ -41,9 +42,11 @@ NO_FMA = {"xla_backend_optimization_level": 0}
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 def _to_torch(tree):

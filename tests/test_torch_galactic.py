@@ -35,6 +35,7 @@ import torch
 import knaster_tpu as jk
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 from knaster_tpu.airwindows import Galactic as JGalactic
 from knaster_tpu_torch.convert import graph_state_to_numpy
 from knaster_tpu_torch.kernels.bank_common import i32_of
@@ -51,8 +52,10 @@ PARAMS = dict(replace=0.3, detune=0.9, brightness=0.6, bigness=0.1, wet=0.5)
 @pytest.fixture(autouse=True)
 def _fresh():
     jC.clear_program_cache()
+    tC.clear_program_cache()
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 def test_xorshift_columns_and_init_match_jax():

@@ -30,6 +30,7 @@ import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu.graph.processor as jP
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 import knaster_tpu_torch.graph.processor as tP
 from knaster_tpu_torch.graph.compile import get_full_super_fn
@@ -42,10 +43,12 @@ CHUNK = 4
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     monkeypatch.setattr(jck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 def _proc(m, outputs=1, dtype=None, chunk=CHUNK):

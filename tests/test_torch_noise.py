@@ -35,6 +35,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 from knaster_tpu_torch.kernels import chain_kernel as kck
 from knaster_tpu_torch.kernels.bank_common import i32_of
@@ -50,9 +51,11 @@ FRAMES = [0, 5, 2**31 - 1, 2**32 - 3, 2**32 - 1]
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 def test_threefry_partitionable_flag():

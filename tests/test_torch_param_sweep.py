@@ -44,6 +44,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
@@ -67,9 +68,11 @@ MAX_STEPS = 4
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 # --------------------------------------------------------------------------

@@ -41,6 +41,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
@@ -57,9 +58,11 @@ GOLDEN_GATE = 1e-6 + 2.0**-23
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 # --------------------------------------------------------------------------
@@ -223,6 +226,9 @@ def test_renderer_passes_polyblep_waveforms_on_the_host(monkeypatch):
     assert engine._ints_host[0]() is pe["int_value"]
     np.testing.assert_array_equal(engine._ints_host[2], pe["int_value"].numpy())
     monkeypatch.setattr(kt.PolyBlep, "host_int_params", ())
+    # renderers are built with the class's host params and cached by the
+    # graph's signature, which holds instance config only: build anew
+    tC.clear_program_cache()
     seen.clear()
     b, _ = run()
     assert seen and all(h is None for _, h in seen)

@@ -24,6 +24,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.compile as jC
 import knaster_tpu.graph.processor as jP
 import knaster_tpu_torch as kt
+import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 import knaster_tpu_torch.graph.processor as tP
 from knaster_tpu_torch.graph.compile import get_super_fn, superblock_eligible
@@ -37,9 +38,11 @@ OPTS = dict(block_size=16, sample_rate=SR)
 @pytest.fixture(autouse=True)
 def _modes(monkeypatch):
     jC.clear_program_cache()
+    tC.clear_program_cache()
     monkeypatch.setattr(tck, "_MODE", None)
     yield
     jC.clear_program_cache()
+    tC.clear_program_cache()
 
 
 def _samples(m, n):
@@ -335,6 +338,10 @@ def test_forced_row_limit_keeps_the_jax_partition(monkeypatch):
         monkeypatch.setattr(tP, "get_super_fn", get_super_fn)  # one spy at a time
         monkeypatch.setattr(kck, "SMEM_LIMIT", limit)
         monkeypatch.setattr(tck, "_MODE", "1")
+        # the row limit is read where the chain is lowered, and a lowered
+        # program is cached by the graph's signature, which the limit is not
+        # part of
+        tC.clear_program_cache()
         g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=16),
                                         device="cpu")
         g.edit(lambda gg: phasor_cascade(kt, gg))

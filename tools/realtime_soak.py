@@ -33,7 +33,9 @@ every thread: kernel, copy and fill time over its wall; "not measured"
 where it records none), and for
 ``edit`` the edit-to-audible time: from ``graph.edit`` returning to the
 consumer's reading the first frame of the program swapped in for it, as a
-median and a max. ``soak()`` is what chip_smoke.py's ``phase_live`` calls;
+median and a max, and the compile worker's compiles: how many, how many
+were program-cache hits, and the host ms medians of a compile (plan and
+build) and of its warm. ``soak()`` is what chip_smoke.py's ``phase_live`` calls;
 it raises where a thread of the stream failed.
 """
 
@@ -294,6 +296,14 @@ def soak(kt, torch, scenario, seconds=8.0, device="cuda", voices=V, cascade_node
         row["edits_not_audible"] = missing
         row["edit_to_audible_s_median"] = float(np.median(lat)) if lat else None
         row["edit_to_audible_s_max"] = float(max(lat)) if lat else None
+        # the compile worker's compiles (the stream's own warm excluded)
+        worker = [c for c in proc.compiles if c["warm_ms"] is not None]
+        row["compiles"] = len(worker)
+        row["cache_hits"] = sum(c["hit"] for c in worker)
+        row["compile_ms_median"] = (float(np.median([c["plan_ms"] + c["build_ms"]
+                                                     for c in worker])) if worker else None)
+        row["warm_ms_median"] = (float(np.median([c["warm_ms"] for c in worker]))
+                                 if worker else None)
     return row, proc
 
 
