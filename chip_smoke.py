@@ -140,7 +140,7 @@ result line):
    block against the CPU. Then ``pool_envelope_bank``: a 131,072-voice
    ``FusedVoiceBank(EnvelopeVoice())`` graph node under a ``VoicePool``
    taking every voice in 1,024 sample-accurate note-ons a block for 128
-   blocks, rendered to 2 s with superblocks and block by block (the generic
+   blocks, rendered to POOL_SECONDS (1 s) with superblocks and block by block (the generic
    kernel once per eventful block and per superblock), every voice
    released by ``refresh()``, the first POOL_HEAD blocks against the CPU
    render;
@@ -165,9 +165,10 @@ result line):
    partitions, run with TF32 switched on by the caller and held against a
    direct f64 convolution within the reference's 2e-4); ``drum_machine``
    (examples/drum_machine.py's three tiled sampler banks, one bar of
-   ``set_after`` hits). Each superblocked over 1 s (the drums over their
-   bar, ``sampler_resample`` over SAMPLER_RESAMPLE_SECONDS) against its
-   per-block render of the first 0.25 s and that against
+   ``set_after`` hits). Each superblocked over BUFFER_SECONDS (the drums
+   over their bar, the sampler banks over SAMPLER_SECONDS and
+   SAMPLER_RESAMPLE_SECONDS) against its per-block render of the first
+   BUFFER_PER_BLOCK_SECONDS and that against
    the port's CPU render of its first blocks, within stated gates;
    voice-samples/s or realtime x, kernels a block and the busy share.
    Then the live path (``phase_live``): the four scenarios of the JAX
@@ -186,7 +187,24 @@ result line):
    startup, chunk ms, the busy share of a profiled second, edit to
    audible), the ring at least LIVE_WRITTEN of real time, every edit
    heard, no thread failed; and the bank's state saved, loaded into a
-   fresh processor and rendered on bit-equal.
+   fresh processor and rendered on bit-equal; the pink noise kernel (the
+   ``ir`` scenario's source, one launch a block where its plain version
+   launched ~700 operations) bit-equal to its plain version at the live
+   chunk's block and superblock lengths, f32 and f64, and timed.
+   Then the program and plan caches (``phase_program_cache``): re-pushed
+   graphs and banks are hits, bit-equal to fresh compiles. Then voices
+   sharded over devices in one process (``phase_mesh``,
+   ``parallel/mesh.py``; on one card cuda:0 MESH_SHARDS times, with more
+   cards also one shard a card): the sine bank at 131,072 voices, every
+   voice restarted, over one shard bit-equal to the unsharded bank and over
+   MESH_SHARDS within ``mesh_gate`` (1e-6 of the voices' summed
+   amplitude), each one's host ms a block; the wavetable bank and the
+   Envelope body at 16,384 voices the same way; tools/mesh_voice_cluster.py
+   with the fused sine bank against the same graph unsharded, then an
+   event-free render whose block lengths the local bank saw are printed
+   (none past MAX_BLOCK); a ``VoicePool`` over a mesh of the Envelope body
+   releasing every voice; the mesh graph's checkpoint restored shard by
+   shard and resumed bit-equal; every kernel of the phase launched.
    Then the user's side (``phase_extensions``): the user voices'
    CUDA bodies (``DetunedVoice``, mono, and ``OrganVoice``, stereo with the
    exact pan, from tools/user_voices.py) in the generic harness against
@@ -220,7 +238,7 @@ result line):
    voice's function needs on the timed state (the hand count of the body it
    stands in for, ``modal_ops`` for the Modal bodies), the lowering's own
    count beside it;
-5. timings and profile — per bank kernel and generic body at V=131072
+5. timings — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
    replayed between CUDA events, and beside it the eager time over
@@ -233,9 +251,7 @@ result line):
    FLAT_OPS_PER_SAMPLE, a quiet warp's QUIET_OPS_PER_SAMPLE, the general
    OPS_PER_SAMPLE printed beside it); the FM kernel, whose slice ends with
    every voice stopped, also at a sounding state (``sounding_state``);
-   then torch.profiler's
-   device time by kernel over 100 event-free blocks of each bank and one
-   render chunk of each graph slice; and the stage-loop kernels at B in
+   and the stage-loop kernels at B in
    {16, 64, 1024} and at the longest superblock their renders take
    (fm_cascade at N = 256, the chain kernel on the FM cascade,
    ``polyblep_cascade``, ``graphic_eq_31``, ``phasor_cascade`` and
@@ -281,6 +297,8 @@ REPLACES = {
     "generic_bank": "knaster_tpu/parallel/generic_bank.py:103",
     "fm_cascade": "knaster_tpu/models/voices.py:639",
     "chain_kernel": "knaster_tpu/graph/chain_kernel.py:155",
+    # no Pallas kernel: the JAX package renders PinkNoise in XLA
+    "pink_noise": "knaster_tpu/ugens/noise.py:171 (PinkNoise.process in XLA, no Pallas kernel)",
 }
 CASCADE = 256  # benchmarks/suite.py's bench_fm_cascade and bench_fm_cascade_model
 GRAPH_SECONDS = 2.0
@@ -311,7 +329,11 @@ OPS_PER_SAMPLE = {"sine_bank": 40, "fm_bank": 60, "sub_bank": 70, "wt_bank": 110
                   # the user bodies (tools/user_voices.py), counted from their
                   # sources and the harness (csrc/generic_harness.cuh) on an
                   # event-free sample: USER_OPS_PER_SAMPLE
-                  "generic-user-detuned": 82, "generic-user-organ": 128}
+                  "generic-user-detuned": 82, "generic-user-organ": 128,
+                  # three Threefry-2x32 evaluations a sample (2 + 5 x 23 u32
+                  # operations each), two uniforms (6 each), the octave
+                  # recurrence (9), the base-16 scan (2) and the output (2)
+                  "pink_noise": 3 * 117 + 2 * 6 + 9 + 2 + 2}
 # the user bodies' count on an event-free sample, item by item from
 # DETUNED_SOURCE, ORGAN_SOURCE, bank_common.cuh and the harness's sample():
 # the harness's sample index (1) and each float param it reads (mat_base's
@@ -720,16 +742,6 @@ def phase_slice(torch, np, ktt, dev, kind, card, sustains):
     return bank, state, launches, outs, t_render, t_enqueue
 
 
-def profile_blocks(torch, kind, bank, ctx, state, n=100):
-    """Device time by kernel over ``n`` event-free blocks of a bank."""
-    def blocks():
-        st = state
-        for _ in range(n):
-            st, _ = bank.process(ctx, st)
-
-    profile_window(torch, kind, blocks, n)
-
-
 def profile_window(torch, label, run, n):
     """torch.profiler (CUPTI) over ``run()``, which renders ``n`` blocks.
     Prints the device-busy share of the profiled window and the kernels
@@ -846,13 +858,13 @@ def phase_timings(torch, ktt, kind, bank, state, card):
     ms = time_graph(torch, lambda: mod.launch(outs, **ops), 200)
     eager_ms = time_call(torch, lambda: mod.launch(outs, **ops), 200)
     wrapper_ms = time_call(torch, lambda: bank.kernel(**ops), 200)
-    plain_ms = time_call(torch, lambda: plain(**ops), 3)
+    plain_ms = time_call(torch, lambda: plain(**ops), 1)
     cap = bank.event_capacity
     ev = bank.node_events_from_lists(schedule(bank, N_VOICES, BLOCK)[0][:cap])
     ev_ops, _ = bank.kernel_operands(ctx, state, ev)
     ev_ms = time_graph(torch, lambda: mod.launch(outs, **ev_ops), 100)
     ev_wrapper_ms = time_call(torch, lambda: bank.kernel(**ev_ops), 100)
-    ev_plain_ms = time_call(torch, lambda: plain(**ev_ops), 3)
+    ev_plain_ms = time_call(torch, lambda: plain(**ev_ops), 1)
     per_sample = OPS_PER_SAMPLE.get(kind, OPS_PER_SAMPLE[mod.KERNEL])
     nbytes = tensor_bytes(ops, written(mod, outs))
     bound_ms, bound_by = bound(nbytes, per_sample * N_VOICES * BLOCK)
@@ -972,21 +984,25 @@ def user_ops_per_sample(torch, kind, ops, B):
 # the stage-loop kernels and the graph slices
 # --------------------------------------------------------------------------
 
-def stage_module(name):
-    from knaster_tpu_torch.kernels import chain_kernel, fm_cascade
+STAGE_KERNELS = ("fm_cascade", "chain_kernel", "pink_noise")
 
-    return {"fm_cascade": fm_cascade, "chain_kernel": chain_kernel}[name]
+
+def stage_module(name):
+    from knaster_tpu_torch.kernels import chain_kernel, fm_cascade, pink_noise
+
+    return {"fm_cascade": fm_cascade, "chain_kernel": chain_kernel,
+            "pink_noise": pink_noise}[name]
 
 
 def reset_all_counts():
     reset_counts()
-    for name in ("fm_cascade", "chain_kernel"):
+    for name in STAGE_KERNELS:
         stage_module(name).LAUNCHES = 0
 
 
 def read_all_counts():
     counts = read_counts()
-    for name in ("fm_cascade", "chain_kernel"):
+    for name in STAGE_KERNELS:
         counts[name] = stage_module(name).LAUNCHES
     return counts
 
@@ -1347,6 +1363,31 @@ def restart_envelopes(g):
             g.handle(nid).param("t_restart").trig()
 
 
+def restarted_processor(torch, kt, dev, build, B):
+    """A processor at block size ``B`` for the graph of ``build``, its state
+    and clock those after one eventful block of BLOCK samples that restarts
+    every envelope and applies the initial sets. That block renders at
+    BLOCK whatever B is: an eventful block runs the envelopes' per-sample
+    loop on the eager scan executor, ~30 s at 8192 samples for a chain of
+    nine envelopes."""
+    from knaster_tpu_torch.graph.compile import _shapes
+    from knaster_tpu_torch.graph.processor import copy_state
+
+    g0, proc0 = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=BLOCK),
+                                      device=dev)
+    g0.edit(lambda gg: build(kt, gg))
+    restart_envelopes(g0)
+    proc0.render(frames=BLOCK, fetch=False)
+    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B), device=dev)
+    g.edit(lambda gg: build(kt, gg))
+    proc._ensure_compiled()
+    if _shapes(proc.state) != _shapes(proc0.state):
+        fail(f"the graph's state at B={B} is not laid out as at B={BLOCK}")
+    proc.state = copy_state(proc0.state)
+    g.clock.frames = g0.clock.frames
+    return proc
+
+
 def records_of(program, body):
     """[(stage-record index, record)] of a program's records of one body."""
     return [(i, r) for i, r in enumerate(program.records()) if r[0].name == body]
@@ -1478,9 +1519,9 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS, 
     """The chain kernel against its plain version on the lowered programs of
     the subtractive slice's chains (or of ``paths``), at every B and at the
     longest superblock each path's render takes, from the graph's own state
-    (after an eventful block that restarts the envelopes and applies the
-    initial sets) and from the edge state. Returns {chain: the max |output
-    difference| it measured}."""
+    (after an eventful block of BLOCK samples that restarts the envelopes
+    and applies the initial sets, ``restarted_processor``) and from the edge
+    state. Returns {chain: the max |output difference| it measured}."""
     kck = stage_module("chain_kernel")
     errs = {}
     for name, build in (paths or chain_paths(kt)).items():
@@ -1491,11 +1532,7 @@ def phase_subtractive_vs_plain(torch, np, kt, dev, names=None, Bs=STAGE_BLOCKS, 
         # every cluster size too) and at NPOT_LEN
         sb = superblock_len(kt, dev, build)[0]
         for B in Bs + (sb, NPOT_LEN):
-            g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=B),
-                                            device=dev)
-            g.edit(lambda gg: build(kt, gg))
-            restart_envelopes(g)
-            proc.render(frames=B, fetch=False)
+            proc = restarted_processor(torch, kt, dev, build, B)
             program, ops = capture_chain(torch, proc)
             for label, run in (("graph state", ops),
                                ("edge state", edge_operands(torch, np, kck, program, ops, B,
@@ -1896,8 +1933,9 @@ def phase_galactic_chain(torch, np, kt, dev, card):
     """``galactic_chain`` (GALACTIC_FRAMES, B = 64) superblocked (Galactic's cap, 740
     samples, makes loops of 8-block superblocks) and block by block, each on
     the card against the same render on the CPU, within 1e-6 (the card's
-    sin in Galactic's vibrato differs from the CPU's at the ulp); no port
-    kernel on its path. Prints realtime x of the card's renders."""
+    sin in Galactic's vibrato differs from the CPU's at the ulp); the one
+    port kernel on its path is the pink noise's. Prints realtime x of the
+    card's renders."""
     out = {}
     for chunk in (CHUNK, 1):
         renders = {}
@@ -1912,15 +1950,19 @@ def phase_galactic_chain(torch, np, kt, dev, card):
             renders[str(d)] = np.asarray(proc.render(frames=GALACTIC_FRAMES))
             secs = time.perf_counter() - t0
             if d == dev:
-                expect_counts(read_all_counts(), {}, "galactic_chain")
+                counts = read_all_counts()
+                pink = counts.pop("pink_noise")
+                expect_counts(counts, {}, "galactic_chain")
+                if not pink:
+                    fail("galactic_chain: the pink noise kernel never launched")
                 out[chunk] = GALACTIC_FRAMES / SR / secs
         a, b = renders[str(dev)], renders["cpu"]
         gap = float(np.abs(a - b).max())
         if gap > 1e-6 or not np.isfinite(a).all() or np.abs(a).max() < 1e-3:
             fail(f"galactic_chain chunk={chunk}: card vs CPU differ by {gap}")
         print(f"slice galactic_chain ({'superblocks' if chunk > 1 else 'per block'}) on "
-              f"{card}: realtime x {out[chunk]:.4g}; card vs CPU {gap:.3e}; no port kernel on "
-              "its path")
+              f"{card}: realtime x {out[chunk]:.4g}; card vs CPU {gap:.3e}; {pink} pink_noise "
+              "launches")
     return out
 
 
@@ -2673,19 +2715,6 @@ def phase_chain_path_timings(torch, kt, dev, card, paths):
     return out
 
 
-def profile_render(torch, kt, dev, label, build, block_size, n=CHUNK):
-    """The profiler over ``n`` event-free blocks (one render chunk: one
-    superblock, or a loop of capped ones) of a graph rendered on the card:
-    device busy per block against the wall, kernels per block, and the
-    kernels that fill the busy time."""
-    g, proc = kt.AudioProcessor.new(0, 1, kt.AudioProcessorOptions(block_size=block_size),
-                                    device=dev)
-    g.edit(build)
-    proc.render(frames=8 * block_size, fetch=False)
-    profile_window(torch, label, lambda: proc.render(frames=n * block_size, fetch=False),
-                   n)
-
-
 # --------------------------------------------------------------------------
 # the envelope and modal voice families: the generic harness's Envelope and
 # Modal bodies, their bank slices, and a bank as a graph node under VoicePool
@@ -2706,6 +2735,9 @@ EFROM_ULPS = 4
 POOL_BLOCKS = 128  # blocks of note-ons in the pool slice
 POOL_PER_BLOCK = N_VOICES // POOL_BLOCKS  # 1024 note-ons a block: every voice taken
 POOL_HEAD = 16  # blocks of the pool slice held against the CPU render (~2 s of CPU each)
+# the pool slice's render, cut from GRAPH_SECONDS for the run's time limit:
+# the last note-ons land at 0.17 s and the 0.56 s program ends by 0.73
+POOL_SECONDS = 1.0
 PEAL = (220.0, 277.18, 329.63, 440.0)  # examples/modal_bells.py:25
 BELLS_SECONDS = 4.0
 
@@ -3172,13 +3204,13 @@ def pool_processor(torch, np, ktt, dev, chunk, n_blocks=None):
 
 
 def phase_pool_envelope_bank(torch, np, ktt, dev, card):
-    """``pool_envelope_bank`` rendered to 2 s on the card with superblocks
+    """``pool_envelope_bank`` rendered to POOL_SECONDS on the card with superblocks
     and block by block: the generic kernel once per eventful block and per
     event-free superblock (or block), every voice released by
     ``pool.refresh()`` at the end; the first POOL_HEAD blocks held against
     the port's CPU render within mix_tolerance. Returns (launches of the
     superblocked render, realtime x of each)."""
-    frames = int(GRAPH_SECONDS * SR)
+    frames = int(POOL_SECONDS * SR)
     n_blocks = frames // BLOCK
     res = {}
     for chunk in (CHUNK, 1):
@@ -3219,7 +3251,7 @@ def phase_pool_envelope_bank(torch, np, ktt, dev, card):
         fail(f"pool_envelope_bank: card vs CPU over {POOL_HEAD} blocks differ by {gap} "
              f"(peak {peak}, tolerance {mix_tolerance(N_VOICES, peak)})")
     print(f"slice pool_envelope_bank: {N_VOICES} voices, {POOL_PER_BLOCK} note-ons a block "
-          f"for {POOL_BLOCKS} blocks (queued in {t_queue:.2f} s), {GRAPH_SECONDS:g} s on {card}: "
+          f"for {POOL_BLOCKS} blocks (queued in {t_queue:.2f} s), {POOL_SECONDS:g} s on {card}: "
           f"superblocks realtime x {rt_sb:.4g} ({launches} generic_bank launches), per block "
           f"realtime x {rt_pb:.4g} ({launches_pb}), the two within {part:.3e}; refresh "
           f"released all "
@@ -3301,6 +3333,7 @@ DETUNED_F64_TOL = 1e-9
 FM_VMAP_VOICES = 8192  # benchmarks/suite.py bench_fm_bank
 PLUCKED_VOICES = 4096  # benchmarks/suite.py bench_plucked_bank
 VMAP_CPU_BLOCKS = 4  # blocks of each vmap slice held against the CPU render
+VMAP_BLOCKS = N_BLOCKS // 2  # each vmap slice's event-free run, cut from N_BLOCKS for the time limit
 VMAP_PROFILE_BLOCKS = 8
 VS_VMAP_VOICES = 1024  # tests/test_voicebank.py:175-213's kernel-vs-vmap bank
 VS_VMAP_TOL = 1e-5
@@ -3428,8 +3461,8 @@ def vmap_plucked_bank(kt, np):
 
 def phase_vmap_banks(torch, np, kt, dev, card):
     """The suite's vmap cells on the card: ``fm_voice_bank`` (8192 FM voices)
-    and ``plucked_bank`` (4096 strings), each ``bank.process`` over N_BLOCKS
-    event-free blocks at B = 64 (1 s) after one block of note-ons that
+    and ``plucked_bank`` (4096 strings), each ``bank.process`` over VMAP_BLOCKS
+    event-free blocks at B = 64 (0.5 s) after one block of note-ons that
     sounds every voice (the suite times silence; the note-ons make the
     output checkable). No kernel of the port launches; the output is finite
     and sounds; the first VMAP_CPU_BLOCKS blocks match the port's CPU run
@@ -3460,7 +3493,7 @@ def phase_vmap_banks(torch, np, kt, dev, card):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs = []
-        for _ in range(N_BLOCKS):
+        for _ in range(VMAP_BLOCKS):
             state, out, _ = bank.process(ctx, state)
             outs.append(out)
         torch.cuda.synchronize()
@@ -3470,9 +3503,9 @@ def phase_vmap_banks(torch, np, kt, dev, card):
         if not bool(torch.isfinite(mix).all()) or float(mix.abs().max()) < 1e-3:
             fail(f"{name}: the event-free run is not finite or silent")
 
-        print(f"slice {name} ({V} voices, B={BLOCK}, {N_BLOCKS} event-free blocks) on "
-              f"{card}: {V * N_BLOCKS * BLOCK / secs:.4g} voice-samples/s (realtime x "
-              f"{N_BLOCKS * BLOCK / SR / secs:.4g}); card vs CPU {gap:.3e} over "
+        print(f"slice {name} ({V} voices, B={BLOCK}, {VMAP_BLOCKS} event-free blocks) on "
+              f"{card}: {V * VMAP_BLOCKS * BLOCK / secs:.4g} voice-samples/s (realtime x "
+              f"{VMAP_BLOCKS * BLOCK / SR / secs:.4g}); card vs CPU {gap:.3e} over "
               f"{VMAP_CPU_BLOCKS} blocks (peak {peak:.4g}); no kernel of the port on its path")
 
         def blocks(state=state):
@@ -3523,7 +3556,9 @@ SAMPLER_VOICES = 16384  # benchmarks/suite.py bench_sampler_bank, bench_sampler_
 GRAIN_SLOTS = 64  # bench_granular and bench_granular_bank
 GRAIN_PLAYERS = 64  # bench_granular_bank
 IR_SECONDS = 2.0  # bench_convolver: K = 2 s * 48000 / 64 = 1500 partitions
-BUFFER_SECONDS = 1.0  # each configuration's superblocked render (drum_machine: its bar)
+# each configuration's superblocked render (drum_machine: its bar), cut
+# from the suite's 1 s to keep the run in its time limit
+BUFFER_SECONDS = 0.5
 # sampler_resample's, cut to keep the run in its time limit (51.9 s at 1 s
 # on an H100, PERF.md §6): voices at rates of 1.67 and more still wrap
 # their 1 s loop
@@ -3531,7 +3566,7 @@ SAMPLER_RESAMPLE_SECONDS = 0.6
 # sampler_bank's, cut from the suite's 1 s to keep the run in its time
 # limit (2.47e7 voice-samples/s on an H100, ~32 s a rendered second): its
 # unit-rate voices wrap their 1 s loop in neither
-SAMPLER_SECONDS = 0.4
+SAMPLER_SECONDS = 0.25
 # the per-block render held against the superblocked one (cut from 0.25 s
 # for the time limit: the sampler banks render ~0.03x realtime)
 BUFFER_PER_BLOCK_SECONDS = 0.125
@@ -3833,6 +3868,60 @@ LIVE_PROGRAMS = (("get_evchunk_fn", "evchunk"), ("get_float_evchunk_fn", "float_
                  ("get_scan_fn", "scan"))
 
 
+# (instances, B, dtype) the pink noise kernel is held at against its plain
+# version: the live `ir` chunk's blocks and superblocks (one instance, f32),
+# a batched block, and f64
+PINK_CASES = ((1, BLOCK, "f32"), (1, 1024, "f32"), (1, 4096, "f32"), (4, BLOCK, "f32"),
+              (1, BLOCK, "f64"), (2, 1088, "f64"))
+
+
+def pink_noise_vs_plain(torch, np, dev, card):
+    """The pink noise kernel against ``pink_noise_plain`` on the card, on
+    the same random states (counters at every phase, frames near the u32
+    wrap) at PINK_CASES: the output and every state leaf bit-equal. Then its
+    device ms at B = 64 (in a CUDA graph), the plain version's and the bound.
+    Returns (max |err|, ms, plain_ms, bound_ms, bound_by)."""
+    from knaster_tpu_torch.kernels import pink_noise as pk
+
+    rng = np.random.default_rng(19)
+    err, states = 0.0, {}
+    for n, B, dt in PINK_CASES:
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        state = {
+            "seed": torch.from_numpy(rng.integers(0, 2**32, n).astype(np.uint32)
+                                     .view(np.int32)).to(dev),
+            "frame": torch.from_numpy(rng.integers(2**32 - 3 * B, 2**32, n)
+                                      .astype(np.uint32).view(np.int32)).to(dev),
+            "whites": torch.from_numpy(rng.uniform(-1, 1, (n, pk.OCTAVES))).to(dev, dtype),
+            "always_on": torch.from_numpy(rng.uniform(-1, 1, n)).to(dev, dtype),
+            "counter": torch.from_numpy(rng.integers(1, 257, n).astype(np.int32)).to(dev),
+            "pink": torch.from_numpy(rng.uniform(-3, 3, n)).to(dev, dtype),
+        }
+        states[n, B, dt] = state
+        got_state, got = pk.launch(state, B)
+        want_state, want = pk.pink_noise_plain(state, B)
+        torch.cuda.synchronize()
+        words = lambda x: x.view(torch.int64) if x.dtype == torch.float64 else bits(x)  # noqa: E731
+        same = torch.equal(words(got), words(want)) and all(
+            torch.equal(words(got_state[k]), words(want_state[k])) for k in want_state)
+        if not same or not bool(torch.isfinite(got).all()):
+            fail(f"pink_noise n={n} B={B} {dt}: the kernel differs from the plain version "
+                 f"by {float((got - want).abs().max())}")
+        err = max(err, float((got - want).abs().max()))
+    n, B = 1, BLOCK
+    state = states[n, B, "f32"]
+    ms = time_graph(torch, lambda: pk.launch(state, B), 100)
+    eager_ms = time_call(torch, lambda: pk.launch(state, B), 100)
+    plain_ms = time_call(torch, lambda: pk.pink_noise_plain(state, B), 20)
+    out_state, out = pk.launch(state, B)
+    b_ms, b_by = bound(tensor_bytes(state, out_state, out), OPS_PER_SAMPLE["pink_noise"] * n * B)
+    print(f"pink_noise on {card}: kernel bit-equal to the plain version at (instances, B, "
+          f"dtype) {PINK_CASES}; B={B}: kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by}, "
+          f"{OPS_PER_SAMPLE['pink_noise']} operations a sample)")
+    return err, ms, plain_ms, b_ms, b_by
+
+
 def soak_module():
     """tools/realtime_soak.py, the port's soak loop."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -4075,7 +4164,9 @@ def phase_live(torch, np, kt, dev, card):
     heard, no thread failed; underruns reported, not gated.
     (c) After ``bank``: ``save_state``, ``load_state`` into a fresh
     processor, LIVE_CHECKPOINT_BLOCKS blocks bit-equal to the original's
-    next ones. Returns the kernels line's two live rows."""
+    next ones. (d) The pink noise kernel (``ir``'s source) bit-equal to its
+    plain version at PINK_CASES, and timed. Returns the kernels line's three
+    live rows."""
     import tempfile
 
     from knaster_tpu_torch.kernels import sine_bank
@@ -4176,10 +4267,11 @@ def phase_live(torch, np, kt, dev, card):
                      f"{float((a - b).abs().max())}")
             print(f"live checkpoint on {card}: {LIVE_CHECKPOINT_BLOCKS} blocks after "
                   f"load_state bit-equal to the original's (peak {float(a.abs().max()):.4g})")
-    for scenario, name in (("bank", "sine_bank"), ("cascade", "chain_kernel")):
+    for scenario, name in (("bank", "sine_bank"), ("cascade", "chain_kernel"),
+                           ("ir", "pink_noise")):
         if not live_counts[scenario][name]:
             fail(f"live {scenario}: {name} never launched in the soak")
-    # the two kernels at the live path's shapes
+    # the three kernels at the live path's shapes
     mod = sine_bank
     ops = check.superblock_ops
     B = ops["block_size"]
@@ -4206,6 +4298,9 @@ def phase_live(torch, np, kt, dev, card):
     rows["chain_kernel"] = kernel_row(
         "chain_kernel", live_counts["cascade"]["chain_kernel"], 0.0, ms, plain_ms, b_ms,
         b_by, label="chain_kernel:live_cascade")
+    rows["pink_noise"] = kernel_row("pink_noise", live_counts["ir"]["pink_noise"],
+                                    *pink_noise_vs_plain(torch, np, dev, card),
+                                    label="pink_noise:live_ir")
     return rows
 
 
@@ -4420,6 +4515,238 @@ def phase_program_cache(torch, np, ktt, dev, card):
           f"hit; plan+build median {med(misses, 'build_ms') + med(misses, 'plan_ms'):.2f} "
           f"ms on a miss, {med(hits, 'build_ms') + med(hits, 'plan_ms'):.2f} ms on a hit "
           f"({time.perf_counter() - t0:.1f} s)")
+
+
+# --------------------------------------------------------------------------
+# voices sharded over devices in one process (parallel/mesh.py)
+# --------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # the multi-shard meshes: cuda:0 this many times on one card
+MESH_BLOCKS = 64  # (a)'s blocks: every voice triggered in the first
+MESH_FAMILY_VOICES = 16384  # (b)'s banks
+MESH_FAMILY_BLOCKS = 16
+MESH_EVENT_FREE = 4096  # (c)'s event-free render after the score, in samples
+MESH_POOL_VOICES = 4096  # (d)
+MESH_CHECKPOINT_BLOCKS = 32  # (e)'s resumed render
+
+
+def mesh_gate(np, bank):
+    """The stated gate of a mesh of N > 1 shards against the unsharded bank:
+    the shards' partial mixes are summed in another order than the one
+    kernel's tiers, an f32 rounding of the order of 1e-6 of the sum of the
+    voices' amplitudes at most."""
+    return 1e-6 * float(np.abs(bank.voice_defaults["amp"]).sum())
+
+
+def mesh_run(torch, ktt, bank, ctx, dev, devices, events):
+    """``bank`` over ``len(events)`` blocks (an event dict of the full
+    bank's layout or None each), unsharded on ``dev`` when ``devices`` is
+    None, else through a ShardedVoiceBank over them (the mix summed on the
+    first of them).
+    Returns (mix [C, n * B] on ``dev``, the full bank's final state on the
+    CPU, host ms of the first block, host ms a block of the rest)."""
+    if devices is None:
+        state = bank.init(ctx, dev)
+
+        def step(st, ev):
+            return bank.process(ctx, st, events=ev)[:2]
+    else:
+        sb = ktt.ShardedVoiceBank(bank, ktt.make_mesh(devices), ctx)
+        state = sb.init_state()
+        step = sb.step
+    outs, marks = [], []
+    torch.cuda.synchronize()
+    for ev in events:
+        marks.append(time.perf_counter())
+        state, out = step(state, ev)
+        outs.append(out)
+        if len(marks) == 1:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    if devices is not None:
+        state = sb.node.join(ctx, state)
+    else:
+        state = {k: v.cpu() for k, v in state.items()}
+    rest = (marks[-1] - marks[1]) / max(len(events) - 1, 1)
+    return torch.cat(outs, dim=1), state, 1e3 * (marks[1] - marks[0]), 1e3 * rest
+
+
+def mesh_compare(torch, np, ktt, bank, ctx, dev, events, label, card):
+    """``bank`` unsharded, over one shard and over MESH_SHARDS shards on
+    ``dev`` (and over every card where there are more): one shard bit-equal
+    to the unsharded bank (mix and state), more shards within
+    ``mesh_gate``. Prints each one's host ms a block."""
+    meshes = [None, [dev], [dev] * MESH_SHARDS]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes.append([torch.device("cuda", i) for i in range(n_cards)])
+    # the first eventful block of a process loads the staging ops' modules:
+    # out of the timed runs
+    mesh_run(torch, ktt, bank, ctx, dev, None, events[:2])
+    runs = [mesh_run(torch, ktt, bank, ctx, dev, d, events) for d in meshes]
+    ref, ref_state = runs[0][0], runs[0][1]
+    peak = float(ref.abs().max())
+    if not bool(torch.isfinite(ref).all()) or peak == 0.0:
+        fail(f"mesh {label}: the unsharded render is not finite or silent")
+    gate = mesh_gate(np, bank)
+    parts = [f"unsharded {runs[0][3]:.3f} ms a block (first {runs[0][2]:.1f} ms)"]
+    for d, (mix, state, first_ms, ms) in zip(meshes[1:], runs[1:]):
+        n = len(d)
+        if n == 1:
+            same = torch.equal(bits(mix), bits(ref)) and all(
+                torch.equal(bits(state[k]), bits(ref_state[k])) for k in ref_state)
+            if not same:
+                fail(f"mesh {label}: one shard is not bit-equal to the unsharded bank "
+                     f"(mix differs by {float((mix - ref).abs().max())})")
+            parts.append(f"N=1 {ms:.3f} ms (bit-equal)")
+            continue
+        err = float((mix - ref).abs().max())
+        if err > gate:
+            fail(f"mesh {label}: {n} shards differ from the unsharded bank by {err} "
+                 f"(gate {gate})")
+        # a voice's state is its own: only the mix's summation order moves
+        for k in ref_state:
+            if not torch.equal(bits(state[k]), bits(ref_state[k])):
+                fail(f"mesh {label}: {n} shards' {k} differs from the unsharded bank's")
+        where = "cards" if len(set(d)) > 1 else str(dev)
+        parts.append(f"N={n} on {where} {ms:.3f} ms (first {first_ms:.1f} ms), "
+                     f"max |err| {err:.3e} (gate {gate:.3e})")
+    print(f"mesh {label} (V={bank.n_voices}, {len(events)} blocks of {BLOCK}) on {card}: "
+          + "; ".join(parts) + f"; peak {peak:.4g}")
+    return runs
+
+
+def mesh_cluster(torch, ktt, dev, devices, score=True):
+    """tools/mesh_voice_cluster.py's graph with the fused sine bank, sharded
+    over ``devices`` or (None) unsharded, on ``dev``: (processor, bank
+    handle, the example's score and second of tail rendered, or None
+    without ``score``)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import mesh_voice_cluster as mvc
+
+    V = mvc.VOICES_PER_DEVICE * MESH_SHARDS
+    bank, detune = mvc.make_bank(ktt, V, fused=True)
+    node = bank if devices is None else ktt.MeshVoiceBank(bank, ktt.make_mesh(devices))
+    if not score:
+        g, proc = ktt.AudioProcessor.new(0, 2, ktt.AudioProcessorOptions(
+            block_size=mvc.BLOCK, sample_rate=mvc.SR), device=dev)
+        h, _ = g.edit(lambda gg: mvc.build(ktt, gg, node))
+        return proc, h, None
+    _, proc, h, _, seconds = mvc.cluster(ktt, node, detune, device=dev)
+    return proc, h, proc.render(frames=int((seconds + 1.0) * SR), fetch=False)
+
+
+def phase_mesh(torch, np, ktt, dev, card):
+    """Voices sharded over devices in one process (``parallel/mesh.py``),
+    on one card the same device MESH_SHARDS times:
+
+    (a) the headline sine bank (table row 1) at N_VOICES, every voice
+    restarted in the first of MESH_BLOCKS blocks: one shard bit-equal to
+    the unsharded bank, MESH_SHARDS within ``mesh_gate``, host ms a block
+    of each; (b) the wavetable bank (row 4) and the Envelope body's
+    generic bank (row 5) at MESH_FAMILY_VOICES over ``schedule`` and
+    event-free blocks, the same way; (c) tools/mesh_voice_cluster.py with
+    the fused sine bank over MESH_SHARDS shards against the same graph with
+    the bank unsharded (the example's four chords), then MESH_EVENT_FREE
+    event-free samples, the block lengths the local bank was handed
+    (none past its MAX_BLOCK); (d) a VoicePool over a MeshVoiceBank of the
+    Envelope body: every voice released once its program ran out; (e) the
+    cluster graph saved and loaded into a fresh processor: each shard's
+    leaves back on its device and the resumed render bit-equal. The phase's
+    kernel launches are counted; each kernel of the path must launch."""
+    import tempfile
+
+    from knaster_tpu_torch.kernels.bank_common import MAX_BLOCK
+
+    ctx = ktt.AudioCtx(SR, BLOCK, torch.float32)
+    reset_counts()
+    # (a) the headline bank
+    bank = make_bank(ktt, np, "sine", N_VOICES, N_VOICES)
+    tr = bank.trig_index("t_restart")
+    first = bank.node_events_from_lists([(v % BLOCK, v, tr, 1, 0.0) for v in range(N_VOICES)])
+    mesh_compare(torch, np, ktt, bank, ctx, dev, [first] + [None] * (MESH_BLOCKS - 1),
+                 "sine", card)
+    # (b) the wavetable bank and the Envelope body
+    V = MESH_FAMILY_VOICES
+    for label, fam in (("wt", make_bank(ktt, np, "wt", V, V)),
+                       ("envelope", envelope_bank(ktt, np, V, V, looping=False))):
+        events = [None if e is None else fam.node_events_from_lists(e)
+                  for e in schedule(fam, V, BLOCK)]
+        events += [None] * (MESH_FAMILY_BLOCKS - len(events))
+        mesh_compare(torch, np, ktt, fam, ctx, dev, events, label, card)
+    # (c) the cluster example on the card
+    proc, h, mesh_audio = mesh_cluster(torch, ktt, dev, [dev] * MESH_SHARDS)
+    _, _, plain_audio = mesh_cluster(torch, ktt, dev, None)
+    node = proc.graph._node(h.node_id).ugen
+    err = float((mesh_audio - plain_audio).abs().max())
+    peak = float(plain_audio.abs().max())
+    gate = mesh_gate(np, node.bank)
+    if not bool(torch.isfinite(mesh_audio).all()) or peak == 0.0 or err > gate:
+        fail(f"mesh cluster: {MESH_SHARDS} shards vs unsharded {err} (gate {gate}, "
+             f"peak {peak})")
+    seen = []
+    process = node._local.process
+
+    def spy(c, *a, **k):
+        seen.append(c.block_size)
+        return process(c, *a, **k)
+
+    node._local.process = spy
+    tail = proc.render(frames=MESH_EVENT_FREE, fetch=False)
+    node._local.process = process
+    torch.cuda.synchronize()
+    if not seen or max(seen) > MAX_BLOCK or sum(seen) != MESH_EVENT_FREE * MESH_SHARDS:
+        fail(f"mesh cluster: the local bank was handed blocks {seen}")
+    print(f"mesh cluster (tools/mesh_voice_cluster.py --fused, {node.n_voices} voices, "
+          f"{MESH_SHARDS} shards) on {card}: {mesh_audio.shape[1] / SR:g} s against the "
+          f"unsharded bank {err:.3e} (gate {gate:.3e}, peak {peak:.4g}); then "
+          f"{MESH_EVENT_FREE} event-free samples, the local bank handed blocks of "
+          f"{seen[::MESH_SHARDS]} samples on each shard (tail peak "
+          f"{float(tail.abs().max()):.4g})")
+    # (e) the cluster graph's checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh.ckpt")
+        proc.save_state(path)
+        fresh, fh, _ = mesh_cluster(torch, ktt, dev, [dev] * MESH_SHARDS, score=False)
+        fresh.load_state(path)
+    fnode = fresh.graph._node(fh.node_id).ugen
+    shards = fnode.shards(fresh.state["nodes"][fresh.compiled._node_loc(fh.node_id)[1]])
+    for s, d in zip(shards, fnode.mesh.devices):
+        if any(x.device != d for x in s.values()):
+            fail(f"mesh checkpoint: a shard's leaf was not restored onto {d}")
+    n = MESH_CHECKPOINT_BLOCKS * BLOCK
+    a, b = proc.render(frames=n, fetch=False), fresh.render(frames=n, fetch=False)
+    if not torch.equal(bits(a), bits(b)):
+        fail(f"mesh checkpoint: the resumed render differs by {float((a - b).abs().max())}")
+    print(f"mesh checkpoint on {card}: {len(shards)} shards restored onto their devices, "
+          f"{MESH_CHECKPOINT_BLOCKS} blocks bit-equal after load_state")
+    # (d) VoicePool over the Envelope body's mesh bank
+    g, pproc = ktt.AudioProcessor.new(0, 2, ktt.AudioProcessorOptions(block_size=BLOCK),
+                                      device=dev)
+    fam = envelope_bank(ktt, np, MESH_POOL_VOICES, 4 * MESH_POOL_VOICES, looping=False)
+    ph = g.edit(lambda gg: gg.push(ktt.MeshVoiceBank(fam, ktt.make_mesh([dev] * MESH_SHARDS))))
+    ph.to_graph_out()
+    g.commit()
+    pool = ktt.VoicePool(pproc, ph)
+    pproc.render(frames=BLOCK, fetch=False)
+    if any(pool.note_on({"freq": 300.0 + v % 500}) is None for v in range(MESH_POOL_VOICES)):
+        fail("mesh pool: the pool ran out of voices")
+    sounding = pproc.render(frames=2 * BLOCK, fetch=False)
+    held = pool.held_count
+    pproc.render(frames=8 * BLOCK, fetch=False)  # the 2.6 ms program is long over
+    released = pool.refresh()
+    if (held != MESH_POOL_VOICES or released != MESH_POOL_VOICES
+            or pool.free_count != pool.n_voices or float(sounding.abs().max()) == 0.0):
+        fail(f"mesh pool: {held} held, refresh released {released}, {pool.free_count} free "
+             f"of {pool.n_voices}")
+    print(f"mesh pool on {card}: {MESH_POOL_VOICES} Envelope voices over {MESH_SHARDS} "
+          f"shards, every one released by refresh() once its program ran out")
+    counts = read_counts()
+    for name in ("sine_bank", "wt_bank", "generic_bank"):
+        if not counts[name]:
+            fail(f"mesh: {name} never launched in the phase")
+    print(f"mesh launches: {counts}")
 
 
 # --------------------------------------------------------------------------
@@ -5025,18 +5352,18 @@ def main():
         errs[name] = max(errs.get(name, 0.0), err)
         if kind.startswith("generic"):
             errs_by_body[kind[8:]] = err
-    errs["fm_cascade"] = phase_fm_cascade_vs_plain(torch, np, dev)
-    errs["chain_kernel"] = max(phase_chain_vs_plain(torch, np, ktt, dev),
-                               phase_bodies_vs_plain(torch, ktt, dev))
-    path_errs = phase_subtractive_vs_plain(torch, np, ktt, dev)
-    osc_errs, _ = phase_float_osc_vs_plain(torch, np, ktt, dev)
+    errs["fm_cascade"] = lap(phase_fm_cascade_vs_plain, torch, np, dev)
+    errs["chain_kernel"] = max(lap(phase_chain_vs_plain, torch, np, ktt, dev),
+                               lap(phase_bodies_vs_plain, torch, ktt, dev))
+    path_errs = lap(phase_subtractive_vs_plain, torch, np, ktt, dev)
+    osc_errs, _ = lap(phase_float_osc_vs_plain, torch, np, ktt, dev)
     path_errs.update(osc_errs)
-    path_errs.update(phase_subtractive_vs_plain(torch, np, ktt, dev,
-                                                paths=noise_delay_paths(ktt)))
-    global_errs = phase_global_rows_vs_plain(torch, np, ktt, dev, card)
+    path_errs.update(lap(phase_subtractive_vs_plain, torch, np, ktt, dev,
+                         None, STAGE_BLOCKS, noise_delay_paths(ktt)))
+    global_errs = lap(phase_global_rows_vs_plain, torch, np, ktt, dev, card)
     errs["chain_kernel"] = max([errs["chain_kernel"], *global_errs.values(),
                                 *path_errs.values()])
-    family_errs, efrom_ulps = phase_family_vs_plain(torch, np, ktt, dev)
+    family_errs, efrom_ulps = lap(phase_family_vs_plain, torch, np, ktt, dev)
     matrix_errs = lap(phase_bank_matrix_vs_plain, torch, np, ktt, dev)
     for kind in ("wt",) + HAND_KINDS:
         name = kernel_module(kind).KERNEL
@@ -5104,17 +5431,17 @@ def main():
     lap(phase_buffers, torch, np, ktt, dev, card)
     live_rows = lap(phase_live, torch, np, ktt, dev, card)
     lap(phase_program_cache, torch, np, ktt, dev, card)
+    lap(phase_mesh, torch, np, ktt, dev, card)
     user_rows, organ_cpu = lap(phase_extensions, torch, np, ktt, dev, card)
     lowered_rows = lap(phase_lowered, torch, np, ktt, dev, card, organ_cpu)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
-    # -- timings and profile at the main path's shape ---------------------
+    # -- timings at the main path's shape ---------------------------------
     t0 = time.perf_counter()
     table = []
     for kind in ("sine", "fm", "sub", "wt"):
         bank, state, launches, _ = results[kind]
         ms, plain_ms, bound_ms, bound_by = phase_timings(torch, ktt, kind, bank, state, card)
-        profile_blocks(torch, kind, bank, ctx, state)
         name = kernel_module(kind).KERNEL
         table.append(kernel_row(name, launches, errs[name], ms, plain_ms, bound_ms,
                                 bound_by))
@@ -5126,19 +5453,8 @@ def main():
             row = phase_family_timings(torch, ktt, body, bank, state, card)
         else:
             row = phase_timings(torch, ktt, kind, bank, state, card)
-        if body in ("fm", "modal"):
-            profile_blocks(torch, kind, bank, ctx, state)
         table.append(kernel_row("generic_bank", launches, body_errs[body], *row,
                                 label=f"generic_bank:{body}"))
-    profile_render(torch, ktt, dev, "fm_cascade graph",
-                   lambda gg: build_cascade(ktt, gg, CASCADE), BLOCK)
-    profile_render(torch, ktt, dev, "fm_cascade_model",
-                   lambda gg: gg.push(ktt.FMCascade(CASCADE)).to_graph_out(), BLOCK)
-    profile_render(torch, ktt, dev, "sines_const B=64", lambda gg: sines_const(ktt, gg),
-                   BLOCK)
-    for name in ("polyblep_cascade", "graphic_eq_31"):
-        profile_render(torch, ktt, dev, name,
-                       lambda gg, b=chain_paths(ktt)[name]: b(ktt, gg), BLOCK)
     for name, row in phase_stage_timings(torch, np, ktt, dev, card).items():
         table.append(kernel_row(name, stage_launches[name], errs[name], *row))
     # the chain kernel on the subtractive slice's two chain paths and the
@@ -5153,7 +5469,7 @@ def main():
     table.extend(live_rows.values())
     table.extend(user_rows)
     table.extend(lowered_rows)
-    print(f"timings and profile: {time.perf_counter() - t0:.1f} s; "
+    print(f"timings: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": table}))

@@ -11,7 +11,9 @@ subtractive voice's (``PolyBlep``, ``SvfFilter``, the one-poles,
 ``ModalResonator`` and the Karplus-Strong ``PluckedString``, the voice
 models, the composable ``VoiceBank`` (any voice, run once over the voice
 axis) and the fused voice banks; every bank is a graph node (per-voice
-control through ``Handle.voice_param``, allocation through ``VoicePool``).
+control through ``Handle.voice_param``, allocation through ``VoicePool``),
+and ``MeshVoiceBank`` and ``ShardedVoiceBank`` shard any bank over a list
+of devices (``make_mesh``) in one process.
 Recorded audio: ``Buffer`` (``Buffer.from_sound_file``: wav, ogg, flac,
 mp3 through ``utils/codec.py``), ``BufferReader``, ``SamplerVoice``,
 ``GrainPlayer`` and ``Convolver``. The live path: ``StreamBackend`` (a
@@ -78,6 +80,7 @@ from .parallel.fused_bank import (
     FusedWavetableVoiceBank,
 )
 from .parallel.generic_bank import FusedVoiceBank, KernelVoiceSpec
+from .parallel.mesh import MeshVoiceBank, ShardedVoiceBank, make_mesh
 from .parallel.pool import VoicePool
 from .parallel.voicebank import VoiceBank
 from .primitives import (
@@ -212,6 +215,9 @@ __all__ = [
     "FusedWavetableVoiceBank",
     "FusedVoiceBank",
     "KernelVoiceSpec",
+    "MeshVoiceBank",
+    "ShardedVoiceBank",
+    "make_mesh",
     "NonAaWavetable",
     "Wavetable",
     "harmonics_from_table",

@@ -15,7 +15,9 @@ bank's state (``phase``, ``phm``, ``phc``, ``ic1``, ``ic2``, ``et``, a
 generic carry...) crosses alike: uint32 becomes int32 bits, and a 2-D
 array of shape ``(V / 128, 128)`` is a tile (V from ``active``). Events
 need no converter: both packages' ``node_events_from_lists`` return the
-same numpy dict.
+same numpy dict. A sharded bank's state crosses as its bank's: the JAX
+package's global state is the full bank's, and the port's per-shard
+state is that state split over the port's mesh (``parallel/mesh.py``).
 
 A compiled graph's state ``{"nodes", "pe", "fb"}`` has the same keys in
 both packages for the same graph (the plan, and so every state, group and
@@ -123,6 +125,22 @@ def bank_state_to_numpy(state, like=None):
                 v = v.view(np.uint32)
         out[k] = v
     return out
+
+
+def sharded_state_from_jax(np_state, sharded):
+    """The port's per-shard state for ``sharded`` (a ``ShardedVoiceBank``)
+    from a JAX ``ShardedVoiceBank``'s global state given as numpy arrays
+    (``jax.tree_util.tree_map(np.asarray, state)``): the bank's state as
+    ``bank_state_from_jax`` has it, split over the port's mesh, each shard
+    on its device."""
+    return sharded.node.split(sharded.ctx, bank_state_from_jax(np_state, "cpu"))
+
+
+def sharded_state_to_numpy(state, sharded, like=None):
+    """The inverse of ``sharded_state_from_jax``: the shards joined into the
+    full bank's state and given as ``bank_state_to_numpy`` gives it, in the
+    JAX layout of the global state."""
+    return bank_state_to_numpy(sharded.node.join(sharded.ctx, state), like)
 
 
 def _is_bank_state(tree):

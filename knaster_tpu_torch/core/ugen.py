@@ -82,6 +82,13 @@ class UGen:
     # or None for no limit: a kernel's shared-memory ceiling, a blockwise
     # node's shortest delay. May be set in ``init``.
     superblock_cap: Optional[int] = None
+    # True when ``process`` gives the same output and state bit for bit
+    # however a run of samples is split into blocks (the fused kernel banks:
+    # anchored ramps, the state carried sample by sample). A live eventful
+    # chunk of a graph of such nodes renders its event-free rest as
+    # superblocks of the cap where the whole rest exceeds it
+    # (graph/compile.py ``get_evchunk_fn``), not block by block.
+    partition_exact: bool = False
     # True when ``process`` can return a done mask.
     may_set_done: bool = False
     # int params the renderer also passes on the host (module docstring)

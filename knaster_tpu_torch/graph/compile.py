@@ -785,13 +785,22 @@ def get_float_evchunk_fn(cg: CompiledGraph, n: int, existing_only: bool = False)
     return fn
 
 
+def _partition_exact(cg: CompiledGraph) -> bool:
+    """Every node renders any split of a run into blocks bit-identically
+    (``UGen.partition_exact``)."""
+    return all(e.ugen.partition_exact for e in cg.entries.values())
+
+
 def get_evchunk_fn(cg: CompiledGraph, n: int, existing_only: bool = False):
     """The eventful chunk with its events in block 0 (an asap control
     batch): fn(state, events, in_first [in, B], in_rest [in, (n-1)*B]) ->
     (state, out [ch, n*B], done_vec or None). Block 0 renders through
-    ``render``, the rest as one event-free (n-1)-superblock, or, where the
-    graph takes none of that length (feedback edges, a cap), as n-1 blocks
-    of ``render_fast``."""
+    ``render``, the rest as one event-free (n-1)-superblock. Where the graph
+    takes none of that length (feedback edges, a cap) the rest renders as
+    n-1 blocks of ``render_fast``, as the JAX package's scan does; a capped
+    graph of ``partition_exact`` nodes (the fused kernel banks) renders it
+    as superblocks of its cap instead, the same samples in a few launches
+    where block by block took n-1 (a live chunk's host cost)."""
     if n < 2:
         return None
     fn = cg.evchunk_fns.get(n)
@@ -800,12 +809,18 @@ def get_evchunk_fn(cg: CompiledGraph, n: int, existing_only: bool = False):
         if _rest_ok(cg, n - 1):
             rest = _build_render(cg, fast=True, block_multiple=n - 1)
         else:
+            m = cg.superblock_max // B if superblock_eligible(cg) else 0
+            m = m if m >= 2 and _partition_exact(cg) else 1
+            sizes = [m] * ((n - 1) // m) + ([(n - 1) % m] if (n - 1) % m else [])
+            parts = {s: get_super_fn(cg, s) if s > 1 else cg.render_fast for s in sizes}
+
             def rest(state, _events, inputs):
-                outs, done = [], None
-                for i in range(n - 1):
-                    state, out, d = cg.render_fast(state, inputs[:, i * B:(i + 1) * B])
+                outs, done, t = [], None, 0
+                for s in sizes:
+                    state, out, d = parts[s](state, inputs[:, t * B:(t + s) * B])
                     outs.append(out)
                     done = _or_done(done, d)
+                    t += s
                 return state, torch.cat(outs, dim=1), done
         fn = cg.evchunk_fns[n] = _chunk_fn(cg.render, rest)
     return fn

@@ -39,7 +39,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "knaster_tpu_torch"
 KERNELS = ("sine_bank", "fm_bank", "sub_bank", "wt_bank", "generic_bank", "fm_cascade",
-           "chain_kernel")
+           "chain_kernel", "pink_noise")
 
 # no fast math: the kernels' state must round like the plain torch versions
 NVCC_FLAGS = (

@@ -94,6 +94,8 @@ class FusedBank(VoiceBank):
     # in a graph, the longest superblock a bank renders: the kernels' block
     # limit (the JAX package's PallasVoiceBank.superblock_cap)
     superblock_cap = MAX_BLOCK
+    # every partition of a run renders bit-identically (module docstring)
+    partition_exact = True
 
     def __init__(self, voice, n_voices: int, voice_defaults=None,
                  event_capacity=256, kernel_burst_depth: int = 3):
@@ -173,6 +175,15 @@ class _HandBank(FusedBank):
                          kernel_burst_depth=kernel_burst_depth)
         self._attack = voice.attack
         self._release = voice.release
+
+    def make_local(self, n_local: int):
+        """A bank of ``n_local`` voices with this bank's envelope times,
+        event capacity and burst depth: one mesh shard's
+        (``parallel/mesh.py``). The flat ``[V]`` layout needs no tile rows
+        and no multiple of 128."""
+        return type(self)(n_local, event_capacity=self.event_capacity,
+                          attack=self._attack, release=self._release,
+                          kernel_burst_depth=self.kernel_burst_depth)
 
     def init(self, ctx: AudioCtx, device):
         base = super().init(ctx, device)
@@ -315,6 +326,17 @@ class FusedWavetableVoiceBank(_HandBank):
 
     def name(self):
         return f"FusedWavetableBank[{self.n_voices}x{len(self.mags)}h]"
+
+    def make_local(self, n_local: int):
+        """One mesh shard's bank: the same harmonic decomposition (and its
+        kernel coefficients, shared), envelope times, event capacity and
+        burst depth."""
+        local = FusedWavetableVoiceBank(
+            n_local, harmonics=(self.mags, self.offsets), event_capacity=self.event_capacity,
+            attack=self._attack, release=self._release,
+            kernel_burst_depth=self.kernel_burst_depth)
+        local._coefs = self._coefs
+        return local
 
     def kernel_operands(self, ctx: AudioCtx, state, events=None):
         operands, carry = super().kernel_operands(ctx, state, events)

@@ -129,6 +129,16 @@ class FusedVoiceBank(FusedBank):
     def name(self):
         return f"FusedVoiceBank[{self.n_voices}x{self.voice.name()}]"
 
+    def make_local(self, n_local: int) -> "FusedVoiceBank":
+        """One mesh shard's bank: the same voice, event capacity and burst
+        depth. It shares this bank's ``KernelVoiceSpec``s, so a CUDA body
+        built from a user source or lowered from the torch body is built
+        once for every shard."""
+        local = FusedVoiceBank(self.voice, n_local, event_capacity=self.event_capacity,
+                               kernel_burst_depth=self.kernel_burst_depth)
+        local._specs = self._specs
+        return local
+
     def spec(self, ctx: AudioCtx) -> KernelVoiceSpec:
         key = (ctx.sample_rate, ctx.dtype)
         if key not in self._specs:

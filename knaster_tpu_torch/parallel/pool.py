@@ -10,7 +10,10 @@ The release rides the bank's per-voice idle latch: a bool per voice on the
 device that the bank sets when the voice's body reports idle (its
 ``idle_of``) and that a note-on clears (event kind 5). The pool reads the
 latch only when its host-side free list runs dry: one device-to-host copy
-per ``refresh``.
+per ``refresh``, through the bank's ``idle_vector``. Over a
+``MeshVoiceBank`` each shard keeps the latch of its own voices on its
+device: its ``idle_vector`` copies each shard's latch to the host and joins
+them in shard order, which is voice order.
 
 The JAX package's banks compute the latch only once a pool turns
 ``track_idle`` on, and the pool then re-freezes the bank node's structural
@@ -127,7 +130,7 @@ class VoicePool:
         loc = proc.compiled._node_loc(self.node_id)
         if loc is None or loc[0] != "single":
             raise RuntimeError("the voice bank node is not in the compiled plan")
-        return proc.state["nodes"][loc[1]]["idle"].cpu().numpy()  # one copy
+        return self.bank.idle_vector(proc.state["nodes"][loc[1]])
 
     def refresh(self) -> int:
         """Read the bank's idle latch (one device-to-host copy) and release

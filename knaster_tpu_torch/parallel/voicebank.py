@@ -113,6 +113,19 @@ class VoiceBank(UGen):
     def name(self) -> str:
         return f"VoiceBank[{self.n_voices}x{self.voice.name()}]"
 
+    def make_local(self, n_local: int) -> "VoiceBank":
+        """A bank of ``n_local`` voices of the same voice, describing one
+        mesh shard (``parallel/mesh.py``). It takes no ``voice_defaults``:
+        the per-voice defaults live in the full bank's state, which is
+        sliced. Subclasses with other constructors override it."""
+        return VoiceBank(self.voice, n_local, mix="sum",
+                         event_capacity=self.event_capacity)
+
+    def idle_vector(self, state) -> np.ndarray:
+        """The per-voice idle latch of ``state`` on the host (one
+        device-to-host copy), as ``VoicePool.refresh`` reads it."""
+        return state["idle"].cpu().numpy()
+
     # ------------------------------------------------------------- indices
     def float_index(self, name: str) -> int:
         return self._float_names.index(name)

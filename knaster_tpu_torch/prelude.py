@@ -10,9 +10,9 @@ It gives the port's counterpart of every name in the JAX package's prelude,
 except that the fused kernel banks take the Pallas banks' place
 (``FusedVoiceBank`` and ``KernelVoiceSpec`` for ``PallasVoiceBank`` and
 ``MosaicVoiceSpec``, ``Fused{Sine,FM,Subtractive,Wavetable}VoiceBank`` for
-``Pallas{...}VoiceBank``), and that ``MeshVoiceBank`` and
-``ShardedVoiceBank`` wait for the port's multi-device slice. It imports no
-JAX.
+``Pallas{...}VoiceBank``), and that it adds ``make_mesh``, the port's
+counterpart of ``jax.make_mesh``, which ``MeshVoiceBank`` and
+``ShardedVoiceBank`` take their devices from. It imports no JAX.
 """
 
 from . import knaster  # noqa: F401
@@ -43,6 +43,7 @@ from .parallel.fused_bank import (  # noqa: F401
     FusedWavetableVoiceBank,
 )
 from .parallel.generic_bank import FusedVoiceBank, KernelVoiceSpec  # noqa: F401
+from .parallel.mesh import MeshVoiceBank, ShardedVoiceBank, make_mesh  # noqa: F401
 from .parallel.pool import VoicePool  # noqa: F401
 from .parallel.voicebank import VoiceBank  # noqa: F401
 from .primitives import (  # noqa: F401

@@ -32,7 +32,6 @@ import itertools
 
 import torch
 
-from ..core.dsp import cumsum_base16, recip
 from ..core.ugen import AudioCtx, UGen
 from ..kernels.bank_common import i32_of, u32_of
 from ..primitives.params import ParameterKind, pfloat
@@ -177,7 +176,8 @@ class WhiteNoise(_NoiseBase):
 class PinkNoise(_NoiseBase):
     """Voss-McCartney pink noise (noise.rs:51-120 PinkNoise): white-noise
     octaves selected by the trailing zeros of a wrapping counter, plus an
-    always-on white source; usually within +-0.75."""
+    always-on white source; usually within +-0.75. Its block is
+    ``kernels/pink_noise.py``."""
 
     def init(self, ctx: AudioCtx, device="cpu"):
         z = torch.zeros((), dtype=ctx.dtype, device=device)
@@ -187,40 +187,11 @@ class PinkNoise(_NoiseBase):
                 "pink": z.clone()}
 
     def process(self, ctx: AudioCtx, state, inputs, params):
-        # the JAX package's vectorized recurrence: pink_t = pink_{t-1} -
-        # (octave i_t's previous x0) + x0_t - x1_{t-1} + x1_t, with i_t the
-        # trailing zeros of the counter and each octave's previous x0 found
-        # by a running max over the samples where it fired
-        B, dtype = ctx.block_size, ctx.dtype
-        u = self._uniforms(ctx, state, 2) * 2.0 - 1.0
-        x0, x1 = u[..., 0], u[..., 1]
-        dev = x0.device
-        span = 2 ** (PINK_NOISE_OCTAVES - 1)
-        t = torch.arange(B, device=dev)
-        counter = ((state["counter"].long().unsqueeze(-1) - 1 + t) & (span - 1)) + 1
-        lsb = counter & -counter
-        # its trailing zeros: the population count of lsb - 1
-        idx = sum(((lsb - 1) >> b) & 1 for b in range(PINK_NOISE_OCTAVES))
-        octaves = torch.arange(PINK_NOISE_OCTAVES, device=dev)
-        fired = idx.unsqueeze(-2) == octaves.unsqueeze(-1)  # [..., O, B]
-        occ = torch.where(fired, t, torch.full_like(t, -1))
-        cm = torch.cummax(occ, dim=-1).values
-        prev = torch.cat([torch.full_like(cm[..., :1], -1), cm[..., :-1]], dim=-1)
-        x0o = x0.unsqueeze(-2).expand(fired.shape)
-        whites = state["whites"].unsqueeze(-1)
-        val = torch.where(prev >= 0, torch.gather(x0o, -1, prev.clamp(min=0)), whites)
-        removed = torch.where(fired, val, torch.zeros((), dtype=dtype, device=dev)).sum(-2)
-        last = cm[..., -1:]
-        new_whites = torch.where(last >= 0, torch.gather(x0o, -1, last.clamp(min=0)),
-                                 whites)[..., 0]
-        x1_prev = torch.cat([state["always_on"].unsqueeze(-1), x1[..., :-1]], dim=-1)
-        pink = state["pink"].unsqueeze(-1) + cumsum_base16(x0 - removed + x1 - x1_prev)
-        out = pink * recip(PINK_NOISE_OCTAVES + 1.0, pink)
-        new_counter = ((state["counter"].long() - 1 + B) & (span - 1)) + 1
-        new_state = {**self._next_counters(ctx, state), "whites": new_whites,
-                     "always_on": x1[..., -1], "counter": new_counter.to(torch.int32),
-                     "pink": pink[..., -1]}
-        return new_state, out.unsqueeze(-2)
+        # one launch of csrc/pink_noise.cu a block on the card, its plain
+        # torch version (the JAX package's vectorized recurrence) on the CPU
+        from ..kernels.pink_noise import pink_noise
+
+        return pink_noise(state, ctx.block_size)
 
 
 class BrownNoise(_NoiseBase):

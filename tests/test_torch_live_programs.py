@@ -220,6 +220,61 @@ def test_capped_superblock_scan_matches_jax(monkeypatch):
     assert_close(a, b)
 
 
+def capped_bank_block0(m, g):
+    """``capped_bank``'s bank (the port's) under asap batches, each in
+    block 0 of the chunk after it."""
+    V = 128
+    rng = np.random.default_rng(5)
+    d = {"freq": rng.uniform(100, 2000, V).astype(np.float32),
+         "amp": np.full(V, 0.01, np.float32),
+         "pan": rng.uniform(-1, 1, V).astype(np.float32)}
+    bank = m.FusedSineVoiceBank(V, voice_defaults=d, event_capacity=256)
+    bank.superblock_cap = 4 * B
+    h = g.edit(lambda gg: gg.push(bank))
+    h.to_graph_out()
+    g.commit()
+    trig, freq = h.voice_param("t_restart"), h.voice_param("freq")
+
+    def step(events):
+        def go(proc):
+            events()
+            return proc.render(frames=8 * B)
+        return go
+
+    return [step(lambda: [trig.trig(v) for v in range(0, V, 3)]),
+            step(lambda: freq.set(4, 880.0)),
+            step(lambda: trig.trig(9))]
+
+
+def test_capped_exact_bank_chunk_rest_in_superblocks(monkeypatch):
+    """The eventful chunk of a capped graph of partition-exact nodes (a
+    fused bank capped at 4 blocks, a chunk of 8): block 0, then the
+    event-free rest as superblocks of the cap (4 and 3 blocks), where the
+    JAX package scans the rest block by block; the render equals the port's
+    per-block render bit for bit. (The per-block render is held against
+    the JAX package's by test_capped_superblock_scan_matches_jax's kind of
+    graph and tests/test_torch_voice_pool.py.)"""
+    g, proc = _proc(kt, 2, chunk=8)
+    script = capped_bank_block0(kt, g)
+    warm(proc, 8)
+    log, sizes = [], []
+    record(monkeypatch, kt, log)
+    process = kt.FusedSineVoiceBank.process
+
+    def spy(self, ctx, *x, **y):
+        sizes.append(ctx.block_size)
+        return process(self, ctx, *x, **y)
+
+    monkeypatch.setattr(kt.FusedSineVoiceBank, "process", spy)
+    got = np.concatenate([step(proc) for step in script], axis=1)
+    assert log == ["evchunk"] * 3
+    assert sizes == [B, 4 * B, 3 * B] * 3
+    g, per_block = _proc(kt, 2, chunk=1)
+    want = np.concatenate([step(per_block) for step in capped_bank_block0(kt, g)], axis=1)
+    assert np.abs(want).max() > 1e-3
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def cascade(m, g, n=10):
     """The realtime soak's cascade, cut to n SinWt: each modulates the next's
     freq (collapsed into one chain)."""

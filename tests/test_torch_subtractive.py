@@ -622,11 +622,14 @@ def test_subtractive_voice_meets_golden(name, dtype):
 def convert_graph(m):
     """A PolyBlep into three SVFs of three types (a batch group, ``ic``
     [3, 2]), a 12-stage PolyBlep cascade (a chain stack of u32 phases) and
-    an EnvAsr gate, B = 16. (JAX filter chains take the scan executor on
-    the CPU, which compiles for minutes: the SVF and one-pole chains are
-    held against it above, at fewer blocks.)"""
+    an EnvAsr gate, B = 16, rendered block by block. (JAX filter chains
+    take the scan executor on the CPU, which compiles for minutes: the SVF
+    and one-pole chains are held against it above, at fewer blocks; each
+    superblock length would compile one more program, ~40 s of the JAX
+    side on the CPU, so the state carry is held on the per-block programs.)"""
     kw = {} if m is jk else {"device": "cpu"}
-    g, proc = m.AudioProcessor.new(0, 2, m.AudioProcessorOptions(block_size=16), **kw)
+    g, proc = m.AudioProcessor.new(0, 2, m.AudioProcessorOptions(
+        block_size=16, render_chunk_blocks=1), **kw)
 
     def build(gg):
         s = gg.push(m.PolyBlep(m.Waveform.Triangle, 220.0))

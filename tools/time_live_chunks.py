@@ -8,10 +8,15 @@ For each scenario of ``tools/realtime_soak.py`` (at its sizes): the warm
 rendered as the stream renders it (``render(fetch=False)`` and a
 synchronize), five event-free and five after one round of the scenario's
 live control each, with the kernels one eventful chunk launches
-(torch.profiler). ``cascade`` runs twice: with the chain kernel, and with
-every chain on the scan executor (``graph.chain_kernel._MODE = "0"``),
-which is where a trigger block's chain ran before its untouched stages
-took the kernel. Prints one line a scenario and mode, and the card's name
+(torch.profiler) and the host's time by torch op in it: the ops a chunk,
+and the TOP_OPS ops of most self time with their calls. ``cascade`` runs
+twice: with the chain kernel, and with every chain on the scan executor
+(``graph.chain_kernel._MODE = "0"``), which is where a trigger block's
+chain ran before its untouched stages took the kernel. Prints one line a
+scenario and mode, then the host's speed on two fixed probes (the µs of
+one small op launched back to back, ``x.add_(1)`` on 64 floats on the
+card, and the ms of a pure-Python loop of 1e6 additions: chunks measured
+on two hosts are set against each other by them), and the card's name
 and power limit.
 """
 
@@ -26,6 +31,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 64
+TOP_OPS = 6
 
 
 def chunk_ms(torch, render, n=5):
@@ -39,7 +45,9 @@ def chunk_ms(torch, render, n=5):
     return out
 
 
-def kernels(torch, run):
+def profile_chunk(torch, run):
+    """(kernels, torch ops, [(op, host self ms, calls)] of the TOP_OPS ops
+    of most host time) of ``run()`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -47,7 +55,31 @@ def kernels(torch, run):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    avgs = prof.key_averages()
+    ops = [e for e in avgs if e.key.startswith("aten::")]
+    top = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP_OPS]
+    return (sum(e.count for e in avgs if e.device_type == DeviceType.CUDA),
+            sum(e.count for e in ops),
+            [(e.key[6:], e.self_cpu_time_total / 1e3, e.count) for e in top])
+
+
+def host_probes(torch, dev):
+    """(µs of one small op launched back to back on ``dev``, ms of a
+    pure-Python loop of 1e6 additions)."""
+    x = torch.zeros(64, device=dev)
+    for _ in range(100):
+        x.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        x.add_(1)
+    op_us = 1e6 * (time.perf_counter() - t0) / 10000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(1000000):
+        acc += i
+    return op_us, 1e3 * (time.perf_counter() - t0)
 
 
 def main(argv):
@@ -93,12 +125,16 @@ def main(argv):
 
         free = chunk_ms(torch, chunk)
         ev = chunk_ms(torch, eventful)
-        n_k = kernels(torch, eventful)
+        n_k, n_ops, top = profile_chunk(torch, eventful)
         print(f"{scenario} (chain kernel {'off' if mode == '0' else 'on'}) on {card}: warm "
               f"{warm:.3f} s; event-free chunk ms {[round(x, 2) for x in free]}; eventful "
-              f"chunk ms {[round(x, 2) for x in ev]}; {n_k} kernels in an eventful chunk",
-              flush=True)
+              f"chunk ms {[round(x, 2) for x in ev]}; {n_k} kernels and {n_ops} torch ops in "
+              "an eventful chunk (profiled), the most host time: "
+              + ", ".join(f"{k} {ms:.2f} ms / {n}" for k, ms, n in top), flush=True)
     tck._MODE = None
+    op_us, py_ms = host_probes(torch, dev)
+    print(f"host: {op_us:.2f} us a small op launched back to back, {py_ms:.1f} ms for 1e6 "
+          "Python additions")
     print(card)
 
 
