@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 result line):
 
 1. device — a CUDA card is required; prints its name and power limit;
-2. build — compiles every CUDA kernel of ``knaster_tpu_torch/csrc`` (seven
+2. build — compiles every CUDA kernel of ``knaster_tpu_torch/csrc`` (twelve
    libraries), the two user voices' hand bodies of tools/user_voices.py
    and the six bodies ``kernels/lower.py`` lowers from torch bodies
    (``LOWERED``: the torch-only detuned and organ voices, the bell and
@@ -58,10 +58,10 @@ result line):
    on the FM cascade at 61 and 8191 samples (rows no bulk copy takes); a
    cluster of 32 CTAs must be refused by name. All bit-equal. Then the
    generic harness's
-   Envelope body (a four-shape table, looping and not, V in {1000,
-   131072}) and Modal body (the bell, bar and string presets, M = 12, 6
-   and 16, V in {1000, 65536}) at B = 64 over four blocks and at B = 1024
-   (the Modal body at 65,536 voices) over two: restarts, t_stops in curved
+   Envelope body (a four-shape table, looping and not) and Modal body (the
+   bell, bar and string presets, M = 12, 6 and 16) at V = 1000 (their full
+   sizes are the matrix's and the slices'), B = 64 over four blocks and
+   B = 1024 over two (the Modal bell one): restarts, t_stops in curved
    segments, time_scale and freq ramps, segments ending mid-block, strikes
    mid-block, decays where the polynomial exp underflows, modes past pi,
    a depth-3 burst. Carries bit-equal but the envelope's frozen value,
@@ -83,8 +83,8 @@ result line):
    (sustained or, EnvAr, attacking; stopped; alternating lanes; the
    eventful block's own), so
    that both sides of every warp-uniform hoist run; the wavetable kernel
-   and the Additive body also at H in {1, 64} and past the unrolled
-   instantiations at {65, 1024} (the run-time variant); at V =
+   and the Additive body also at H in {1, 17, 64} and past the unrolled
+   instantiations at 65 (the run-time variant); at V =
    131055, B = 64 two launches on the same buffers must give
    bit-identical mixes (the in-kernel sum's tickets reset). Carries
    bit-equal, mixes within the tolerance. Then the four hand bank kernels
@@ -122,8 +122,8 @@ result line):
    output zero from its done frame on). Each prints realtime x (samples/s
    / 48,000). Then golden ``param_sweep`` at f32 and f64 against the port's
    CPU render. Then every graph slice, the param sweep's two cascades
-   included, rendered twice from one schedule (the 2 s slices for 0.256 s,
-   PARTITION_SECONDS), with superblocks and block
+   included, rendered twice from one schedule (the 2 s slices for one
+   128-block superblock, PARTITION_SECONDS), with superblocks and block
    by block (``render_chunk_blocks=1``): bit-equal where the phases are
    u32, within a stated tolerance where a float scan spans the superblock;
    each render's realtime x and kernel launches per rendered second, and
@@ -156,7 +156,8 @@ result line):
    blocks after a block of note-ons, against the CPU over 4 blocks,
    voice-samples/s, kernels per block and the device-busy share. Then
    buffers and samples (``phase_buffers``), no kernel of the port on
-   their path, each through ``AudioProcessor.render`` at the suite's width:
+   their path but the sampler voices' EnvAsr's, each through
+   ``AudioProcessor.render`` at the suite's width:
    ``sampler_bank`` (16,384 tiled ``SamplerVoice``s over a 1 s tone) and
    ``sampler_resample`` (the same with rates U(0.5, 1.99)), a block of
    note-ons then event-free blocks; ``granular`` (one ``GrainPlayer`` of 64
@@ -224,8 +225,8 @@ result line):
    (``phase_lowered``): each lowered body against its torch body on the
    card (the torch-only ``DetunedVoice`` and ``OrganVoice`` at V in {1000,
    131072} over ``schedule``, the bell and the 17-, 32- and 64-mode strings
-   over ``body_schedule``, all four blocks at V = 1000 and the first two at
-   65,536; eventful and event-free, carry bit-equal, mix within the gate);
+   over ``body_schedule``'s four blocks at V = 1000; eventful and
+   event-free, carry bit-equal, mix within the gate);
    the lowered bell's carry bit-equal to
    the library ``modal12`` body's; each lowered bank's slice (a trigger
    block and LOWERED_SLICE_BLOCKS event-free blocks through
@@ -237,7 +238,34 @@ result line):
    same operands, with its plain ms and its bound from the operations the
    voice's function needs on the timed state (the hand count of the body it
    stands in for, ``modal_ops`` for the Modal bodies), the lowering's own
-   count beside it;
+   count beside it. Then the ten examples that had not run on the port
+   (``phase_examples``, tools/port_examples.py): ``simple_sine``,
+   ``visualize_graph`` (its dot source and ``show_dot_svg``),
+   ``many_sines`` (600 vmap ``SineVoice``s), ``voice_pool`` (a 64-voice
+   vmap bank into Galactic under ``VoicePool``), ``wavetable_orchestra``
+   (16,384 voices of the wavetable kernel, its 24 trigger and 8 release
+   waves, 10 s), ``plucked_strings`` and its shimmer,
+   ``granular_texture`` and its ensemble, ``ir_reverb`` (a 2 s IR),
+   ``buffer_player`` (``BufferReader``, one launch of the buffer reader
+   kernel a block) each through ``AudioProcessor.render`` at its
+   EXAMPLE_RUNS cut, its first frames against the port's CPU render within
+   1e-6 x max(1, peak), realtime x, the wavetable and buffer reader
+   kernels launched by their examples and no other kernel there; and
+   ``live_edit`` streamed through ``StreamBackend`` with its live
+   Galactic insert: the swap to the edit's revision, finite audio, the
+   ring at LIVE_WRITTEN of real time, underruns and chunk ms printed.
+   Then the buffer reader kernel bit-equal to its plain version at
+   READER_CASES (B in {64, 1024, 4096}, one and several instances, mono
+   and stereo, f32 and f64, restarts, loops and ends), the SVF kernel at
+   SVF_CASES (every filter type, audio-rate cutoff and q, +-12 dB), the
+   Galactic kernel at GALACTIC_CASES (B from 1 to its 740-sample cap, moved
+   states, silence) and the EnvAsr kernel at ENV_CASES (the state machine
+   and both closed forms, every stage), f32 and f64, each timed. Those three
+   keep the live example streaming on slow hosts: SvfFilter, Galactic and
+   EnvAsr each run their block in one launch wherever their process runs
+   on the card, so the slices with them expect their launches (the
+   subtractive voice, the FDN, galactic_chain, the detuned and sampler vmap
+   banks, the partitions of the env and SVF chains' eventful blocks);
 5. timings — per bank kernel and generic body at V=131072
    (the Modal body at 65,536), B=64: kernel ms (device time: the
    ``launch()`` calls into preallocated outputs captured in a CUDA graph and
@@ -263,7 +291,11 @@ result line):
    profiler's device time and plain ms; and the live path's two rows,
    the sine kernel on an eventful 1024-sample superblock of ``bank`` and
    the chain kernel on ``cascade``'s float-event block, each with its
-   launches in the soak. Every kernel row carries its bound (the larger of its bytes
+   launches in the soak; and the buffer reader kernel at
+   ``buffer_player``'s shape (one mono reader, B = 64), with its launches
+   in that example, the SVF and Galactic kernels at live_edit's 704-sample
+   superblocks and the EnvAsr kernel's state machine at B = 64, with their
+   launches in ``live_edit``. Every kernel row carries its bound (the larger of its bytes
    over HBM bandwidth and its f32 operations over the unfused f32 peak),
    at the superblock length.
 
@@ -299,6 +331,18 @@ REPLACES = {
     "chain_kernel": "knaster_tpu/graph/chain_kernel.py:155",
     # no Pallas kernel: the JAX package renders PinkNoise in XLA
     "pink_noise": "knaster_tpu/ugens/noise.py:171 (PinkNoise.process in XLA, no Pallas kernel)",
+    # no Pallas kernel: the JAX package renders BufferReader as a lax.scan
+    "buffer_reader": ("knaster_tpu/ugens/buffer.py:109 (BufferReader.process, a lax.scan in "
+                      "XLA, no Pallas kernel)"),
+    # no Pallas kernel: the JAX package renders SvfFilter as an affine scan in XLA
+    "svf_filter": ("knaster_tpu/ugens/filters.py:158 (SvfFilter.process, an affine scan in "
+                   "XLA, no Pallas kernel)"),
+    # no Pallas kernel: the JAX package renders Galactic in XLA
+    "galactic": ("knaster_tpu/airwindows/galactic.py:113 (Galactic.process in XLA, no Pallas "
+                 "kernel)"),
+    # no Pallas kernel: the JAX package renders EnvAsr in XLA
+    "env_asr": ("knaster_tpu/ugens/envelopes.py:157 (EnvAsr.process, a lax.scan or a closed "
+                "form in XLA, no Pallas kernel)"),
 }
 CASCADE = 256  # benchmarks/suite.py's bench_fm_cascade and bench_fm_cascade_model
 GRAPH_SECONDS = 2.0
@@ -984,14 +1028,26 @@ def user_ops_per_sample(torch, kind, ops, B):
 # the stage-loop kernels and the graph slices
 # --------------------------------------------------------------------------
 
-STAGE_KERNELS = ("fm_cascade", "chain_kernel", "pink_noise")
+STAGE_KERNELS = ("fm_cascade", "chain_kernel", "pink_noise", "buffer_reader", "svf_filter",
+                 "galactic", "env_asr")
 
 
 def stage_module(name):
-    from knaster_tpu_torch.kernels import chain_kernel, fm_cascade, pink_noise
+    from knaster_tpu_torch.kernels import (buffer_reader, chain_kernel, env_asr, fm_cascade,
+                                           galactic, pink_noise, svf_filter)
 
     return {"fm_cascade": fm_cascade, "chain_kernel": chain_kernel,
-            "pink_noise": pink_noise}[name]
+            "pink_noise": pink_noise, "buffer_reader": buffer_reader,
+            "svf_filter": svf_filter, "galactic": galactic, "env_asr": env_asr}[name]
+
+
+def expect_ugen_kernels(counts, names, where):
+    """The kernels of the UGens that run their own process (``names``) each
+    launched, and no other kernel."""
+    want = {k: counts.get(k, 0) for k in names}
+    expect_counts(counts, want, where)
+    if not all(want.values()):
+        fail(f"{where}: kernels {want} (each must launch)")
 
 
 def reset_all_counts():
@@ -1899,18 +1955,18 @@ def fdn_processor(torch, kt, dev):
 def phase_fdn_galactic(torch, np, kt, dev, card):
     """Golden fdn_galactic (f32, 1 s, B = 64): every block eventful or
     behind a feedback edge, so rendered block by block; no chain forms, so
-    no kernel runs. The card's render against the port's CPU render over
-    its first FDN_CPU_FRAMES, and against the f32 fixture over the whole
-    second (the golden gate, 1e-6 + 2^-23); realtime x of the whole render
-    and the CUDA kernels per rendered second over its first FDN_PROFILE
-    blocks (torch.profiler)."""
+    the one kernel on its path is Galactic's, once a block. The card's
+    render against the port's CPU render over its first FDN_CPU_FRAMES, and
+    against the f32 fixture over the whole second (the golden gate, 1e-6 +
+    2^-23); realtime x of the whole render and the CUDA kernels per
+    rendered second over its first FDN_PROFILE blocks (torch.profiler)."""
     ref, sr = read_fixture("fdn_galactic_f32")
     proc = fdn_processor(torch, kt, dev)
     reset_all_counts()
     t0 = time.perf_counter()
     a = np.asarray(proc.render(frames=FDN_FRAMES))
     card_secs = time.perf_counter() - t0
-    expect_counts(read_all_counts(), {}, "fdn_galactic")
+    expect_counts(read_all_counts(), {"galactic": FDN_FRAMES // BLOCK}, "fdn_galactic")
     b = np.asarray(fdn_processor(torch, kt, "cpu").render(frames=FDN_CPU_FRAMES))
     proc = fdn_processor(torch, kt, dev)
     n_k = count_kernels(torch, lambda: proc.render(frames=FDN_PROFILE * BLOCK, fetch=False))
@@ -1925,7 +1981,7 @@ def phase_fdn_galactic(torch, np, kt, dev, card):
     print(f"slice fdn_galactic on {card}: 1 s in {card_secs:.3f} s, realtime x "
           f"{1.0 / card_secs:.4g}, {lps} kernel launches per rendered s; card vs CPU "
           f"{gap:.3e} over the first {FDN_CPU_FRAMES} samples, card vs the f32 fixture "
-          f"{err:.3e} (gate {GOLDEN_GATE:.3e}); no port kernel on its path")
+          f"{err:.3e} (gate {GOLDEN_GATE:.3e}); Galactic's kernel once a block")
     return 1.0 / card_secs, lps
 
 
@@ -1933,9 +1989,9 @@ def phase_galactic_chain(torch, np, kt, dev, card):
     """``galactic_chain`` (GALACTIC_FRAMES, B = 64) superblocked (Galactic's cap, 740
     samples, makes loops of 8-block superblocks) and block by block, each on
     the card against the same render on the CPU, within 1e-6 (the card's
-    sin in Galactic's vibrato differs from the CPU's at the ulp); the one
-    port kernel on its path is the pink noise's. Prints realtime x of the
-    card's renders."""
+    sin in Galactic's vibrato differs from the CPU's at the ulp); the port
+    kernels on its path are the pink noise's and Galactic's. Prints realtime
+    x of the card's renders."""
     out = {}
     for chunk in (CHUNK, 1):
         renders = {}
@@ -1951,10 +2007,11 @@ def phase_galactic_chain(torch, np, kt, dev, card):
             secs = time.perf_counter() - t0
             if d == dev:
                 counts = read_all_counts()
-                pink = counts.pop("pink_noise")
+                pink, gal = counts.pop("pink_noise"), counts.pop("galactic")
                 expect_counts(counts, {}, "galactic_chain")
-                if not pink:
-                    fail("galactic_chain: the pink noise kernel never launched")
+                if not pink or not gal:
+                    fail(f"galactic_chain: the pink noise kernel launched {pink} times, "
+                         f"Galactic's {gal}")
                 out[chunk] = GALACTIC_FRAMES / SR / secs
         a, b = renders[str(dev)], renders["cpu"]
         gap = float(np.abs(a - b).max())
@@ -1962,7 +2019,7 @@ def phase_galactic_chain(torch, np, kt, dev, card):
             fail(f"galactic_chain chunk={chunk}: card vs CPU differ by {gap}")
         print(f"slice galactic_chain ({'superblocks' if chunk > 1 else 'per block'}) on "
               f"{card}: realtime x {out[chunk]:.4g}; card vs CPU {gap:.3e}; {pink} pink_noise "
-              "launches")
+              f"and {gal} galactic launches")
     return out
 
 
@@ -2088,7 +2145,8 @@ def phase_subtractive_slices(torch, np, kt, dev, card):
         renders[str(d)] = np.asarray(proc.render(frames=19200))
         secs = time.perf_counter() - t0
         if d == dev:
-            expect_counts(read_all_counts(), {}, "subtractive_voice")
+            expect_ugen_kernels(read_all_counts(), ("svf_filter", "env_asr"),
+                                "subtractive_voice")
             card_secs = secs
     gap = float(np.abs(renders[str(dev)] - renders["cpu"]).max())
     peak = float(np.abs(renders["cpu"]).max())
@@ -2419,10 +2477,19 @@ EXACT = ("exact",)
 
 
 # the partition phase's render of the slices that render GRAPH_SECONDS
-# elsewhere: 0.256 s (192 blocks at B = 64; 1 s until the buffer phase
-# came, 0.5 s until the user's side came), to keep the whole run within
-# its time limit as the phases grow
-PARTITION_SECONDS = 0.256
+# elsewhere: one longest superblock, CHUNK blocks at B = 64 (0.256 s until
+# the examples came, 1 s until the buffer phase came, 0.5 s until the
+# user's side came), to keep the whole run within its time limit as the
+# phases grow
+PARTITION_SECONDS = CHUNK * BLOCK / SR
+
+
+# the partition slices whose SvfFilters and EnvAsrs run their own process on
+# the card, and their kernels: the subtractive voice's, and the chains' in
+# their eventful blocks (the scan executor)
+UGEN_PARTITIONS = {"subtractive_voice": ("svf_filter", "env_asr"),
+                   "graphic_eq_31": ("svf_filter",), "env_asr_chain": ("env_asr",),
+                   "env_asr_free_parent": ("env_asr",)}
 
 
 def partition_slices():
@@ -2523,6 +2590,10 @@ def phase_partitions(torch, np, kt, dev, card):
                 want = {} if kernel is None else {
                     kernel: event_free_pieces(runs[0], frames // bs) if free
                     else max(1, counts.get(kernel, 0))}
+                # the kernels of the UGens that run their own process
+                # (outside a chain, or in a chain's eventful blocks)
+                for k in UGEN_PARTITIONS.get(name, ()):
+                    want[k] = max(1, counts.get(k, 0))
                 expect_counts(counts, want, f"partition {name}")
             n_prof = min(frames, PROFILE_BLOCKS * bs)
             n_k = (count_kernels(torch, lambda: runs[1].render(frames=n_prof, fetch=False))
@@ -2862,49 +2933,50 @@ def run_generic_vs_plain(torch, ktt, bank, dev, B, blocks, label, loose=()):
 
 def phase_family_vs_plain(torch, np, ktt, dev):
     """The generic kernel's Envelope and Modal bodies against their plain
-    versions on the card, over ``body_schedule``'s four blocks at B = 64:
-    the Envelope body at V in {1000, 131072}, looping and not; the Modal
-    body with the bell, bar and string presets at V in {1000, 65536}. Then
-    B = 1024, the superblock a graph with a bank takes: the Envelope body at
-    131,072 voices over the schedule's first two blocks, looping and not;
-    the bell at 65,536 voices, one event-free block from its B = 64 state
-    (the plain version there takes seconds a block). Carries bit-equal but
-    the envelope's efrom within EFROM_ULPS; mixes within mix_tolerance.
-    Returns ({body: max mix difference}, efrom ulps)."""
+    versions on the card at V = 1000, over ``body_schedule``'s four blocks
+    at B = 64 and its first two at B = 1024 (the superblock a graph with a
+    bank takes): the Envelope body looping and not; the Modal body with
+    the bell, bar and string presets (M = 12, 6 and 16) at B = 64, and the
+    bell one event-free block at B = 1024 from its B = 64 state. The full
+    sizes are held elsewhere: the Envelope and Modal (bar) bodies at
+    131,055 voices, B in {64, 1024}, by the matrix, the bell at 65,536 by
+    ``modal_bank``'s slice (cut from here with the examples, for the time
+    limit). Carries bit-equal but the envelope's efrom within EFROM_ULPS;
+    mixes within mix_tolerance. Returns ({body: max mix difference}, efrom
+    ulps)."""
     errs, ulps = {"envelope": 0.0, "modal": 0.0}, 0
     t0 = time.perf_counter()
-    for V, Bs in ((1000, ((BLOCK, 4),)), (N_VOICES, ((BLOCK, 4), (1024, 2)))):
-        for looping in (False, True):
-            for B, n in Bs:
-                bank = envelope_bank(ktt, np, V, V * 3, looping, seed=V + B)
-                label = f"envelope looping={looping} V={V} B={B}"
-                e, u, _, st = run_generic_vs_plain(torch, ktt, bank, dev, B,
-                                                   body_schedule(bank, V, B)[:n], label,
-                                                   loose=(3,))
-                if u > EFROM_ULPS:
-                    fail(f"{label}: efrom differs by {u} ulps (> {EFROM_ULPS})")
-                if not bool((st["eseg"] == -2.0).any()):
-                    fail(f"{label}: no t_stop froze a voice")
-                errs["envelope"], ulps = max(errs["envelope"], e), max(ulps, u)
-    print(f"kernel vs plain generic envelope V in (1000, {N_VOICES}), looping and not, "
-          f"B in ({BLOCK}, 1024): carries bit-equal, efrom within {ulps} ulps, max "
-          f"|mix diff| {errs['envelope']:.3e} ({time.perf_counter() - t0:.1f} s)")
+    V = 1000
+    for looping in (False, True):
+        for B, n in ((BLOCK, 4), (1024, 2)):
+            bank = envelope_bank(ktt, np, V, V * 3, looping, seed=V + B)
+            label = f"envelope looping={looping} V={V} B={B}"
+            e, u, _, st = run_generic_vs_plain(torch, ktt, bank, dev, B,
+                                               body_schedule(bank, V, B)[:n], label,
+                                               loose=(3,))
+            if u > EFROM_ULPS:
+                fail(f"{label}: efrom differs by {u} ulps (> {EFROM_ULPS})")
+            if not bool((st["eseg"] == -2.0).any()):
+                fail(f"{label}: no t_stop froze a voice")
+            errs["envelope"], ulps = max(errs["envelope"], e), max(ulps, u)
+    print(f"kernel vs plain generic envelope V={V}, looping and not, B in ({BLOCK}, 1024): "
+          f"carries bit-equal, efrom within {ulps} ulps, max |mix diff| "
+          f"{errs['envelope']:.3e} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     for preset in MODAL_PRESETS:
-        for V in (1000, MODAL_VOICES):
-            bank = modal_bank(ktt, np, V, V * 2, preset, seed=V)
-            label = f"modal {preset} V={V}"
-            e, _, _, st = run_generic_vs_plain(
-                torch, ktt, bank, dev, BLOCK, body_schedule(bank, V, BLOCK), f"{label} B={BLOCK}")
+        bank = modal_bank(ktt, np, V, V * 2, preset, seed=V)
+        label = f"modal {preset} V={V}"
+        e, _, _, st = run_generic_vs_plain(
+            torch, ktt, bank, dev, BLOCK, body_schedule(bank, V, BLOCK), f"{label} B={BLOCK}")
+        errs["modal"] = max(errs["modal"], e)
+        if preset == "bell":
+            ctx = ktt.AudioCtx(SR, 1024, torch.float32)
+            operands, _ = bank.kernel_operands(ctx, st, None)
+            _, e, _ = compare_block(torch, "generic", bank, operands, f"{label} B=1024")
             errs["modal"] = max(errs["modal"], e)
-            if preset == "bell" and V == MODAL_VOICES:
-                ctx = ktt.AudioCtx(SR, 1024, torch.float32)
-                operands, _ = bank.kernel_operands(ctx, st, None)
-                _, e, _ = compare_block(torch, "generic", bank, operands, f"{label} B=1024")
-                errs["modal"] = max(errs["modal"], e)
-    print(f"kernel vs plain generic modal {MODAL_PRESETS} (M = 12, 6, 16) V in (1000, "
-          f"{MODAL_VOICES}), B = {BLOCK}, and the bell at B = 1024: carries bit-equal, max "
-          f"|mix diff| {errs['modal']:.3e} ({time.perf_counter() - t0:.1f} s)")
+    print(f"kernel vs plain generic modal {MODAL_PRESETS} (M = 12, 6, 16) V={V}, B = {BLOCK}, "
+          f"and the bell at B = 1024: carries bit-equal, max |mix diff| {errs['modal']:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
     return errs, ulps
 
 
@@ -2926,13 +2998,11 @@ MATRIX_CELLS = ((MATRIX_VS[0], BLOCK), (MATRIX_VS[1], BLOCK), (MATRIX_VS[1], 102
 HAND_KINDS = ("sine", "sub", "fm")
 MATRIX_KINDS = HAND_KINDS + ("wt", "generic-sine", "generic-fm", "generic-subtractive",
                              "generic-additive", "generic-envelope", "generic-modal")
-# with the matrix's 16: 1, 16, 17, the largest unrolled (64) and the
-# run-time variant past it
 # with the matrix's 16: 1, 17, the largest unrolled (64) and the
-# run-time variant past it (65 and 1024; 128 dropped with the user's
-# side, for the time limit): every instantiation of HARMONIC_SLOTS (8, 16,
-# 32, 64) and the run-time one
-H_SWEEP = (1, 17, 64, 65, 1024)
+# run-time variant past it (65; 128 dropped with the user's side and 1024
+# with the examples, for the time limit): every instantiation of
+# HARMONIC_SLOTS (8, 16, 32, 64) and the run-time one
+H_SWEEP = (1, 17, 64, 65)
 # the params whose flat ramps the kernels hoist work on: the pan gains
 # (Sine, Additive, Envelope, Modal, the hand sine), the SVF coefficients
 # (Subtractive), and the hand kernels' freq and amp (and the FM kernel's
@@ -3307,7 +3377,7 @@ def phase_modal_bells(torch, np, ktt, dev, card):
 
 # --------------------------------------------------------------------------
 # the composable VoiceBank (the JAX package's vmap bank): plain torch ops on
-# the card, no kernel of the port on its path
+# the card, no kernel of the port on its path but the voices' EnvAsr's
 # --------------------------------------------------------------------------
 
 DETUNED_VOICES = 512  # tests/golden_configs.py:85-142, each bank
@@ -3387,7 +3457,8 @@ def detuned_banks(kt, np, dtype, dev, chunk=CHUNK):
 
 def phase_detuned_banks(torch, np, kt, dev, card):
     """Golden ``detuned_banks`` (two 512-voice vmap banks, FM and additive)
-    at f32 and f64 on the card: no kernel of the port launches; the
+    at f32 and f64 on the card: the one port kernel on its path is the
+    additive voices' EnvAsr's (csrc/env_asr.cu); the
     superblocked render against the fixture (the golden gate), against the
     port's CPU render and against the card's per-block render (within
     DETUNED_CROSSING); realtime x of both renders and kernel launches per
@@ -3403,7 +3474,8 @@ def phase_detuned_banks(torch, np, kt, dev, card):
             audio = proc.render(frames=DETUNED_FRAMES, fetch=False)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            expect_counts(read_all_counts(), {}, f"detuned_banks {name}")
+            # the additive voices' EnvAsr (the FM voices' EnvAr has no kernel)
+            expect_ugen_kernels(read_all_counts(), ("env_asr",), f"detuned_banks {name}")
             runs[chunk] = (audio.cpu().numpy(), DETUNED_FRAMES / SR / secs)
         n_prof = VMAP_PROFILE_BLOCKS * BLOCK
         n_k = count_kernels(torch, lambda: detuned_banks(kt, np, dtype, dev).render(
@@ -3721,6 +3793,10 @@ def drum_machine(kt, np, dev, chunk):
     return proc, 3 * n_voices
 
 
+# the kernels of the UGens on each buffer configuration's path: the sampler
+# voices' EnvAsr
+BUFFER_KERNELS = {"sampler_bank": ("env_asr",), "sampler_resample": ("env_asr",),
+                  "drum_machine": ("env_asr",)}
 BUFFER_CONFIGS = {
     # name: (build function, seconds of the superblocked render, the gate of card vs
     # CPU and of superblocks vs per block as a function of (V, peak),
@@ -3801,7 +3877,8 @@ def phase_buffers(torch, np, kt, dev, card):
             pointers = sampler_pointers(proc)
             tail, tail_secs = render_timed(torch, proc, (frames - pb_frames) / SR)
             secs += tail_secs
-            expect_counts(read_all_counts(), {}, name)
+            # the sampler voices' EnvAsr
+            expect_ugen_kernels(read_all_counts(), BUFFER_KERNELS.get(name, ()), name)
             audio = torch.cat([head, tail], dim=1).cpu().numpy()
             proc_pb, _ = build(kt, np, dev, 1)
             per_block, pb_secs = render_timed(torch, proc_pb, pb_frames / SR)
@@ -3843,7 +3920,8 @@ def phase_buffers(torch, np, kt, dev, card):
               + (f"; pointer drift {drift:.4g} frames" if drift is not None else "")
               + (f"; direct f64 convolution {direct:.3e} over {DIRECT_BLOCKS} blocks with TF32 "
                  f"on outside (bound {DIRECT_TOL})" if direct is not None else "")
-              + f"; no kernel of the port on its path ({time.perf_counter() - t_cfg:.1f} s)")
+              + f"; port kernels {BUFFER_KERNELS.get(name) or 'none'} "
+              f"({time.perf_counter() - t_cfg:.1f} s)")
 
 
 # --------------------------------------------------------------------------
@@ -4979,10 +5057,11 @@ LOWERED_YARDSTICK = {"lowered-detuned": "generic-user-detuned",
                      "lowered-organ": "generic-user-organ", "lowered-modal12": "modal12"}
 LOWERED_SLICE_BLOCKS = 64  # event-free blocks of a lowered bank's slice, after its trigger block
 # (V, body_schedule's blocks) each lowered Modal body is held against its
-# torch body over: all four at V = 1000, the first two (one eventful, one
-# event-free) at the full size (the plain 64-mode body takes ~4 s a block on
-# the card)
-LOWERED_MODAL_CHECKS = ((1000, 4), (MODAL_VOICES, 2))
+# torch body over: all four at V = 1000 (four CTAs, the last ragged); the
+# full size's first two were cut with the examples, for the time limit (the
+# plain 64-mode body takes ~4 s a block on the card there; the lowered bell
+# stays held against the library body at 65,536 voices)
+LOWERED_MODAL_CHECKS = ((1000, 4),)
 # the hand count of operations a voice-sample of the function each lowered
 # user body computes (OPS_PER_SAMPLE's key); the Modal bodies' is modal_ops
 LOWERED_FUNCTION_OPS = {"lowered-detuned": "generic-user-detuned",
@@ -5103,8 +5182,8 @@ def phase_lowered(torch, np, ktt, dev, card, organ_cpu):
     over ``schedule``'s five blocks, eventful and event-free
     (``phase_kernel_vs_plain``); the bell (M = 12, its library body
     dropped) and strings of 17, 32 and 64 modes over ``body_schedule``'s
-    blocks as LOWERED_MODAL_CHECKS says (all four at V = 1000, two at
-    65,536): carry bit-equal, mix within the gate.
+    blocks as LOWERED_MODAL_CHECKS says (all four at V = 1000): carry
+    bit-equal, mix within the gate.
     (2) The lowered bell's carry bit-equal to the library ``modal12``
     body's, block by block from one state and schedule at 65,536 voices.
     (3) Each lowered bank's slice (``lowered_slice``: its launches), and
@@ -5210,6 +5289,500 @@ def phase_lowered(torch, np, ktt, dev, card, organ_cpu):
         rows.append(r)
     print(f"  (lowered timings: {time.perf_counter() - t0:.1f} s)")
     return rows
+
+
+# --------------------------------------------------------------------------
+# the examples that had not run on the port (tools/port_examples.py), and
+# BufferReader's block kernel on their path
+# --------------------------------------------------------------------------
+
+# (instances, B, channels, dtype) the buffer reader kernel is held at
+# against its plain version: buffer_player's mono reader at its block,
+# its superblock lengths, several instances in stereo, and f64
+READER_CASES = ((1, BLOCK, 1, "f32"), (1, 1024, 1, "f32"), (1, 4096, 1, "f32"),
+                (5, BLOCK, 2, "f32"), (5, 1024, 2, "f32"), (1, BLOCK, 1, "f64"),
+                (3, 4096, 2, "f64"))
+READER_FRAMES = 300  # the held buffer's frames: pointers run past its end within a block
+
+
+def reader_ops_per_sample(C):
+    """f32 operations a reader's sample takes (csrc/buffer_reader.cuh
+    walk): the restart's two selects and the finished update (3), the two
+    clamped frame indices (an add and two compare-selects each: 5), per
+    channel the interpolation (subtract, multiply, add) and the finished
+    select (4); the pointer's add, floor, conversion, int add, conversion
+    back and subtract (6), the end test's conversion, add, compare and two
+    logic operations (5), the loop's two selects, the done flag and the
+    finished update (4): 23 + 4 a channel."""
+    return 23 + 4 * C
+
+
+def reader_block(torch, np, n, B, C, dtype, dev, seed):
+    """(buf, state, planes) on ``dev`` as tests/test_torch_buffer_reader.py
+    makes them: pointers inside, past and before the buffer, some readers
+    finished, each instance's window start and end (ends inside the
+    block), steps of 0.5 to 2 with one of 7.25, restarts and looping
+    flags at random."""
+    rng = np.random.default_rng(seed)
+    frames = READER_FRAMES
+    t = lambda a, dt=dtype: torch.from_numpy(np.asarray(a)).to(dev, dt)  # noqa: E731
+    buf = t(rng.standard_normal((C, frames)) * 0.5)
+    start = np.repeat(rng.uniform(-2.0, frames * 0.5, (n, 1)), B, axis=1)
+    start = t(start)
+    s_int = torch.floor(start).to(torch.int32)
+    state = {"ptr_int": t(rng.integers(-3, frames + 3, n), torch.int32),
+             "ptr_frac": t(rng.uniform(0, 1, n)),
+             "finished": t(rng.uniform(size=n) < 0.3, torch.bool)}
+    step = rng.uniform(0.5, 2.0, (n, B))
+    step[:, B // 3] = 7.25
+    planes = (s_int, start - s_int.to(dtype),
+              start + t(rng.uniform(3.0, frames * 0.7, (n, 1))).expand(n, B),
+              t(step), t(rng.uniform(size=(n, 1)) < 0.5, torch.bool).expand(n, B).contiguous(),
+              t(rng.uniform(size=(n, B)) < 4.0 / B, torch.bool))
+    return buf, state, planes
+
+
+def buffer_reader_vs_plain(torch, np, dev, card):
+    """The buffer reader kernel against ``buffer_reader_block`` on the card
+    at READER_CASES (restarts, loops, ends and finished readers in each):
+    output, done flags and every state leaf bit-equal. Then its device ms
+    at buffer_player's shape (one mono reader, B = 64; in a CUDA graph,
+    the eager ms beside) and at 512 samples (the example's superblocks),
+    the plain version's ms and the bound. Returns (max |err|,
+    ms, plain_ms, bound_ms, bound_by)."""
+    from knaster_tpu_torch.kernels import buffer_reader as br
+    from knaster_tpu_torch.ugens.buffer import buffer_reader_block
+
+    err, seen = 0.0, {"restart": 0, "done": 0, "silent": 0}
+    for k, (n, B, C, dt) in enumerate(READER_CASES):
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        buf, state, planes = reader_block(torch, np, n, B, C, dtype, dev, 20 + k)
+        got_state, got, got_done = br.launch(buf, state, *planes)
+        want_state, want, want_done = buffer_reader_block(buf, state, *planes)
+        torch.cuda.synchronize()
+        words = lambda x: x.view(torch.int64) if x.dtype == torch.float64 else bits(x)  # noqa: E731
+        same = (torch.equal(words(got), words(want)) and torch.equal(got_done, want_done)
+                and torch.equal(got_state["ptr_int"], want_state["ptr_int"])
+                and torch.equal(words(got_state["ptr_frac"]), words(want_state["ptr_frac"]))
+                and torch.equal(got_state["finished"], want_state["finished"]))
+        if not same:
+            fail(f"buffer_reader n={n} B={B} C={C} {dt}: the kernel differs from the plain "
+                 f"version by {float((got - want).abs().max())}")
+        err = max(err, float((got - want).abs().max()))
+        seen["restart"] += int(planes[5].sum())
+        seen["done"] += int(want_done.sum())
+        seen["silent"] += int((want == 0).sum())
+    if not all(seen.values()):
+        fail(f"buffer_reader: the cases never reached {[k for k, v in seen.items() if not v]}")
+    rows = {}
+    for n, B, C in ((1, BLOCK, 1), (1, 8 * BLOCK, 1)):
+        buf, state, planes = reader_block(torch, np, n, B, C, torch.float32, dev, 40)
+        ms = time_graph(torch, lambda: br.launch(buf, state, *planes), 100)
+        eager_ms = time_call(torch, lambda: br.launch(buf, state, *planes), 100)
+        plain_ms = time_call(torch, lambda: buffer_reader_block(buf, state, *planes), 1)
+        out_state, out, done = br.launch(buf, state, *planes)
+        # each plane and state leaf read once, the outputs written once, and
+        # of the buffer at most the two frames a sample reads
+        touched = min(buf.numel(), 2 * n * B * C) * buf.element_size()
+        nbytes = tensor_bytes(state, planes, out_state, out, done) + touched
+        b_ms, b_by = bound(nbytes, reader_ops_per_sample(C) * n * B)
+        rows[B] = (ms, plain_ms, b_ms, b_by)
+        print(f"timing buffer_reader n={n} B={B} C={C} on {card}: kernel {ms:.4f} ms (eager "
+              f"{eager_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by}, "
+              f"{reader_ops_per_sample(C)} operations a sample)")
+    print(f"buffer_reader on {card}: kernel bit-equal to the plain version at (instances, B, "
+          f"channels, dtype) {READER_CASES} ({seen['restart']} restarts, {seen['done']} done "
+          f"flags, {seen['silent']} finished samples)")
+    return (err, *rows[BLOCK])
+
+
+# (instances, B, dtype) the SVF kernel is held at against its plain
+# version: a graph node's blocks and superblocks, the 704-sample superblocks
+# under a Galactic (live_edit), a vmap bank's 1024 voices, and f64
+SVF_CASES = ((1, BLOCK, "f32"), (1, 704, "f32"), (1, 4096, "f32"), (1024, BLOCK, "f32"),
+             (31, 1024, "f32"), (1, BLOCK, "f64"), (4, 4096, "f64"))
+
+
+def svf_ops_per_sample():
+    """The operations a sample of the SVF takes, as the function needs
+    them (not as the kernel's scan spends them): the coefficients once
+    (pow, sqrt, the tangent's two polynomials and quotient ~22; g, k and
+    a1-a3 8; the m's selects ~6: 36) and the recurrence in its sequential
+    form (svf.rs:270-300): v3 (1), v1 (3), v2 (4), the output (5) and the
+    next state, 2 v1 - s0 and 2 v2 - s1 (4): 53."""
+    return 36 + 17
+
+
+def svf_block_operands(torch, np, n, B, dtype, dev, seed):
+    """(ic, x, (the filter type, cutoff, q, gain)) on ``dev``: every filter
+    type across the instances, a cutoff glide over 30 Hz - 20 kHz, an
+    audio-rate q, gains of -12 to 12 dB."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=dtype: torch.from_numpy(np.asarray(a)).to(dev, dt)  # noqa: E731
+    ty = t(np.repeat(np.arange(n) % 9, B).reshape(n, B), torch.int32)
+    cutoff = t(np.exp(np.linspace(np.log(30.0), np.log(20000.0), B))[None, :]
+               * rng.uniform(0.5, 1.0, (n, 1)))
+    q = t(rng.uniform(0.3, 8.0, (n, B)))
+    gain = t(np.repeat(rng.uniform(-12.0, 12.0, (n, 1)), B, axis=1))
+    return t(rng.standard_normal((n, 2))), t(rng.standard_normal((n, B))), (ty, cutoff, q, gain)
+
+
+def svf_filter_vs_plain(torch, np, dev, card):
+    """The SVF kernel against ``svf_block`` on the card at SVF_CASES (the
+    nine filter types across the instances, the single ones Low; audio-rate
+    cutoff and q; gains of +-12 dB): output and state bit-equal. Then its
+    device ms at live_edit's shape (one filter, the 704-sample superblocks
+    under its Galactic; in a CUDA graph, the eager ms beside) and at B =
+    64, the plain version's ms and the bound. Returns (max |err|, ms,
+    plain_ms, bound_ms, bound_by) at 704."""
+    from knaster_tpu_torch.kernels import svf_filter as sk
+    from knaster_tpu_torch.ugens.filters import svf_block
+
+    err = 0.0
+    for k, (n, B, dt) in enumerate(SVF_CASES):
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        ic, x, params = svf_block_operands(torch, np, n, B, dtype, dev, 60 + k)
+        got_ic, got = sk.launch(ic, x, *params, SR)
+        want_ic, want = svf_block(ic, x, *params, SR)
+        torch.cuda.synchronize()
+        words = lambda v: v.view(torch.int64) if v.dtype == torch.float64 else bits(v)  # noqa: E731
+        if not (torch.equal(words(got), words(want)) and torch.equal(words(got_ic),
+                                                                      words(want_ic))):
+            fail(f"svf_filter n={n} B={B} {dt}: the kernel differs from the plain version by "
+                 f"{float((got - want).abs().max())}")
+        if not bool(torch.isfinite(got).all()):
+            fail(f"svf_filter n={n} B={B} {dt}: not finite")
+        err = max(err, float((got - want).abs().max()))
+    rows = {}
+    for B in (704, BLOCK):
+        ic, x, params = svf_block_operands(torch, np, 1, B, torch.float32, dev, 70)
+        ms = time_graph(torch, lambda: sk.launch(ic, x, *params, SR), 100)
+        eager_ms = time_call(torch, lambda: sk.launch(ic, x, *params, SR), 100)
+        plain_ms = time_call(torch, lambda: svf_block(ic, x, *params, SR), 3)
+        out_ic, out = sk.launch(ic, x, *params, SR)
+        b_ms, b_by = bound(tensor_bytes(ic, x, params, out_ic, out), svf_ops_per_sample() * B)
+        rows[B] = (ms, plain_ms, b_ms, b_by)
+        print(f"timing svf_filter n=1 B={B} on {card}: kernel {ms:.4f} ms (eager "
+              f"{eager_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by}, "
+              f"{svf_ops_per_sample()} operations a sample)")
+    print(f"svf_filter on {card}: kernel bit-equal to the plain version at (instances, B, "
+          f"dtype) {SVF_CASES}")
+    return (err, *rows[704])
+
+
+# (B, dtype) the Galactic kernel is held at against its plain version: a
+# graph's block, the 704-sample superblocks under its cap at 48 kHz
+# (live_edit), the cap itself, and f64
+GALACTIC_CASES = ((BLOCK, "f32"), (704, "f32"), (740, "f32"), (1, "f32"), (BLOCK, "f64"),
+                  (704, "f64"))
+
+
+def galactic_ops_per_sample():
+    """The operations a sample of Galactic's blockwise block takes for both
+    channels, as the function needs them (each lowpass as its sequential
+    recurrence, not the kernel's scan), counted a channel: the silence test
+    and the ring write (4), the vibrato read (6), each lowpass's y = (1 -
+    lp) y + lp x (4), the twelve line reads' and twelve writes' index
+    arithmetic (2 each), the three Householder mixes (11 each), the
+    feedback write (2), the last bank's sum (4), the wet/dry mix (5) and
+    the dither (8): 118, twice."""
+    return 2 * 118
+
+
+def galactic_operands(torch, np, ktt, B, dtype, dev, seed):
+    """``blockwise_rest``'s operands on ``dev`` as ``Galactic.process`` makes
+    them, from a moved state (lines full of noise at random positions, the
+    vibrato ring, feedback and lowpasses anywhere, the vibrato phase near
+    its reset), a half-silent input and random params."""
+    rng = np.random.default_rng(seed)
+    ctx = ktt.AudioCtx(SR, B, dtype)
+    ugen = ktt.Galactic(seed=seed)
+    s = ugen.init(ctx, device=dev)
+    t = lambda a, dt=dtype: torch.from_numpy(np.asarray(a)).to(dev, dt)  # noqa: E731
+    base, lmax = ugen._geometry(SR)
+    s["dbuf"] = t(rng.standard_normal(tuple(s["dbuf"].shape)) * 0.3)
+    s["dpos"] = t(rng.integers(0, base // 2, (2, 12)), torch.int32)
+    s["vib_buf"] = t(rng.standard_normal((2, 256)) * 0.3)
+    s["vib_pos"] = t(rng.integers(0, 256, 2), torch.int32)
+    s["feedback"] = t(rng.standard_normal((2, 4)) * 0.1)
+    s["iir_a"], s["iir_b"] = t(rng.standard_normal(2) * 0.2), t(rng.standard_normal(2) * 0.2)
+    s["vib_m"] = t(6.2)
+    x = rng.standard_normal((2, B)) * 0.5
+    x[:, : B // 2] = 0.0
+    params = {k: t(np.full(B, rng.uniform(lo, hi))) for k, lo, hi in (
+        ("replace", 0.0, 1.0), ("detune", 0.2, 1.0), ("brightness", 0.2, 1.0),
+        ("bigness", 0.1, 1.0), ("wet", 0.1, 0.9))}
+    regen, attenuate, lowpass, drift, wet = ugen._rates(ctx, params)
+    size = params["bigness"][0] * 0.9 + 0.1
+    eff = (t(base) * size).to(torch.int32).clamp(B + 1, lmax).long()
+    off, tiny, fpd_seq, _, _, _ = ugen._vib_fpd_vectorized(ctx, s, drift)
+    return (s, t(x), attenuate, lowpass, regen, wet, off, tiny, fpd_seq, eff)
+
+
+def galactic_vs_plain(torch, np, ktt, dev, card):
+    """The Galactic kernel against ``blockwise_rest`` on the card at
+    GALACTIC_CASES: the output and every state leaf bit-equal. Then its
+    device ms at live_edit's shape (B = 704; in a CUDA graph, the eager ms
+    beside) and at B = 64, the plain version's ms and the bound (the lines'
+    touched values read and written once). Returns (max |err|, ms,
+    plain_ms, bound_ms, bound_by) at 704."""
+    from knaster_tpu_torch.airwindows.galactic import blockwise_rest
+    from knaster_tpu_torch.kernels import galactic as gk
+
+    err = 0.0
+    for k, (B, dt) in enumerate(GALACTIC_CASES):
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        ops = galactic_operands(torch, np, ktt, B, dtype, dev, 80 + k)
+        got_state, got = gk.launch(*ops)
+        want_state, want = blockwise_rest(*ops)
+        torch.cuda.synchronize()
+        words = lambda v: (v.view(torch.int64) if v.dtype == torch.float64 else  # noqa: E731
+                           bits(v) if v.dtype == torch.float32 else v)
+        bad = [k2 for k2 in want_state if not torch.equal(words(got_state[k2]),
+                                                          words(want_state[k2]))]
+        if bad or not torch.equal(words(got), words(want)):
+            fail(f"galactic B={B} {dt}: the kernel differs from the plain version (output by "
+                 f"{float((got - want).abs().max())}, state leaves {bad})")
+        err = max(err, float((got - want).abs().max()))
+    rows = {}
+    for B in (704, BLOCK):
+        ops = galactic_operands(torch, np, ktt, B, torch.float32, dev, 90)
+        ms = time_graph(torch, lambda: gk.launch(*ops), 50)
+        eager_ms = time_call(torch, lambda: gk.launch(*ops), 50)
+        plain_ms = time_call(torch, lambda: blockwise_rest(*ops), 5)
+        new, out = gk.launch(*ops)
+        # the block's inputs, rows and streams, the small state leaves, the
+        # output, and of the lines what the block reads and writes
+        small = {k: v for k, v in ops[0].items() if k != "dbuf"}
+        nbytes = (tensor_bytes(ops[1:], small, {k: v for k, v in new.items() if k != "dbuf"},
+                               out) + 2 * 2 * 12 * B * out.element_size())
+        b_ms, b_by = bound(nbytes, galactic_ops_per_sample() * B)
+        rows[B] = (ms, plain_ms, b_ms, b_by)
+        print(f"timing galactic B={B} on {card}: kernel {ms:.4f} ms (eager {eager_ms:.4f}), "
+              f"plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by}, "
+              f"{galactic_ops_per_sample()} operations a sample)")
+    print(f"galactic on {card}: kernel bit-equal to the plain version at (B, dtype) "
+          f"{GALACTIC_CASES}")
+    return (err, *rows[704])
+
+
+# (instances, B, path, dtype) the EnvAsr kernel is held at against its
+# plain version: the state machine (eventful blocks, voice banks), the
+# closed form over Hillis-Steele sums (graph nodes) and over base-16 sums
+# (the voice models), a node's block and superblocks, a bank's 1024 voices
+ENV_CASES = ((1, BLOCK, "step", "f32"), (1, 704, "step", "f32"), (1024, BLOCK, "step", "f32"),
+             (1, BLOCK, "hillis_steele", "f32"), (1, 4096, "hillis_steele", "f32"),
+             (1, 704, "base16", "f32"), (1024, BLOCK, "base16", "f32"),
+             (1, 4096, "base16", "f32"), (3, 1024, "step", "f64"),
+             (3, 1024, "hillis_steele", "f64"), (3, 1024, "base16", "f64"))
+# f32 operations a sample of the state machine takes (env_asr.cuh step):
+# the restart and release selects (6), the output's chain (5), the next t
+# (3), the sustain and done tests and selects (7)
+ENV_STEP_OPS = 21
+
+
+def env_asr_operands(torch, np, n, B, dtype, dev, seed):
+    """(state, atk, rel, restart, release) on ``dev`` as
+    tests/test_torch_env_asr.py makes them: every stage, t anywhere in [0,
+    1] and at 1, attack and release times from 0 (an instant rate) to ~10
+    blocks, a few restarts and releases."""
+    from knaster_tpu_torch.ugens.envelopes import rate_from_time
+
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=dtype: torch.from_numpy(np.asarray(a)).to(dev, dt)  # noqa: E731
+    tt = rng.uniform(0.0, 1.0, n)
+    tt[::5] = 1.0
+    state = {"stage": t(rng.integers(0, 4, n), torch.int32), "t": t(tt),
+             "release_scale": t(rng.uniform(0.2, 1.0, n))}
+    times = rng.uniform(0.0, 10 * B / SR, (n, 1)) * (rng.uniform(size=(n, 1)) > 0.1)
+    atk = rate_from_time(t(np.repeat(times, B, axis=1)), SR)
+    rel = rate_from_time(t(np.repeat(rng.uniform(0.0, 10 * B / SR, (n, 1)), B, axis=1)), SR)
+    return (state, atk, rel, t(rng.uniform(size=(n, B)) < 2.0 / B, torch.bool),
+            t(rng.uniform(size=(n, B)) < 2.0 / B, torch.bool))
+
+
+def env_asr_vs_plain(torch, np, dev, card):
+    """The EnvAsr kernel against ``asr_block`` on the card at ENV_CASES
+    (every stage, restarts and releases, attacks that reach 1, releases that
+    end in the block): outputs, done flags and state bit-equal. Then its
+    device ms on the state machine at live_edit's shape (one envelope, B =
+    64, the eventful blocks; in a CUDA graph, the eager ms beside) and on
+    the base-16 closed form at 704 (its superblocks), the plain version's
+    ms and the bound. Returns (max |err|, ms, plain_ms, bound_ms, bound_by)
+    on the state machine."""
+    from knaster_tpu_torch.core.dsp import cumsum, cumsum_base16
+    from knaster_tpu_torch.kernels import env_asr as ek
+    from knaster_tpu_torch.ugens.envelopes import asr_block
+
+    paths = {"step": (False, cumsum), "hillis_steele": (True, cumsum),
+             "base16": (True, cumsum_base16)}
+    err = 0.0
+    for k, (n, B, path, dt) in enumerate(ENV_CASES):
+        dtype = torch.float32 if dt == "f32" else torch.float64
+        ops = env_asr_operands(torch, np, n, B, dtype, dev, 100 + k)
+        got = ek.launch(*ops, *paths[path])
+        want = asr_block(*ops, *paths[path])
+        torch.cuda.synchronize()
+        words = lambda v: (v.view(torch.int64) if v.dtype == torch.float64 else  # noqa: E731
+                           bits(v) if v.dtype == torch.float32 else v)
+        same = all(torch.equal(words(g), words(w.expand_as(g).to(g.dtype)))
+                   for g, w in zip(got, want))
+        if not same:
+            fail(f"env_asr n={n} B={B} {path} {dt}: the kernel differs from the plain version "
+                 f"(output by {float((got[3] - want[3]).abs().max())})")
+        err = max(err, float((got[3] - want[3]).abs().max()))
+    rows = {}
+    for B, path in ((BLOCK, "step"), (704, "base16")):
+        ops = env_asr_operands(torch, np, 1, B, torch.float32, dev, 120)
+        ms = time_graph(torch, lambda: ek.launch(*ops, *paths[path]), 100)
+        eager_ms = time_call(torch, lambda: ek.launch(*ops, *paths[path]), 100)
+        plain_ms = time_call(torch, lambda: asr_block(*ops, *paths[path]), 3)
+        got = ek.launch(*ops, *paths[path])
+        # the closed form: two prefix sums (B - 1 adds each) and ~14 a lane
+        n_ops = ENV_STEP_OPS * B if path == "step" else (2 * (B - 1) + 14 * B)
+        b_ms, b_by = bound(tensor_bytes(ops, got), n_ops)
+        rows[path] = (ms, plain_ms, b_ms, b_by)
+        print(f"timing env_asr n=1 B={B} {path} on {card}: kernel {ms:.4f} ms (eager "
+              f"{eager_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by})")
+    print(f"env_asr on {card}: kernel bit-equal to the plain version at (instances, B, path, "
+          f"dtype) {ENV_CASES}")
+    return (err, *rows["step"])
+
+
+# each example's card render (tools/port_examples.py's cut keywords) and
+# the port's CPU render its first frames are held against (the card renders
+# those frames alone first, as the CPU render does). The wavetable
+# orchestra at its full 16,384 voices and 10 s (its trigger and release
+# waves) and its first 4 blocks on the CPU, whose plain bank takes ~0.1 s a
+# block there; the eager graphs cut for the run's time (realtime x on an
+# H100 before the SVF, Galactic and EnvAsr kernels: visualize_graph 0.049,
+# many_sines 0.18, voice_pool 0.15, plucked_strings 0.089, the shimmer
+# 0.092, the grain texture 0.18 after its 1 s source); the grain source
+# renders its 1 s
+EXAMPLE_RUNS = {
+    "simple_sine": ({}, {"seconds": 0.1}),
+    "visualize_graph": ({"seconds": 0.25}, {"seconds": 0.1}),
+    "many_sines": ({"seconds": 0.5}, {"seconds": 0.1}),
+    "voice_pool": ({"notes": 60, "tail": 0.25}, {"notes": 50, "tail": 0}),
+    "wavetable_orchestra": ({}, {"seconds": 4 * BLOCK / SR}),
+    "plucked_strings": ({"seconds": 0.25}, {"seconds": 0.1}),
+    "plucked_shimmer": ({"seconds": 0.25}, {"seconds": 0.1}),
+    "granular_texture": ({"seconds": 0.5}, {"seconds": 0.1}),
+    "granular_ensemble": ({"seconds": 0.5}, {"seconds": 0.1}),
+    "ir_reverb": ({}, {"seconds": 0.1}),
+    "buffer_player": ({}, {"seconds": 0.1}),
+}
+# card vs CPU, x max(1, peak): tests/test_torch_examples.py's gates; the
+# grain ensemble's 1e-5 also covers the card's cosf, sinf and exp2f against
+# the CPU's (an ulp on some inputs moves a grain's frozen step and pan
+# gains: BUFFER_CONFIGS' granular gate)
+EXAMPLE_GATE = 1e-6
+EXAMPLE_GATES = {"granular_ensemble": 1e-5}
+# the port kernels each example must launch, and no other (the Galactic
+# reverb's in the examples that end in one)
+EXAMPLE_KERNELS = {"wavetable_orchestra": ("wt_bank",),
+                   "visualize_graph": ("svf_filter", "env_asr"), "many_sines": ("env_asr",),
+                   "voice_pool": ("galactic", "env_asr"), "granular_texture": ("galactic",),
+                   "buffer_player": ("buffer_reader", "galactic"),
+                   "live_edit": ("svf_filter", "galactic", "env_asr")}
+
+
+def examples_module():
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import port_examples
+
+    return port_examples
+
+
+def phase_examples(torch, np, ktt, dev, card):
+    """The ten examples of tools/port_examples.py on the card.
+
+    Each renders at its EXAMPLE_RUNS cut through the port's public API on
+    the card (counts reset just before, read just after), its first frames
+    held against the port's CPU render of them within EXAMPLE_GATE (or
+    EXAMPLE_GATES); finite and sounding; realtime x over the whole bounce
+    (its first render's compile and warm included) and after the head.
+    Each example must launch every kernel EXAMPLE_KERNELS lists for it and
+    no other: ``wavetable_orchestra`` at 16,384 voices the wavetable
+    kernel; ``buffer_player`` the buffer reader and Galactic kernels;
+    ``visualize_graph`` the SVF and EnvAsr kernels; ``many_sines`` EnvAsr's
+    (its 600 voices' envelopes); ``voice_pool`` Galactic's and EnvAsr's;
+    ``granular_texture`` Galactic's; the others (``simple_sine``, the two
+    plucked examples, ``granular_ensemble``, ``ir_reverb``) none.
+    ``visualize_graph`` prints its dot source's size and what
+    ``show_dot_svg`` returned. ``live_edit`` streams the example (1.5 s,
+    the live Galactic insert, 2 s, the release, 2 s): it must swap to the
+    edit's revision, write finite, sounding audio, keep the ring at
+    LIVE_WRITTEN of real time and launch the SVF, Galactic and EnvAsr
+    kernels and no other; its underruns and chunk ms are printed, not
+    gated. Then the four UGen kernels against their plain versions
+    (``buffer_reader_vs_plain``, ``svf_filter_vs_plain``,
+    ``galactic_vs_plain``, ``env_asr_vs_plain``). Returns the kernels
+    line's rows of those four."""
+    pe = examples_module()
+    launches = {}
+
+    def example_kernels(counts, name):
+        """The example's kernels launched, and no other."""
+        expect_ugen_kernels(counts, EXAMPLE_KERNELS.get(name, ()), f"example {name}")
+        launches[name] = {k: counts[k] for k in EXAMPLE_KERNELS.get(name, ())}
+    for name, (card_kw, cpu_kw) in EXAMPLE_RUNS.items():
+        t0 = time.perf_counter()
+        head = cpu_kw.get("seconds")
+        reset_all_counts()
+        run = pe.play(name, ktt, dev, head=head, **card_kw)
+        counts = {k: n for k, n in read_all_counts().items() if n}
+        cpu = pe.play(name, ktt, "cpu", **cpu_kw).audio()
+        audio = run.audio()
+        peak = float(np.abs(audio).max())
+        gap = float(np.abs(audio[:, :cpu.shape[1]] - cpu).max())
+        gate = EXAMPLE_GATES.get(name, EXAMPLE_GATE) * max(1.0, peak)
+        if not np.isfinite(audio).all() or peak < 1e-3 or gap > gate:
+            fail(f"example {name}: card vs CPU {gap} over {cpu.shape[1]} frames (gate {gate}, "
+                 f"peak {peak}, finite {bool(np.isfinite(audio).all())})")
+        example_kernels(counts, name)
+        extra = ""
+        if name == "visualize_graph":
+            extra = f"; dot {len(run.info['dot'])} chars, show_dot_svg -> {run.info['svg']}"
+        if name == "voice_pool":
+            extra = f"; {run.info['scheduled']} notes, {run.info['free']} voices free at the end"
+        print(f"example {name} ({pe.SOURCES[name]}, cut {card_kw or 'none'}) on {card}: "
+              f"{audio.shape[1] / SR:.3f} s of audio, realtime x {run.realtime_x():.4g} "
+              f"({run.realtime_x(1):.4g} after its first render); card vs CPU {gap:.3e} over "
+              f"{cpu.shape[1]} frames (gate {gate:.1e}, peak {peak:.4g}); launches {counts}"
+              f"{extra} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    reset_all_counts()
+    run = pe.play("live_edit", ktt, dev)
+    counts = {k: n for k, n in read_all_counts().items() if n}
+    info, audio = run.info, run.audio()
+    peak = float(np.abs(audio).max())
+    print(f"example live_edit ({pe.SOURCES['live_edit']}) on {card}: start-up "
+          f"{info['startup_s']:.2f} s; the swap to revision {info['revision']} seen "
+          f"{info['swap_s']:.2f} s after the edit ({info['swaps'][-1:]}); {info['underruns']} "
+          f"underruns; written {info['written_over_wall']:.3f} of real time over "
+          f"{info['wall_s']:.2f} s; {info['chunks']} chunks, host ms median "
+          f"{info['chunk_ms_median']:.2f}, max {info['chunk_ms_max']:.2f}, median after the "
+          f"swap {info['chunk_ms_median_after']:.2f} (a chunk is {32 * BLOCK / SR * 1e3:.2f} ms "
+          f"of audio); peak {peak:.4g}; launches {counts} ({time.perf_counter() - t0:.1f} s)")
+    if not (info["swapped"] and info["swaps"] and info["swaps"][-1][0] == info["revision"]):
+        fail(f"example live_edit: no swap to revision {info['revision']}: {info['swaps']}")
+    if not np.isfinite(audio).all() or peak < 1e-3:
+        fail(f"example live_edit: the stream's audio is not finite or silent (peak {peak})")
+    if info["written_over_wall"] < LIVE_WRITTEN:
+        fail(f"example live_edit: the ring took {info['frames_written']} frames in "
+             f"{info['wall_s']:.2f} s ({info['written_over_wall']:.3f} of real time, floor "
+             f"{LIVE_WRITTEN})")
+    example_kernels(counts, "live_edit")
+    return [kernel_row("buffer_reader", launches["buffer_player"]["buffer_reader"],
+                       *buffer_reader_vs_plain(torch, np, dev, card),
+                       label="buffer_reader:buffer_player"),
+            kernel_row("svf_filter", counts["svf_filter"], *svf_filter_vs_plain(
+                torch, np, dev, card), label="svf_filter:live_edit"),
+            kernel_row("galactic", counts["galactic"], *galactic_vs_plain(
+                torch, np, ktt, dev, card), label="galactic:live_edit"),
+            kernel_row("env_asr", counts["env_asr"], *env_asr_vs_plain(torch, np, dev, card),
+                       label="env_asr:live_edit")]
 
 
 def phase_family_timings(torch, ktt, kind, bank, state, card):
@@ -5434,6 +6007,7 @@ def main():
     lap(phase_mesh, torch, np, ktt, dev, card)
     user_rows, organ_cpu = lap(phase_extensions, torch, np, ktt, dev, card)
     lowered_rows = lap(phase_lowered, torch, np, ktt, dev, card, organ_cpu)
+    example_rows = lap(phase_examples, torch, np, ktt, dev, card)
     print(f"slices: {time.perf_counter() - t0:.1f} s")
 
     # -- timings at the main path's shape ---------------------------------
@@ -5469,6 +6043,7 @@ def main():
     table.extend(live_rows.values())
     table.extend(user_rows)
     table.extend(lowered_rows)
+    table.extend(example_rows)
     print(f"timings: {time.perf_counter() - t0:.1f} s; "
           f"total {time.perf_counter() - t_start:.1f} s")
 

@@ -159,7 +159,8 @@ class Galactic(UGen):
         [B, 2], vib_m, oldfpd, fpd [2])."""
         dtype, B = ctx.dtype, drift.shape[0]
         dev = drift.device
-        cols = torch.from_numpy(self._xorshift_columns(B)).to(dev)  # [B+1, 32]
+        cols = self._on_device(("xorshift", B), lambda: self._xorshift_columns(B),
+                               dev)  # [B+1, 32]
         x0 = u32_of(state["fpd"])  # [2]
         bits = (x0.unsqueeze(-1) >> torch.arange(32, device=dev)) & 1
         v = cols.unsqueeze(0) & (-bits).unsqueeze(1) & M32  # [2, B+1, 32]
@@ -216,6 +217,17 @@ class Galactic(UGen):
         total = x[:, 0] + x[:, 1] + x[:, 2] + x[:, 3]
         return 2.0 * x - total.unsqueeze(1)
 
+    _DEV_CONSTS: dict = {}
+
+    @classmethod
+    def _on_device(cls, key, make, dev, dtype=None):
+        """A host array made by ``make()`` as a tensor on ``dev`` (of
+        ``dtype``), copied there once per (key, device, dtype)."""
+        k = (key, torch.device(dev), dtype)
+        if k not in cls._DEV_CONSTS:
+            cls._DEV_CONSTS[k] = torch.from_numpy(make()).to(dev, dtype)
+        return cls._DEV_CONSTS[k]
+
     def _process_blockwise(self, ctx, state, inputs, params):
         dtype, B = ctx.dtype, ctx.block_size
         dev = inputs.device
@@ -223,58 +235,20 @@ class Galactic(UGen):
         regen, attenuate, lowpass, drift, wet = self._rates(ctx, params)
         size = params["bigness"][0] * 0.9 + 0.1  # block rate on this path
         # clamp to B + 1: every read lands strictly before this block's writes
-        eff = (torch.from_numpy(base).to(dev, dtype) * size).to(torch.int32).clamp(B + 1, lmax)
+        base_dev = self._on_device(("base", ctx.sample_rate), lambda: base, dev, dtype)
+        eff = (base_dev * size).to(torch.int32).clamp(B + 1, lmax)
         eff = eff.long()  # [12]
 
         vib_chain = self._vib_fpd_vectorized if B <= 4096 else self._vib_fpd_scan
         off, tiny, fpd_seq, vib_m, oldfpd, fpd = vib_chain(ctx, state, drift)
 
-        # silence replaced by the dither's tiny values
-        inp = torch.where(inputs.abs() < 1.18e-23, tiny.t(), inputs)
-        dry = inp
+        # the rest of the block: one launch of csrc/galactic.cu on the card,
+        # its plain torch version (blockwise_rest) on the CPU
+        from ..kernels.galactic import galactic_block
 
-        # the detune delay: the ring from its position, then this block's writes
-        writes = inp * attenuate.unsqueeze(0)  # [2, B]
-        hist = delay_history(state["vib_buf"], state["vib_pos"], writes)  # [2, 256 + B]
-        t = torch.arange(B, device=dev)
-        fl = torch.floor(off.t())  # [2, B]
-        k = fl.long()
-        low = torch.gather(hist, -1, t + 1 + k)
-        high = torch.gather(hist, -1, t + 2 + k)
-        sig = low + (high - low) * (off.t() - fl)
-        vib_buf, vib_pos = advance_ring(hist, state["vib_pos"], B)
-
-        # pre lowpass (iirA)
-        a = (1.0 - lowpass).expand(2, B)
-        b = sig * lowpass.unsqueeze(0)
-        y_pre, iir_a = affine_scan_1d(a, b, state["iir_a"])
-        sig = a * y_pre + b
-
-        # the three banks (eff > B: no read reaches this block's writes)
-        dbuf, dpos = state["dbuf"], state["dpos"].long()
-        read_idx = (dpos.unsqueeze(-1) + 1 + t) % eff[:, None]  # [2, 12, B]
-        reads = torch.gather(dbuf, -1, read_idx)
-        b0, b1, b2 = reads[:, 0:4], reads[:, 4:8], reads[:, 8:12]
-        fb_now = self._mix4(b2)  # the feedback each sample produces [2, 4, B]
-        fb_prev = torch.cat([state["feedback"].unsqueeze(-1), fb_now[..., :-1]], dim=-1)
-        w0 = fb_prev.flip(0) * regen + sig.unsqueeze(1)
-        writes_all = torch.cat([w0, self._mix4(b0), self._mix4(b1)], dim=1)
-        write_idx = (dpos.unsqueeze(-1) + t) % eff[:, None]
-        dbuf = dbuf.scatter(-1, write_idx, writes_all)
-        dpos = ((dpos + B) % eff).to(torch.int32)
-        sig = (b2[:, 0] + b2[:, 1] + b2[:, 2] + b2[:, 3]) * 0.125
-
-        # post lowpass (iirB)
-        b6 = sig * lowpass.unsqueeze(0)
-        y_pre, iir_b = affine_scan_1d(a, b6, state["iir_b"])
-        sig = a * y_pre + b6
-
-        sig = torch.where(wet < 1.0, sig * wet + dry * (1.0 - wet), sig)
-        sig = self._dither(sig, fpd_seq.t(), dtype)
-        new_state = {"dbuf": dbuf, "dpos": dpos, "vib_buf": vib_buf, "vib_pos": vib_pos,
-                     "feedback": fb_now[..., B - 1], "iir_a": iir_a, "iir_b": iir_b,
-                     "fpd": i32_of(fpd), "vib_m": vib_m, "oldfpd": oldfpd}
-        return new_state, sig
+        rest, sig = galactic_block(state, inputs, attenuate, lowpass, regen, wet, off, tiny,
+                                   fpd_seq, eff)
+        return {**rest, "fpd": i32_of(fpd), "vib_m": vib_m, "oldfpd": oldfpd}, sig
 
     def _process_scan(self, ctx, state, inputs, params):
         dtype, B = ctx.dtype, ctx.block_size
@@ -339,3 +313,61 @@ class Galactic(UGen):
                      "iir_a": iir_a, "iir_b": iir_b, "fpd": i32_of(fpd), "vib_m": vib_m,
                      "oldfpd": oldfpd}
         return new_state, torch.stack(outs, dim=1)
+
+
+def blockwise_rest(state, inputs, attenuate, lowpass, regen, wet, off, tiny, fpd_seq, eff):
+    """The blockwise block after its vibrato and dither streams
+    (``_vib_fpd_vectorized``): the detune delay, the pre lowpass, the three
+    banks, the post lowpass, the wet/dry mix and the dither, for the
+    state's ``[2, ...]`` leaves and the ``[2, B]`` input. The plain version
+    of ``kernels/galactic.py``. Returns (the new dbuf, dpos, vib_buf,
+    vib_pos, feedback, iir_a and iir_b; the output ``[2, B]``)."""
+    dtype, B = inputs.dtype, inputs.shape[-1]
+    dev = inputs.device
+
+    # silence replaced by the dither's tiny values
+    inp = torch.where(inputs.abs() < 1.18e-23, tiny.t(), inputs)
+    dry = inp
+
+    # the detune delay: the ring from its position, then this block's writes
+    writes = inp * attenuate.unsqueeze(0)  # [2, B]
+    hist = delay_history(state["vib_buf"], state["vib_pos"], writes)  # [2, 256 + B]
+    t = torch.arange(B, device=dev)
+    fl = torch.floor(off.t())  # [2, B]
+    k = fl.long()
+    low = torch.gather(hist, -1, t + 1 + k)
+    high = torch.gather(hist, -1, t + 2 + k)
+    sig = low + (high - low) * (off.t() - fl)
+    vib_buf, vib_pos = advance_ring(hist, state["vib_pos"], B)
+
+    # pre lowpass (iirA)
+    a = (1.0 - lowpass).expand(2, B)
+    b = sig * lowpass.unsqueeze(0)
+    y_pre, iir_a = affine_scan_1d(a, b, state["iir_a"])
+    sig = a * y_pre + b
+
+    # the three banks (eff > B: no read reaches this block's writes)
+    dbuf, dpos = state["dbuf"], state["dpos"].long()
+    read_idx = (dpos.unsqueeze(-1) + 1 + t) % eff[:, None]  # [2, 12, B]
+    reads = torch.gather(dbuf, -1, read_idx)
+    b0, b1, b2 = reads[:, 0:4], reads[:, 4:8], reads[:, 8:12]
+    mix4 = Galactic._mix4
+    fb_now = mix4(b2)  # the feedback each sample produces [2, 4, B]
+    fb_prev = torch.cat([state["feedback"].unsqueeze(-1), fb_now[..., :-1]], dim=-1)
+    w0 = fb_prev.flip(0) * regen + sig.unsqueeze(1)
+    writes_all = torch.cat([w0, mix4(b0), mix4(b1)], dim=1)
+    write_idx = (dpos.unsqueeze(-1) + t) % eff[:, None]
+    dbuf = dbuf.scatter(-1, write_idx, writes_all)
+    dpos = ((dpos + B) % eff).to(torch.int32)
+    sig = (b2[:, 0] + b2[:, 1] + b2[:, 2] + b2[:, 3]) * 0.125
+
+    # post lowpass (iirB)
+    b6 = sig * lowpass.unsqueeze(0)
+    y_pre, iir_b = affine_scan_1d(a, b6, state["iir_b"])
+    sig = a * y_pre + b6
+
+    sig = torch.where(wet < 1.0, sig * wet + dry * (1.0 - wet), sig)
+    sig = Galactic._dither(sig, fpd_seq.t(), dtype)
+    rest = {"dbuf": dbuf, "dpos": dpos, "vib_buf": vib_buf, "vib_pos": vib_pos,
+            "feedback": fb_now[..., B - 1], "iir_a": iir_a, "iir_b": iir_b}
+    return rest, sig

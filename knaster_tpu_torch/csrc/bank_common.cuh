@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "env_asr.cuh"
+
 namespace ktt {
 
 constexpr int kGroup = 5;  // floats per ramp group / breakpoint group
@@ -463,35 +465,15 @@ __device__ __forceinline__ float additive_partials_rt(float freq, float theta,
   return acc;
 }
 
-// EnvAsr state machine (stages: 0 stop, 1 atk, 2 sus, 3 rel). With restart
-// and release false it is the event-free variant (_env_asr_free). Updates
-// stage, t and rscale; returns the envelope value.
+// EnvAsr state machine (stages: 0 stop, 1 atk, 2 sus, 3 rel): csrc/
+// env_asr.cuh's step on the banks' float stage. With restart and release
+// false it is the event-free variant (_env_asr_free). Updates stage, t and
+// rscale; returns the envelope value.
 __device__ __forceinline__ float env_asr(float& stage, float& t, float& rscale,
                                          bool restart, bool release, float atk,
                                          float rel) {
-  if (restart) stage = 1.0f;
-  const bool rel_from_atk = release && stage == 1.0f;
-  const bool rel_from_sus = release && stage == 2.0f;
-  rscale = rel_from_atk ? t : (rel_from_sus ? 1.0f : rscale);
-  if (rel_from_atk || rel_from_sus) {
-    t = 1.0f;
-    stage = 3.0f;
-  }
-  const float env = stage == 1.0f ? t
-                  : stage == 2.0f ? 1.0f
-                  : stage == 3.0f ? t * t * t * rscale
-                  : 0.0f;
-  float t_next = stage == 1.0f ? t + atk : (stage == 3.0f ? t - rel : t);
-  const bool to_sus = stage == 1.0f && t_next >= 1.0f;
-  if (to_sus) t_next = 1.0f;  // pin sustain t
-  const bool done = stage == 3.0f && t_next <= 0.0f;
-  if (to_sus) stage = 2.0f;
-  if (done) {
-    stage = 0.0f;
-    t_next = 0.0f;
-  }
-  t = t_next;
-  return env;
+  bool done;
+  return asr::step<float>(restart, release, atk, rel, &stage, &t, &rscale, &done);
 }
 
 // True where event-free EnvAsr (restart and release false) leaves (stage,

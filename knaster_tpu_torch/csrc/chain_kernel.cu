@@ -108,7 +108,9 @@
 
 #include <cooperative_groups.h>
 
+#include "env_asr.cuh"
 #include "stage_scan.cuh"
+#include "svf_filter.cuh"
 #include "threefry.cuh"
 
 namespace cg = cooperative_groups;
@@ -141,10 +143,6 @@ constexpr float kThird = static_cast<float>(1.0 / 3.0);
 constexpr float kNegTwoPi = static_cast<float>(-2.0 * kPi);
 constexpr float kPwLo = static_cast<float>(0.0001), kPwHi = static_cast<float>(0.9999);
 constexpr float kBig = static_cast<float>(3.4e38);
-// the degree-9 sine polynomial (core/dsp.py SIN9_C)
-constexpr float kS1 = static_cast<float>(-0.16666652), kS2 = static_cast<float>(0.008332964),
-                kS3 = static_cast<float>(-0.00019804752),
-                kS4 = static_cast<float>(2.5981028e-06);
 // PolyBlep's u32 phase: 2^30 units a cycle, t from the top 24 bits
 constexpr uint32_t kPhaseMask = (1u << 30) - 1u;
 constexpr float kTScale = 1.0f / 16777216.0f;
@@ -305,60 +303,6 @@ __device__ float polyblep_wave(int w, float t, float dt, float pw) {
       return add(y, mul(s2dt, sub(blamp(t1, dt), blamp(t2, dt))));
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// SvfFilter (ugens/filters.py svf_coefficients)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float sin_poly(float u) {
-  const float u2 = mul(u, u);
-  float p = add(mul(kS4, u2), kS3);
-  p = add(mul(p, u2), kS2);
-  p = add(mul(p, u2), kS1);
-  return mul(add(mul(p, u2), 1.0f), u);
-}
-
-// tan on [0, pi/2) as sin / sin(pi/2 - x) by the polynomial (core/dsp.py)
-__device__ __forceinline__ float tan_first_quadrant(float x) {
-  return fdiv(sin_poly(x), sin_poly(sub(kHalfPi, x)));
-}
-
-struct SvfCoefs {
-  float a1, a2, a3, m0, m1, m2;
-};
-
-// ty: the filter type as a float (SvfFilterType: Low 0, High 1, Band 2,
-// Notch 3, Peak 4, All 5, Bell 6, LowShelf 7, HighShelf 8; any other value
-// takes the defaults, as the chained wheres do)
-__device__ SvfCoefs svf_coefs(float ty, float cutoff, float q, float gain, float sr) {
-  const float amp = powf(10.0f, fdiv(gain, 40.0f));
-  const float sqrt_amp = __fsqrt_rn(amp);
-  const bool bell = ty == 6.0f, ls = ty == 7.0f, hs = ty == 8.0f;
-  const float g_base = tan_first_quadrant(fdiv(mul(kPiF, cutoff), sr));
-  const float g = (bell || ls) ? fdiv(g_base, sqrt_amp) : (hs ? mul(g_base, sqrt_amp) : g_base);
-  const float k = bell ? fdiv(1.0f, mul(q, amp)) : fdiv(1.0f, q);
-  SvfCoefs c;
-  c.a1 = fdiv(1.0f, add(1.0f, mul(g, add(g, k))));
-  c.a2 = mul(g, c.a1);
-  c.a3 = mul(g, c.a2);
-  const float amp2 = mul(amp, amp);
-  c.m0 = (ty == 0.0f || ty == 2.0f) ? 0.0f : (hs ? amp2 : 1.0f);
-  c.m1 = ty == 0.0f ? 0.0f
-       : ty == 2.0f ? 1.0f
-       : (ty == 3.0f || ty == 1.0f || ty == 4.0f) ? -k
-       : ty == 5.0f ? mul(-2.0f, k)
-       : bell ? mul(k, sub(amp2, 1.0f))
-       : ls ? mul(k, sub(amp, 1.0f))
-       : hs ? mul(mul(k, sub(1.0f, amp)), amp)
-       : 0.0f;
-  c.m2 = ty == 0.0f ? 1.0f
-       : ty == 1.0f ? -1.0f
-       : ty == 4.0f ? -2.0f
-       : ls ? sub(amp2, 1.0f)
-       : hs ? sub(1.0f, amp2)
-       : 0.0f;
-  return c;
 }
 
 // ---------------------------------------------------------------------------
@@ -932,6 +876,14 @@ __device__ void body_polyblep(Ctx& x, const Rec& rc) {
   if (leader(x)) x.state_out[rc.srow * x.K + x.k] = kCl ? all : ph0 + running;
 }
 
+// sample i's SVF coefficients (csrc/svf_filter.cuh, shared with the SVF
+// block kernel) from the params filter (the type as a float: any value but
+// 0-8 takes the defaults, as the chained wheres do), cutoff_freq, q, gain
+__device__ __forceinline__ svf::Coefs<float> svf_coefs(const Ctx& x, const Rec& rc, int i) {
+  return svf::coefs<float>(param(x, rc, 0, i), param(x, rc, 1, i), param(x, rc, 2, i),
+                           param(x, rc, 3, i), x.sr);
+}
+
 template <bool kCl>
 __device__ void body_svf(Ctx& x, const Rec& rc) {
   // params: filter, cutoff_freq, q, gain; words ic0, ic1
@@ -940,23 +892,14 @@ __device__ void body_svf(Ctx& x, const Rec& rc) {
   float* sc = x.scratch;
   sync_rows<kCl>();  // every earlier reader of the scratch rows is done
   for (int i = tid; i < n; i += blockDim.x) {
-    const SvfCoefs c = svf_coefs(param(x, rc, 0, i), param(x, rc, 1, i), param(x, rc, 2, i),
-                                 param(x, rc, 3, i), x.sr);
-    const float xin = input(x, rc, 0, i);
-    sc[i] = sub(mul(2.0f, c.a1), 1.0f);
-    sc[cs + i] = mul(-2.0f, c.a2);
-    sc[2 * cs + i] = mul(2.0f, c.a2);
-    sc[3 * cs + i] = sub(1.0f, mul(2.0f, c.a3));
-    sc[4 * cs + i] = mul(mul(2.0f, c.a2), xin);
-    sc[5 * cs + i] = mul(mul(2.0f, c.a3), xin);
+    const svf::Coefs<float> c = svf_coefs(x, rc, i);
+    svf::rows<float>(sc, cs, i, c.a1, c.a2, c.a3, input(x, rc, 0, i));
   }
   sync_rows<kCl>();
   const float* m = sc + scan_affine_2x2<kCl>(x, sc) * 6 * cs;
   for (int i = tid; i < n; i += blockDim.x) {
     const int t = x.c0 + i;
-    const SvfCoefs c = svf_coefs(param(x, rc, 0, i), param(x, rc, 1, i), param(x, rc, 2, i),
-                                 param(x, rc, 3, i), x.sr);
-    const float xin = input(x, rc, 0, i);
+    const svf::Coefs<float> c = svf_coefs(x, rc, i);
     float s0 = ic0, s1 = ic1;
     if (t > 0) {
       const int u = t - 1;
@@ -965,10 +908,8 @@ __device__ void body_svf(Ctx& x, const Rec& rc) {
       s1 = add(add(mul(at<kCl>(x, m + 2 * cs, u), ic0), mul(at<kCl>(x, m + 3 * cs, u), ic1)),
                at<kCl>(x, m + 5 * cs, u));
     }
-    const float v3 = sub(xin, s1);
-    const float v1 = add(mul(c.a1, s0), mul(c.a2, v3));
-    const float v2 = add(add(s1, mul(c.a2, s0)), mul(c.a3, v3));
-    emit(x, rc, 0, i, add(add(mul(c.m0, xin), mul(c.m1, v1)), mul(c.m2, v2)));
+    emit(x, rc, 0, i,
+         svf::out<float>(s0, s1, c.a1, c.a2, c.a3, c.m0, c.m1, c.m2, input(x, rc, 0, i)));
     if (t == x.B - 1) {
       x.state_out[rc.srow * x.K + x.k] =
           f_word(add(add(mul(m[i], ic0), mul(m[cs + i], ic1)), m[4 * cs + i]));
@@ -1022,33 +963,28 @@ __device__ void body_env(Ctx& x, const Rec& rc, bool ar) {
   sync_rows<kCl>();
   const float* A = sc + scan_cumsum_2<kCl>(x, sc) * 2 * cs;
   const float* R = A + cs;
-  const float inc_atk_last = add(t0, at<kCl>(x, A, B - 1));
-  const bool atk_any = inc_atk_last >= 1.0f;
-  const float inc_rel_last = sub(t0, at<kCl>(x, R, B - 1));
-  const bool rel_done = inc_rel_last <= 0.0f;
-  const float t_rel = rel_done ? 0.0f : inc_rel_last;
-  const int st_rel = rel_done ? kStopped : kReleasing;
-  float t_fin, rs_fin = rs;
-  int st_fin;
+  float t_fin = t0, rs_fin = rs;
+  int st_fin = stage0;
   if (!ar) {
+    // csrc/env_asr.cuh's closed form, shared with the EnvAsr block kernel
     for (int i = tid; i < n; i += blockDim.x) {
       const int t = x.c0 + i;
-      const float e_atk = add(t0, t > 0 ? at<kCl>(x, A, t - 1) : 0.0f);
-      const float e_rel = sub(t0, t > 0 ? at<kCl>(x, R, t - 1) : 0.0f);
-      const bool alive = t == 0 || e_rel > 0.0f;
-      const bool done_rel = alive && sub(t0, R[i]) <= 0.0f;
-      const float out_rel = alive ? mul(mul(mul(e_rel, e_rel), e_rel), rs) : 0.0f;
-      const float y = stage0 == kAttacking ? (e_atk >= 1.0f ? 1.0f : e_atk)
-                    : stage0 == kSustaining ? 1.0f
-                    : stage0 == kReleasing ? out_rel : 0.0f;
+      float y;
+      bool done;
+      asr::closed_lane_of<float>(t > 0 ? at<kCl>(x, A, t - 1) : 0.0f,
+                                 t > 0 ? at<kCl>(x, R, t - 1) : 0.0f, R[i], t, stage0, t0, rs,
+                                 &y, &done);
       emit(x, rc, 0, i, y);
-      if (rc.done_row) rc.done_row[i] = stage0 == kReleasing && done_rel;
+      if (rc.done_row) rc.done_row[i] = done;
     }
-    t_fin = stage0 == kAttacking ? (atk_any ? 1.0f : inc_atk_last)
-          : stage0 == kReleasing ? t_rel : t0;
-    st_fin = stage0 == kAttacking ? (atk_any ? kSustaining : kAttacking)
-           : stage0 == kReleasing ? st_rel : stage0;
+    asr::closed_state<float>(at<kCl>(x, A, B - 1), at<kCl>(x, R, B - 1), &st_fin, &t_fin);
   } else {
+    const float inc_atk_last = add(t0, at<kCl>(x, A, B - 1));
+    const bool atk_any = inc_atk_last >= 1.0f;
+    const float inc_rel_last = sub(t0, at<kCl>(x, R, B - 1));
+    const bool rel_done = inc_rel_last <= 0.0f;
+    const float t_rel = rel_done ? 0.0f : inc_rel_last;
+    const int st_rel = rel_done ? kStopped : kReleasing;
     // EnvAr: R at the first crossed sample, the minimum of R there (atk_any
     // is the same in every thread of the cluster: all or none reduce)
     float lmin = kBig;

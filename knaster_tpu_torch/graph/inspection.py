@@ -173,14 +173,13 @@ def to_dot(graph: Graph) -> str:
     return "\n".join(lines)
 
 
-def show_dot_svg(graph: Graph, path: str = "graph.svg") -> str:
-    """Render the dot graph to an SVG file through Graphviz's ``dot``
-    (inspection.rs show_dot_svg). Returns the path; raises where ``dot`` is
-    not installed."""
+def show_dot_svg(graph: Graph, path: str = "graph.svg") -> Optional[str]:
+    """Render the dot graph to an SVG file if Graphviz is installed
+    (inspection.rs show_dot_svg). Returns the path, or None without dot."""
     dot = to_dot(graph)
     exe = shutil.which("dot")
     if exe is None:
-        raise RuntimeError("show_dot_svg needs Graphviz's `dot` on the PATH")
+        return None
     svg = subprocess.run(
         [exe, "-Tsvg"], input=dot.encode(), capture_output=True, check=True
     ).stdout

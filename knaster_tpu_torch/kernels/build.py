@@ -39,7 +39,8 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "knaster_tpu_torch"
 KERNELS = ("sine_bank", "fm_bank", "sub_bank", "wt_bank", "generic_bank", "fm_cascade",
-           "chain_kernel", "pink_noise")
+           "chain_kernel", "pink_noise", "buffer_reader", "svf_filter", "galactic",
+           "env_asr")
 
 # no fast math: the kernels' state must round like the plain torch versions
 NVCC_FLAGS = (
@@ -161,7 +162,7 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 # the headers a user body's translation unit includes
-HARNESS_HEADERS = ("generic_harness.cuh", "bank_common.cuh")
+HARNESS_HEADERS = ("generic_harness.cuh", "bank_common.cuh", "env_asr.cuh")
 USER_BODY_STRUCT = "VoiceBody"
 
 

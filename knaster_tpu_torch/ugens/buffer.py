@@ -6,7 +6,7 @@ UGens that read it take a device copy for their context's device and
 dtype once (``Buffer.on``), not every block. ``BufferReader``'s pointer
 recurrence has ``floor`` and ``where`` in it and no affine scan form, so it
 runs sample by sample over the block, as the JAX package's ``lax.scan``
-does.
+does: on the card in one launch a block (``kernels/buffer_reader.py``).
 """
 
 from __future__ import annotations
@@ -128,9 +128,8 @@ class BufferReader(UGen):
         }
 
     def process(self, ctx: AudioCtx, state, inputs, params):
-        B, dtype = ctx.block_size, ctx.dtype
-        pf = state["ptr_frac"]
-        buf = self.buffer.on(pf.device, dtype)  # [ch, frames]
+        dtype = ctx.dtype
+        buf = self.buffer.on(state["ptr_frac"].device, dtype)  # [ch, frames]
         n_frames = self.buffer.frames
         bsr = float(self.buffer.sample_rate)
         step = params["rate"] * self.buffer.buf_rate_scale(ctx.sample_rate)
@@ -145,31 +144,45 @@ class BufferReader(UGen):
         s_int = torch.floor(start).to(torch.int32)
         s_frac = start - s_int.to(dtype)
         looping = params["looping"] > 0
-        restart = params["t_restart"]
+        # the walk over the block: one launch of csrc/buffer_reader.cu on
+        # the card, its plain torch version (buffer_reader_block) on the CPU
+        from ..kernels.buffer_reader import buffer_reader
 
-        pi, finished = state["ptr_int"], state["finished"]
-        outs, dones = [], []
-        for t in range(B):  # floor and where: no scan form
-            r = restart[..., t]
-            pi = torch.where(r, s_int[..., t], pi)
-            pf = torch.where(r, s_frac[..., t], pf)
-            finished = finished & ~r
-            idx = pi.clamp(0, n_frames - 1).long()
-            idx1 = (pi + 1).clamp(0, n_frames - 1).long()
-            a, b = buf[:, idx], buf[:, idx1]  # [ch, ...]
-            frame = (a + (b - a) * pf).movedim(0, -1)
-            outs.append(torch.where(finished.unsqueeze(-1), torch.zeros_like(frame), frame))
+        return buffer_reader(buf, state, s_int, s_frac, end, step, looping,
+                             params["t_restart"])
 
-            pf = pf + step[..., t]
-            adv = torch.floor(pf).to(torch.int32)
-            pi = pi + adv
-            pf = pf - adv.to(dtype)
-            hit = ((pi.to(dtype) + pf) >= end[..., t]) & ~finished
-            do_loop = hit & looping[..., t]
-            pi = torch.where(do_loop, s_int[..., t], pi)
-            pf = torch.where(do_loop, s_frac[..., t], pf)
-            done = hit & ~looping[..., t]
-            finished = finished | done
-            dones.append(done)
-        new_state = {"ptr_int": pi, "ptr_frac": pf, "finished": finished}
-        return new_state, torch.stack(outs, dim=-1), torch.stack(dones, dim=-1)
+
+def buffer_reader_block(buf, state, s_int, s_frac, end, step, looping, restart):
+    """BufferReader's walk over a block in plain torch, on whatever device
+    the state is on (the plain version of ``kernels/buffer_reader.py``, whose
+    ``buffer_reader`` documents the arguments): the JAX package's scan body (``knaster_tpu/ugens/buffer.py:138-164``)
+    sample by sample over the block (``floor`` and ``where`` leave the
+    recurrence no scan form)."""
+    n_frames = buf.shape[1]
+    dtype = state["ptr_frac"].dtype
+    pi, pf, finished = state["ptr_int"], state["ptr_frac"], state["finished"]
+    outs, dones = [], []
+    for t in range(restart.shape[-1]):
+        r = restart[..., t]
+        pi = torch.where(r, s_int[..., t], pi)
+        pf = torch.where(r, s_frac[..., t], pf)
+        finished = finished & ~r
+        idx = pi.clamp(0, n_frames - 1).long()
+        idx1 = (pi + 1).clamp(0, n_frames - 1).long()
+        a, b = buf[:, idx], buf[:, idx1]  # [ch, ...]
+        frame = (a + (b - a) * pf).movedim(0, -1)
+        outs.append(torch.where(finished.unsqueeze(-1), torch.zeros_like(frame), frame))
+
+        pf = pf + step[..., t]
+        adv = torch.floor(pf).to(torch.int32)
+        pi = pi + adv
+        pf = pf - adv.to(dtype)
+        hit = ((pi.to(dtype) + pf) >= end[..., t]) & ~finished
+        do_loop = hit & looping[..., t]
+        pi = torch.where(do_loop, s_int[..., t], pi)
+        pf = torch.where(do_loop, s_frac[..., t], pf)
+        done = hit & ~looping[..., t]
+        finished = finished | done
+        dones.append(done)
+    new_state = {"ptr_int": pi, "ptr_frac": pf, "finished": finished}
+    return new_state, torch.stack(outs, dim=-1), torch.stack(dones, dim=-1)

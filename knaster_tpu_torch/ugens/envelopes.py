@@ -168,23 +168,45 @@ class _EnvBase(UGen):
             "release_scale": torch.ones((), dtype=ctx.dtype, device=device),
         }
 
-    def process(self, ctx: AudioCtx, state, inputs, params):
+    def rates(self, ctx: AudioCtx, params):
+        """The block's attack and release rates and whether it takes the
+        closed form: event-free, outside a voice bank (as in the JAX
+        package)."""
         atk = rate_from_time(params["attack_time"].to(ctx.dtype), ctx.sample_rate)
         rel = rate_from_time(params["release_time"].to(ctx.dtype), ctx.sample_rate)
-        stage, t, rscale = state["stage"], state["t"], state["release_scale"]
-        if ctx.no_events and not ctx.wide_batch:
-            stage, t, rscale, out, done = self.CLOSED_FORM(stage, t, rscale, atk, rel,
-                                                           scan=self.scan)
-        else:
-            outs, dones = [], []
-            for i in range(ctx.block_size):
-                stage, t, rscale, o, d = self._step(params, i, stage, t, rscale,
-                                                    atk[..., i], rel[..., i])
-                outs.append(o)
-                dones.append(d)
-            out, done = torch.stack(outs, dim=-1), torch.stack(dones, dim=-1)
+        return atk, rel, ctx.no_events and not ctx.wide_batch
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        atk, rel, closed_form = self.rates(ctx, params)
+        stage, t, rscale, out, done = env_block(self._step, self.CLOSED_FORM, state, atk, rel,
+                                                params["t_restart"], params.get("t_release"),
+                                                closed_form, self.scan)
         return ({"stage": stage, "t": t, "release_scale": rscale}, out.unsqueeze(-2),
                 done)
+
+
+def env_block(step, closed, state, atk, rel, restart, release, closed_form, scan):
+    """One block of an envelope in plain torch: ``closed`` (its closed form)
+    over the prefix sum ``scan``, or its state machine ``step`` sample by
+    sample (``release`` None for EnvAr, which has no release trigger).
+    Returns (stage, t, release_scale, out [..., B], done [..., B])."""
+    stage, t, rscale = state["stage"], state["t"], state["release_scale"]
+    if closed_form:
+        return closed(stage, t, rscale, atk, rel, scan=scan)
+    params = {"t_restart": restart, "t_release": release}
+    outs, dones = [], []
+    for i in range(atk.shape[-1]):
+        stage, t, rscale, o, d = step(params, i, stage, t, rscale, atk[..., i], rel[..., i])
+        outs.append(o)
+        dones.append(d)
+    return stage, t, rscale, torch.stack(outs, dim=-1), torch.stack(dones, dim=-1)
+
+
+def asr_block(state, atk, rel, restart, release, closed_form, scan=cumsum):
+    """EnvAsr's block in plain torch (``env_block``): the plain version of
+    ``kernels/env_asr.py``."""
+    return env_block(EnvAsr._step, asr_closed_form, state, atk, rel, restart, release,
+                     closed_form, scan)
 
 
 class EnvAsr(_EnvBase):
@@ -198,6 +220,17 @@ class EnvAsr(_EnvBase):
         ptrigger("t_restart"),
     )
     CLOSED_FORM = staticmethod(asr_closed_form)
+
+    def process(self, ctx: AudioCtx, state, inputs, params):
+        # one launch of csrc/env_asr.cu on the card, its plain torch
+        # version (``asr_block``) on the CPU
+        from ..kernels.env_asr import env_asr
+
+        atk, rel, closed_form = self.rates(ctx, params)
+        stage, t, rscale, out, done = env_asr(state, atk, rel, params["t_restart"],
+                                              params["t_release"], closed_form, self.scan)
+        return ({"stage": stage, "t": t, "release_scale": rscale}, out.unsqueeze(-2),
+                done)
 
     @staticmethod
     def _step(params, i, stage, t, rscale, atk, rel):

@@ -17,7 +17,9 @@ which in state-space form is s' = M s + c with M = [[2*a1-1, -2*a2],
 
 ``svf_block`` and ``onepole_block`` serve ``process`` and the chain
 kernel's plain bodies alike (``csrc/chain_kernel.cu`` repeats them op for
-op), so the scan executor and the kernel path agree bit for bit. Every
+op), so the scan executor and the kernel path agree bit for bit. On the
+card ``SvfFilter.process`` runs ``svf_block`` in one launch of
+``csrc/svf_filter.cu`` (``kernels/svf_filter.py``), bit-equal to it. Every
 division divides by a tensor (``core/dsp.py`` ``const``).
 """
 
@@ -106,7 +108,7 @@ def svf_coefficients(ty, cutoff, q, gain_db, sample_rate):
 
 def svf_block(ic, x, ty, cutoff, q, gain_db, sample_rate):
     """One block of the SVF over ``[..., B]`` rows; ic: ``[..., 2]``.
-    Returns (new ic, y)."""
+    Returns (new ic, y). The plain version of ``kernels/svf_filter.py``."""
     a1, a2, a3, m0, m1, m2 = svf_coefficients(ty, cutoff, q, gain_db, sample_rate)
     s_pre0, s_pre1, f0, f1 = affine_scan_2x2_rows(
         2.0 * a1 - 1.0, -2.0 * a2, 2.0 * a2, 1.0 - 2.0 * a3,
@@ -147,9 +149,12 @@ class SvfFilter(UGen):
         return {"ic": torch.zeros((2,), dtype=ctx.dtype, device=device)}
 
     def process(self, ctx: AudioCtx, state, inputs, params):
-        ic, y = svf_block(state["ic"], inputs[..., 0, :], params["filter"],
-                          params["cutoff_freq"], params["q"], params["gain"],
-                          ctx.sample_rate)
+        # one launch of csrc/svf_filter.cu on the card, its plain torch
+        # version (svf_block) on the CPU
+        from ..kernels.svf_filter import svf_filter
+
+        ic, y = svf_filter(state["ic"], inputs[..., 0, :], params["filter"],
+                           params["cutoff_freq"], params["q"], params["gain"], ctx.sample_rate)
         return {"ic": ic}, y.unsqueeze(-2)
 
     def kernel_stage(self, ctx: AudioCtx):

@@ -43,6 +43,7 @@ from test_torch_voice_pool import _spy
 import knaster_tpu as jk
 import knaster_tpu.graph.processor as jP
 import knaster_tpu_torch as kt
+from tests.torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from knaster_tpu_torch.utils.codec import read_flac
 
 SR = 48000

@@ -28,6 +28,7 @@ import torch
 import knaster_tpu as jk
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+from tests.torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from knaster_tpu_torch.utils.codec import read_flac
 from knaster_tpu_torch.convert import graph_state_from_jax, graph_state_to_numpy
 

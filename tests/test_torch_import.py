@@ -205,7 +205,9 @@ def test_fused_voice_bank_rejects_unsupported_voices():
 
 
 @pytest.mark.parametrize("name", ["sine_bank", "fm_bank", "sub_bank", "wt_bank",
-                                  "generic_bank", "fm_cascade", "chain_kernel"])
+                                  "generic_bank", "fm_cascade", "chain_kernel", "pink_noise",
+                                  "buffer_reader", "svf_filter", "galactic",
+                                  "env_asr"])
 def test_ctypes_bindings_match_the_c_entry_points(name):
     """Each kernel module's ARGTYPES agree, argument by argument, with its
     library's extern "C" entry point (pointers, ints, floats), and

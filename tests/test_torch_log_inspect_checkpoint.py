@@ -10,7 +10,6 @@ for the same graph, probe captures within 1e-6, a resumed render within
 """
 
 import numpy as np
-import pytest
 import torch
 
 import knaster_tpu as jk
@@ -89,12 +88,18 @@ def test_dot_export_matches_jax():
 
 
 def test_show_dot_svg(tmp_path, monkeypatch):
+    """Without Graphviz's ``dot`` both packages return None and write
+    nothing (examples/visualize_graph.py tests the result with ``if svg``)."""
     import shutil
 
-    g, _ = _patch(kt)
+    from knaster_tpu.graph.inspection import show_dot_svg as j_show_dot_svg
+
     monkeypatch.setattr(shutil, "which", lambda name: None)
-    with pytest.raises(RuntimeError, match="dot"):
-        show_dot_svg(g, str(tmp_path / "g.svg"))
+    for m, show in ((jk, j_show_dot_svg), (kt, show_dot_svg)):
+        g, _ = _patch(m)
+        path = tmp_path / f"{m.__name__}.svg"
+        assert show(g, str(path)) is None
+        assert not path.exists()
 
 
 def test_probe_log_drain_matches_jax():

@@ -37,7 +37,6 @@ the sample index as a 0-d f32 tensor, as the lowered body reads ``p.i_f``.
 
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
@@ -48,6 +47,7 @@ import torch
 import knaster_tpu_torch as kt
 from knaster_tpu_torch.kernels import bank_common as bc
 from knaster_tpu_torch.kernels import generic_bank, lower
+from tests.torch_helpers import compiler
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -299,11 +299,6 @@ def test_lowered_program_is_the_torch_body(key):
     assert not np.array_equal(want[-1][0], words)
 
 
-def _compiler():
-    return next((c for c in (os.environ.get("CXX"), "g++", "c++", "clang++")
-                 if c and shutil.which(c)), None)
-
-
 DRIVER = r"""
 #include "lowered_body_shim.h"
 
@@ -344,7 +339,7 @@ extern "C" void lowered_block(int eventful, int V, int B, const float* prm,
 
 @pytest.mark.parametrize("key", list(VOICES))
 def test_emitted_source_compiles_to_the_torch_body(key, tmp_path):
-    cxx = _compiler()
+    cxx = compiler()
     if cxx is None:
         pytest.skip("no host C++ compiler (g++, c++, clang++) to build the emitted source")
     spec, lb, (blocks, words), want = _reference(key)

@@ -41,6 +41,7 @@ import knaster_tpu as jk
 import knaster_tpu.graph.chain_kernel as jck
 import knaster_tpu.graph.compile as jC
 import knaster_tpu_torch as kt
+from tests.torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 import knaster_tpu_torch.graph.compile as tC
 import knaster_tpu_torch.graph.chain_kernel as tck
 from knaster_tpu_torch.utils.codec import read_flac

@@ -48,6 +48,7 @@ import torch
 
 import knaster_tpu as jk
 import knaster_tpu_torch as kt
+from tests.torch_helpers import one_torch_thread  # noqa: F401 (autouse)
 from knaster_tpu.models import PluckedVoice as JPluckedVoice
 from knaster_tpu_torch.convert import (bank_state_from_jax, bank_state_to_numpy,
                                        graph_state_from_jax, graph_state_to_numpy)
