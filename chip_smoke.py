@@ -254,13 +254,20 @@ result line):
    ``live_edit`` streamed through ``StreamBackend`` with its live
    Galactic insert: the swap to the edit's revision, finite audio, the
    ring at LIVE_WRITTEN of real time, underruns and chunk ms printed.
-   Then the buffer reader kernel bit-equal to its plain version at
-   READER_CASES (B in {64, 1024, 4096}, one and several instances, mono
-   and stereo, f32 and f64, restarts, loops and ends), the SVF kernel at
-   SVF_CASES (every filter type, audio-rate cutoff and q, +-12 dB), the
-   Galactic kernel at GALACTIC_CASES (B from 1 to its 740-sample cap, moved
-   states, silence) and the EnvAsr kernel at ENV_CASES (the state machine
-   and both closed forms, every stage), f32 and f64, each timed. Those three
+   ``buffer_player`` and ``live_edit`` also print the reader's and
+   EnvAsr's launches by block length (``launch_tally``). Then the buffer
+   reader kernel bit-equal to its plain version at READER_CASES (B in {64,
+   1024, 4096}, one and several instances, mono and stereo, f32 and f64,
+   restarts, loops and ends, shared-memory tiles crossed, instances past a
+   CTA's, 16,384 readers), the SVF kernel at SVF_CASES (every filter type,
+   audio-rate cutoff and q, +-12 dB), the Galactic kernel at
+   GALACTIC_CASES (B from 1 to its 740-sample cap, moved states, silence)
+   and the EnvAsr kernel at ENV_CASES (the state machine and both closed
+   forms, every stage, tiles crossed, instances past a CTA's, the rows in
+   shared memory and past it in the global workspace, 16,384 envelopes on
+   every path) and ENV_GLOBAL_CASES (forced into the global workspace), f32
+   and f64, each timed (the reader and EnvAsr also at 16,384 instances, B
+   = 64, and at 8192 samples). Those three
    keep the live example streaming on slow hosts: SvfFilter, Galactic and
    EnvAsr each run their block in one launch wherever their process runs
    on the card, so the slices with them expect their launches (the
@@ -1054,6 +1061,16 @@ def reset_all_counts():
     reset_counts()
     for name in STAGE_KERNELS:
         stage_module(name).LAUNCHES = 0
+        getattr(stage_module(name), "LAUNCHES_BY_BLOCK", {}).clear()
+
+
+def launch_tally():
+    """The UGen kernels' launches by block length since the counts were
+    reset (``LAUNCHES_BY_BLOCK``: the reader's by B, EnvAsr's by B and
+    path), for those that launched."""
+    return {name: dict(sorted(stage_module(name).LAUNCHES_BY_BLOCK.items()))
+            for name in ("buffer_reader", "env_asr")
+            if stage_module(name).LAUNCHES_BY_BLOCK}
 
 
 def read_all_counts():
@@ -5298,10 +5315,14 @@ def phase_lowered(torch, np, ktt, dev, card, organ_cpu):
 
 # (instances, B, channels, dtype) the buffer reader kernel is held at
 # against its plain version: buffer_player's mono reader at its block,
-# its superblock lengths, several instances in stereo, and f64
+# its superblock lengths, several instances in stereo, and f64; then the
+# redesign's edges: a tile of shared memory crossed (one f64 reader takes
+# 2,976 samples a tile; 70 stereo f64 readers, three CTAs of up to 32,
+# take 80) and a bank's width, 16,384 readers at B = 64
 READER_CASES = ((1, BLOCK, 1, "f32"), (1, 1024, 1, "f32"), (1, 4096, 1, "f32"),
                 (5, BLOCK, 2, "f32"), (5, 1024, 2, "f32"), (1, BLOCK, 1, "f64"),
-                (3, 4096, 2, "f64"))
+                (3, 4096, 2, "f64"), (1, 4096, 1, "f64"), (70, 1024, 2, "f64"),
+                (16384, BLOCK, 1, "f32"))
 READER_FRAMES = 300  # the held buffer's frames: pointers run past its end within a block
 
 
@@ -5375,25 +5396,27 @@ def buffer_reader_vs_plain(torch, np, dev, card):
     if not all(seen.values()):
         fail(f"buffer_reader: the cases never reached {[k for k, v in seen.items() if not v]}")
     rows = {}
-    for n, B, C in ((1, BLOCK, 1), (1, 8 * BLOCK, 1)):
+    for n, B, C in ((1, BLOCK, 1), (1, 8 * BLOCK, 1), (16384, BLOCK, 1), (1, 8192, 1)):
         buf, state, planes = reader_block(torch, np, n, B, C, torch.float32, dev, 40)
-        ms = time_graph(torch, lambda: br.launch(buf, state, *planes), 100)
-        eager_ms = time_call(torch, lambda: br.launch(buf, state, *planes), 100)
-        plain_ms = time_call(torch, lambda: buffer_reader_block(buf, state, *planes), 1)
+        reps = 100 if B <= 8 * BLOCK else 20
+        ms = time_graph(torch, lambda: br.launch(buf, state, *planes), reps)
+        eager_ms = time_call(torch, lambda: br.launch(buf, state, *planes), reps)
+        plain_ms = (time_call(torch, lambda: buffer_reader_block(buf, state, *planes), 1)
+                    if B <= 8 * BLOCK else float("nan"))
         out_state, out, done = br.launch(buf, state, *planes)
         # each plane and state leaf read once, the outputs written once, and
         # of the buffer at most the two frames a sample reads
         touched = min(buf.numel(), 2 * n * B * C) * buf.element_size()
         nbytes = tensor_bytes(state, planes, out_state, out, done) + touched
         b_ms, b_by = bound(nbytes, reader_ops_per_sample(C) * n * B)
-        rows[B] = (ms, plain_ms, b_ms, b_by)
+        rows[(n, B)] = (ms, plain_ms, b_ms, b_by)
         print(f"timing buffer_reader n={n} B={B} C={C} on {card}: kernel {ms:.4f} ms (eager "
               f"{eager_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by}, "
               f"{reader_ops_per_sample(C)} operations a sample)")
     print(f"buffer_reader on {card}: kernel bit-equal to the plain version at (instances, B, "
           f"channels, dtype) {READER_CASES} ({seen['restart']} restarts, {seen['done']} done "
           f"flags, {seen['silent']} finished samples)")
-    return (err, *rows[BLOCK])
+    return (err, *rows[(1, BLOCK)])
 
 
 # (instances, B, dtype) the SVF kernel is held at against its plain
@@ -5569,12 +5592,28 @@ def galactic_vs_plain(torch, np, ktt, dev, card):
 # (instances, B, path, dtype) the EnvAsr kernel is held at against its
 # plain version: the state machine (eventful blocks, voice banks), the
 # closed form over Hillis-Steele sums (graph nodes) and over base-16 sums
-# (the voice models), a node's block and superblocks, a bank's 1024 voices
+# (the voice models), a node's block and superblocks, a bank's 1024 voices;
+# then the redesign's edges: the state machine's shared-memory tiles crossed
+# (3 f64 instances at 4096 samples take 1,920 a tile), instances past a
+# CTA's (32 a CTA on the state machine; 1000 at 4 a CTA on the closed
+# form), the in-place Hillis-Steele rows at their largest (8192,
+# f64, 16 lanes a thread over the barrier), the rows past shared memory in
+# the global workspace (Hillis-Steele past 8192, base-16 f64 past ~12,800),
+# and a bank's width, 16,384 instances at B = 64, on all three paths
 ENV_CASES = ((1, BLOCK, "step", "f32"), (1, 704, "step", "f32"), (1024, BLOCK, "step", "f32"),
              (1, BLOCK, "hillis_steele", "f32"), (1, 4096, "hillis_steele", "f32"),
              (1, 704, "base16", "f32"), (1024, BLOCK, "base16", "f32"),
              (1, 4096, "base16", "f32"), (3, 1024, "step", "f64"),
-             (3, 1024, "hillis_steele", "f64"), (3, 1024, "base16", "f64"))
+             (3, 1024, "hillis_steele", "f64"), (3, 1024, "base16", "f64"),
+             (1024, BLOCK, "step", "f64"), (3, 4096, "step", "f64"),
+             (1000, BLOCK, "hillis_steele", "f32"), (1, 8192, "hillis_steele", "f64"),
+             (2, 16384, "hillis_steele", "f64"), (1, 8192, "base16", "f64"),
+             (2, 16384, "base16", "f64"), (16384, BLOCK, "step", "f32"),
+             (16384, BLOCK, "hillis_steele", "f32"), (16384, BLOCK, "base16", "f32"))
+# the same forced into the global workspace: the layout past shared memory
+# at a length whose rows would fit
+ENV_GLOBAL_CASES = ((1, 8192, "hillis_steele", "f64"), (2, 704, "base16", "f64"),
+                    (1000, BLOCK, "hillis_steele", "f32"))
 # f32 operations a sample of the state machine takes (env_asr.cuh step):
 # the restart and release selects (6), the output's chain (5), the next t
 # (3), the sustain and done tests and selects (7)
@@ -5602,51 +5641,67 @@ def env_asr_operands(torch, np, n, B, dtype, dev, seed):
 
 
 def env_asr_vs_plain(torch, np, dev, card):
-    """The EnvAsr kernel against ``asr_block`` on the card at ENV_CASES
-    (every stage, restarts and releases, attacks that reach 1, releases that
-    end in the block): outputs, done flags and state bit-equal. Then its
-    device ms on the state machine at live_edit's shape (one envelope, B =
-    64, the eventful blocks; in a CUDA graph, the eager ms beside) and on
-    the base-16 closed form at 704 (its superblocks), the plain version's
-    ms and the bound. Returns (max |err|, ms, plain_ms, bound_ms, bound_by)
-    on the state machine."""
+    """The EnvAsr kernel against ``asr_block`` on the card at ENV_CASES in
+    the layout the kernel picks and at ENV_GLOBAL_CASES forced into the
+    global workspace (every stage, restarts and releases, attacks that
+    reach 1, releases that end in the block): outputs, done flags and state
+    bit-equal. Then its device ms (in a CUDA graph, the eager ms beside) on
+    the state machine at live_edit's shape (one envelope, B = 64, the
+    eventful blocks), on the base-16 closed form at 704 (its superblocks),
+    at a bank's width (16,384 instances at B = 64) on all three paths and
+    on both closed forms at 8192, with the plain version's ms and the
+    bound. Returns (max |err|, ms, plain_ms, bound_ms, bound_by) on the
+    state machine at live_edit's shape."""
     from knaster_tpu_torch.core.dsp import cumsum, cumsum_base16
     from knaster_tpu_torch.kernels import env_asr as ek
     from knaster_tpu_torch.ugens.envelopes import asr_block
 
     paths = {"step": (False, cumsum), "hillis_steele": (True, cumsum),
              "base16": (True, cumsum_base16)}
-    err = 0.0
-    for k, (n, B, path, dt) in enumerate(ENV_CASES):
+    modes = {"step": ek.STEP, "hillis_steele": ek.HILLIS_STEELE, "base16": ek.BASE16}
+    err, layouts = 0.0, set()
+    cases = [(c, ek.launch) for c in ENV_CASES] + [(c, ek.launch_global)
+                                                   for c in ENV_GLOBAL_CASES]
+    for k, ((n, B, path, dt), launch) in enumerate(cases):
         dtype = torch.float32 if dt == "f32" else torch.float64
         ops = env_asr_operands(torch, np, n, B, dtype, dev, 100 + k)
-        got = ek.launch(*ops, *paths[path])
+        got = launch(*ops, *paths[path])
         want = asr_block(*ops, *paths[path])
         torch.cuda.synchronize()
         words = lambda v: (v.view(torch.int64) if v.dtype == torch.float64 else  # noqa: E731
                            bits(v) if v.dtype == torch.float32 else v)
         same = all(torch.equal(words(g), words(w.expand_as(g).to(g.dtype)))
                    for g, w in zip(got, want))
+        glob = ek.workspace_len(B, dtype, modes[path], launch is ek.launch_global) > 0
+        where = (f"env_asr n={n} B={B} {path} {dt}"
+                 f"{' (global workspace)' if glob else ''}")
         if not same:
-            fail(f"env_asr n={n} B={B} {path} {dt}: the kernel differs from the plain version "
-                 f"(output by {float((got[3] - want[3]).abs().max())})")
+            fail(f"{where}: the kernel differs from the plain version (output by "
+                 f"{float((got[3] - want[3]).abs().max())})")
         err = max(err, float((got[3] - want[3]).abs().max()))
+        layouts.add("tiles" if path == "step" else "global" if glob else "shared")
+    if layouts != {"tiles", "shared", "global"}:
+        fail(f"env_asr: the cases took the layouts {sorted(layouts)} only")
     rows = {}
-    for B, path in ((BLOCK, "step"), (704, "base16")):
-        ops = env_asr_operands(torch, np, 1, B, torch.float32, dev, 120)
-        ms = time_graph(torch, lambda: ek.launch(*ops, *paths[path]), 100)
-        eager_ms = time_call(torch, lambda: ek.launch(*ops, *paths[path]), 100)
-        plain_ms = time_call(torch, lambda: asr_block(*ops, *paths[path]), 3)
+    for n, B, path in ((1, BLOCK, "step"), (1, 704, "base16"), (16384, BLOCK, "step"),
+                       (16384, BLOCK, "hillis_steele"), (16384, BLOCK, "base16"),
+                       (1, 8192, "hillis_steele"), (1, 8192, "base16")):
+        ops = env_asr_operands(torch, np, n, B, torch.float32, dev, 120)
+        reps = 100 if B <= 704 else 20
+        ms = time_graph(torch, lambda: ek.launch(*ops, *paths[path]), reps)
+        eager_ms = time_call(torch, lambda: ek.launch(*ops, *paths[path]), reps)
+        plain_ms = time_call(torch, lambda: asr_block(*ops, *paths[path]),
+                             1 if path == "step" and B > 704 else 3)
         got = ek.launch(*ops, *paths[path])
         # the closed form: two prefix sums (B - 1 adds each) and ~14 a lane
-        n_ops = ENV_STEP_OPS * B if path == "step" else (2 * (B - 1) + 14 * B)
+        n_ops = n * (ENV_STEP_OPS * B if path == "step" else (2 * (B - 1) + 14 * B))
         b_ms, b_by = bound(tensor_bytes(ops, got), n_ops)
-        rows[path] = (ms, plain_ms, b_ms, b_by)
-        print(f"timing env_asr n=1 B={B} {path} on {card}: kernel {ms:.4f} ms (eager "
+        rows[(n, B, path)] = (ms, plain_ms, b_ms, b_by)
+        print(f"timing env_asr n={n} B={B} {path} on {card}: kernel {ms:.4f} ms (eager "
               f"{eager_ms:.4f}), plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by})")
     print(f"env_asr on {card}: kernel bit-equal to the plain version at (instances, B, path, "
-          f"dtype) {ENV_CASES}")
-    return (err, *rows["step"])
+          f"dtype) {ENV_CASES} and, in the global workspace, {ENV_GLOBAL_CASES}")
+    return (err, *rows[(1, BLOCK, "step")])
 
 
 # each example's card render (tools/port_examples.py's cut keywords) and
@@ -5732,6 +5787,7 @@ def phase_examples(torch, np, ktt, dev, card):
         reset_all_counts()
         run = pe.play(name, ktt, dev, head=head, **card_kw)
         counts = {k: n for k, n in read_all_counts().items() if n}
+        tally = launch_tally()
         cpu = pe.play(name, ktt, "cpu", **cpu_kw).audio()
         audio = run.audio()
         peak = float(np.abs(audio).max())
@@ -5746,6 +5802,8 @@ def phase_examples(torch, np, ktt, dev, card):
             extra = f"; dot {len(run.info['dot'])} chars, show_dot_svg -> {run.info['svg']}"
         if name == "voice_pool":
             extra = f"; {run.info['scheduled']} notes, {run.info['free']} voices free at the end"
+        if name == "buffer_player":
+            extra = f"; launches by block length {tally}"
         print(f"example {name} ({pe.SOURCES[name]}, cut {card_kw or 'none'}) on {card}: "
               f"{audio.shape[1] / SR:.3f} s of audio, realtime x {run.realtime_x():.4g} "
               f"({run.realtime_x(1):.4g} after its first render); card vs CPU {gap:.3e} over "
@@ -5755,6 +5813,7 @@ def phase_examples(torch, np, ktt, dev, card):
     reset_all_counts()
     run = pe.play("live_edit", ktt, dev)
     counts = {k: n for k, n in read_all_counts().items() if n}
+    tally = launch_tally()
     info, audio = run.info, run.audio()
     peak = float(np.abs(audio).max())
     print(f"example live_edit ({pe.SOURCES['live_edit']}) on {card}: start-up "
@@ -5764,7 +5823,8 @@ def phase_examples(torch, np, ktt, dev, card):
           f"{info['wall_s']:.2f} s; {info['chunks']} chunks, host ms median "
           f"{info['chunk_ms_median']:.2f}, max {info['chunk_ms_max']:.2f}, median after the "
           f"swap {info['chunk_ms_median_after']:.2f} (a chunk is {32 * BLOCK / SR * 1e3:.2f} ms "
-          f"of audio); peak {peak:.4g}; launches {counts} ({time.perf_counter() - t0:.1f} s)")
+          f"of audio); peak {peak:.4g}; launches {counts}; by block length {tally} "
+          f"({time.perf_counter() - t0:.1f} s)")
     if not (info["swapped"] and info["swaps"] and info["swaps"][-1][0] == info["revision"]):
         fail(f"example live_edit: no swap to revision {info['revision']}: {info['swaps']}")
     if not np.isfinite(audio).all() or peak < 1e-3:

@@ -115,8 +115,8 @@ def cumsum_base16(x):
     recursively, and each row adds the total of the rows before it (0.0 for
     the first). A length of at most 16 is one such row. Bit-equal to
     ``jnp.cumsum`` on XLA:CPU at every length, f32 and f64
-    (``tests/test_torch_param_sweep.py``); ``csrc/chain_kernel.cu``'s
-    ``scan_sum_base16`` takes the same steps."""
+    (``tests/test_torch_param_sweep.py``); ``csrc/scan_base16.cuh``
+    (the chain kernel's and the EnvAsr kernel's) takes the same steps."""
     n = x.shape[-1]
     if n <= SCAN_BASE:
         return _row_scan(x)

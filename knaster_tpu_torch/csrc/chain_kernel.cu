@@ -109,6 +109,7 @@
 #include <cooperative_groups.h>
 
 #include "env_asr.cuh"
+#include "scan_base16.cuh"
 #include "stage_scan.cuh"
 #include "svf_filter.cuh"
 #include "threefry.cuh"
@@ -627,64 +628,10 @@ __device__ int scan_cumsum_2(const Ctx& x, float* sc) {  // two rows, x + x[t - 
   return cur;
 }
 
-// The inclusive prefix sum x[0, n) -> r[0, n) in the association of
-// core/dsp.py cumsum_base16 (jnp.cumsum on XLA's CPU backend), step for
-// step: rows of 16, the last one padded with zeros, summed left to right
-// from 0; the row totals scanned the same way, level by level, until a
-// level is one row; then, level by level downwards, each lane's in-row sum
-// plus the scanned total of the rows before its own (0 for the first).
-// `work` holds every upper level's totals and scans: 2 * (ceil(n/16) +
-// ceil(n/256) + ...) floats, at most n for n > 16. Every thread of the
-// block calls it after x is written and synchronised; r is complete and
-// synchronised when it returns.
-constexpr int kScanBase = 16;
-constexpr int kMaxLevels = 8;  // n up to 16^8
-
+// The inclusive prefix sum in cumsum_base16's association over the whole
+// block: csrc/scan_base16.cuh scan_sum_base16, every thread of the CTA.
 __device__ void scan_sum_base16(const float* x, float* r, float* work, int n) {
-  int size[kMaxLevels];
-  const float* in[kMaxLevels];
-  float* res[kMaxLevels];
-  size[0] = n;
-  in[0] = x;
-  res[0] = r;
-  int top = 0;
-  while (size[top] > kScanBase) {
-    const int rows = (size[top] + kScanBase - 1) / kScanBase;
-    float* tot = work;
-    res[top + 1] = work + rows;
-    work += 2 * rows;
-    const float* v = in[top];
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-      const int c0 = i * kScanBase;
-      float acc = add(0.0f, v[c0]);
-      for (int c = c0 + 1; c < c0 + kScanBase; ++c)
-        acc = add(acc, c < size[top] ? v[c] : 0.0f);
-      tot[i] = acc;
-    }
-    __syncthreads();
-    ++top;
-    size[top] = rows;
-    in[top] = tot;
-  }
-  if (threadIdx.x == 0) {  // the top level: one row
-    float acc = add(0.0f, in[top][0]);
-    res[top][0] = acc;
-    for (int i = 1; i < size[top]; ++i) {
-      acc = add(acc, in[top][i]);
-      res[top][i] = acc;
-    }
-  }
-  __syncthreads();
-  for (int l = top - 1; l >= 0; --l) {
-    const float* v = in[l];
-    for (int i = threadIdx.x; i < size[l]; i += blockDim.x) {
-      const int row = i / kScanBase, c0 = row * kScanBase;
-      float acc = add(0.0f, v[c0]);
-      for (int c = c0 + 1; c <= i; ++c) acc = add(acc, v[c]);
-      res[l][i] = add(acc, row > 0 ? res[l + 1][row - 1] : 0.0f);
-    }
-    __syncthreads();
-  }
+  ktt::scan_sum_base16<float>(x, r, work, n, threadIdx.x, blockDim.x);
 }
 
 // scan_sum_base16 over a cluster's block, in the same association: v holds

@@ -27,8 +27,10 @@ from ..ugens.buffer import buffer_reader_block
 from . import bank_common as bc
 
 KERNEL = "buffer_reader"
-# kernel launches since import (or since a caller reset it)
+# kernel launches since import (or since a caller reset it), and their
+# tally by block length (B: launches)
 LAUNCHES = 0
+LAUNCHES_BY_BLOCK = {}
 
 ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -106,4 +108,5 @@ def launch(buf, state, s_int, s_frac, end, step, looping, restart):
             C, frames, int(dtype == torch.float64), ctypes.c_void_p(stream))
     bc.raise_on_error(KERNEL, lib, err)
     LAUNCHES += 1
+    LAUNCHES_BY_BLOCK[B] = LAUNCHES_BY_BLOCK.get(B, 0) + 1
     return new, out, done

@@ -162,7 +162,7 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 # the headers a user body's translation unit includes
-HARNESS_HEADERS = ("generic_harness.cuh", "bank_common.cuh", "env_asr.cuh")
+HARNESS_HEADERS = ("generic_harness.cuh", "bank_common.cuh", "env_asr.cuh", "scan_base16.cuh")
 USER_BODY_STRUCT = "VoiceBody"
 
 

@@ -14,10 +14,14 @@ bit-equal to ``buffer_reader_block``. Here:
   ``tests/test_torch_buffer.py`` holds one instance at a time against the
   jitted JAX reader, the f32 end-frame snap and the graph paths; those
   cases are not repeated;
-- the kernel's per-instance walk (``csrc/buffer_reader.cuh``), compiled
-  by the host C++ compiler with ``-ffp-contract=off``, bit-equal to the
-  plain version at B from 1 to 4096, mono and stereo, f32 and f64, from
-  random states and planes with restarts, loops and ends;
+- the kernel's CTA phases (``csrc/buffer_reader.cuh``: the planes into
+  shared memory, the walk, the gather), compiled by the host C++ compiler
+  with ``-ffp-contract=off`` and run as the CTA runs them (each phase every
+  thread's share before the next), bit-equal to the plain version at B
+  from 1 to 4096, mono and stereo, f32 and f64, from random states and
+  planes with restarts, loops and ends: in CTAs of two instances and tiles
+  of 16 samples (several CTAs, the last one short, tiles crossed) and in
+  one tile;
 - dispatch: with the launcher patched, a state whose tensors say CUDA
   reaches it (once a block, with the planes at ``[..., B]``), a CPU state
   never does; ``launch`` refuses CPU tensors.
@@ -103,29 +107,36 @@ def test_batched_plain_version_matches_jax(buf_sr, B, dtype):
 
 # ------------------------------------- the kernel's walk, host-compiled
 DRIVER = r"""
+#include <cstddef>
+#include <vector>
+
 #include "buffer_reader.cuh"
 
+// The kernel's CTAs one after another, each phase every thread's share
+// before the next (csrc/buffer_reader.cuh cta): I instances a CTA on
+// `threads` threads, TS samples a tile.
 template <typename T>
-static void block(const T* buf, int C, int frames, int n, int B, int32_t* pi, T* pf,
-                  uint8_t* fin, const int32_t* s_int, const T* s_frac, const T* end,
-                  const T* step, const uint8_t* looping, const uint8_t* restart, T* out,
-                  uint8_t* done) {
-  for (int i = 0; i < n; ++i) {
-    const long row = static_cast<long>(i) * B;
-    bool f = fin[i] != 0;
-    reader::walk<T>(buf, C, frames, B, pi[i], pf[i], f, s_int + row, s_frac + row, end + row,
-                    step + row, looping + row, restart + row, out + row * C, done + row);
-    fin[i] = f ? 1 : 0;
+static void block(const T* buf, int C, int frames, int n, int B, int I, int TS, int threads,
+                  const int32_t* pi, const T* pf, const uint8_t* fin, const int32_t* s_int,
+                  const T* s_frac, const T* end, const T* step, const uint8_t* looping,
+                  const uint8_t* restart, T* out, uint8_t* done, int32_t* pi_out, T* pf_out,
+                  uint8_t* fin_out) {
+  const reader::Io<T> io{buf, pi, pf, fin, s_int, s_frac, end, step, looping, restart, out,
+                         done, pi_out, pf_out, fin_out, n, B, C, frames};
+  std::vector<unsigned char> smem(static_cast<std::size_t>(reader::Tile<T>::bytes(I, TS)));
+  for (int first = 0; first < n; first += I) {
+    reader::cta<T>(io, first, I, TS, smem.data(), 0, threads);
   }
 }
 
-#define ENTRY(name, T)                                                                   \
-  extern "C" void name(const T* buf, int C, int frames, int n, int B, int32_t* pi, T* pf, \
-                       uint8_t* fin, const int32_t* s_int, const T* s_frac, const T* end, \
-                       const T* step, const uint8_t* looping, const uint8_t* restart,     \
-                       T* out, uint8_t* done) {                                           \
-    block<T>(buf, C, frames, n, B, pi, pf, fin, s_int, s_frac, end, step, looping,        \
-             restart, out, done);                                                         \
+#define ENTRY(name, T)                                                                       \
+  extern "C" void name(const T* buf, int C, int frames, int n, int B, int I, int TS,          \
+                       int threads, const int32_t* pi, const T* pf, const uint8_t* fin,       \
+                       const int32_t* s_int, const T* s_frac, const T* end, const T* step,    \
+                       const uint8_t* looping, const uint8_t* restart, T* out, uint8_t* done, \
+                       int32_t* pi_out, T* pf_out, uint8_t* fin_out) {                        \
+    block<T>(buf, C, frames, n, B, I, TS, threads, pi, pf, fin, s_int, s_frac, end, step,     \
+             looping, restart, out, done, pi_out, pf_out, fin_out);                           \
   }
 ENTRY(walk_f32, float)
 ENTRY(walk_f64, double)
@@ -134,9 +145,15 @@ ENTRY(walk_f64, double)
 
 @pytest.fixture(scope="module")
 def host_walk(tmp_path_factory):
-    argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 11
+    argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 14
     return build_host_library(tmp_path_factory, "buffer_reader", DRIVER,
                               {"walk_f32": argtypes, "walk_f64": argtypes})
+
+
+# (label, I, TS, threads) the test runs the kernel's phases at: CTAs of two
+# instances on 32 threads in tiles of 16 samples (several CTAs, the last one
+# short, tiles crossed), and every instance in one tile
+LAYOUTS = (("tiles", 2, 16, 32), ("one tile", 64, None, 128))
 
 
 def random_block(n, B, C, frames, dtype, seed):
@@ -168,26 +185,30 @@ def _ptr(x):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-@pytest.mark.parametrize("B, C", [(1, 1), (17, 2), (64, 1), (64, 2), (1024, 2), (4096, 1)])
+@pytest.mark.parametrize("B, C", [(1, 1), (15, 1), (16, 2), (17, 2), (64, 1), (64, 2), (255, 1),
+                                  (256, 2), (257, 1), (704, 2), (1024, 2), (4096, 1)])
 def test_kernel_walk_matches_the_plain_version(host_walk, B, C, dtype):
     n, frames = 5, 300
     buf, state, planes = random_block(n, B, C, frames, dtype, seed=B * 10 + C)
     want_state, want, want_done = buffer_reader_block(buf, state, *planes)
-    pi, pf = state["ptr_int"].clone(), state["ptr_frac"].clone()
     fin = state["finished"].to(torch.uint8)
     p = [x.contiguous() for x in planes]
     p[4], p[5] = p[4].to(torch.uint8), p[5].to(torch.uint8)
-    out = torch.empty((n, C, B), dtype=dtype)
-    done = torch.empty((n, B), dtype=torch.uint8)
     fn = host_walk.walk_f32 if dtype == torch.float32 else host_walk.walk_f64
-    fn(_ptr(buf), C, frames, n, B, _ptr(pi), _ptr(pf), _ptr(fin), *map(_ptr, p), _ptr(out),
-       _ptr(done))
     words = torch.int32 if dtype == torch.float32 else torch.int64
-    assert torch.equal(out.view(words), want.view(words))
-    assert torch.equal(done.bool(), want_done)
-    assert torch.equal(pi, want_state["ptr_int"])
-    assert torch.equal(pf.view(words), want_state["ptr_frac"].view(words))
-    assert torch.equal(fin.bool(), want_state["finished"])
+    for label, I, TS, threads in LAYOUTS:
+        out = torch.empty((n, C, B), dtype=dtype)
+        done = torch.empty((n, B), dtype=torch.uint8)
+        pi, pf = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=dtype)
+        fin_out = torch.empty(n, dtype=torch.uint8)
+        fn(_ptr(buf), C, frames, n, B, I, TS or B, threads, _ptr(state["ptr_int"]),
+           _ptr(state["ptr_frac"]), _ptr(fin), *map(_ptr, p), _ptr(out), _ptr(done), _ptr(pi),
+           _ptr(pf), _ptr(fin_out))
+        assert torch.equal(out.view(words), want.view(words)), label
+        assert torch.equal(done.bool(), want_done), label
+        assert torch.equal(pi, want_state["ptr_int"]), label
+        assert torch.equal(pf.view(words), want_state["ptr_frac"].view(words)), label
+        assert torch.equal(fin_out.bool(), want_state["finished"]), label
     # the cases happened: restarts, dones and silent (finished) samples
     if B >= 64:
         assert bool(planes[5].any()) and bool(want_done.any()) and bool((want == 0).any())
